@@ -12,17 +12,25 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                with nvcc (one process per source, all at once).
   3. kernels — each kernel against its plain PyTorch version on the same
                inputs, at the main path's operands and at two small ragged
-               shapes (an empty row block, a row block whose run spans
-               several tiles, a dictionary larger than shared memory), in
-               fp32 and bf16 storage; plus the kernel executor against the
-               dense oracle on a small problem.
+               shapes (an empty row or row block, a row longer than one
+               slot tile, a run that spans several tiles and F-COO chunks,
+               a dictionary larger than shared memory), in fp32 and bf16
+               storage; an empty F-COO Phi, which launches nothing; plus
+               the kernel, kernel-sell and kernel-fcoo executors against
+               the dense oracle on a small problem.
   4. main    — the single-subject solve at full width (STN96: Ntheta = 96,
                a 64^3 voxel grid, 50,000 fibers) through LifeEngine with
                the ``kernel`` executor and a compaction rebuild; the
                kernels' launch counts, the losses, and the weights against
                the ``opt`` executor on the same card.
-  5. timing  — each kernel at the main path's shapes (CUDA events) beside
-               its bound, its plain version and one PyTorch library call.
+  5. formats — the same solve with ``format="sell"`` (kernels B3/B4) and
+               ``format="fcoo"`` (B5/B6), each with its launch counts,
+               losses, peak memory and weights against ``opt``; then
+               ``format="auto"``, whose FormatPlan is logged and whose
+               chosen executor runs a few iterations.
+  6. timing  — each kernel at the main path's shapes (CUDA events) beside
+               its bound, its plain version and one PyTorch library call;
+               for B5 and B6 also the kernel with its ``seg_rows`` combine.
 
 Then it prints one JSON line describing the kernels, the card's name and
 power limit as nvidia-smi gives them, and, last, the result line.
@@ -59,6 +67,7 @@ MAIN_PROBLEM = dict(n_fibers=50_000, n_theta=96, n_atoms=96,
 MAIN_ITERS = 100
 COMPACT_EVERY = 50
 TIMED_LAUNCHES = 20
+AUTO_ITERS = 10
 
 REDUCED = ("reduced: coefficients per fiber {:.1f} (the generator's "
            "streamlines) vs ~1000 at the dry run's scales "
@@ -70,7 +79,18 @@ KERNELS = {
                     replaces="src/repro/kernels/dsc.py:94"),
     "wc_coo": dict(source="src/repro_torch/kernels/csrc/wc.cu",
                    replaces="src/repro/kernels/wc.py:77"),
+    "dsc_sell": dict(source="src/repro_torch/kernels/csrc/dsc_sell.cu",
+                     replaces="src/repro/kernels/dsc.py:152"),
+    "wc_sell": dict(source="src/repro_torch/kernels/csrc/wc_sell.cu",
+                    replaces="src/repro/kernels/wc.py:136"),
+    "dsc_fcoo": dict(source="src/repro_torch/kernels/csrc/dsc_fcoo.cu",
+                     replaces="src/repro/kernels/fcoo.py:65"),
+    "wc_fcoo": dict(source="src/repro_torch/kernels/csrc/wc_fcoo.cu",
+                    replaces="src/repro/kernels/fcoo.py:116"),
 }
+#: the two kernels each full-width path runs, by LifeConfig.format
+PATH_KERNELS = {"coo": ("dsc_coo", "wc_coo"), "sell": ("dsc_sell", "wc_sell"),
+                "fcoo": ("dsc_fcoo", "wc_fcoo")}
 
 
 def log(phase: str, msg: str) -> None:
@@ -233,33 +253,139 @@ def check_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
     return facts
 
 
+def format_operands(phi, *, c_tile: int, row_tile: int, compute_dtype: str):
+    """The four format kernels' layouts and device operands for ``phi``, as
+    the kernel-sell and kernel-fcoo executors build them."""
+    from repro_torch.formats.fcoo import FcooPhi
+    from repro_torch.formats.sell import SellPhi
+    from repro_torch.kernels import ops
+    sd = SellPhi.encode(phi, op="dsc", row_tile=row_tile)
+    sw = SellPhi.encode(phi, op="wc", row_tile=row_tile)
+    fc = FcooPhi.encode(phi, c_tile=c_tile)
+    return (sd, sw, fc,
+            dict(dsc_sell=ops.sell_operands(sd, "cuda",
+                                            compute_dtype=compute_dtype),
+                 wc_sell=ops.sell_operands(sw, "cuda",
+                                           compute_dtype=compute_dtype),
+                 fcoo=ops.fcoo_operands(fc, "cuda",
+                                        compute_dtype=compute_dtype)))
+
+
+def run_format(name: str, o, d, x, plain: bool = False):
+    """Format kernel ``name`` (or its plain version) on operands ``o``."""
+    from repro_torch.kernels import dsc, fcoo, wc
+    if name == "dsc_sell":
+        fn = dsc.dsc_sell_plain if plain else dsc.dsc_sell
+        return fn(o.atoms, o.others, o.values, o.row_nnz, d, x,
+                  row_tile=o.row_tile)
+    if name == "wc_sell":
+        fn = wc.wc_sell_plain if plain else wc.wc_sell
+        return fn(o.atoms, o.others, o.values, o.row_nnz, d, x)
+    if name == "dsc_fcoo":
+        fn = fcoo.dsc_fcoo_plain if plain else fcoo.dsc_fcoo
+        return fn(o.atoms, o.fibers, o.values, o.dsc_ranks, d, x,
+                  seg_k=o.k_dsc)
+    fn = fcoo.wc_fcoo_plain if plain else fcoo.wc_fcoo
+    return fn(o.wc_perm, o.atoms.reshape(-1), o.voxels.reshape(-1),
+              o.values.reshape(-1), o.wc_ranks, d, x, seg_k=o.k_wc)
+
+
+def runs_across_chunks(fc, op: str) -> int:
+    """Output rows whose run of one op continues from a chunk into the
+    next (the case the seg_rows combine exists for)."""
+    seg_rows = fc.seg_rows_dsc if op == "dsc" else fc.seg_rows_wc
+    ranks = (fc.dsc_ranks if op == "dsc" else fc.wc_ranks).reshape(
+        fc.n_chunks, fc.c_tile)
+    last = seg_rows[np.arange(fc.n_chunks), ranks[:, -1]]
+    return int(np.sum(last[:-1] == seg_rows[1:, 0]))
+
+
+def check_format_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
+                         errors: dict, seed: int) -> dict:
+    """B3-B6 against their plain versions on ``phi``, fp32 and bf16
+    storage.  Returns the shape facts this case exercised."""
+    from repro_torch.kernels.ops import storage_cast
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.rand(phi.n_fibers, generator=g, device="cuda")
+    y = torch.randn(phi.n_voxels, d32.shape[1], generator=g, device="cuda")
+    for dtype in ("fp32", "bf16"):
+        sd, sw, fc, o = format_operands(phi, c_tile=c_tile,
+                                        row_tile=row_tile,
+                                        compute_dtype=dtype)
+        d = storage_cast(d32, dtype).contiguous()
+        for name, ops_, x in (("dsc_sell", o["dsc_sell"], w),
+                              ("wc_sell", o["wc_sell"], y),
+                              ("dsc_fcoo", o["fcoo"], w),
+                              ("wc_fcoo", o["fcoo"], y)):
+            got = run_format(name, ops_, d, x)
+            compare(name, case, got, run_format(name, ops_, d, x, plain=True),
+                    dtype, errors)
+            # no atomics, one summation order: a second launch is identical
+            if not torch.equal(got, run_format(name, ops_, d, x)):
+                raise AssertionError(f"{name} {case} {dtype}: a second "
+                                     "launch differs")
+    facts = dict(
+        empty_rows=int(np.sum(sd.row_nnz == 0) + np.sum(sw.row_nnz == 0)),
+        longest_row=int(max(sd.row_nnz.max(initial=0),
+                            sw.row_nnz.max(initial=0))),
+        slot_tile=sd.slot_tile, sell_widths=(sd.width, sw.width),
+        fcoo_chunks=fc.n_chunks, k=(fc.k_dsc, fc.k_wc),
+        runs_across_chunks=(runs_across_chunks(fc, "dsc"),
+                            runs_across_chunks(fc, "wc")))
+    log("kernels", f"{case} (formats): {facts}")
+    return facts
+
+
+def check_empty_fcoo() -> None:
+    """An empty Phi: the F-COO ops launch nothing and give zeros."""
+    from repro_torch.formats.fcoo import FcooPhi
+    from repro_torch.kernels import _build, ops
+    fc = FcooPhi.encode(random_phi(0, 8, 20, 10, seed=4))
+    before = dict(_build.LAUNCHES)
+    matvec, rmatvec = ops.make_fcoo_ops(
+        fc, torch.randn(8, 16, device="cuda"))
+    y = matvec(torch.rand(10, device="cuda"))
+    w = rmatvec(torch.randn(20, 16, device="cuda"))
+    torch.cuda.synchronize()
+    if (tuple(y.shape), tuple(w.shape)) != ((20, 16), (10,)) \
+            or y.count_nonzero() or w.count_nonzero() \
+            or dict(_build.LAUNCHES) != before:
+        raise AssertionError("empty F-COO Phi: expected zeros and no launch")
+    log("kernels", "empty F-COO Phi: zeros of shape (Nv, Ntheta) and (Nf,), "
+        "no launch")
+
+
 def check_small_engine() -> None:
-    """The kernel executor against the dense oracle on a small problem."""
+    """The kernel executors against the dense oracle on a small problem."""
     from repro_torch.core.life import LifeConfig, LifeEngine
     from repro_torch.core.std import materialize_dense
     from repro_torch.data.dmri import synth_connectome
     p = synth_connectome(n_fibers=64, n_theta=16, n_atoms=24,
                          grid=(10, 10, 10), seed=1, device="cuda")
     m = materialize_dense(p.phi, p.dictionary).double()
-    eng = LifeEngine(p, LifeConfig(executor="kernel", c_tile=64,
-                                   plan_cache_dir=""), device="cuda")
     g = torch.Generator(device="cuda").manual_seed(3)
     w = torch.rand(p.phi.n_fibers, generator=g, device="cuda")
     y = torch.randn(p.phi.n_voxels, 16, generator=g, device="cuda")
-    got_mv = eng.matvec(w).double().reshape(-1)
-    got_rmv = eng.rmatvec(y).double()
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got_mv, m @ w.double(), **FP32_TOL)
-    torch.testing.assert_close(got_rmv, m.T @ y.double().reshape(-1),
-                               **FP32_TOL)
-    log("kernels", "small problem: kernel executor matches the dense "
-        f"oracle (max abs err matvec "
-        f"{float((got_mv - m @ w.double()).abs().max()):.3e})")
+    for executor in ("kernel", "kernel-sell", "kernel-fcoo"):
+        eng = LifeEngine(p, LifeConfig(executor=executor, c_tile=64,
+                                       plan_cache_dir=""), device="cuda")
+        got_mv = eng.matvec(w).double().reshape(-1)
+        got_rmv = eng.rmatvec(y).double()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got_mv, m @ w.double(), **FP32_TOL)
+        torch.testing.assert_close(got_rmv, m.T @ y.double().reshape(-1),
+                                   **FP32_TOL)
+        log("kernels", f"small problem: {executor} executor matches the "
+            f"dense oracle (max abs err matvec "
+            f"{float((got_mv - m @ w.double()).abs().max()):.3e}, rmatvec "
+            f"{float((got_rmv - m.T @ y.double().reshape(-1)).abs().max()):.3e})")
 
 
 def phase_kernels(problem, errors: dict) -> None:
     check_kernels("main-path", problem.phi, problem.dictionary, c_tile=256,
                   row_tile=8, errors=errors, seed=11)
+    check_format_kernels("main-path", problem.phi, problem.dictionary,
+                         c_tile=256, row_tile=8, errors=errors, seed=14)
     g = np.random.default_rng(2)
     ragged = random_phi(6000, 96, 1000, 300, seed=1, hot=700,
                         skip_blocks=(10, 11, 20))
@@ -269,6 +395,12 @@ def phase_kernels(problem, errors: dict) -> None:
                           row_tile=8, errors=errors, seed=12)
     if facts["empty_row_blocks"] == 0 or facts["max_tiles_per_row_block"] < 2:
         raise AssertionError(f"ragged case did not exercise its edges: {facts}")
+    facts = check_format_kernels("ragged", ragged, ragged_d, c_tile=64,
+                                 row_tile=8, errors=errors, seed=15)
+    if (facts["empty_rows"] == 0 or facts["longest_row"] <= facts["slot_tile"]
+            or min(facts["runs_across_chunks"]) == 0):
+        raise AssertionError("ragged case did not exercise the format "
+                             f"kernels' edges: {facts}")
     big_d = torch.as_tensor(g.normal(size=(2048, 96)), dtype=torch.float32,
                             device="cuda")
     big = random_phi(20000, 2048, 3001, 999, seed=3, hot=300)
@@ -276,6 +408,9 @@ def phase_kernels(problem, errors: dict) -> None:
                           row_tile=4, errors=errors, seed=13)
     if min(facts["dict_bytes"].values()) <= SMEM_OPTIN_BYTES:
         raise AssertionError("large-dictionary case fits in shared memory")
+    check_format_kernels("large-dictionary", big, big_d, c_tile=128,
+                         row_tile=4, errors=errors, seed=16)
+    check_empty_fcoo()
     check_small_engine()
 
 
@@ -283,9 +418,71 @@ def phase_kernels(problem, errors: dict) -> None:
 # 4. main path at full width
 # ----------------------------------------------------------------------------
 
-def phase_main(problem) -> dict:
+def solve_and_check(phase: str, engine, problem, fmt: str) -> tuple:
+    """Run ``engine`` (MAIN_ITERS iterations, compaction every
+    COMPACT_EVERY) with every launch count set to 0 just before, and check
+    its two kernels' counts (2 DSC + 1.5 WC per iteration), its losses and
+    its weights.  Returns (weights, launches of the path's kernels)."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    built_s = engine.inspector_seconds
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    start.record()
+    w, losses = engine.run()
+    stop.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    dsc_name, wc_name = PATH_KERNELS[fmt]
+    launches = {dsc_name: counts.get(dsc_name, 0),
+                wc_name: counts.get(wc_name, 0)}
+    want = {dsc_name: 2 * MAIN_ITERS, wc_name: MAIN_ITERS + MAIN_ITERS // 2}
+    log(phase, f"launches {counts} (expected {want}: 2 DSC + 1.5 WC per "
+        f"iteration, no probes, no other kernel); run of {MAIN_ITERS} "
+        f"iterations: {start.elapsed_time(stop):.3f} ms by CUDA events, "
+        f"{wall:.3f} s wall, of which the compaction rebuild (host "
+        f"inspector) {engine.inspector_seconds - built_s:.3f} s; compaction "
+        f"kept {engine.phi.n_coeffs} of {problem.phi.n_coeffs} coefficients;"
+        f" peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+
+    ls = losses.cpu().numpy()
+    log(phase, f"loss {ls[0]:.6e} -> {ls[-1]:.6e} "
+        f"(first 10 mean {ls[:10].mean():.6e}, last 10 mean "
+        f"{ls[-10:].mean():.6e})")
+    if not np.all(np.isfinite(ls)):
+        raise AssertionError("non-finite loss")
+    if not (ls[-10:].mean() < ls[:10].mean() and ls[-1] < ls[0]):
+        raise AssertionError("losses did not decrease over the window")
+    if tuple(w.shape) != (problem.phi.n_fibers,) or not torch.isfinite(w).all():
+        raise AssertionError("weights are not finite of shape (Nf,)")
+    return w, launches
+
+
+def steady_step(phase: str, engine, w) -> None:
+    """Steady-state iteration time on the compacted operator, and where it
+    goes on the device."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    state = engine.init_state(w)
+    state, _ = engine.step(state, 2)
+    start.record()
+    engine.step(state, 20)
+    stop.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(stop) / 20
+    log(phase, f"steady-state step: {step_ms:.4f} ms per iteration (CUDA "
+        "events over 20 iterations, compacted Phi)")
+    profile_step(phase, engine, state, step_ms)
+
+
+def phase_main(problem) -> tuple:
     from repro_torch.core.life import LifeConfig, LifeEngine
-    from repro_torch.kernels import dsc, wc
     cfg = LifeConfig(executor="kernel", n_iters=MAIN_ITERS,
                      compact_every=COMPACT_EVERY, plan_cache_dir="")
     t0 = time.perf_counter()
@@ -296,54 +493,8 @@ def phase_main(problem) -> dict:
         f"{engine.executor.plans['dsc_tiles'].occupancy():.3f}; wc tiles "
         f"{engine.executor.plans['wc_tiles'].n_tiles} x 256, occupancy "
         f"{engine.executor.plans['wc_tiles'].occupancy():.3f}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    dsc.launches = 0
-    wc.launches = 0
-    built_s = engine.inspector_seconds
-    t0 = time.perf_counter()
-    start.record()
-    w, losses = engine.run()
-    stop.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(dsc_coo=dsc.launches, wc_coo=wc.launches)
-    want = dict(dsc_coo=2 * MAIN_ITERS, wc_coo=MAIN_ITERS + MAIN_ITERS // 2)
-    log("main", f"launches {launches} (expected {want}: 2 DSC + 1.5 WC per "
-        f"iteration, no probes); run of {MAIN_ITERS} iterations: "
-        f"{start.elapsed_time(stop):.3f} ms by CUDA events, {wall:.3f} s "
-        f"wall, of which the compaction rebuild (host inspector) "
-        f"{engine.inspector_seconds - built_s:.3f} s; compaction kept "
-        f"{engine.phi.n_coeffs} of {problem.phi.n_coeffs} coefficients; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
-
-    ls = losses.cpu().numpy()
-    log("main", f"loss {ls[0]:.6e} -> {ls[-1]:.6e} "
-        f"(first 10 mean {ls[:10].mean():.6e}, last 10 mean "
-        f"{ls[-10:].mean():.6e})")
-    if not np.all(np.isfinite(ls)):
-        raise AssertionError("non-finite loss")
-    if not (ls[-10:].mean() < ls[:10].mean() and ls[-1] < ls[0]):
-        raise AssertionError("losses did not decrease over the window")
-    if tuple(w.shape) != (problem.phi.n_fibers,) or not torch.isfinite(w).all():
-        raise AssertionError("weights are not finite of shape (Nf,)")
-
-    # steady-state iteration time on the compacted operator, and where it
-    # goes on the device
-    state = engine.init_state(w)
-    state, _ = engine.step(state, 2)
-    start.record()
-    engine.step(state, 20)
-    stop.record()
-    torch.cuda.synchronize()
-    step_ms = start.elapsed_time(stop) / 20
-    log("main", f"steady-state step: {step_ms:.4f} ms per iteration (CUDA "
-        "events over 20 iterations, compacted Phi)")
-    profile_step(engine, state, step_ms)
+    w, launches = solve_and_check("main", engine, problem, "coo")
+    steady_step("main", engine, w)
 
     opt = LifeEngine(problem, dataclasses.replace(cfg, executor="opt"),
                      device="cuda")
@@ -355,10 +506,11 @@ def phase_main(problem) -> dict:
     torch.testing.assert_close(w, w_opt, **TRAJ_TOL)
     log("main", f"prune stats {engine.prune_stats(w)}")
     log("main", REDUCED.format(problem.phi.n_coeffs / problem.phi.n_fibers))
-    return launches
+    return launches, w_opt
 
 
-def profile_step(engine, state, step_ms: float, k: int = 10) -> None:
+def profile_step(phase: str, engine, state, step_ms: float,
+                 k: int = 10) -> None:
     """Device time per iteration by kernel (torch.profiler over ``k``
     iterations) and the device's busy share of the iteration measured
     without the profiler."""
@@ -377,25 +529,109 @@ def profile_step(engine, state, step_ms: float, k: int = 10) -> None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
         if us > 0:
             name = evt.key
-            for short in ("dsc_coo_kernel", "wc_coo_kernel"):
+            for short in ("dsc_coo_kernel", "wc_coo_kernel",
+                          "dsc_sell_kernel", "wc_sell_kernel",
+                          "dsc_fcoo_kernel", "wc_fcoo_kernel"):
                 if short in name:
                     name = short
             rows.append((us / k / 1e3, evt.count / k, name[:60]))
     if not rows:
-        log("main", "profiler saw no device time: breakdown not measured")
+        log(phase, "profiler saw no device time: breakdown not measured")
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log("main", f"device time per iteration {busy:.4f} ms = "
+    log(phase, f"device time per iteration {busy:.4f} ms = "
         f"{busy / step_ms:.1%} of the {step_ms:.4f} ms step (torch.profiler "
         f"over {k} iterations); by kernel:")
     for ms, calls, name in rows[:10]:
-        log("main", f"  {ms:.4f} ms  {ms / busy:6.1%}  {calls:4.1f} calls  "
+        log(phase, f"  {ms:.4f} ms  {ms / busy:6.1%}  {calls:4.1f} calls  "
             f"{name}")
 
 
 # ----------------------------------------------------------------------------
-# 5. timing
+# 5. the format paths at full width
+# ----------------------------------------------------------------------------
+
+def phase_formats(problem, w_opt) -> dict:
+    """``format="sell"`` and ``format="fcoo"`` through LifeEngine at full
+    width, each against ``opt``; then ``format="auto"``.  Returns the
+    launches of B3-B6 on their paths."""
+    from repro_torch.core.life import LifeConfig, LifeEngine
+    from repro_torch.formats.select import DEFAULT_CANDIDATES
+    cfg = LifeConfig(n_iters=MAIN_ITERS, compact_every=COMPACT_EVERY,
+                     plan_cache_dir="")
+    launches, layouts = {}, {}
+    n_theta = problem.dictionary.shape[1]
+    for fmt in ("sell", "fcoo"):
+        phase = f"format-{fmt}"
+        t0 = time.perf_counter()
+        engine = LifeEngine(problem, dataclasses.replace(cfg, format=fmt),
+                            device="cuda")
+        plans = engine.executor.plans
+        if fmt == "sell":
+            sd, sw = plans["sell_dsc"], plans["sell_wc"]
+            layouts[fmt] = sd.nbytes + sw.nbytes
+            shape = (f"SELL dsc {sd.atoms.shape[0]} x {sd.width} (overhead "
+                     f"{sd.padding_overhead:.2f}), wc {sw.atoms.shape[0]} x "
+                     f"{sw.width} (overhead {sw.padding_overhead:.2f}), "
+                     f"{layouts[fmt] / 2**20:.1f} MiB for the two encodes")
+        else:
+            fc = plans["fcoo"]
+            layouts[fmt] = fc.nbytes
+            shape = (f"F-COO {fc.n_chunks} chunks of {fc.c_tile}, k_dsc "
+                     f"{fc.k_dsc}, k_wc {fc.k_wc}, {fc.nbytes / 2**20:.1f} MiB"
+                     f" resident; DSC partials {fc.n_chunks * fc.k_dsc * n_theta * 4 / 2**20:.1f}"
+                     f" MiB and WC partials {fc.n_chunks * fc.k_wc * 4 / 2**20:.2f}"
+                     " MiB written per call, of whose rows "
+                     f"{np.mean(fc.seg_rows_dsc == fc.n_voxels):.1%} (DSC) "
+                     f"and {np.mean(fc.seg_rows_wc == fc.n_fibers):.1%} (WC) "
+                     "are padding segments that the combine adds to one "
+                     "dummy row")
+        log(phase, f"{engine.executor.name} engine built in "
+            f"{time.perf_counter() - t0:.2f} s ({engine.format_plan.describe()}); "
+            f"{shape}")
+        w, launches_fmt = solve_and_check(phase, engine, problem, fmt)
+        launches.update(launches_fmt)
+        steady_step(phase, engine, w)
+        diff = (w - w_opt).abs()
+        log(phase, f"weights vs opt executor: max abs diff "
+            f"{float(diff.max()):.3e} (rtol {TRAJ_TOL['rtol']}, atol "
+            f"{TRAJ_TOL['atol']})")
+        torch.testing.assert_close(w, w_opt, **TRAJ_TOL)
+        del engine
+        torch.cuda.empty_cache()
+    log("formats", f"F-COO resident bytes over the two SELL encodes: "
+        f"{layouts['fcoo'] / layouts['sell']:.4f} (the reference's table12 "
+        "gate is 0.6)")
+
+    t0 = time.perf_counter()
+    engine = LifeEngine(problem, dataclasses.replace(
+        cfg, format="auto", n_iters=AUTO_ITERS, compact_every=0),
+        device="cuda")
+    plan = engine.format_plan
+    st = plan.stats
+    log("format-auto", f"resolved {plan.describe()} -> executor "
+        f"{engine.executor.name} in {time.perf_counter() - t0:.2f} s; SELL "
+        f"overhead dsc {st['dsc.sell_overhead']:.3f}, wc "
+        f"{st['wc.sell_overhead']:.3f} (accept <= {cfg.sell_accept}, reject "
+        f">= {cfg.sell_reject}); run mean dsc {st['dsc.run_mean']:.2f}, wc "
+        f"{st['wc.run_mean']:.2f}")
+    if plan.format not in DEFAULT_CANDIDATES or plan.reason not in (
+            "heuristic", "autotune"):
+        raise AssertionError(f"format=auto resolved to {plan.describe()}")
+    w, losses = engine.run()
+    torch.cuda.synchronize()
+    ls = losses.cpu().numpy()
+    if ls.shape != (AUTO_ITERS,) or not np.all(np.isfinite(ls)) \
+            or not torch.isfinite(w).all():
+        raise AssertionError("format=auto run is not finite")
+    log("format-auto", f"{AUTO_ITERS} iterations on the chosen executor: "
+        f"loss {ls[0]:.6e} -> {ls[-1]:.6e}")
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# 6. timing
 # ----------------------------------------------------------------------------
 
 def time_ms(fn, n: int = TIMED_LAUNCHES) -> float:
@@ -435,46 +671,91 @@ def csr_operator(phi, d, transpose: bool):
     return m
 
 
+
 def phase_timing(problem, launches: dict, errors: dict) -> list:
+    from repro_torch.kernels import ops
     phi, d = problem.phi, problem.dictionary
     t_dsc, t_wc = kernel_operands(phi, c_tile=256, row_tile=8,
                                   compute_dtype="fp32")
+    sd, sw, fc, o = format_operands(phi, c_tile=256, row_tile=8,
+                                    compute_dtype="fp32")
+    fo = o["fcoo"]
     nc, n_theta = phi.n_coeffs, d.shape[1]
-    w = torch.rand(phi.n_fibers, device="cuda",
+    nv, nf = phi.n_voxels, phi.n_fibers
+    w = torch.rand(nf, device="cuda",
                    generator=torch.Generator(device="cuda").manual_seed(5))
-    y = (run_dsc(t_dsc, d, w)[:phi.n_voxels] - problem.b).contiguous()
+    y = (run_dsc(t_dsc, d, w)[:nv] - problem.b).contiguous()
     d_bytes = d.numel() * d.element_size()
-    coeff_bytes = nc * (4 + 4 + 4 + 4)             # atom, other, value, row
     tile_bytes = lambda t: 4 * (t.tile_ptr.numel() + t.tile_len.numel())
+    flops = 2.0 * nc * n_theta + nc
+    # per kernel: its call, its plain version, its result over the function
+    # y = M w or w = M^T y, the kernel with its seg_rows combine (F-COO
+    # only), and the compulsory bytes: each index and value of a real
+    # coefficient read once, D and the dense input read once, the output
+    # (y or w, not F-COO's partials) written once
+    rows = [
+        ("dsc_coo", w, lambda pl=False: run_dsc(t_dsc, d, w, plain=pl),
+         lambda out: out[:nv], None,
+         nc * 16 + tile_bytes(t_dsc) + nf * 4
+         + t_dsc.n_row_blocks * t_dsc.row_tile * n_theta * 4),
+        ("dsc_sell", w,
+         lambda pl=False: run_format("dsc_sell", o["dsc_sell"], d, w, pl),
+         lambda out: out[:nv], None,
+         nc * 12 + sd.row_nnz.nbytes + nf * 4
+         + sd.atoms.shape[0] * n_theta * 4),
+        ("dsc_fcoo", w, lambda pl=False: run_format("dsc_fcoo", fo, d, w, pl),
+         lambda out: ops.fcoo_combine(out, fo.seg_rows_dsc, nv),
+         lambda: ops.fcoo_combine(ops.fcoo_dsc_partials(fo, d, w),
+                                  fo.seg_rows_dsc, nv),
+         nc * 16 + nf * 4 + nv * n_theta * 4),
+        ("wc_coo", y, lambda pl=False: run_wc(t_wc, d, y, plain=pl),
+         lambda out: out[:nf], None,
+         nc * 16 + tile_bytes(t_wc) + nv * n_theta * 4
+         + t_wc.n_row_blocks * t_wc.row_tile * 4),
+        ("wc_sell", y,
+         lambda pl=False: run_format("wc_sell", o["wc_sell"], d, y, pl),
+         lambda out: out[:nf], None,
+         nc * 12 + sw.row_nnz.nbytes + nv * n_theta * 4
+         + sw.atoms.shape[0] * 4),
+        ("wc_fcoo", y, lambda pl=False: run_format("wc_fcoo", fo, d, y, pl),
+         lambda out: ops.fcoo_combine(out, fo.seg_rows_wc, nf),
+         lambda: ops.fcoo_combine(ops.fcoo_wc_partials(fo, d, y),
+                                  fo.seg_rows_wc, nf),
+         nc * 20 + nv * n_theta * 4 + nf * 4),
+    ]
+    csr = {}
     entries = []
-    for name, tiles, run, x, in_bytes, out_bytes in (
-            ("dsc_coo", t_dsc, run_dsc, w, phi.n_fibers * 4,
-             t_dsc.n_row_blocks * t_dsc.row_tile * n_theta * 4),
-            ("wc_coo", t_wc, run_wc, y, phi.n_voxels * n_theta * 4,
-             t_wc.n_row_blocks * t_wc.row_tile * 4)):
-        ms = time_ms(lambda: run(tiles, d, x))
-        plain_ms = time_ms(lambda: run(tiles, d, x, plain=True))
-        m = csr_operator(phi, d, transpose=(name == "wc_coo"))
+    for name, x, run, result, with_combine, bytes_moved in rows:
+        op = name.split("_")[0]
+        if op not in csr:
+            csr.clear()
+            torch.cuda.empty_cache()
+            csr[op] = csr_operator(phi, d, transpose=(op == "wc"))
+        m = csr[op]
         xv = x.reshape(-1, 1)
         lib_out = torch.sparse.mm(m, xv).reshape(-1)
-        mine = run(tiles, d, x)[:tiles.n_rows].reshape(-1)
+        mine = result(run()).reshape(-1)
         torch.testing.assert_close(mine, lib_out, **FP32_TOL)
+        ms = time_ms(run)
+        plain_ms = time_ms(lambda: run(True))
         library_ms = time_ms(lambda: torch.sparse.mm(m, xv))
-        del m
-        torch.cuda.empty_cache()
-        flops = 2.0 * nc * n_theta + nc
-        bound_ms, bound_by = bound(
-            coeff_bytes + tile_bytes(tiles) + d_bytes + in_bytes + out_bytes,
-            flops)
+        bound_ms, bound_by = bound(bytes_moved + d_bytes, flops)
         entry = dict(name=name, route="cuda", **KERNELS[name],
                      launches=launches[name], max_abs_err=errors[name],
                      ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=library_ms)
+        extra = ""
+        if with_combine is not None:
+            entry["ms_with_combine"] = time_ms(with_combine)
+            extra = (f"; with its seg_rows combine "
+                     f"{entry['ms_with_combine']:.4f} ms")
         log("timing", f"{name}: {ms:.4f} ms (bound {bound_ms:.4f} ms by "
-            f"{bound_by}, {bound_ms / ms:.1%} of it); plain {plain_ms:.4f} ms; "
-            f"torch.sparse.mm CSR {library_ms:.4f} ms; Nc {nc}, tiles "
-            f"{tiles.atoms_p.shape[0]} x {tiles.atoms_p.shape[1]}")
+            f"{bound_by}, {bound_ms / ms:.1%} of it){extra}; plain "
+            f"{plain_ms:.4f} ms; torch.sparse.mm CSR {library_ms:.4f} ms; "
+            f"Nc {nc}")
         entries.append(entry)
+    csr.clear()
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -483,6 +764,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build()
 
@@ -495,8 +777,10 @@ def main() -> int:
 
     errors: dict = {}
     phase_kernels(problem, errors)
-    launches = phase_main(problem)
+    launches, w_opt = phase_main(problem)
+    launches.update(phase_formats(problem, w_opt))
     entries = phase_timing(problem, launches, errors)
+    log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Inspector layer: host-side tile planning (paper §4.1.3 + §4.2.1.2).
 
-A copy of the numpy-only tile planner of ``repro/core/inspector.py``
-(``TilePlan``, ``auto_tile``, ``plan_tiles``, ``run_lengths``): the port
-imports nothing of the reference, so it keeps its own.  The shard and SELL
-helpers of that module arrive with their slices.
+A copy of the numpy-only parts of ``repro/core/inspector.py`` that the
+port runs: the tile planner (``TilePlan``, ``auto_tile``, ``plan_tiles``)
+and the format-selection statistics (``run_lengths``, ``sell_geometry``,
+``phi_stats``).  The port imports nothing of the reference, so it keeps its
+own.  The shard helpers arrive with the mesh slice.
 
 ``TilePlan`` cuts *sorted* coefficients into tiles of at most ``c_tile``
 entries such that every tile touches output rows in exactly **one**
@@ -121,3 +122,48 @@ def run_lengths(ids: np.ndarray) -> np.ndarray:
     if ids.size == 0:
         return np.zeros(0, np.int64)
     return np.unique(ids, return_counts=True)[1]
+
+
+def sell_geometry(max_nnz: int, n_rows: int, *, row_tile: int,
+                  slot_tile: int) -> Tuple[int, int]:
+    """(width, n_rows_padded) a SELL layout allocates for this shape.
+
+    Shared by the layout itself (``formats/sell.py:SellPhi.encode``) and
+    the selector's overhead prediction in :func:`phi_stats`: the
+    accept/reject heuristic is sound only if the predicted slots equal the
+    allocated slots."""
+    width = max(slot_tile, -(-max_nnz // slot_tile) * slot_tile)
+    n_rows_padded = -(-n_rows // row_tile) * row_tile
+    return width, n_rows_padded
+
+
+def phi_stats(phi, *, row_tile: int = 8, slot_tile: int = 32) -> dict:
+    """Format-selection statistics (consumed by ``formats/select.py``).
+
+    Per op (dsc: voxel rows, wc: fiber rows): run-length moments of the
+    output dimension plus the padding overhead a SELL layout with this
+    (row_tile, slot_tile) geometry would pay, from counts alone, without
+    building the layout.  Global Nc/Nv/Nf ratios ride along.
+    """
+    out = dict(
+        n_coeffs=float(phi.n_coeffs),
+        nc_per_voxel=phi.n_coeffs / max(1, phi.n_voxels),
+        nc_per_fiber=phi.n_coeffs / max(1, phi.n_fibers),
+        nc_per_atom=phi.n_coeffs / max(1, phi.n_atoms),
+    )
+    for op, ids, n_rows in (("dsc", phi.voxels, phi.n_voxels),
+                            ("wc", phi.fibers, phi.n_fibers)):
+        touched = run_lengths(ids.cpu().numpy())
+        max_nnz = int(touched.max()) if touched.size else 0
+        width, n_rows_padded = sell_geometry(max_nnz, n_rows,
+                                             row_tile=row_tile,
+                                             slot_tile=slot_tile)
+        slots = n_rows_padded * width
+        out[f"{op}.rows_touched"] = float(touched.size) / max(1, n_rows)
+        out[f"{op}.run_mean"] = float(touched.mean()) if touched.size else 0.0
+        out[f"{op}.run_p99"] = (float(np.percentile(touched, 99))
+                                if touched.size else 0.0)
+        out[f"{op}.run_max"] = float(max_nnz)
+        out[f"{op}.sell_width"] = float(width)
+        out[f"{op}.sell_overhead"] = slots / max(1, phi.n_coeffs) - 1.0
+    return out

@@ -2,19 +2,22 @@
 
 Torch counterpart of ``repro/core/life.py``.  Executor dispatch goes
 through :mod:`repro_torch.core.registry` (``naive``, ``opt-paper``, ``opt``,
-``kernel``); the engine binds a problem to one executor on one device, runs
-SBBNNLS through the stepped solver API, and reports pruning.
+``kernel``, ``kernel-sell``, ``kernel-fcoo``, ``alto``, ``auto``); the
+engine binds a problem to one executor on one device, runs SBBNNLS through
+the stepped solver API, and reports pruning.  ``format`` other than
+``"coo"`` ("sell", "fcoo", "alto", or "auto", which selects one per
+dataset) goes through ``registry.create_for_format``.
 
-Tile plans are memoized through the persistent
+Tile, SpMV and format plans are memoized through the persistent
 :class:`~repro_torch.core.plan_cache.PlanCache`.  Weight compaction
 (``compact_every > 0``) periodically drops coefficients whose fiber weight
 reached zero and rebuilds the executor over the smaller Phi, keeping the
 solver state (and so its iteration parity).
 
 ``LifeConfig`` keeps the reference's field names.  The fields of later
-slices (formats, tuning, the mesh) accept only the values this slice runs,
-and others raise ``ValueError`` naming the slice that brings them.  The
-observability gauges arrive with the observability slice.
+slices (tuning, the mesh) accept only the values the port runs, and others
+raise ``ValueError`` naming the slice that brings them.  The observability
+gauges arrive with the observability slice.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.plan_cache import PlanCache
-from repro_torch.core.registry import REGISTRY, Executor
+from repro_torch.core.registry import REGISTRY, Executor, create_for_format
 from repro_torch.core.restructure import compact_by_weight
 from repro_torch.core.sbbnnls import (SbbnnlsState, nnls_loss, sbbnnls_init,
                                       sbbnnls_steps)
@@ -39,13 +42,12 @@ EXECUTORS = REGISTRY.names()          # public alias; registry is the truth
 #: the reference's executors that later port slices bring, by slice
 #: (ROADMAP.md queue A)
 LATER_EXECUTORS = {
-    "kernel-sell": "the format slice (ROADMAP A5)",
-    "kernel-fcoo": "the format slice (ROADMAP A5)",
-    "alto": "the format slice (ROADMAP A5)",
-    "auto": "the format slice (ROADMAP A5)",
     "shard": "the mesh slice (ROADMAP A13)",
     "shard-sell": "the mesh slice (ROADMAP A13)",
 }
+
+#: Phi layouts ``LifeConfig.format`` accepts ("auto" selects one per dataset)
+FORMAT_CHOICES = ("coo", "sell", "alto", "fcoo", "auto")
 
 
 @dataclasses.dataclass
@@ -69,11 +71,16 @@ class LifeConfig:
     kernel_interpret: bool = True
     shard_rows: int = 1             # mesh geometry: the mesh slice (A13)
     shard_cols: int = 1
-    format: str = "coo"             # Phi layout: the format slice (A5)
-    slot_tile: int = 32             # SELL slots per step (A5)
-    seg_tile: int = 16              # F-COO segments per chunk (A5)
+    # Phi layout: "coo" (canonical; executor= picks the code version),
+    # "sell" / "fcoo" / "alto" (that format's executor), or "auto" (picked
+    # per dataset by formats/select.py, FormatPlan-cached)
+    format: str = "coo"
+    slot_tile: int = 32             # SELL width is a multiple of this
+    seg_tile: int = 16              # F-COO segments per chunk round to this
     tune: str = "off"               # kernel autotuning: the tuning slice (A7)
-    predict: str = "auto"           # learned selection (A11)
+    # learned selection (A11); until it is ported "auto" and "off" both
+    # select as the reference does with no trained predictor
+    predict: str = "auto"
     # storage dtype of the static operands (dictionary + Phi values):
     # "fp32" or "bf16" (bf16 storage, fp32 accumulation); "auto" is a
     # searched axis of the tuning slice (A7)
@@ -98,9 +105,9 @@ def validate_config(config: LifeConfig) -> None:
     if name not in REGISTRY:
         raise ValueError(f"executor must be one of {REGISTRY.names()}, "
                          f"got {name!r}")
-    if config.format != "coo":
-        raise ValueError(f"format={config.format!r} is not ported yet: "
-                         "formats arrive with the format slice (ROADMAP A5)")
+    if config.format not in FORMAT_CHOICES:
+        raise ValueError(f"format must be one of {FORMAT_CHOICES}, got "
+                         f"{config.format!r}")
     if config.tune != "off":
         raise ValueError(f"tune={config.tune!r} is not ported yet: tuning "
                          "arrives with the tuning slice (ROADMAP A7)")
@@ -140,11 +147,33 @@ class LifeEngine:
     def _build(self, phi: PhiTensor) -> None:
         t0 = time.perf_counter()
         self.phi = phi
-        self.executor: Executor = REGISTRY.create(
-            self.config.executor, phi, self.problem, self.config, self.cache)
+        if self.config.format == "coo":
+            self.executor: Executor = REGISTRY.create(
+                self.config.executor, phi, self.problem, self.config,
+                self.cache)
+        else:
+            # "sell" / "fcoo" / "alto" run that layout's executor; "auto"
+            # selects per dataset (FormatPlan-cached)
+            self.executor = create_for_format(phi, self.problem, self.config,
+                                              self.cache)
         self.matvec = self.executor.matvec
         self.rmatvec = self.executor.rmatvec
         self.inspector_seconds += time.perf_counter() - t0
+
+    @property
+    def format_plan(self):
+        """Chosen FormatPlan (format != "coo" only; None otherwise)."""
+        return self.executor.plans.get("format")
+
+    @property
+    def dsc_plan(self):
+        """Autotuned DSC SpmvPlan (auto executor only; None otherwise)."""
+        return self.executor.plans.get("dsc")
+
+    @property
+    def wc_plan(self):
+        """Autotuned WC SpmvPlan (auto executor only; None otherwise)."""
+        return self.executor.plans.get("wc")
 
     @property
     def cache_stats(self):

@@ -1,11 +1,13 @@
-"""Persistent, content-addressed tile-plan cache.
+"""Persistent, content-addressed inspector-plan cache.
 
-Torch counterpart of the tile-plan part of ``repro/core/plan_cache.py``.  A
-``TilePlan`` is keyed by a content hash of the sorted index array, the tile
-geometry and the backend, and serialized to disk, so re-constructing an
-engine on the same dataset replaces the O(Nc) host tiling loop with one
-``np.load``.  The key carries the backend (``cpu`` / ``cuda``) so that plans
-never cross between the two.
+Torch counterpart of ``repro/core/plan_cache.py``.  A ``TilePlan`` (kernel
+tile geometry), an ``SpmvPlan`` (the ``auto`` executor's measured sort
+choice) or a ``FormatPlan`` (the format selector's choice) is keyed by a
+content hash of the index arrays, the geometry and the backend, and
+serialized to disk, so re-constructing an engine on the same dataset
+replaces the host inspector and its measurements with one ``np.load``.
+Every key carries the backend (``cpu`` / ``cuda``): a choice measured on
+one never replays on the other.
 
 Layout: ``<cache_dir>/<digest>.npz`` holding the plan arrays and a
 ``geometry`` vector, the reference's layout.  The directory is
@@ -13,7 +15,7 @@ Layout: ``<cache_dir>/<digest>.npz`` holding the plan arrays and a
 ``LifeConfig.plan_cache_dir`` overrides it per engine and ``""`` disables
 caching.  Entries are written atomically (temporary file + rename).
 
-The format, tune and shard plan kinds arrive with their slices.
+The tune and shard plan kinds arrive with their slices.
 """
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.inspector import TilePlan
+from repro_torch.core.restructure import SpmvPlan
+from repro_torch.formats.base import FORMAT_VERSION as _PHI_FORMAT_VERSION
+from repro_torch.formats.base import FormatPlan
 
 _ENV_VAR = "REPRO_PLAN_CACHE"
 _MAX_BYTES_ENV_VAR = "REPRO_PLAN_CACHE_MAX_BYTES"
@@ -59,6 +64,37 @@ def tile_plan_key(sorted_ids: np.ndarray, n_rows: int, *, c_tile: int,
     h.update(b"tile-plan-v%d:" % _FORMAT_VERSION + backend.encode())
     h.update(np.int64([n_rows, c_tile, row_tile]).tobytes())
     h.update(np.ascontiguousarray(sorted_ids, np.int64).tobytes())
+    return h.hexdigest()
+
+
+def spmv_plan_key(op: str, atoms: np.ndarray, voxels: np.ndarray,
+                  fibers: np.ndarray, *, backend: str) -> str:
+    """Digest for an autotuned SpmvPlan: the op, the backend and the full
+    index content (the measured outcome depends on all three vectors)."""
+    h = hashlib.sha256()
+    h.update(b"spmv-plan-v%d:" % _FORMAT_VERSION + op.encode()
+             + b":" + backend.encode())
+    for arr in (atoms, voxels, fibers):
+        h.update(np.ascontiguousarray(arr, np.int64).tobytes())
+    return h.hexdigest()
+
+
+def format_plan_key(atoms: np.ndarray, voxels: np.ndarray, fibers: np.ndarray,
+                    *, sizes, row_tile: int, slot_tile: int, allowed,
+                    backend: str, sell_accept: float = 0.0,
+                    sell_reject: float = 0.0) -> str:
+    """Digest for a FormatPlan: the full index content, mode sizes, layout
+    geometry, the candidate set and thresholds the selector decided under,
+    and the backend its measured rung timed on.  Versioned by
+    ``formats.base.FORMAT_VERSION``."""
+    h = hashlib.sha256()
+    h.update(b"format-plan-v%d.%d:" % (_FORMAT_VERSION, _PHI_FORMAT_VERSION)
+             + backend.encode() + b":")
+    h.update(",".join(sorted(allowed)).encode())
+    h.update(np.float64([sell_accept, sell_reject]).tobytes())
+    h.update(np.int64(list(sizes) + [row_tile, slot_tile]).tobytes())
+    for arr in (atoms, voxels, fibers):
+        h.update(np.ascontiguousarray(arr, np.int64).tobytes())
     return h.hexdigest()
 
 
@@ -183,3 +219,50 @@ class PlanCache:
             sel=plan.sel, row_block=plan.row_block, local_row=plan.local_row,
             geometry=np.int64([plan.n_tiles, plan.c_tile, plan.row_tile,
                                plan.n_rows_padded, plan.n_coeffs])))
+
+    def get_spmv_plan(self, key: str) -> Optional[SpmvPlan]:
+        raw = self._read(key)
+        self.stats.record(raw is not None)
+        if raw is None:
+            return None
+        try:
+            return SpmvPlan(
+                op=str(raw["op"]), restructure=str(raw["restructure"]),
+                partition=str(raw["partition"]),
+                order=raw["order"] if "order" in raw else None)
+        except (KeyError, ValueError):
+            return None
+
+    def put_spmv_plan(self, key: str, plan: SpmvPlan) -> None:
+        payload = dict(op=np.str_(plan.op),
+                       restructure=np.str_(plan.restructure),
+                       partition=np.str_(plan.partition))
+        if plan.order is not None:
+            payload["order"] = np.asarray(plan.order, np.int64)
+        self._write(key, payload)
+
+    def get_format_plan(self, key: str) -> Optional[FormatPlan]:
+        raw = self._read(key)
+        self.stats.record(raw is not None)
+        if raw is None:
+            return None
+        try:
+            params = {str(k): int(v) for k, v in
+                      zip(raw["params_keys"], raw["params_vals"])}
+            stats = {str(k): float(v) for k, v in
+                     zip(raw["stats_keys"], raw["stats_vals"])}
+            return FormatPlan(format=str(raw["format"]),
+                              reason=str(raw["reason"]),
+                              params=params, stats=stats)
+        except (KeyError, ValueError):
+            return None
+
+    def put_format_plan(self, key: str, plan: FormatPlan) -> None:
+        pk = sorted(plan.params)
+        sk = sorted(plan.stats)
+        self._write(key, dict(
+            format=np.str_(plan.format), reason=np.str_(plan.reason),
+            params_keys=np.asarray(pk, np.str_),
+            params_vals=np.asarray([plan.params[k] for k in pk], np.int64),
+            stats_keys=np.asarray(sk, np.str_),
+            stats_vals=np.asarray([plan.stats[k] for k in sk], np.float64)))

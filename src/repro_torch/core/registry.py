@@ -10,16 +10,25 @@ Protocol: a factory takes ``(phi, problem, config, cache)`` and returns an
 Factories that do inspector work route it through ``cache``
 (:class:`~repro_torch.core.plan_cache.PlanCache`).
 
-The ladder of this slice (paper §6.3.1/§6.4.1):
+The ladder (paper §6.3.1/§6.4.1):
 
   naive        Figure-3 translation: gathers and ``index_add_`` scatters
   opt-paper    DSC voxel-sorted segment sum, WC atom-sorted scatter
   opt          output-side sorts for both ops (segment sums)
   kernel       inspector-planned COO tiles on the CUDA kernels B1/B2
-               (their plain versions on the CPU)
+  kernel-sell  blocked-ELL layout (formats/sell.py) on kernels B3/B4
+  kernel-fcoo  ONE segment-flagged F-COO stream (formats/fcoo.py) feeding
+               both ops through kernels B5/B6 and a ``seg_rows`` combine
+  alto         ALTO single-index sort order (formats/alto.py), one Phi copy
+               serving both ops through the naive ops
+  auto         runtime autotune of the sort dimension per op (paper §4.1.2)
 
-The reference's other executors (``kernel-sell``, ``kernel-fcoo``,
-``alto``, ``auto``, ``shard``, ``shard-sell``) arrive with later slices.
+The kernel executors run their plain versions on CPU tensors.
+
+``create_for_format`` resolves ``LifeConfig.format`` ("coo", "sell",
+"alto", "fcoo", or "auto" through ``formats/select.py``) to the executor
+that consumes that layout and records the FormatPlan in its ``plans``.
+The mesh executors (``shard``, ``shard-sell``) arrive with the mesh slice.
 """
 from __future__ import annotations
 
@@ -31,8 +40,10 @@ import torch
 
 from repro_torch.core import spmv
 from repro_torch.core.inspector import TilePlan, plan_tiles
-from repro_torch.core.plan_cache import PlanCache, tile_plan_key
-from repro_torch.core.restructure import sort_by_host
+from repro_torch.core.plan_cache import (PlanCache, spmv_plan_key,
+                                         tile_plan_key)
+from repro_torch.core.restructure import (SpmvPlan, autotune_plan,
+                                          sort_by_host)
 from repro_torch.core.std import PhiTensor
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
@@ -194,3 +205,120 @@ def _make_kernel(phi, problem, config, cache) -> Executor:
         matvec=kops.make_dsc(phi_v, d, dsc_plan, compute_dtype=cd),
         rmatvec=kops.make_wc(phi_w, d, wc_plan, compute_dtype=cd),
         plans=dict(dsc_tiles=dsc_plan, wc_tiles=wc_plan))
+
+
+@REGISTRY.register("kernel-sell", consumes="sell")
+def _make_kernel_sell(phi, problem, config, cache) -> Executor:
+    """Kernels B3/B4 over the blocked-ELL layout (formats/sell.py).  The
+    SELL encode replaces the tile planner: the layout's slot arrays are the
+    plan."""
+    from repro_torch.formats.sell import SellPhi
+    from repro_torch.kernels import ops as kops
+    d = problem.dictionary
+    sell_dsc = SellPhi.encode(phi, op="dsc", row_tile=config.row_tile,
+                              slot_tile=config.slot_tile)
+    sell_wc = SellPhi.encode(phi, op="wc", row_tile=config.row_tile,
+                             slot_tile=config.slot_tile)
+    cd = config.compute_dtype
+    return Executor(
+        name="kernel-sell",
+        matvec=kops.make_dsc_sell(sell_dsc, d, compute_dtype=cd),
+        rmatvec=kops.make_wc_sell(sell_wc, d, compute_dtype=cd),
+        plans=dict(sell_dsc=sell_dsc, sell_wc=sell_wc))
+
+
+@REGISTRY.register("kernel-fcoo", consumes="fcoo")
+def _make_kernel_fcoo(phi, problem, config, cache) -> Executor:
+    """Kernels B5/B6 over ONE F-COO copy (formats/fcoo.py): the single
+    linearized stream and its segment metadata serve matvec AND rmatvec;
+    the WC view is read through ``wc_perm`` inside B6, not copied."""
+    from repro_torch.formats.fcoo import FcooPhi
+    from repro_torch.kernels import ops as kops
+    fc = FcooPhi.encode(phi, c_tile=config.c_tile, seg_tile=config.seg_tile)
+    matvec, rmatvec = kops.make_fcoo_ops(fc, problem.dictionary,
+                                         compute_dtype=config.compute_dtype)
+    return Executor(name="kernel-fcoo", matvec=matvec, rmatvec=rmatvec,
+                    plans=dict(fcoo=fc))
+
+
+@REGISTRY.register("alto", consumes="alto")
+def _make_alto(phi, problem, config, cache) -> Executor:
+    """Both ops over one ALTO-ordered Phi copy (formats/alto.py): the
+    linearized sort gives locality in every mode at once, so one
+    coefficient order feeds DSC and WC."""
+    from repro_torch.formats.alto import AltoPhi
+    enc, _ = AltoPhi.encode(phi).sort()
+    phi_lin, d = _with_storage_dtype(enc.decode(), problem.dictionary,
+                                     config)
+    # keep accounting only: retaining `enc` would hold a second
+    # (lin, values) copy alive for the executor's lifetime
+    meta = dict(n_coeffs=enc.n_coeffs, nbytes=enc.nbytes)
+    return Executor(
+        name="alto",
+        matvec=lambda w: spmv.dsc_naive(phi_lin, d, w),
+        rmatvec=lambda y: spmv.wc_naive(phi_lin, d, y),
+        plans=dict(alto=meta))
+
+
+def create_for_format(phi, problem, config,
+                      cache: Optional[PlanCache] = None) -> Executor:
+    """Resolve ``config.format`` (possibly "auto") to a bound executor.
+
+    The chosen or cached FormatPlan lands in ``executor.plans["format"]``.
+    ``format="coo"`` runs the executor named by ``config.executor`` over
+    the canonical layout.
+    """
+    from repro_torch.formats import select as fsel
+    if cache is None:
+        cache = PlanCache("")
+    plan = fsel.resolve_format(phi, problem, config, cache)
+    executor = REGISTRY.create(fsel.executor_for(plan.format, config), phi,
+                               problem, config, cache)
+    executor.plans["format"] = plan
+    return executor
+
+
+# per sort-dim executors: output-side sorts get segment-sum paths,
+# input-side sorts keep the scatter (paper Table 2/3 combinations)
+_DSC_FNS = {"atom": spmv.dsc_atom_sorted, "voxel": spmv.dsc,
+            "fiber": spmv.dsc_atom_sorted}   # fiber-sort: unsorted Y path
+_WC_FNS = {"atom": spmv.wc_atom_sorted, "voxel": spmv.wc_atom_sorted,
+           "fiber": spmv.wc}
+
+
+@REGISTRY.register("auto")
+def _make_auto(phi, problem, config, cache) -> Executor:
+    """The paper's runtime selection: per op, time each sort dimension's
+    executor and keep the fastest (SpmvPlans through the plan cache)."""
+    phi, d = _with_storage_dtype(phi, problem.dictionary, config)
+    probe_dtype = problem.dictionary.dtype     # probes mimic solver operands
+    atoms, voxels, fibers = (x.cpu().numpy()
+                             for x in (phi.atoms, phi.voxels, phi.fibers))
+    backend = phi.device.type
+
+    def tuned(op: str, run) -> SpmvPlan:
+        key = spmv_plan_key(op, atoms, voxels, fibers, backend=backend)
+        plan = cache.get_spmv_plan(key)
+        if plan is None:
+            plan = autotune_plan(op, phi, run)
+            cache.put_spmv_plan(key, plan)
+        if plan.order is None:      # cached choice without the permutation
+            _, plan.order = sort_by_host(phi, plan.restructure)
+        return plan
+
+    w_probe = torch.ones((phi.n_fibers,), dtype=probe_dtype,
+                         device=phi.device)
+    y_probe = torch.ones((phi.n_voxels, d.shape[1]), dtype=probe_dtype,
+                         device=phi.device)
+    dsc_plan = tuned("dsc", lambda p, dim: _DSC_FNS[dim](p, d, w_probe))
+    wc_plan = tuned("wc", lambda p, dim: _WC_FNS[dim](p, d, y_probe))
+
+    phi_v = phi.take(dsc_plan.order)
+    phi_w = phi.take(wc_plan.order)
+    dsc_fn = _DSC_FNS[dsc_plan.restructure]
+    wc_fn = _WC_FNS[wc_plan.restructure]
+    return Executor(
+        name="auto",
+        matvec=lambda w: dsc_fn(phi_v, d, w),
+        rmatvec=lambda y: wc_fn(phi_w, d, y),
+        plans=dict(dsc=dsc_plan, wc=wc_plan))

@@ -10,13 +10,15 @@ The sorts are host inspectors, amortized over the solver's iterations.
 (the paper's "the BLAS call is evaded when the scalar is zero"), an
 inspector re-run amortized over the following iterations.
 
-``autotune_plan`` (the ``auto`` executor's measured choice) arrives with
-that executor in a later slice.
+``autotune_plan`` is the paper's runtime selection: it times each
+candidate a few times through :mod:`repro_torch.tune.search` and keeps the
+fastest.  The ``auto`` executor chooses sort dimensions with it, and
+``formats/select.py`` chooses formats with it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,9 +62,66 @@ class SpmvPlan:
     """Declarative restructuring + partitioning choice for one SpMV op."""
 
     op: str                      # "dsc" | "wc"
-    restructure: str             # member of SORT_DIMS
+    restructure: str             # member of SORT_DIMS (or a format name
+                                 # when the candidates are formats)
     partition: str               # "coeff" | "voxel" | "atom" | "fiber"
     order: Optional[np.ndarray] = None   # cached permutation
 
     def describe(self) -> str:
         return f"{self.op}: sort-by-{self.restructure}, {self.partition}-partition"
+
+
+# In-process memo for autotune_plan.  Keys include phi.n_coeffs so a
+# compaction (same dataset, fewer coefficients) misses instead of replaying
+# a stale choice; clear_plan_cache() gives long-running services a bound.
+# Persistent, content-addressed caching lives in core/plan_cache.py.
+_PLAN_CACHE: Dict[Tuple, SpmvPlan] = {}
+
+
+def clear_plan_cache() -> None:
+    """Drop every in-process memoized plan (the dict is otherwise unbounded)."""
+    _PLAN_CACHE.clear()
+
+
+def autotune_plan(
+    op: str,
+    phi: PhiTensor,
+    run: Callable[[object, str], object],
+    candidates: Tuple[str, ...] = SORT_DIMS,
+    repeats: int = 3,
+    cache_key: Optional[Tuple] = None,
+    sorter: Callable[[PhiTensor, str], Tuple] = sort_by_host,
+) -> SpmvPlan:
+    """Measure each candidate ``repeats`` times and keep the fastest.
+
+    ``sorter(phi, candidate)`` builds the candidate's prepared data plus an
+    optional permutation (by default a sort along one dimension);
+    ``run(prepared, candidate)`` executes the op over it.  Timing goes
+    through :func:`repro_torch.tune.search.time_call`, which waits for the
+    card when the result lies on one.
+    """
+    from repro_torch.tune import search as tsearch
+    full_key = None
+    if cache_key is not None:
+        full_key = ("plan", op, phi.n_coeffs) + cache_key
+        if full_key in _PLAN_CACHE:
+            return _PLAN_CACHE[full_key]
+    prepared_orders = {}
+
+    def measure(dim: str) -> float:
+        prepared, order = sorter(phi, dim)
+        prepared_orders[dim] = order
+        return tsearch.time_call(lambda: run(prepared, dim),
+                                 warmup=1, repeats=repeats)
+
+    best_i, _ = tsearch.measure_candidates(tuple(candidates), measure)
+    best_dim = tuple(candidates)[best_i]
+    # output-side sorts admit segment (sync-free) partitioning; input-side
+    # sorts fall back to coefficient partitioning (paper Tables 3/4)
+    out_dim = "voxel" if op == "dsc" else "fiber"
+    partition = out_dim if best_dim == out_dim else "coeff"
+    plan = SpmvPlan(op=op, restructure=best_dim, partition=partition,
+                    order=prepared_orders[best_dim])
+    if full_key is not None:
+        _PLAN_CACHE[full_key] = plan
+    return plan

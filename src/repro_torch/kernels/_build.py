@@ -8,6 +8,10 @@ edited kernel is rebuilt and an unchanged one is not.  Building happens at
 first use, never at import: the CPU tests import every module on a machine
 without ``nvcc``.  :func:`build` starts one ``nvcc`` per source, all at
 once, and waits for them together.
+
+:data:`LAUNCHES` counts the launches of each kernel by name: :func:`launch`
+adds one for each launch it makes, and nothing else does (a wrapper that
+runs its plain version on CPU tensors launches nothing).
 """
 from __future__ import annotations
 
@@ -25,6 +29,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+#: kernel launches by kernel name ("dsc_coo", "wc_coo", "dsc_sell", ...)
+LAUNCHES: Dict[str, int] = {}
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    LAUNCHES.clear()
+
+
+def launches(kernel: str) -> int:
+    """Launches of ``kernel`` since the last :func:`reset_launches`."""
+    return LAUNCHES.get(kernel, 0)
 
 
 def kernel_names() -> tuple:
@@ -147,7 +164,8 @@ def check_coo_tiles(tile_ptr, tile_len, atoms_p, others_p, values_p,
 
 def launch(lib: ctypes.CDLL, fn_name: str, kernel: str, device,
            tensors: list, ints: list) -> None:
-    """Call one C entry point on PyTorch's current stream of ``device``.
+    """Call one C entry point on PyTorch's current stream of ``device``
+    and count the launch under ``kernel``.
 
     Raises:
         RuntimeError: the launch was refused (non-zero cudaError_t).
@@ -160,3 +178,4 @@ def launch(lib: ctypes.CDLL, fn_name: str, kernel: str, device,
                                     *ints, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {err}")
+    LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1

@@ -1,4 +1,4 @@
-// Helpers shared by the COO kernels (dsc.cu, wc.cu).  Plain CUDA C++: no
+// Helpers shared by the kernels under csrc/.  Plain CUDA C++: no
 // PyTorch header is included anywhere under csrc/, so nvcc builds each
 // kernel in seconds (route (b): a shared library with a C interface, loaded
 // from Python with ctypes).

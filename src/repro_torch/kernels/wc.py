@@ -1,13 +1,18 @@
-"""B2 — COO WC (w = M^T y) over fiber-sorted tiles: wrapper, plain version
-and launch count.
+"""The WC kernels (w = M^T y): B2 over COO tiles and B4 over SELL, with
+their wrappers and plain versions.
 
-The kernel is ``csrc/wc.cu``, hand-written CUDA for Hopper that replaces
-the Pallas TPU kernel ``repro/kernels/wc.py:wc_pallas``; its note says what
-bounds it on the card and what its design does about that.  It gathers the
-Y rows itself: unlike the reference, no ``(n_tiles, c_tile, Ntheta)``
-stream of Y rows is materialized before the call.
+``csrc/wc.cu`` (B2) replaces the Pallas TPU kernel
+``repro/kernels/wc.py:wc_pallas`` and ``csrc/wc_sell.cu`` (B4) replaces
+``repro/kernels/wc.py:wc_sell_pallas``; each source's note says what bounds
+it on the card and what its design does about that.  Both gather the Y rows
+themselves: unlike the reference, no stream of Y rows is materialized
+before the call.  A wrapper launches its kernel on CUDA tensors (counted in
+:data:`repro_torch.kernels._build.LAUNCHES`), runs the plain PyTorch
+version on CPU tensors, and raises on anything else.  Sums are taken in
+float32 whatever the storage type.
 
-Operands (built once from a ``TilePlan`` by :func:`repro_torch.kernels.ops.coo_tiles`):
+B2 operands (built once from a ``TilePlan`` by
+:func:`repro_torch.kernels.ops.coo_tiles`):
 
   tile_ptr     int32[n_fib_blocks + 1]  tile range of each fiber block
   tile_len     int32[n_tiles]           real coefficients at the head of
@@ -17,9 +22,21 @@ Operands (built once from a ``TilePlan`` by :func:`repro_torch.kernels.ops.coo_t
   dictionary   [Na, Ntheta], the same dtype as ``values_p``
   y            float32[Nv, Ntheta]
 
-Result: float32[n_fib_blocks * row_tile]; every fiber is written, zeros for
-fiber blocks no tile visits.  Sums are taken in float32 whatever the storage
-type.
+B2 result: float32[n_fib_blocks * row_tile]; every fiber is written, zeros
+for fiber blocks no tile visits.
+
+B4 operands (a fiber-row ``formats/sell.py:SellPhi`` on the device, built
+by :func:`repro_torch.kernels.ops.sell_operands`):
+
+  atoms, voxels  int32[rows_padded, width]   slot [r, s]: the s-th
+                                             coefficient of fiber r
+  values         float32 | bfloat16 [rows_padded, width]
+  row_nnz        int32[n_rows]               real slots of each row
+  dictionary     [Na, Ntheta], the same dtype as ``values``
+  y              float32[Nv, Ntheta]
+
+B4 result: float32[rows_padded]; every row is written, zeros for empty rows
+and for the padding rows past ``n_rows``.
 """
 from __future__ import annotations
 
@@ -28,12 +45,18 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-
-#: kernel launches made by :func:`wc_coo` (the plain version adds nothing)
-launches = 0
+from repro_torch.kernels.dsc import _check_sell, _device_of, sell_slots
 
 _SIGNATURE = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ENTRY = {torch.float32: "wc_coo_f32", torch.bfloat16: "wc_coo_bf16"}
+_SELL_SIGNATURE = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+_SELL_ENTRY = {torch.float32: "wc_sell_f32", torch.bfloat16: "wc_sell_bf16"}
+
+
+# ----------------------------------------------------------------------------
+# B2: COO WC
+# ----------------------------------------------------------------------------
 
 
 def _check(tile_ptr, tile_len, atoms_p, voxels_p, values_p, local_row_p,
@@ -46,9 +69,9 @@ def _check(tile_ptr, tile_len, atoms_p, voxels_p, values_p, local_row_p,
 
 def wc_coo_plain(tile_ptr, tile_len, atoms_p, voxels_p, values_p,
                  local_row_p, dictionary, y, *, row_tile: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the same function on the same
-    operands, by gather, row dot products and ``index_add_`` over each
-    tile's real prefix."""
+    """Plain PyTorch version of B2: the same function on the same operands,
+    by gather, row dot products and ``index_add_`` over each tile's real
+    prefix."""
     n_tiles, c_tile = atoms_p.shape
     n_row_blocks = tile_ptr.numel() - 1
     dev = y.device
@@ -73,15 +96,12 @@ def wc_coo(tile_ptr, tile_len, atoms_p, voxels_p, values_p, local_row_p,
             dtype or shape, or not contiguous.
         RuntimeError: the CUDA launch was refused.
     """
-    global launches
     _check(tile_ptr, tile_len, atoms_p, voxels_p, values_p, local_row_p,
            dictionary, y)
-    dev = y.device
+    dev = _device_of(y, "wc_coo")
     if dev.type == "cpu":
         return wc_coo_plain(tile_ptr, tile_len, atoms_p, voxels_p, values_p,
                             local_row_p, dictionary, y, row_tile=row_tile)
-    if dev.type != "cuda":
-        raise ValueError(f"wc_coo runs on cuda or cpu tensors, not {dev}")
     n_tiles, c_tile = atoms_p.shape
     n_row_blocks = tile_ptr.numel() - 1
     n_atoms, n_theta = dictionary.shape
@@ -92,5 +112,43 @@ def wc_coo(tile_ptr, tile_len, atoms_p, voxels_p, values_p, local_row_p,
                   [tile_ptr, tile_len, atoms_p, voxels_p, values_p,
                    local_row_p, dictionary, y, out],
                   [n_row_blocks, c_tile, row_tile, n_atoms, n_theta])
-    launches += 1
+    return out
+
+
+# ----------------------------------------------------------------------------
+# B4: SELL WC
+# ----------------------------------------------------------------------------
+
+def wc_sell_plain(atoms, voxels, values, row_nnz, dictionary,
+                  y) -> torch.Tensor:
+    """Plain PyTorch version of B4: the same function on the same
+    operands, by masked gathers of the real slots, row dot products and
+    ``index_add_``."""
+    real, rows = sell_slots(atoms, row_nnz)
+    dots = (dictionary[atoms[real]].float() * y[voxels[real]]).sum(dim=1)
+    out = torch.zeros((atoms.shape[0],), dtype=torch.float32, device=y.device)
+    return out.index_add_(0, rows[real], dots * values[real].float())
+
+
+def wc_sell(atoms, voxels, values, row_nnz, dictionary, y) -> torch.Tensor:
+    """Run B4 on CUDA tensors; on CPU tensors, the plain version.
+
+    Raises:
+        ValueError, TypeError: an operand on another device, of another
+            dtype or shape, or not contiguous.
+        RuntimeError: the CUDA launch was refused.
+    """
+    _check_sell(atoms, voxels, values, row_nnz, dictionary, y, row_tile=1,
+                x_shape=(None, dictionary.shape[1]))
+    dev = _device_of(y, "wc_sell")
+    if dev.type == "cpu":
+        return wc_sell_plain(atoms, voxels, values, row_nnz, dictionary, y)
+    rows_padded, width = atoms.shape
+    n_atoms, n_theta = dictionary.shape
+    out = torch.empty((rows_padded,), dtype=torch.float32, device=dev)
+    lib = _build.load("wc_sell",
+                      {name: _SELL_SIGNATURE for name in _SELL_ENTRY.values()})
+    _build.launch(lib, _SELL_ENTRY[dictionary.dtype], "wc_sell", dev,
+                  [atoms, voxels, values, row_nnz, dictionary, y, out],
+                  [row_nnz.numel(), rows_padded, width, n_atoms, n_theta])
     return out

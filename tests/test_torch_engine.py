@@ -1,8 +1,9 @@
 """Port vs reference: the executor registry, the plan cache and LifeEngine.
 
-Every registered executor (naive, opt, opt-paper, kernel) against the
-dense oracle and the reference's engine on ``tiny_problem``; the
-compaction rebuild; the config values of later slices; the device policy.
+Every registered executor (naive, opt, opt-paper, kernel, kernel-sell,
+kernel-fcoo, alto, auto) against the dense oracle and the reference's
+engine on ``tiny_problem``; the compaction rebuild; the config values of
+later slices; the device policy.
 """
 import dataclasses
 
@@ -14,6 +15,7 @@ import jax.numpy as jnp
 from repro.core.life import LifeConfig as JConfig
 from repro.core.life import LifeEngine as JEngine
 from repro.core.plan_cache import PlanCache as JPlanCache
+from repro.core.registry import REGISTRY as JREGISTRY
 from repro_torch.bridge import from_reference, to_numpy
 from repro_torch.core import plan_cache
 from repro_torch.core.life import (EXECUTORS, LATER_EXECUTORS, LifeConfig,
@@ -43,9 +45,15 @@ def _port(p):
 
 
 def test_registry_holds_the_slice():
-    assert EXECUTORS == PORTED == ("kernel", "naive", "opt", "opt-paper")
-    assert REGISTRY.executors_for_format("coo") == PORTED
-    assert all(REGISTRY.consumes(n) == "coo" for n in PORTED)
+    assert EXECUTORS == PORTED == ("alto", "auto", "kernel", "kernel-fcoo",
+                                   "kernel-sell", "naive", "opt", "opt-paper")
+    assert REGISTRY.executors_for_format("coo") == (
+        "auto", "kernel", "naive", "opt", "opt-paper")
+    assert REGISTRY.executors_for_format("sell") == ("kernel-sell",)
+    assert REGISTRY.executors_for_format("fcoo") == ("kernel-fcoo",)
+    assert REGISTRY.executors_for_format("alto") == ("alto",)
+    assert {n: REGISTRY.consumes(n) for n in PORTED} == {
+        n: JREGISTRY.consumes(n) for n in PORTED}
     with pytest.raises(ValueError, match="already registered"):
         REGISTRY.register("opt")(lambda *a: None)
     with pytest.raises(ValueError, match="must be one of"):
@@ -110,11 +118,37 @@ def test_compaction_rebuild_matches_reference(tiny_problem):
                                atol=2e-3)
 
 
+@pytest.mark.parametrize("executor,fmt", [
+    ("opt", "sell"), ("opt", "fcoo"), ("opt", "alto"), ("opt", "auto"),
+    ("kernel-sell", "coo"), ("kernel-fcoo", "coo"), ("alto", "coo"),
+    ("auto", "coo")])
+def test_format_paths_match_reference_engine_with_compaction(executor, fmt,
+                                                              tiny_problem):
+    """The same executor and format through both engines, compact_every=4
+    over 12 iterations: every rebuild re-encodes the smaller Phi (and
+    format="auto" selects again), and the trajectories agree."""
+    p = tiny_problem
+    cfg = dict(executor=executor, format=fmt, n_iters=12, compact_every=4,
+               slot_tile=16)
+    jeng = JEngine(p, dataclasses.replace(JCFG, predict="off", **cfg))
+    w_ref, l_ref = jeng.run()
+    eng = LifeEngine(_port(p), dataclasses.replace(CFG, **cfg), device="cpu")
+    first = eng.executor
+    w, losses = eng.run()
+    assert eng.executor is not first
+    assert eng.executor.name == jeng.executor.name or fmt == "auto"
+    assert eng.phi.n_coeffs == jeng.phi.n_coeffs < p.phi.n_coeffs
+    np.testing.assert_allclose(to_numpy(losses), np.asarray(l_ref), rtol=2e-3)
+    np.testing.assert_allclose(to_numpy(w), np.asarray(w_ref), rtol=2e-2,
+                               atol=2e-3)
+
+
 @pytest.mark.parametrize("overrides,match", [
-    (dict(executor="kernel-sell"), "format slice"),
+    (dict(executor="shard-sell"), "mesh slice"),
     (dict(executor="shard"), "mesh slice"),
     (dict(executor="nope"), "must be one of"),
-    (dict(format="sell"), "format slice"),
+    (dict(format="sell", shard_rows=2), "mesh slice"),
+    (dict(format="csr"), "format must be one of"),
     (dict(tune="full"), "tuning slice"),
     (dict(compute_dtype="auto"), "tuning slice"),
     (dict(compute_dtype="fp16"), "compute_dtype"),

@@ -37,7 +37,10 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for want in ("src/repro_torch/core/life.py",
                  "src/repro_torch/kernels/dsc.py",
-                 "src/repro_torch/kernels/wc.py", "chip_smoke.py"):
+                 "src/repro_torch/kernels/wc.py",
+                 "src/repro_torch/kernels/fcoo.py",
+                 "src/repro_torch/formats/select.py",
+                 "src/repro_torch/tune/search.py", "chip_smoke.py"):
         assert want in names
 
 

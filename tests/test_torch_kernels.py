@@ -212,9 +212,9 @@ def test_wrappers_dispatch_by_device_and_check_operands():
     t, _ = _operands(tphi, "dsc", 32, 8)
     d = torch.tensor(_dictionary(12, 16))
     w = torch.rand(30)
-    before = (dsc.launches, wc.launches)
+    before = dict(_build.LAUNCHES)
     assert torch.equal(_run("dsc", t, d, w), _run("dsc", t, d, w, plain=True))
-    assert (dsc.launches, wc.launches) == before     # CPU: no kernel launch
+    assert dict(_build.LAUNCHES) == before           # CPU: no kernel launch
     with pytest.raises(TypeError, match="w has dtype"):
         _run("dsc", t, d, w.double())
     with pytest.raises(TypeError, match="values_p"):
@@ -236,7 +236,8 @@ def test_build_names_sources_and_refuses_without_toolkit(monkeypatch,
     """Kernel sources are found in csrc/, libraries are named by a digest of
     their sources, and with no CUDA toolkit the build raises."""
     import torch.utils.cpp_extension as cpp
-    assert _build.kernel_names() == ("dsc", "wc")
+    assert _build.kernel_names() == ("dsc", "dsc_fcoo", "dsc_sell", "wc",
+                                     "wc_fcoo", "wc_sell")
     p_dsc, p_wc = _build.library_path("dsc"), _build.library_path("wc")
     assert p_dsc != p_wc and p_dsc == _build.library_path("dsc")
     assert p_dsc.parent == _build.BUILD_DIR
@@ -261,8 +262,8 @@ def test_cuda_kernels_match_plain_versions_on_card(compute_dtype):
     y = torch.randn(500, 96, device="cuda")
     for op, x in (("dsc", w), ("wc", y)):
         t, _ = _operands(tphi, op, 64, 8, compute_dtype)
-        n = getattr(dsc if op == "dsc" else wc, "launches")
+        n = _build.launches(f"{op}_coo")
         got = _run(op, t, d, x)
         torch.cuda.synchronize()
-        assert getattr(dsc if op == "dsc" else wc, "launches") == n + 1
+        assert _build.launches(f"{op}_coo") == n + 1
         torch.testing.assert_close(got, _run(op, t, d, x, plain=True), **tol)
