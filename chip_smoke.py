@@ -31,6 +31,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   6. timing  — each kernel at the main path's shapes (CUDA events) beside
                its bound, its plain version and one PyTorch library call;
                for B5 and B6 also the kernel with its ``seg_rows`` combine.
+  7. lm      — kernel B7 (the MoE expert FFN's grouped matmul) against its
+               plain version in bf16 and fp32 at the prefill gate shape,
+               the decode down shape and ragged shapes; then MoE serving
+               at full width: Phi-3.5-MoE cut to 8 layers (bf16, seeded
+               random weights on the card), batch 4, a 512-token prompt,
+               16 generated tokens through repro_torch.launch, once on B7
+               and once, teacher-forced with the first run's tokens, on
+               the plain expert path; B7's launches, the logits' agreement
+               at every step, prefill and decode times, peak memory and a
+               torch.profiler breakdown of the prefill and of one decode
+               step; B7 timed at both shapes beside torch.bmm.
 
 Then it prints one JSON line describing the kernels, the card's name and
 power limit as nvidia-smi gives them, and, last, the result line.
@@ -61,6 +72,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 #: shared memory one block may opt in to on an H100 (227 KB)
 SMEM_OPTIN_BYTES = 232_448
+#: NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate (700 W)
+BF16_FLOPS_PER_S = 989e12
 
 MAIN_PROBLEM = dict(n_fibers=50_000, n_theta=96, n_atoms=96,
                     grid=(64, 64, 64), algorithm="PROB", seed=0)
@@ -88,6 +101,8 @@ KERNELS = {
     "wc_fcoo": dict(source="src/repro_torch/kernels/csrc/wc_fcoo.cu",
                     replaces="src/repro/kernels/fcoo.py:116"),
 }
+KERNELS["moe_gmm"] = dict(source="src/repro_torch/kernels/csrc/moe_gmm.cu",
+                          replaces="src/repro/kernels/moe_gmm.py:33")
 #: the two kernels each full-width path runs, by LifeConfig.format
 PATH_KERNELS = {"coo": ("dsc_coo", "wc_coo"), "sell": ("dsc_sell", "wc_sell"),
                 "fcoo": ("dsc_fcoo", "wc_fcoo")}
@@ -759,6 +774,389 @@ def phase_timing(problem, launches: dict, errors: dict) -> list:
     return entries
 
 
+# ----------------------------------------------------------------------------
+# 7. MoE serving at full width, on kernel B7
+# ----------------------------------------------------------------------------
+
+LM_ARCH = "phi3.5-moe-42b-a6.6b"
+#: 32 layers are 83.3 GB in bf16, more than the card's 80 GB
+LM_LAYERS = 8
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 512, 16
+#: teacher-forced logits of the B7 run against the plain expert path, as a
+#: share of the logits' largest magnitude (bf16 products summed in another
+#: order round differently in the last place)
+LM_LOGIT_TOL = 2e-2
+#: B7's plain-version contract (tests/test_torch_moe_gmm.py)
+GMM_TOL = {"fp32": dict(rtol=1e-4, atol=1e-4),
+           "bf16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def gmm_case(m: int, k: int, n: int, t_tile: int, ids, seed: int, *,
+             zero_tiles: int = 0):
+    """x (m, k) and W (E, k, n) in float32 on the card, made from ``seed``,
+    W scaled as the model's experts are; the first ``zero_tiles`` tiles of
+    x are zero rows (empty capacity slots)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.as_tensor(ids, dtype=torch.int32, device="cuda")
+    e = int(ids.max()) + 1
+    x = torch.randn(m, k, generator=g, device="cuda")
+    x[:zero_tiles * t_tile] = 0
+    w = torch.randn(e, k, n, generator=g, device="cuda") * (2 / (k + n)) ** 0.5
+    return ids, x, w
+
+
+def check_gmm(case: str, ids, x32, w32, t_tile: int, errors: dict,
+              zero_rows: int = 0) -> None:
+    """B7 against its plain version in fp32 and bf16 on one case; a second
+    launch is bit-identical and zero rows stay zero."""
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.ref import moe_gmm_ref
+    m, k = x32.shape
+    n = w32.shape[2]
+    for dtype, x, w in (("fp32", x32, w32),
+                        ("bf16", x32.bfloat16(), w32.bfloat16())):
+        got = moe_gmm(ids, x, w, t_tile=t_tile, f_tile=8)
+        want = moe_gmm_ref(x.view(-1, t_tile, k), w, ids).view(m, n)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        log("lm", f"B7 {case} {dtype} ({m} x {k} -> {n}, t_tile {t_tile}, "
+            f"{ids.numel()} tiles, {w.shape[0]} experts): max abs err "
+            f"{float(diff.max()):.3e} (rtol {GMM_TOL[dtype]['rtol']}, atol "
+            f"{GMM_TOL[dtype]['atol']}); elements that differ at all "
+            f"{float((diff > 0).float().mean()):.3e}")
+        torch.testing.assert_close(got, want, **GMM_TOL[dtype])
+        errors["moe_gmm"] = max(errors.get("moe_gmm", 0.0), float(diff.max()))
+        if not torch.equal(got, moe_gmm(ids, x, w, t_tile=t_tile, f_tile=8)):
+            raise AssertionError(f"B7 {case} {dtype}: a second launch differs")
+        if zero_rows and got[:zero_rows].count_nonzero():
+            raise AssertionError(f"B7 {case} {dtype}: zero rows are not zero")
+        del got, want, diff
+    torch.cuda.empty_cache()
+
+
+def lm_shapes(cfg) -> dict:
+    """B7's two shapes on the serve path: the prefill's gate product and
+    the decode step's down product (expert-sorted rows, capacity per
+    expert from the reference's formula)."""
+    from repro_torch.models.moe import capacity_of, t_tile_of
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    out = {}
+    for name, tokens, k, n in (("prefill gate", LM_BATCH * LM_PROMPT, d, f),
+                               ("decode down", LM_BATCH, f, d)):
+        cap = capacity_of(tokens, cfg.top_k, e, cfg.capacity_factor)
+        t_tile = t_tile_of(cap)
+        out[name] = dict(m=e * cap, k=k, n=n, t_tile=t_tile, capacity=cap,
+                         ids=np.repeat(np.arange(e), cap // t_tile))
+    return out
+
+
+def phase_lm_kernels(cfg, errors: dict) -> None:
+    shapes = lm_shapes(cfg)
+    for i, (name, s) in enumerate(shapes.items()):
+        # at decode most tiles are empty capacity slots: zero rows
+        zero_tiles = 12 if name == "decode down" else 0
+        ids, x, w = gmm_case(s["m"], s["k"], s["n"], s["t_tile"], s["ids"],
+                             seed=20 + i, zero_tiles=zero_tiles)
+        check_gmm(name, ids, x, w, s["t_tile"], errors,
+                  zero_rows=zero_tiles * s["t_tile"])
+        del x, w
+    r = np.random.default_rng(22)
+    for case, (t_tile, n_tiles, k, n) in {"ragged": (24, 37, 1000, 776),
+                                          "ragged-long-tile": (72, 9, 264,
+                                                               200)}.items():
+        ids = r.integers(0, 16, n_tiles)
+        ids[0] = 15                     # E = 16, ids not sorted
+        ids, x, w = gmm_case(t_tile * n_tiles, k, n, t_tile, ids, seed=23)
+        check_gmm(case, ids, x, w, t_tile, errors)
+
+
+def profile_lm(label: str, fn) -> None:
+    """Device time of one call of ``fn`` by kernel (torch.profiler): B7's
+    share, the attention sub-layers' and MoE layers' (record_function
+    ranges around them) and the rest, against the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    originals = {(L, "attention_prefill"): L.attention_prefill,
+                 (L, "attention_decode"): L.attention_decode,
+                 (MOE, "moe_ffn"): MOE.moe_ffn}
+
+    def ranged(range_name, f):
+        def wrapped(*a, **kw):
+            with record_function(range_name):
+                return f(*a, **kw)
+        return wrapped
+
+    for (mod, attr), f in originals.items():
+        setattr(mod, attr, ranged("lm." + ("moe" if attr == "moe_ffn"
+                                           else "attention"), f))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (mod, attr), f in originals.items():
+            setattr(mod, attr, f)
+    kernels, ranges, spans = [], {}, {}
+    on_card = torch.autograd.DeviceType.CUDA
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        total = getattr(evt, "device_time_total", None)
+        if total is None:
+            total = getattr(evt, "cuda_time_total", 0.0)
+        if evt.key.startswith("lm."):
+            # the host-side range sums its kernels' device time; the
+            # card-side annotation spans first to last kernel, gaps included
+            if evt.device_type == on_card:
+                spans[evt.key] = us / 1e3
+            else:
+                ranges[evt.key] = total / 1e3
+        elif evt.device_type == on_card and us > 0:
+            kernels.append((us / 1e3, evt.count, evt.key[:70]))
+    if not kernels:
+        log("lm", f"{label}: profiler saw no device time: breakdown not "
+            "measured")
+        return
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    b7 = sum(k[0] for k in kernels if "moe_gmm_kernel" in k[2])
+    att, moe = ranges.get("lm.attention", 0.0), ranges.get("lm.moe", 0.0)
+    log("lm", f"{label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall "
+        f"({busy / wall_ms:.1%}; torch.profiler, one call); B7 {b7:.3f} ms "
+        f"({b7 / busy:.1%} of device time); kernels under record_function "
+        f"ranges: attention sub-layers {att:.3f} ms ({att / busy:.1%}), MoE "
+        f"layers {moe:.3f} ms ({moe / busy:.1%}, B7 included), the rest "
+        f"{busy - att - moe:.3f} ms (0.000 for a range: not measured); the "
+        f"ranges' spans on the card, gaps included: attention "
+        f"{spans.get('lm.attention', 0.0):.3f} ms, MoE "
+        f"{spans.get('lm.moe', 0.0):.3f} ms")
+    for ms, calls, name in kernels[:8]:
+        log("lm", f"  {ms:.4f} ms  {ms / busy:6.1%}  {calls:4d} calls  {name}")
+
+
+class lm_recording:
+    """Within the block, every MoE layer appends its router's expert ids
+    (T, k) to ``routes``; with ``errors`` a list, every expert FFN call
+    also runs the plain expert products on the same input and appends the
+    largest difference of B7's output from theirs, which must lie within
+    the bf16 tolerance."""
+
+    def __init__(self, routes: list, errors):
+        self.routes, self.errors = routes, errors
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self.saved = MOE._top_k, MOE.expert_ffn
+        top_k, ffn = self.saved
+
+        def recording_top_k(probs, k):
+            vals, idx = top_k(probs, k)
+            self.routes.append(idx.cpu())
+            return vals, idx
+
+        def checked_ffn(p, xe, capacity):
+            ye = ffn(p, xe, capacity)
+            p.plain = True
+            want = ffn(p, xe, capacity)
+            p.plain = False
+            torch.testing.assert_close(ye, want, **GMM_TOL["bf16"])
+            self.errors.append(float((ye.float() - want.float()).abs().max()))
+            return ye
+
+        MOE._top_k = recording_top_k
+        if self.errors is not None:
+            MOE.expert_ffn = checked_ffn
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as MOE
+        MOE._top_k, MOE.expert_ffn = self.saved
+        return False
+
+
+def phase_lm_serve(cfg) -> int:
+    """Full-width serving on B7, then teacher-forced on the plain expert
+    path.  Returns B7's launches in the B7 run."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import capacity_of
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          "cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log("lm", f"{LM_ARCH} at {cfg.n_layers} of 32 layers (d {cfg.d_model}, "
+        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, {cfg.n_experts} "
+        f"experts of ff {cfg.moe_d_ff}, top-{cfg.top_k}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}): {n_bytes / 1e9:.2f} GB of weights "
+        f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    prompts = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                          (LM_BATCH, LM_PROMPT)),
+        dtype=torch.int32, device="cuda")
+    generate(cfg, model, prompts[:, :64], 2)           # warm-up, not counted
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    tokens, logits, secs = generate(cfg, model, prompts, LM_GEN)
+    counts = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"moe_gmm": cfg.n_layers * 3 * LM_GEN}
+    n_dec = LM_GEN - 1
+    log("lm", f"serve batch {LM_BATCH} x prompt {LM_PROMPT}, {LM_GEN} tokens "
+        f"(1 prefill + {n_dec} decode steps): launches {counts} (expected "
+        f"{want}: 3 per MoE layer per forward); prefill "
+        f"{secs['prefill'] * 1e3:.3f} ms ({LM_BATCH * LM_PROMPT / secs['prefill']:.1f} "
+        f"prompt tokens/s); decode {secs['decode'] * 1e3 / n_dec:.3f} ms per "
+        f"step, {LM_BATCH * n_dec / secs['decode']:.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; capacity per expert: prefill "
+        f"{capacity_of(LM_BATCH * LM_PROMPT, cfg.top_k, cfg.n_experts, cfg.capacity_factor)}"
+        f", decode {capacity_of(LM_BATCH, cfg.top_k, cfg.n_experts, cfg.capacity_factor)}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    if tuple(tokens.shape) != (LM_BATCH, LM_GEN) or not all(
+            torch.isfinite(lg).all() for lg in logits) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError("serve output is not finite tokens of the "
+                             "expected shape")
+    log("lm", f"generated tokens (first row): {tokens[0].tolist()}")
+
+    # the same forwards again, teacher-forced with the B7 run's tokens: on
+    # B7 with each MoE layer's expert FFN also run by the plain version on
+    # the same input (the kernel held on the path's own activations), then
+    # on the plain expert path; both runs record every router decision
+    b7_routes, layer_err = [], []
+    with lm_recording(b7_routes, layer_err):
+        _, checked_logits, _ = generate(cfg, model, prompts, LM_GEN,
+                                        forced=tokens)
+    same_again = all(torch.equal(a, b) for a, b in zip(logits,
+                                                       checked_logits))
+    log("lm", f"B7 on the path's own activations: {len(layer_err)} expert "
+        f"FFN calls (3 B7 products each) against the plain expert products "
+        f"on the same input, max abs err {max(layer_err):.3e} (rtol "
+        f"{GMM_TOL['bf16']['rtol']}, atol {GMM_TOL['bf16']['atol']}); the "
+        f"teacher-forced B7 run's logits equal the first run's bit for bit: "
+        f"{same_again}")
+    plain_routes = []
+    model.use_plain_experts(True)
+    _build.reset_launches()
+    with lm_recording(plain_routes, None):
+        _, plain_logits, plain_secs = generate(cfg, model, prompts, LM_GEN,
+                                               forced=tokens)
+    model.use_plain_experts(False)
+    if dict(_build.LAUNCHES):
+        raise AssertionError(f"the plain expert path launched "
+                             f"{dict(_build.LAUNCHES)}")
+    per_step = cfg.n_layers
+    worst, worst_same_route, alike = 0.0, 0.0, 0
+    for i, (a, b) in enumerate(zip(logits, plain_logits)):
+        peak_logit = float(b.float().abs().max())
+        rel = float((a.float() - b.float()).abs().max()) / peak_logit
+        routes = slice(i * per_step, (i + 1) * per_step)
+        flips = sum(int((x != y).any(dim=-1).sum()) for x, y in
+                    zip(b7_routes[routes], plain_routes[routes]))
+        worst = max(worst, rel)
+        if not flips:
+            alike += 1
+            worst_same_route = max(worst_same_route, rel)
+        ulp = 2.0 ** (np.floor(np.log2(peak_logit)) - 7)
+        log("lm", f"step {i}: max |logit diff| / max |logit| = {rel:.3e} "
+            f"(max |logit| {peak_logit:.4f}, bf16 spacing there {ulp:.4g} = "
+            f"{ulp / peak_logit:.2e} of it); tokens routed to another expert "
+            f"than on B7: {flips} of {per_step * b7_routes[routes.start].shape[0]}"
+            f" token-layers; argmax agrees on "
+            f"{int((a.argmax(-1) == b.argmax(-1)).sum())} of {LM_BATCH} rows")
+    log("lm", f"teacher-forced plain expert path: prefill "
+        f"{plain_secs['prefill'] * 1e3:.3f} ms, decode "
+        f"{plain_secs['decode'] * 1e3 / n_dec:.3f} ms per step; worst "
+        f"relative logit difference {worst:.3e} over all steps, "
+        f"{worst_same_route:.3e} over the {alike} of {LM_GEN} steps routed "
+        f"alike in both runs (limit {LM_LOGIT_TOL} on those)")
+    if not alike or worst_same_route > LM_LOGIT_TOL:
+        raise AssertionError(f"B7 and the plain expert path disagree on a "
+                             f"step routed alike: {worst_same_route:.3e} > "
+                             f"{LM_LOGIT_TOL}")
+
+    # where the time goes: the prefill and one decode step
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    from repro_torch.launch.serve import pad_cache
+    prefill_step, serve_step = make_prefill(cfg), make_serve_step(cfg)
+    state = {}
+
+    def run_prefill():
+        _, cache = prefill_step(model, {"tokens": prompts})
+        state["cache"] = pad_cache(cache, LM_PROMPT + LM_GEN)
+
+    profile_lm("prefill", run_prefill)
+    profile_lm("decode step", lambda: serve_step(model, dict(
+        tokens=tokens[:, :1], cache=state["cache"], cache_index=LM_PROMPT)))
+    del model, state
+    torch.cuda.empty_cache()
+    return counts["moe_gmm"]
+
+
+def gmm_bound(s: dict) -> tuple:
+    """Least time of one bf16 product of shape ``s``: x, the selected
+    experts' W and out moved once over HBM, against 2 M K N operations on
+    the bf16 tensor cores."""
+    m, k, n = s["m"], s["k"], s["n"]
+    n_sel = len(np.unique(s["ids"]))
+    t_bytes = 2 * (m * k + n_sel * k * n + m * n) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * m * k * n / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_lm_timing(cfg, launches: int, errors: dict) -> dict:
+    """B7 at its two serve shapes in bf16 (CUDA events, 20 launches) beside
+    its bound, its plain version and torch.bmm over (E, capacity, K)."""
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.ref import moe_gmm_ref
+    rows = {}
+    for i, (name, s) in enumerate(lm_shapes(cfg).items()):
+        ids, x, w = gmm_case(s["m"], s["k"], s["n"], s["t_tile"], s["ids"],
+                             seed=30 + i)
+        x, w = x.bfloat16(), w.bfloat16()
+        e = w.shape[0]
+        ms = time_ms(lambda: moe_gmm(ids, x, w, t_tile=s["t_tile"]))
+        plain_ms = time_ms(lambda: moe_gmm_ref(
+            x.view(-1, s["t_tile"], s["k"]), w, ids))
+        xb = x.view(e, s["capacity"], s["k"])
+        library_ms = time_ms(lambda: torch.bmm(xb, w))
+        bound_ms, bound_by = gmm_bound(s)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms,
+                          shape=f"{s['m']} x {s['k']} -> {s['n']}, t_tile "
+                                f"{s['t_tile']}, {e} experts, bf16")
+        log("timing", f"moe_gmm {name} ({rows[name]['shape']}): {ms:.4f} ms "
+            f"(bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of "
+            f"it; {2.0 * s['m'] * s['k'] * s['n'] / ms / 1e9:.1f} TFLOP/s); "
+            f"plain {plain_ms:.4f} ms; torch.bmm {library_ms:.4f} ms")
+        del x, w, xb
+        torch.cuda.empty_cache()
+    main_row = rows["prefill gate"]
+    return dict(name="moe_gmm", route="cuda", **KERNELS["moe_gmm"],
+                launches=launches, max_abs_err=errors["moe_gmm"],
+                ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+                bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+                library_ms=main_row["library_ms"], shape=main_row["shape"],
+                decode=rows["decode down"])
+
+
+def phase_lm(errors: dict) -> dict:
+    from repro_torch.configs.base import get_config
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    phase_lm_kernels(cfg, errors)
+    launches = phase_lm_serve(cfg)
+    return phase_lm_timing(cfg, launches, errors)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -780,6 +1178,9 @@ def main() -> int:
     launches, w_opt = phase_main(problem)
     launches.update(phase_formats(problem, w_opt))
     entries = phase_timing(problem, launches, errors)
+    del problem, w_opt
+    torch.cuda.empty_cache()
+    entries.append(phase_lm(errors))
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -2,11 +2,10 @@
 
 The reference's problems, weights and solver states cross into the port as
 numpy arrays (``np.asarray`` of the reference's arrays), never by importing
-the reference: the port runs where JAX is not installed.  The reference's
-dictionary comes from a JAX key that the port cannot reproduce
-(:func:`repro_torch.core.std.make_dictionary`), so a test that holds the two
-packages against each other builds its problem once, with the reference,
-and hands the same arrays to both.
+the reference: the port runs where JAX is not installed.  A test that
+holds the two packages against each other builds its problem once, with
+the reference, and hands the same arrays to both; the LM side's
+parameters cross the same way (:func:`lm_params_from_reference`).
 """
 from __future__ import annotations
 
@@ -59,3 +58,51 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()
+
+
+def _tensor_of(a) -> torch.Tensor:
+    """A reference array (numpy; bf16 as ``ml_dtypes.bfloat16``) as a CPU
+    tensor of the same dtype, bf16 through its 16-bit pattern."""
+    a = np.array(a)                          # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_reference(params, cfg, *, device: DeviceLike = None):
+    """The port's model (:class:`repro_torch.models.transformer.MoETransformer`)
+    holding the reference's LM parameters.
+
+    ``params`` is the reference's parameter pytree with numpy leaves
+    (``jax.tree.map(np.asarray, params)``): dictionaries keyed as the
+    port's modules are, the MoE layers stacked along a leading axis under
+    ``"layers"``, the dense prefix a list under ``"prefix"``.
+
+    Raises:
+        ValueError: a parameter is missing or has another shape or dtype.
+    """
+    from repro_torch.models.transformer import MoETransformer
+    model = MoETransformer(cfg, resolve_device(device))
+    for name, param in model.named_parameters():
+        parts = name.split(".")
+        try:
+            if parts[0] in ("layers", "prefix"):
+                node, index = params[parts[0]], int(parts[1])
+                if parts[0] == "prefix":
+                    node = node[index]
+                for key in parts[2:]:
+                    node = node[key]
+                if parts[0] == "layers":
+                    node = np.asarray(node)[index]
+            else:
+                node = params
+                for key in parts:
+                    node = node[key]
+        except (KeyError, IndexError) as e:
+            raise ValueError(f"the reference has no parameter {name}") from e
+        t = _tensor_of(node)
+        if t.shape != param.shape or t.dtype != param.dtype:
+            raise ValueError(f"{name}: reference {tuple(t.shape)} {t.dtype}, "
+                             f"port {tuple(param.shape)} {param.dtype}")
+        param.data.copy_(t)
+    return model

@@ -1,0 +1,191 @@
+"""Architecture config schema, registry and ``reduced()`` (torch counterpart
+of ``repro/configs/base.py``).
+
+Every architecture the port runs ships as ``repro_torch/configs/<id>.py``
+exporting CONFIG (the exact published geometry, the reference's field for
+field) and registering itself.  ``reduced()`` derives the reference's
+CPU-smoke-testable variant of the same family.  The reference's dry-run
+input specs are not ported: nothing here allocates placeholders.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Dict, Tuple
+
+import torch
+
+ARCH_IDS = (
+    "deepseek-7b", "stablelm-12b", "qwen1.5-4b", "granite-34b",
+    "zamba2-1.2b", "musicgen-large", "qwen2-vl-7b",
+    "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b", "mamba2-2.7b",
+    "life-stn96",
+)
+#: the architectures whose configuration the port ships (the MoE family's
+#: serving path; the rest wait for ROADMAP A15)
+PORTED = ("phi3.5-moe-42b-a6.6b",)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    rope: str = "rope"               # rope | mrope | sinusoidal | learned
+    rope_theta: float = 1e4
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
+    norm: str = "rms"
+    mlp: str = "swiglu"
+    tie_embeddings: bool = False
+    max_seq_len: int = 8192          # learned-position table size
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    first_k_dense: int = 0
+    capacity_factor: float = 1.25
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_groups: int = 1
+    attn_every: int = 0              # hybrid: shared attn+mlp block period
+    # modality frontends (stubs: input_specs provide embeddings)
+    n_codebooks: int = 0             # audio (EnCodec streams)
+    vision_tokens: int = 0           # vlm: image patch embeddings per sample
+    # numerics / runtime
+    dtype: str = "bfloat16"
+    remat: bool = True
+
+    # -- derived -------------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(1, self.n_heads))
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count (drives MODEL_FLOPS in the roofline)."""
+        d, L = self.d_model, self.n_layers
+        hd = self.resolved_head_dim
+        n = 0
+        if self.family in ("dense", "moe", "audio", "vlm"):
+            attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+                + self.n_heads * hd * d
+            n += L * attn
+        if self.family in ("dense", "audio", "vlm"):
+            ff = d * self.d_ff * (3 if self.mlp == "swiglu" else 2)
+            n += L * ff
+        if self.family == "moe":
+            ff_moe = 3 * d * self.moe_d_ff
+            dense_layers = self.first_k_dense
+            moe_layers = L - dense_layers
+            n += moe_layers * (self.n_experts * ff_moe + d * self.n_experts)
+            n += moe_layers * self.n_shared_experts * ff_moe
+            n += dense_layers * 3 * d * self.d_ff
+        if self.family in ("ssm", "hybrid"):
+            gn = self.ssm_groups * self.ssm_state
+            per = d * (2 * self.d_inner + 2 * gn + self.ssm_heads) \
+                + self.d_inner * d
+            n += L * per
+        if self.family == "hybrid" and self.attn_every:
+            n += d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+                + self.n_heads * hd * d + 3 * d * self.d_ff
+        if self.n_codebooks:
+            n += self.n_codebooks * self.vocab_size * d       # heads
+            n += self.vocab_size * d                          # embed (stub side)
+        elif self.vocab_size:
+            n += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return int(n)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k + shared experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        hd = self.resolved_head_dim
+        attn = L * (d * hd * (self.n_heads + 2 * self.n_kv_heads)
+                    + self.n_heads * hd * d)
+        ff_moe = 3 * d * self.moe_d_ff
+        moe_layers = L - self.first_k_dense
+        act = attn + moe_layers * ((self.top_k + self.n_shared_experts) * ff_moe
+                                   + d * self.n_experts)
+        act += self.first_k_dense * 3 * d * self.d_ff
+        act += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return int(act)
+
+
+_REGISTRY: Dict[str, ArchConfig] = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ArchConfig:
+    """The registered configuration ``name``.
+
+    Raises:
+        ValueError: ``name`` is no architecture of the repository, or one
+            whose family the port does not run yet (ROADMAP A15).
+    """
+    if name not in ARCH_IDS:
+        raise ValueError(f"unknown architecture {name!r}; known: {ARCH_IDS}")
+    if name not in PORTED:
+        raise ValueError(f"{name!r} is not ported yet (ROADMAP A15); the "
+                         f"port runs {PORTED}")
+    if name not in _REGISTRY:
+        importlib.import_module(
+            "repro_torch.configs." + name.replace("-", "_").replace(".", "_"))
+    return _REGISTRY[name]
+
+
+def reduced(cfg: ArchConfig, *, n_layers: int = 2, d_model: int = 64,
+            vocab: int = 128) -> ArchConfig:
+    """Small same-family variant for CPU smoke tests."""
+    kw: Dict[str, Any] = dict(
+        name=cfg.name + "-reduced", n_layers=n_layers, d_model=d_model,
+        vocab_size=min(cfg.vocab_size, vocab) if cfg.vocab_size else 0,
+        max_seq_len=256, dtype="float32", remat=False,
+    )
+    if cfg.n_heads:
+        kw.update(n_heads=4, n_kv_heads=max(1, 4 * cfg.n_kv_heads // max(cfg.n_heads, 1)),
+                  head_dim=16)
+    if cfg.d_ff:
+        kw.update(d_ff=4 * d_model)
+    if cfg.n_experts:
+        # capacity_factor = n_experts => drop-free routing, so the
+        # prefill/decode == forward consistency tests are exact
+        kw.update(n_experts=4, top_k=min(2, cfg.top_k), moe_d_ff=2 * d_model,
+                  n_shared_experts=min(1, cfg.n_shared_experts),
+                  first_k_dense=min(1, cfg.first_k_dense),
+                  capacity_factor=4.0)
+    if cfg.ssm_state:
+        kw.update(ssm_state=16, ssm_head_dim=16)
+    if cfg.attn_every:
+        kw.update(attn_every=2)
+    if cfg.n_codebooks:
+        kw.update(n_codebooks=cfg.n_codebooks)
+    if cfg.vision_tokens:
+        kw.update(vision_tokens=16)
+    return dataclasses.replace(cfg, **kw)

@@ -22,6 +22,7 @@ from typing import Union
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.device import DeviceLike, resolve_device
 
 Index = Union[torch.Tensor, np.ndarray]
@@ -113,15 +114,15 @@ def make_dictionary(n_atoms: int, n_theta: int, *, seed: int = 7,
 
     Atoms model stick-like diffusion responses along quasi-uniform 3-D
     orientations, evaluated against Ntheta gradient directions and demeaned
-    per atom.  The gradient directions come from
-    ``numpy.random.default_rng(seed)``, where the reference draws them from
-    ``jax.random.PRNGKey(7)``: the two dictionaries differ.  Tests that hold
-    the port against the reference therefore carry the reference's
-    dictionary across (:mod:`repro_torch.bridge`) instead of regenerating it.
+    per atom.  The gradient directions are
+    ``normal(split(prng_key(seed))[0], (Ntheta, 3))`` from
+    :mod:`repro_torch.core.prng`, the numbers the reference draws from
+    ``jax.random.PRNGKey(seed)``: the two dictionaries agree to float32
+    rounding (the only difference is ``erfinv``'s).
     """
     dev = resolve_device(device)
     atom_dirs = _fibonacci_sphere(n_atoms)
-    grad_dirs = np.random.default_rng(seed).normal(size=(n_theta, 3))
+    grad_dirs = prng.normal(prng.split(prng.prng_key(seed))[0], (n_theta, 3))
     grad_dirs /= np.linalg.norm(grad_dirs, axis=1, keepdims=True)
     # Stick model: S(theta) = exp(-b * d * (g . n)^2)
     cos2 = (grad_dirs @ atom_dirs.T) ** 2  # (Ntheta, Na)

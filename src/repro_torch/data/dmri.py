@@ -10,9 +10,9 @@ nonnegative ``w_true``.
 
 The generator draws from the same ``numpy.random.default_rng(seed)`` stream
 in the same order as the reference, so for one seed the Phi arrays and
-``w_true`` equal the reference's array for array.  The dictionary does not
-(see :func:`repro_torch.core.std.make_dictionary`); pass the reference's as
-``dictionary=`` to reproduce its ``b`` as well.
+``w_true`` equal the reference's array for array.  The dictionary is the
+reference's to float32 rounding (:func:`repro_torch.core.std.make_dictionary`
+reproduces its JAX-drawn gradient directions), and so is ``b``.
 """
 from __future__ import annotations
 
@@ -83,8 +83,8 @@ def synth_connectome(
 ) -> LifeProblem:
     """Synthetic LiFE problem on ``device`` (the CUDA card by default).
 
-    ``dictionary`` replaces the port's own :func:`make_dictionary` (the
-    cross-package tests pass the reference's)."""
+    ``dictionary`` replaces the default :func:`make_dictionary`, which is
+    already the reference's."""
     if algorithm not in TRACTOGRAPHY:
         raise ValueError(f"unknown tractography {algorithm!r}")
     dev = resolve_device(device)

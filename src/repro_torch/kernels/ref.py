@@ -1,5 +1,5 @@
-"""Per-tile oracles for the COO kernels (torch counterpart of
-``repro/kernels/ref.py``).
+"""Per-tile oracles for the COO kernels and the grouped matmul of the MoE
+expert FFN (torch counterpart of ``repro/kernels/ref.py``).
 
 They take the reference kernels' operands — a ``row_block`` per tile, padded
 ``(n_tiles, c_tile)`` tiles, pre-scaled ``scaled_p`` for DSC and the
@@ -34,3 +34,26 @@ def wc_ref(row_block, atoms_p, yg_p, vals_p, local_row_p, dictionary, *,
                       device=dictionary.device)
     out.index_add_(0, rows.reshape(-1), dots.reshape(-1))
     return out.reshape(n_fib_blocks, fib_tile)
+
+
+def moe_gmm_ref(x_p, w_experts, expert_of_tile) -> torch.Tensor:
+    """Grouped matmul oracle: x_p (T, TT, d), w (E, d, f) -> (T, TT, f).
+
+    One product ``x_tile @ W[e]`` per run of consecutive tiles with the same
+    expert (never a gather of ``W[expert_of_tile]``, which at prefill widths
+    would copy gigabytes of weights), summed in float32 and rounded once to
+    ``x_p``'s dtype, as the Pallas body does.  Expert ids outside [0, E)
+    are clamped into it, as the reference's gather clamps them."""
+    n_tiles, t_tile, d = x_p.shape
+    n_exp, _, f = w_experts.shape
+    out = torch.empty((n_tiles, t_tile, f), dtype=x_p.dtype, device=x_p.device)
+    ids = [min(max(int(e), 0), n_exp - 1) for e in expert_of_tile.tolist()]
+    start = 0
+    for t in range(1, n_tiles + 1):
+        if t < n_tiles and ids[t] == ids[start]:
+            continue
+        xs = x_p[start:t].reshape(-1, d).float()
+        out[start:t] = (xs @ w_experts[ids[start]].float()).reshape(
+            t - start, t_tile, f).to(x_p.dtype)
+        start = t
+    return out

@@ -1,0 +1,112 @@
+"""Serving driver: batched prefill + greedy decode with a static KV budget
+(torch counterpart of ``repro/launch/serve.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch phi3.5-moe-42b-a6.6b --reduced --batch 4 --prompt-len 16 \
+      --gen 16 --device cpu
+
+Without ``--device`` it runs on the CUDA card and raises without one.
+The reference's ``--model-axis`` waits for the mesh port (ROADMAP A13).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_config, reduced as reduce_cfg
+from repro_torch.device import resolve_device
+from repro_torch.launch.steps import make_prefill, make_serve_step
+from repro_torch.models import transformer as T
+
+
+def pad_cache(cache: Dict[str, torch.Tensor], s_max: int) -> Dict:
+    """The prefill's ``k``/``v`` of shape (L, B, S, KV, hd), zero-padded
+    along S to ``s_max`` positions."""
+    for kn in ("k", "v"):
+        if kn in cache:
+            kv = cache[kn]
+            cache[kn] = torch.nn.functional.pad(
+                kv, (0, 0, 0, 0, 0, s_max - kv.shape[2]))
+    return cache
+
+
+def generate(cfg, params, prompts: torch.Tensor, n_gen: int, *,
+             forced: Optional[torch.Tensor] = None,
+             ) -> Tuple[torch.Tensor, List[torch.Tensor], Dict[str, float]]:
+    """Greedy generation of ``n_gen`` tokens after ``prompts`` (B, P):
+    one prefill, then ``n_gen - 1`` decode steps.
+
+    ``forced`` (B, n_gen): feed these tokens to the next step instead of
+    the chosen ones (teacher forcing, to hold two runs step by step).
+    Returns (the argmax tokens (B, n_gen) int32, each step's last-position
+    logits (B, V), and the seconds of the prefill and of all decode steps,
+    each ending in a device synchronisation)."""
+    prefill_step, serve_step = make_prefill(cfg), make_serve_step(cfg)
+    batch, prompt_len = prompts.shape
+    sync = (torch.cuda.synchronize if prompts.device.type == "cuda"
+            else lambda: None)
+
+    def pick(logits, i):
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        feed = tok if forced is None else forced[:, i:i + 1]
+        return tok, feed
+
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, {"tokens": prompts})
+    cache = pad_cache(cache, prompt_len + n_gen)
+    tok, feed = pick(logits, 0)
+    sync()
+    seconds = {"prefill": time.perf_counter() - t0}
+    tokens, step_logits = [tok], [logits[:, -1]]
+    t0 = time.perf_counter()
+    for i in range(1, n_gen):
+        logits, cache = serve_step(params, dict(
+            tokens=feed, cache=cache, cache_index=prompt_len + i - 1))
+        cache.pop("index")
+        tok, feed = pick(logits, i)
+        tokens.append(tok)
+        step_logits.append(logits[:, -1])
+    sync()
+    seconds["decode"] = time.perf_counter() - t0
+    return torch.cat(tokens, dim=1), step_logits, seconds
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="phi3.5-moe-42b-a6.6b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="cpu, cuda, ... (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_cfg(cfg)
+    dev = resolve_device(args.device)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
+        dtype=torch.int32, device=dev)
+    gen, _, seconds = generate(cfg, params, prompts, args.gen)
+
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    tput = args.batch * (args.gen - 1) / max(seconds["decode"], 1e-9)
+    print(f"device: {name}")
+    print(f"prefill {args.batch}x{args.prompt_len}: "
+          f"{seconds['prefill'] * 1e3:.1f}ms")
+    print(f"decode: {seconds['decode'] * 1e3:.1f}ms total, {tput:.1f} tok/s")
+    print("generated tokens (first row):", gen[0].tolist())
+
+
+if __name__ == "__main__":
+    main()

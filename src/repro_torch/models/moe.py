@@ -1,0 +1,172 @@
+"""Mixture-of-Experts layer with sort-based (restructured) dispatch (torch
+counterpart of ``repro/models/moe.py``).
+
+The router gives each token ``top_k`` experts; the (token, k) slots are
+sorted by expert id, so each expert's tokens form a contiguous segment of
+``capacity`` rows (tokens over capacity are dropped, empty slots are zero
+rows), and the expert FFN runs as three grouped products over those
+segments on kernel B7 (:func:`repro_torch.kernels.moe_gmm.moe_gmm`), whose
+token tiles never cross an expert boundary.  Results are gathered back per
+k and summed with the renormalised gate values.
+
+One dispatch group (G = 1): the reference's grouped dispatch over a mesh's
+batch axes waits for the mesh port (ROADMAP A13), and off-mesh the
+reference takes G = 1 too, so the math here is the reference's.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.kernels.ref import moe_gmm_ref
+from repro_torch.models import layers as L
+
+#: token-tile rows B7 is given: the largest of these that divides the
+#: capacity (a multiple of 8, so 8 always does)
+T_TILES = (128, 64, 32, 16, 8)
+
+
+class MoE(nn.Module):
+    """``router (d, E)`` in float32, the expert weights ``wi_gate`` and
+    ``wi_up (E, d, f)`` and ``wo (E, f, d)``, and with shared experts a
+    ``shared`` SwiGLU MLP of width ``f * n_shared``.
+
+    ``plain`` routes the expert products through B7's plain version instead
+    of the kernel (for holding the two against each other on the card)."""
+
+    def __init__(self, d_model: int, d_ff: int, n_experts: int, n_shared: int,
+                 dtype, device, g: torch.Generator = None):
+        super().__init__()
+        self.plain = False
+        shapes = {"wi_gate": (n_experts, d_model, d_ff),
+                  "wi_up": (n_experts, d_model, d_ff),
+                  "wo": (n_experts, d_ff, d_model)}
+        if g is None:
+            router = torch.empty((d_model, n_experts), dtype=torch.float32,
+                                 device=device)
+        else:
+            router = L.dense_init(g, d_model, n_experts, torch.float32, device)
+        self.router = L._param(router)
+        for name, (e, d_in, d_out) in shapes.items():
+            w = (L.normal_init(g, (e, d_in, d_out), (2.0 / (d_in + d_out)) ** 0.5,
+                               dtype, device) if g is not None
+                 else torch.empty((e, d_in, d_out), dtype=dtype, device=device))
+            setattr(self, name, L._param(w))
+        if n_shared:
+            self.shared = L.MLP(d_model, d_ff * n_shared, "swiglu", dtype,
+                                device, g)
+
+
+def capacity_of(n_tokens: int, top_k: int, n_experts: int,
+                capacity_factor: float) -> int:
+    """Slots per expert: ``int(capacity_factor * T * k / E)`` rounded up to
+    a multiple of 8, at least 8 (the reference's formula, in Python
+    floats)."""
+    capacity = int(capacity_factor * n_tokens * top_k / n_experts)
+    return max(8, -(-capacity // 8) * 8)
+
+
+def t_tile_of(capacity: int) -> int:
+    return next(t for t in T_TILES if capacity % t == 0)
+
+
+def moe_ffn(p: MoE, x: torch.Tensor, *, top_k: int,
+            capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out, aux_loss)."""
+    B, S, d = x.shape
+    n_tokens = B * S
+    n_experts = p.router.shape[1]
+    capacity = capacity_of(n_tokens, top_k, n_experts, capacity_factor)
+    xt = x.reshape(n_tokens, d)
+    out, aux = _dispatch(p, xt, top_k, capacity, n_experts)
+    if hasattr(p, "shared"):
+        out = out + L.mlp(p.shared, xt)
+    return out.reshape(B, S, d), aux
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest, ties to the lowest index first (a
+    stable descending sort keeps tied entries in index order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def expert_ffn(p: MoE, xe: torch.Tensor, capacity: int) -> torch.Tensor:
+    """SwiGLU of every expert over its ``capacity`` rows of ``xe``
+    ``(E * capacity, d)``: three grouped products on B7 (or its plain
+    version when ``p.plain``)."""
+    n_experts = p.wi_gate.shape[0]
+    t_tile = t_tile_of(capacity)
+    expert_of_tile = torch.arange(
+        n_experts, dtype=torch.int32, device=xe.device).repeat_interleave(
+            capacity // t_tile)
+
+    def gmm(a, w):
+        if p.plain:
+            n_tiles = a.shape[0] // t_tile
+            return moe_gmm_ref(a.view(n_tiles, t_tile, a.shape[1]), w,
+                               expert_of_tile).view(a.shape[0], w.shape[2])
+        return moe_gmm(expert_of_tile, a, w, t_tile=t_tile)
+
+    h = gmm(xe, p.wi_gate)
+    u = gmm(xe, p.wi_up)
+    return gmm(F.silu(h) * u, p.wo)
+
+
+def _dispatch(p: MoE, xt: torch.Tensor, top_k: int, capacity: int,
+              n_experts: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_dispatch_group`` for one group.  xt: (T, d)."""
+    T, d = xt.shape
+    dev = xt.device
+    logits = xt.float() @ p.router
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = _top_k(probs, top_k)              # (T, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    # load-balancing aux loss (Switch-style); counted by comparison, not
+    # bincount, which waits for the device to size its output
+    experts = torch.arange(n_experts, device=dev)
+    me = probs.mean(dim=0)                                    # (E,)
+    counts = (expert_ids[..., None] == experts).sum(dim=(0, 1)).float() \
+        / (T * top_k)
+    aux = n_experts * torch.sum(me * counts)
+
+    # restructuring: sort the (token, k) slots by expert id
+    tk = T * top_k
+    flat_expert = expert_ids.reshape(tk)
+    flat_gate = gate_vals.reshape(tk).to(xt.dtype)
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_expert = flat_expert[order]
+    inv_order = torch.argsort(order, stable=True)             # slot -> rank
+    first = torch.searchsorted(sorted_expert, experts, right=False)
+    cap_pos = inv_order - first[flat_expert]
+    keep = cap_pos < capacity
+    slot_id = torch.clamp(flat_expert * capacity + cap_pos, 0,
+                          n_experts * capacity - 1)
+
+    # dispatch: which token fills expert slot (e, c)?  a pure gather
+    idx_sorted = first[:, None] + torch.arange(capacity, device=dev)[None, :]
+    idx_c = torch.clamp(idx_sorted, 0, tk - 1).reshape(-1)    # (E*cap,)
+    e_at = sorted_expert[idx_c]
+    valid = ((idx_sorted.reshape(-1) < tk)
+             & (e_at == experts.repeat_interleave(capacity)))
+    tok_at = order[idx_c] // top_k
+    xe = torch.where(valid[:, None], xt[tok_at], 0)
+
+    ye = expert_ffn(p, xe.contiguous(), capacity)             # (E*cap, d)
+
+    # combine: per-k gather + accumulate
+    slot_tk = slot_id.reshape(T, top_k)
+    keep_tk = keep.reshape(T, top_k)
+    gate_tk = flat_gate.reshape(T, top_k)
+    out = torch.zeros((T, d), dtype=xt.dtype, device=dev)
+    for j in range(top_k):
+        rows = ye[slot_tk[:, j]]
+        out = out + torch.where(keep_tk[:, j, None],
+                                rows * gate_tk[:, j, None], 0)
+    return out, aux

@@ -40,7 +40,16 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/wc.py",
                  "src/repro_torch/kernels/fcoo.py",
                  "src/repro_torch/formats/select.py",
-                 "src/repro_torch/tune/search.py", "chip_smoke.py"):
+                 "src/repro_torch/tune/search.py",
+                 "src/repro_torch/core/prng.py",
+                 "src/repro_torch/configs/base.py",
+                 "src/repro_torch/configs/phi3_5_moe_42b_a6_6b.py",
+                 "src/repro_torch/kernels/moe_gmm.py",
+                 "src/repro_torch/models/layers.py",
+                 "src/repro_torch/models/moe.py",
+                 "src/repro_torch/models/transformer.py",
+                 "src/repro_torch/launch/steps.py",
+                 "src/repro_torch/launch/serve.py", "chip_smoke.py"):
         assert want in names
 
 

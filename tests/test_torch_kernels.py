@@ -236,8 +236,8 @@ def test_build_names_sources_and_refuses_without_toolkit(monkeypatch,
     """Kernel sources are found in csrc/, libraries are named by a digest of
     their sources, and with no CUDA toolkit the build raises."""
     import torch.utils.cpp_extension as cpp
-    assert _build.kernel_names() == ("dsc", "dsc_fcoo", "dsc_sell", "wc",
-                                     "wc_fcoo", "wc_sell")
+    assert _build.kernel_names() == ("dsc", "dsc_fcoo", "dsc_sell", "moe_gmm",
+                                     "wc", "wc_fcoo", "wc_sell")
     p_dsc, p_wc = _build.library_path("dsc"), _build.library_path("wc")
     assert p_dsc != p_wc and p_dsc == _build.library_path("dsc")
     assert p_dsc.parent == _build.BUILD_DIR
