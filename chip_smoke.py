@@ -926,16 +926,19 @@ def profile_lm(label: str, fn) -> None:
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
     b7 = sum(k[0] for k in kernels if "moe_gmm_kernel" in k[2])
+    # B7 launches through ctypes, not a PyTorch op, so the profiler files
+    # it under no range: the MoE range holds the layer's other kernels
     att, moe = ranges.get("lm.attention", 0.0), ranges.get("lm.moe", 0.0)
+    rest = busy - b7 - att - moe
     log("lm", f"{label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall "
-        f"({busy / wall_ms:.1%}; torch.profiler, one call); B7 {b7:.3f} ms "
-        f"({b7 / busy:.1%} of device time); kernels under record_function "
-        f"ranges: attention sub-layers {att:.3f} ms ({att / busy:.1%}), MoE "
-        f"layers {moe:.3f} ms ({moe / busy:.1%}, B7 included), the rest "
-        f"{busy - att - moe:.3f} ms (0.000 for a range: not measured); the "
-        f"ranges' spans on the card, gaps included: attention "
-        f"{spans.get('lm.attention', 0.0):.3f} ms, MoE "
-        f"{spans.get('lm.moe', 0.0):.3f} ms")
+        f"({busy / wall_ms:.1%}; torch.profiler, one call): B7 {b7:.3f} ms "
+        f"({b7 / busy:.1%}); by record_function range, attention sub-layers "
+        f"{att:.3f} ms ({att / busy:.1%}), the MoE layers' other kernels "
+        f"(router, sort, dispatch, SiLU, combine) {moe:.3f} ms "
+        f"({moe / busy:.1%}), the rest {rest:.3f} ms ({rest / busy:.1%}) "
+        f"(0.000 for a range: not measured); the ranges' spans on the card, "
+        f"gaps included: attention {spans.get('lm.attention', 0.0):.3f} ms, "
+        f"MoE {spans.get('lm.moe', 0.0):.3f} ms")
     for ms, calls, name in kernels[:8]:
         log("lm", f"  {ms:.4f} ms  {ms / busy:6.1%}  {calls:4d} calls  {name}")
 
