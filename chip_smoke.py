@@ -943,7 +943,7 @@ def profile_lm(label: str, fn) -> None:
         log("lm", f"  {ms:.4f} ms  {ms / busy:6.1%}  {calls:4d} calls  {name}")
 
 
-class lm_recording:
+class LmRecording:
     """Within the block, every MoE layer appends its router's expert ids
     (T, k) to ``routes``; with ``errors`` a list, every expert FFN call
     also runs the plain expert products on the same input and appends the
@@ -1036,7 +1036,7 @@ def phase_lm_serve(cfg) -> int:
     # the same input (the kernel held on the path's own activations), then
     # on the plain expert path; both runs record every router decision
     b7_routes, layer_err = [], []
-    with lm_recording(b7_routes, layer_err):
+    with LmRecording(b7_routes, layer_err):
         _, checked_logits, _ = generate(cfg, model, prompts, LM_GEN,
                                         forced=tokens)
     same_again = all(torch.equal(a, b) for a, b in zip(logits,
@@ -1050,7 +1050,7 @@ def phase_lm_serve(cfg) -> int:
     plain_routes = []
     model.use_plain_experts(True)
     _build.reset_launches()
-    with lm_recording(plain_routes, None):
+    with LmRecording(plain_routes, None):
         _, plain_logits, plain_secs = generate(cfg, model, prompts, LM_GEN,
                                                forced=tokens)
     model.use_plain_experts(False)
