@@ -15,9 +15,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                shapes (an empty row or row block, a row longer than one
                slot tile, a run that spans several tiles and F-COO chunks,
                a dictionary larger than shared memory), in fp32 and bf16
-               storage; an empty F-COO Phi, which launches nothing; plus
-               the kernel, kernel-sell and kernel-fcoo executors against
-               the dense oracle on a small problem.
+               storage, and B5 (which writes y = M w) also against the TPU
+               kernel's partials folded by the seg_rows combine; an empty
+               F-COO Phi, which launches nothing; plus the kernel,
+               kernel-sell and kernel-fcoo executors against the dense
+               oracle on a small problem.
   4. main    — the single-subject solve at full width (STN96: Ntheta = 96,
                a 64^3 voxel grid, 50,000 fibers) through LifeEngine with
                the ``kernel`` executor and a compaction rebuild; the
@@ -30,10 +32,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                chosen executor runs a few iterations.
   6. timing  — each kernel at the main path's shapes (CUDA events) beside
                its bound, its plain version and one PyTorch library call;
-               for B5 and B6 also the kernel with its ``seg_rows`` combine.
+               for B6 also the kernel with its ``seg_rows`` combine.
   7. lm      — kernel B7 (the MoE expert FFN's grouped matmul) against its
                plain version in bf16 and fp32 at the prefill gate shape,
-               the decode down shape and ragged shapes; then MoE serving
+               the decode down shape, ragged shapes and expert layouts that
+               change at every tile, unsorted and out of range; then MoE serving
                at full width: Phi-3.5-MoE cut to 8 layers (bf16, seeded
                random weights on the card), batch 4, a 512-token prompt,
                16 generated tokens through repro_torch.launch, once on B7
@@ -41,7 +44,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                the plain expert path; B7's launches, the logits' agreement
                at every step, prefill and decode times, peak memory and a
                torch.profiler breakdown of the prefill and of one decode
-               step; B7 timed at both shapes beside torch.bmm.
+               step; B7 timed at both shapes beside torch.bmm, and with
+               its blocks ordered row blocks outer (a row block's column
+               slabs together), which re-reads each expert's W.
 
 Then it prints one JSON line describing the kernels, the card's name and
 power limit as nvidia-smi gives them, and, last, the result line.
@@ -143,10 +148,50 @@ def phase_build() -> None:
         f"(per source: {', '.join(f'{k} {v:.2f} s' for k, v in seconds.items())})")
     for name in seconds:
         path = _build.log_path(name)
-        if path.exists():
-            for line in path.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log("build", f"{name}: {line.strip()}")
+        if not path.exists():
+            continue
+        entry = spills = ""
+        for line in path.read_text().splitlines():
+            if "Compiling entry function" in line:
+                entry = kernel_name(line.split("'")[1])
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                log("build", f"{name}: {entry}: "
+                    f"{line.split(':', 1)[1].strip()}; {spills}")
+
+
+def kernel_name(mangled: str) -> str:
+    """``dsc_fcoo_kernel<__nv_bfloat16, true>`` from an Itanium-mangled
+    kernel name (template arguments: types, bools and ints)."""
+    import re
+    # the innermost length-prefixed identifier ending in _kernel (its
+    # length may follow other digits, as in a namespace's hash)
+    found = [(m.end(), mangled[m.end():m.end() + int(m.group()[j:])])
+             for m in re.finditer(r"\d+", mangled)
+             for j in range(len(m.group()))
+             if mangled[m.end():m.end() + int(m.group()[j:])]
+             .endswith("_kernel")]
+    if not found:
+        return mangled
+    start, name = max(found)
+    rest = mangled[start + len(name):]
+    args, rest = [], rest[1:] if rest.startswith("I") else ""
+    while rest and rest[0] != "E":
+        lit = re.match(r"L([bi])(\d+)E", rest)
+        ident = re.match(r"(\d+)", rest)
+        if lit:
+            args.append(("false", "true")[int(lit.group(2))]
+                        if lit.group(1) == "b" else lit.group(2))
+            rest = rest[lit.end():]
+        elif ident:
+            n = int(ident.group(1))
+            args.append(rest[ident.end():ident.end() + n])
+            rest = rest[ident.end() + n:]
+        else:
+            args.append({"f": "float", "i": "int"}.get(rest[0], rest[0]))
+            rest = rest[1:]
+    return name + (f"<{', '.join(args)}>" if args else "")
 
 
 # ----------------------------------------------------------------------------
@@ -297,9 +342,9 @@ def run_format(name: str, o, d, x, plain: bool = False):
         fn = wc.wc_sell_plain if plain else wc.wc_sell
         return fn(o.atoms, o.others, o.values, o.row_nnz, d, x)
     if name == "dsc_fcoo":
-        fn = fcoo.dsc_fcoo_plain if plain else fcoo.dsc_fcoo
-        return fn(o.atoms, o.fibers, o.values, o.dsc_ranks, d, x,
-                  seg_k=o.k_dsc)
+        fn = fcoo.dsc_fcoo_fused_plain if plain else fcoo.dsc_fcoo
+        return fn(o.atoms, o.fibers, o.values, o.voxels, d, x,
+                  n_voxels=o.n_voxels)
     fn = fcoo.wc_fcoo_plain if plain else fcoo.wc_fcoo
     return fn(o.wc_perm, o.atoms.reshape(-1), o.voxels.reshape(-1),
               o.values.reshape(-1), o.wc_ranks, d, x, seg_k=o.k_wc)
@@ -319,6 +364,7 @@ def check_format_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
                          errors: dict, seed: int) -> dict:
     """B3-B6 against their plain versions on ``phi``, fp32 and bf16
     storage.  Returns the shape facts this case exercised."""
+    from repro_torch.kernels import ops
     from repro_torch.kernels.ops import storage_cast
     g = torch.Generator(device="cuda").manual_seed(seed)
     w = torch.rand(phi.n_fibers, generator=g, device="cuda")
@@ -339,6 +385,13 @@ def check_format_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
             if not torch.equal(got, run_format(name, ops_, d, x)):
                 raise AssertionError(f"{name} {case} {dtype}: a second "
                                      "launch differs")
+            if name == "dsc_fcoo":
+                # the fused B5 against the TPU kernel's partials (plain)
+                # folded by the seg_rows combine
+                compare(name, f"{case} vs partials + combine", got,
+                        ops.fcoo_combine(ops.fcoo_dsc_partials(ops_, d, x),
+                                         ops_.seg_rows_dsc, ops_.n_voxels),
+                        dtype, {})
     facts = dict(
         empty_rows=int(np.sum(sd.row_nnz == 0) + np.sum(sw.row_nnz == 0)),
         longest_row=int(max(sd.row_nnz.max(initial=0),
@@ -546,7 +599,8 @@ def profile_step(phase: str, engine, state, step_ms: float,
             name = evt.key
             for short in ("dsc_coo_kernel", "wc_coo_kernel",
                           "dsc_sell_kernel", "wc_sell_kernel",
-                          "dsc_fcoo_kernel", "wc_fcoo_kernel"):
+                          "dsc_fcoo_kernel", "dsc_fcoo_fold_kernel",
+                          "wc_fcoo_kernel"):
                 if short in name:
                     name = short
             rows.append((us / k / 1e3, evt.count / k, name[:60]))
@@ -595,13 +649,16 @@ def phase_formats(problem, w_opt) -> dict:
             layouts[fmt] = fc.nbytes
             shape = (f"F-COO {fc.n_chunks} chunks of {fc.c_tile}, k_dsc "
                      f"{fc.k_dsc}, k_wc {fc.k_wc}, {fc.nbytes / 2**20:.1f} MiB"
-                     f" resident; DSC partials {fc.n_chunks * fc.k_dsc * n_theta * 4 / 2**20:.1f}"
-                     f" MiB and WC partials {fc.n_chunks * fc.k_wc * 4 / 2**20:.2f}"
-                     " MiB written per call, of whose rows "
-                     f"{np.mean(fc.seg_rows_dsc == fc.n_voxels):.1%} (DSC) "
-                     f"and {np.mean(fc.seg_rows_wc == fc.n_fibers):.1%} (WC) "
-                     "are padding segments that the combine adds to one "
-                     "dummy row")
+                     f" resident; per call B5 writes y and "
+                     f"{fc.n_chunks * 2 * n_theta * 4 / 2**20:.2f} MiB of "
+                     "carries (the TPU kernel's partials would be "
+                     f"{fc.n_chunks * fc.k_dsc * n_theta * 4 / 2**20:.1f} MiB,"
+                     f" {np.mean(fc.seg_rows_dsc == fc.n_voxels):.1%} of their"
+                     " rows padding segments), B6 "
+                     f"{fc.n_chunks * fc.k_wc * 4 / 2**20:.2f} MiB of "
+                     f"partials, {np.mean(fc.seg_rows_wc == fc.n_fibers):.1%}"
+                     " of their rows padding segments that the WC combine "
+                     "adds to one dummy row")
         log(phase, f"{engine.executor.name} engine built in "
             f"{time.perf_counter() - t0:.2f} s ({engine.format_plan.describe()}); "
             f"{shape}")
@@ -704,10 +761,10 @@ def phase_timing(problem, launches: dict, errors: dict) -> list:
     tile_bytes = lambda t: 4 * (t.tile_ptr.numel() + t.tile_len.numel())
     flops = 2.0 * nc * n_theta + nc
     # per kernel: its call, its plain version, its result over the function
-    # y = M w or w = M^T y, the kernel with its seg_rows combine (F-COO
-    # only), and the compulsory bytes: each index and value of a real
-    # coefficient read once, D and the dense input read once, the output
-    # (y or w, not F-COO's partials) written once
+    # y = M w or w = M^T y, the kernel with its seg_rows combine (B6 only:
+    # B5 writes y itself), and the compulsory bytes: each index and value
+    # of a real coefficient read once, D and the dense input read once, the
+    # output (y or w, not B6's partials) written once
     rows = [
         ("dsc_coo", w, lambda pl=False: run_dsc(t_dsc, d, w, plain=pl),
          lambda out: out[:nv], None,
@@ -719,9 +776,7 @@ def phase_timing(problem, launches: dict, errors: dict) -> list:
          nc * 12 + sd.row_nnz.nbytes + nf * 4
          + sd.atoms.shape[0] * n_theta * 4),
         ("dsc_fcoo", w, lambda pl=False: run_format("dsc_fcoo", fo, d, w, pl),
-         lambda out: ops.fcoo_combine(out, fo.seg_rows_dsc, nv),
-         lambda: ops.fcoo_combine(ops.fcoo_dsc_partials(fo, d, w),
-                                  fo.seg_rows_dsc, nv),
+         lambda out: out, None,
          nc * 16 + nf * 4 + nv * n_theta * 4),
         ("wc_coo", y, lambda pl=False: run_wc(t_wc, d, y, plain=pl),
          lambda out: out[:nf], None,
@@ -792,13 +847,14 @@ GMM_TOL = {"fp32": dict(rtol=1e-4, atol=1e-4),
 
 
 def gmm_case(m: int, k: int, n: int, t_tile: int, ids, seed: int, *,
-             zero_tiles: int = 0):
+             zero_tiles: int = 0, n_experts: int = 0):
     """x (m, k) and W (E, k, n) in float32 on the card, made from ``seed``,
-    W scaled as the model's experts are; the first ``zero_tiles`` tiles of
-    x are zero rows (empty capacity slots)."""
+    W scaled as the model's experts are; E is ``n_experts`` or one past the
+    largest id; the first ``zero_tiles`` tiles of x are zero rows (empty
+    capacity slots)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     ids = torch.as_tensor(ids, dtype=torch.int32, device="cuda")
-    e = int(ids.max()) + 1
+    e = n_experts or int(ids.max()) + 1
     x = torch.randn(m, k, generator=g, device="cuda")
     x[:zero_tiles * t_tile] = 0
     w = torch.randn(e, k, n, generator=g, device="cuda") * (2 / (k + n)) ** 0.5
@@ -868,6 +924,19 @@ def phase_lm_kernels(cfg, errors: dict) -> None:
         ids[0] = 15                     # E = 16, ids not sorted
         ids, x, w = gmm_case(t_tile * n_tiles, k, n, t_tile, ids, seed=23)
         check_gmm(case, ids, x, w, t_tile, errors)
+    # expert layouts at the model's widths: a new expert at every tile of
+    # 64 rows (both groups of every 128-row block differ), at every tile of
+    # 32 rows, and unsorted ids with some out of range (clamped to [0, 16))
+    d, f = cfg.d_model, cfg.moe_d_ff
+    for case, (t_tile, ids) in {
+            "expert-every-tile": (64, np.arange(32) % 16),
+            "expert-every-32-rows": (32, np.arange(48) % 16),
+            "unsorted-out-of-range": (64, np.r_[r.integers(0, 16, 14),
+                                                -2, 40])}.items():
+        ids, x, w = gmm_case(t_tile * len(ids), d, f, t_tile, ids, seed=24,
+                             n_experts=16)
+        check_gmm(case, ids, x, w, t_tile, errors)
+        del x, w
 
 
 def profile_lm(label: str, fn) -> None:
@@ -925,7 +994,7 @@ def profile_lm(label: str, fn) -> None:
         return
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
-    b7 = sum(k[0] for k in kernels if "moe_gmm_kernel" in k[2])
+    b7 = sum(k[0] for k in kernels if "moe_gmm_" in k[2])
     # B7 launches through ctypes, not a PyTorch op, so the profiler files
     # it under no range: the MoE range holds the layer's other kernels
     att, moe = ranges.get("lm.attention", 0.0), ranges.get("lm.moe", 0.0)
@@ -1118,7 +1187,10 @@ def gmm_bound(s: dict) -> tuple:
 
 def phase_lm_timing(cfg, launches: int, errors: dict) -> dict:
     """B7 at its two serve shapes in bf16 (CUDA events, 20 launches) beside
-    its bound, its plain version and torch.bmm over (E, capacity, K)."""
+    its bound, itself with row blocks outer (ROWS_OUTER) and with every
+    tile on one expert, its plain version and torch.bmm over (E, capacity,
+    K)."""
+    from repro_torch.kernels import moe_gmm as MG
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.ref import moe_gmm_ref
     rows = {}
@@ -1128,6 +1200,20 @@ def phase_lm_timing(cfg, launches: int, errors: dict) -> dict:
         x, w = x.bfloat16(), w.bfloat16()
         e = w.shape[0]
         ms = time_ms(lambda: moe_gmm(ids, x, w, t_tile=s["t_tile"]))
+        # row blocks outer: a row block's column slabs run together, so each
+        # of an expert's row blocks streams its whole W (the previous order)
+        MG.ROWS_OUTER = 1
+        try:
+            rows_outer_ms = time_ms(lambda: moe_gmm(ids, x, w,
+                                                    t_tile=s["t_tile"]))
+        finally:
+            MG.ROWS_OUTER = 0
+        # every tile on expert 0: W (one expert's) is read from device
+        # memory once and then hit in L2, so the gap to ms is what the
+        # misses on 16 experts' W cost
+        ids0 = torch.zeros_like(ids)
+        one_expert_ms = time_ms(lambda: moe_gmm(ids0, x, w,
+                                                t_tile=s["t_tile"]))
         plain_ms = time_ms(lambda: moe_gmm_ref(
             x.view(-1, s["t_tile"], s["k"]), w, ids))
         xb = x.view(e, s["capacity"], s["k"])
@@ -1135,12 +1221,16 @@ def phase_lm_timing(cfg, launches: int, errors: dict) -> dict:
         bound_ms, bound_by = gmm_bound(s)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms,
+                          rows_outer_ms=rows_outer_ms,
+                          one_expert_ms=one_expert_ms,
                           shape=f"{s['m']} x {s['k']} -> {s['n']}, t_tile "
                                 f"{s['t_tile']}, {e} experts, bf16")
         log("timing", f"moe_gmm {name} ({rows[name]['shape']}): {ms:.4f} ms "
             f"(bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of "
             f"it; {2.0 * s['m'] * s['k'] * s['n'] / ms / 1e9:.1f} TFLOP/s); "
-            f"plain {plain_ms:.4f} ms; torch.bmm {library_ms:.4f} ms")
+            f"row blocks outer {rows_outer_ms:.4f} ms; every tile on expert 0 "
+            f"{one_expert_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+            f"torch.bmm {library_ms:.4f} ms ({ms / library_ms:.2f}x)")
         del x, w, xb
         torch.cuda.empty_cache()
     main_row = rows["prefill gate"]
@@ -1149,6 +1239,8 @@ def phase_lm_timing(cfg, launches: int, errors: dict) -> dict:
                 ms=main_row["ms"], plain_ms=main_row["plain_ms"],
                 bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
                 library_ms=main_row["library_ms"], shape=main_row["shape"],
+                rows_outer_ms=main_row["rows_outer_ms"],
+                one_expert_ms=main_row["one_expert_ms"],
                 decode=rows["decode down"])
 
 

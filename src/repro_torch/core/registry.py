@@ -18,7 +18,8 @@ The ladder (paper §6.3.1/§6.4.1):
   kernel       inspector-planned COO tiles on the CUDA kernels B1/B2
   kernel-sell  blocked-ELL layout (formats/sell.py) on kernels B3/B4
   kernel-fcoo  ONE segment-flagged F-COO stream (formats/fcoo.py) feeding
-               both ops through kernels B5/B6 and a ``seg_rows`` combine
+               both ops through kernels B5 (y written directly) and B6
+               (partials and a ``seg_rows_wc`` combine)
   alto         ALTO single-index sort order (formats/alto.py), one Phi copy
                serving both ops through the naive ops
   auto         runtime autotune of the sort dimension per op (paper §4.1.2)

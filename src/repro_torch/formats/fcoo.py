@@ -16,8 +16,10 @@ irregularity into segment metadata:
     (``seg_rows_*``) names each segment's output row (padding segments
     point at a dummy row one past the end).
 
-Kernels B5/B6 (``kernels/fcoo.py``) write per-chunk segment partials, and
-one ``index_add_`` over ``seg_rows_*`` folds runs that cross chunks.
+Kernel B5 (``kernels/fcoo.py``) writes ``y`` directly and folds runs that
+cross chunks itself; kernel B6 writes per-chunk segment partials, and one
+``index_add_`` over ``seg_rows_wc`` folds them.  ``seg_rows_dsc`` serves
+the tests' partials-based yardstick.
 
 ``nbytes`` counts every array the executor keeps resident.  The port
 defines the padding overhead of an empty Phi as 0.0; the reference's

@@ -24,8 +24,8 @@ and until then the port behaves as the reference does with no
 accepted and has no effect.
 
 The measured rung times what each candidate's executor runs: kernel B3 for
-sell, kernel B5 and its combine for fcoo, the ``alto`` executor, and the
-voxel-sorted ``opt`` DSC for coo.  (The reference times its SELL and F-COO
+sell, kernel B5 (which folds its chunks itself) for fcoo, the ``alto``
+executor, and the voxel-sorted ``opt`` DSC for coo.  (The reference times its SELL and F-COO
 jnp references instead, because off the TPU its kernels run interpreted.)
 On CPU tensors each of them is its plain version.
 

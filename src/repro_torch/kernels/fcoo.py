@@ -1,25 +1,33 @@
 """The F-COO kernels B5 (DSC) and B6 (WC): wrappers and plain versions.
 
 ``csrc/dsc_fcoo.cu`` (B5) replaces the Pallas TPU kernel
-``repro/kernels/fcoo.py:dsc_fcoo_pallas`` and ``csrc/wc_fcoo.cu`` (B6)
-replaces ``repro/kernels/fcoo.py:wc_fcoo_pallas``; each source's note says
-what bounds it on the card and what its design does about that.  Both write
-per-chunk segment partials, zeros past a chunk's last segment, exactly the
-reference kernels' outputs; :func:`repro_torch.kernels.ops.make_fcoo_ops`
-folds them over ``seg_rows_*`` with one ``index_add_``.  A wrapper launches
-its kernel on CUDA tensors (counted in
-:data:`repro_torch.kernels._build.LAUNCHES`), runs the plain PyTorch
-version on CPU tensors, and raises on anything else.  Sums are taken in
-float32 whatever the storage type.
+``repro/kernels/fcoo.py:dsc_fcoo_pallas`` together with the reference's
+scatter-add of its partials, and ``csrc/wc_fcoo.cu`` (B6) replaces
+``repro/kernels/fcoo.py:wc_fcoo_pallas``; each source's note says what
+bounds it on the card and what its design does about that.
+
+B5 computes ``y = M w`` directly: segments inside a chunk are stored to
+their voxel's row, a chunk's first and last segments go to a carry buffer,
+and an ordered fold adds the carries of runs that cross chunks.
+:func:`dsc_fcoo_fused_plain` is its plain version, with the same dataflow.
+:func:`dsc_fcoo_plain` keeps the Pallas kernel's per-chunk segment partials
+slot for slot (zeros past a chunk's last segment); the tests hold it
+against the Pallas kernel.  B6 writes per-chunk segment partials, exactly
+the reference kernel's output, and
+:func:`repro_torch.kernels.ops.make_fcoo_ops` folds them over
+``seg_rows_wc`` with one ``index_add_``.  A wrapper launches its kernel on
+CUDA tensors (counted in :data:`repro_torch.kernels._build.LAUNCHES`), runs
+its plain PyTorch version on CPU tensors, and raises on anything else.
+Sums are taken in float32 whatever the storage type.
 
 Operands (one ``formats/fcoo.py:FcooPhi`` on the device, built by
 :func:`repro_torch.kernels.ops.fcoo_operands`):
 
-  B5: atoms, fibers, ranks  int32[n_chunks, c_tile]  the voxel-major stream
-                                                     and its DSC ranks
+  B5: atoms, fibers, voxels  int32[n_chunks, c_tile]  the voxel-major
+                                                      stream
       values    float32 | bfloat16 [n_chunks, c_tile]
       w         float32[Nf]
-      result    float32[n_chunks, seg_k, Ntheta]
+      result    float32[n_voxels, Ntheta]
   B6: wc_perm, ranks        int32[n_chunks, c_tile]  the fiber-major view
                                                      and its WC ranks
       atoms, voxels  int32[Ncp]        the stream itself, read through
@@ -38,7 +46,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.dsc import _device_of
 
-_DSC_SIGNATURE = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+_DSC_SIGNATURE = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                   + [ctypes.c_void_p])
 _DSC_ENTRY = {torch.float32: "dsc_fcoo_f32", torch.bfloat16: "dsc_fcoo_bf16"}
 _WC_SIGNATURE = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
@@ -70,8 +78,10 @@ def _slot_segments(ranks: torch.Tensor, seg_k: int) -> torch.Tensor:
 
 def dsc_fcoo_plain(atoms, fibers, values, ranks, dictionary, w, *,
                    seg_k: int) -> torch.Tensor:
-    """Plain PyTorch version of B5: gathers and one ``index_add_`` of every
-    slot's contribution onto its (chunk, rank) partial."""
+    """The Pallas kernel's (n_chunks, seg_k, Ntheta) segment partials, in
+    plain PyTorch: gathers and one ``index_add_`` of every slot's
+    contribution onto its (chunk, rank) partial.  Not on the card path:
+    B5 writes ``y`` (:func:`dsc_fcoo`)."""
     n_chunks, _ = atoms.shape
     n_theta = dictionary.shape[1]
     scaled = w[fibers] * values.float()
@@ -83,18 +93,58 @@ def dsc_fcoo_plain(atoms, fibers, values, ranks, dictionary, w, *,
     return out.reshape(n_chunks, seg_k, n_theta)
 
 
-def dsc_fcoo(atoms, fibers, values, ranks, dictionary, w, *,
-             seg_k: int) -> torch.Tensor:
-    """Run B5 on CUDA tensors; on CPU tensors, the plain version.
+def dsc_fcoo_fused_plain(atoms, fibers, values, voxels, dictionary, w, *,
+                         n_voxels: int) -> torch.Tensor:
+    """Plain PyTorch version of B5, ``y = M w`` with the kernel's dataflow:
+    segment sums in slot order, interior segments stored to their voxel's
+    row, each chunk's first and last segment carried (0.0 last for a chunk
+    of one segment), and the carries of each run added in chunk order."""
+    n_chunks, c_tile = atoms.shape
+    n_theta = dictionary.shape[1]
+    dev = w.device
+    y = torch.zeros((n_voxels, n_theta), dtype=torch.float32, device=dev)
+    if n_chunks == 0:
+        return y
+    contrib = dictionary[atoms].float() * (w[fibers]
+                                           * values.float())[..., None]
+    starts = torch.ones_like(voxels, dtype=torch.bool)
+    starts[:, 1:] = voxels[:, 1:] != voxels[:, :-1]
+    rank = starts.long().cumsum(1) - 1              # chunk-local segment
+    chunk = torch.arange(n_chunks, device=dev)
+    seg = torch.zeros((n_chunks * c_tile, n_theta), dtype=torch.float32,
+                      device=dev)
+    seg.index_add_(0, (chunk[:, None] * c_tile + rank).reshape(-1),
+                   contrib.reshape(-1, n_theta))
+    seg = seg.view(n_chunks, c_tile, n_theta)
+    last = rank[:, -1]
+    inner_c, inner_i = torch.nonzero(
+        starts & (rank > 0) & (rank < last[:, None]), as_tuple=True)
+    y[voxels[inner_c, inner_i].long()] = seg[inner_c, rank[inner_c, inner_i]]
+    tail = torch.where((last > 0)[:, None], seg[chunk, last],
+                       torch.zeros((), device=dev))
+    carry = torch.stack([seg[:, 0], tail], 1).reshape(-1, n_theta)
+    carry_vox = torch.stack([voxels[:, 0], voxels[:, -1]], 1).reshape(-1)
+    run_start = torch.ones_like(carry_vox, dtype=torch.bool)
+    run_start[1:] = carry_vox[1:] != carry_vox[:-1]
+    run = run_start.long().cumsum(0) - 1
+    runs = torch.zeros_like(carry).index_add_(0, run, carry)
+    y[carry_vox[run_start].long()] = runs[run[run_start]]
+    return y
+
+
+def dsc_fcoo(atoms, fibers, values, voxels, dictionary, w, *,
+             n_voxels: int) -> torch.Tensor:
+    """Run B5, ``y = M w`` as (n_voxels, Ntheta) float32, on CUDA tensors;
+    on CPU tensors, the plain version.
 
     Raises:
         ValueError, TypeError: an operand on another device, of another
-            dtype or shape, or not contiguous.
+            dtype or shape, or not contiguous; a negative ``n_voxels``.
         RuntimeError: the CUDA launch was refused.
     """
     dev = w.device
     n_chunks, c_tile = atoms.shape
-    for name, t in (("atoms", atoms), ("fibers", fibers), ("ranks", ranks)):
+    for name, t in (("atoms", atoms), ("fibers", fibers), ("voxels", voxels)):
         _build.check_operand(t, name, device=dev, dtypes=(torch.int32,),
                              shape=(n_chunks, c_tile))
     _check_dictionary(dictionary, dev)
@@ -102,20 +152,24 @@ def dsc_fcoo(atoms, fibers, values, ranks, dictionary, w, *,
                          dtypes=(dictionary.dtype,), shape=(n_chunks, c_tile))
     _build.check_operand(w, "w", device=dev, dtypes=(torch.float32,),
                          shape=(None,))
-    _check_seg_k(seg_k, c_tile)
+    if n_voxels < 0:
+        raise ValueError(f"n_voxels={n_voxels} must be >= 0")
     dev = _device_of(w, "dsc_fcoo")
     if dev.type == "cpu":
-        return dsc_fcoo_plain(atoms, fibers, values, ranks, dictionary, w,
-                              seg_k=seg_k)
+        return dsc_fcoo_fused_plain(atoms, fibers, values, voxels,
+                                    dictionary, w, n_voxels=n_voxels)
     n_atoms, n_theta = dictionary.shape
-    out = torch.empty((n_chunks, seg_k, n_theta), dtype=torch.float32,
-                      device=dev)
+    y = torch.empty((n_voxels, n_theta), dtype=torch.float32, device=dev)
+    carry = torch.empty((n_chunks, 2, n_theta), dtype=torch.float32,
+                        device=dev)
+    carry_vox = torch.empty((n_chunks, 2), dtype=torch.int32, device=dev)
     lib = _build.load("dsc_fcoo",
                       {name: _DSC_SIGNATURE for name in _DSC_ENTRY.values()})
     _build.launch(lib, _DSC_ENTRY[dictionary.dtype], "dsc_fcoo", dev,
-                  [atoms, fibers, values, ranks, dictionary, w, out],
-                  [n_chunks, c_tile, seg_k, n_atoms, n_theta])
-    return out
+                  [atoms, fibers, values, voxels, dictionary, w, y, carry,
+                   carry_vox],
+                  [n_chunks, c_tile, n_voxels, n_atoms, n_theta])
+    return y
 
 
 # ----------------------------------------------------------------------------

@@ -16,7 +16,8 @@ Ntheta, the ``_visited_mask`` (the kernels write every output row, zeros
 included), the XLA pre-gathers of Y rows for the WC kernels (B2, B4 and B6
 gather them themselves), and the per-call regather of the F-COO stream's
 atoms and values through ``wc_perm`` (B6 reads through ``wc_perm`` itself,
-so the stream stays one resident copy).
+so the stream stays one resident copy).  B5 folds runs that cross
+F-COO chunks itself, so only B6's partials are combined here.
 
 Compute dtype (DESIGN.md §10.3): ``compute_dtype="bf16"`` stores the static
 operands — the dictionary and the Phi values — in bfloat16, while every
@@ -260,11 +261,19 @@ def fcoo_operands(fc, device, *, compute_dtype: str = "fp32"
         n_fibers=fc.n_fibers)
 
 
+def fcoo_dsc(o: FcooOperands, d: torch.Tensor,
+             w: torch.Tensor) -> torch.Tensor:
+    """B5 over ``o``: y = M w, (n_voxels, Ntheta)."""
+    return fcoo_kernel.dsc_fcoo(o.atoms, o.fibers, o.values, o.voxels, d, w,
+                                n_voxels=o.n_voxels)
+
+
 def fcoo_dsc_partials(o: FcooOperands, d: torch.Tensor,
                       w: torch.Tensor) -> torch.Tensor:
-    """B5 over ``o``: (n_chunks, k_dsc, Ntheta) segment partials."""
-    return fcoo_kernel.dsc_fcoo(o.atoms, o.fibers, o.values, o.dsc_ranks, d,
-                                w, seg_k=o.k_dsc)
+    """The Pallas kernel's (n_chunks, k_dsc, Ntheta) segment partials over
+    ``o``, in plain PyTorch (a yardstick: B5 writes y itself)."""
+    return fcoo_kernel.dsc_fcoo_plain(o.atoms, o.fibers, o.values,
+                                      o.dsc_ranks, d, w, seg_k=o.k_dsc)
 
 
 def fcoo_wc_partials(o: FcooOperands, d: torch.Tensor,
@@ -288,9 +297,9 @@ def fcoo_combine(parts: torch.Tensor, seg_rows: torch.Tensor,
 def make_fcoo_ops(fc, dictionary: torch.Tensor, *,
                   compute_dtype: str = "fp32"):
     """(matvec, rmatvec) over ONE resident ``formats/fcoo.py:FcooPhi``,
-    running kernels B5 and B6 (their plain versions on CPU tensors) and
-    the ``seg_rows`` combine.  An empty Phi launches nothing and gives
-    zeros."""
+    running kernel B5 (which folds its chunks itself) and kernel B6 with
+    the ``seg_rows_wc`` combine (their plain versions on CPU tensors).  An
+    empty Phi launches nothing and gives zeros."""
     dev = dictionary.device
     n_theta = dictionary.shape[1]
     if fc.n_chunks == 0:
@@ -302,8 +311,7 @@ def make_fcoo_ops(fc, dictionary: torch.Tensor, *,
     d = storage_cast(dictionary, compute_dtype).contiguous()
 
     def matvec(w: torch.Tensor) -> torch.Tensor:
-        return fcoo_combine(fcoo_dsc_partials(o, d, w), o.seg_rows_dsc,
-                            o.n_voxels)
+        return fcoo_dsc(o, d, w)
 
     def rmatvec(y: torch.Tensor) -> torch.Tensor:
         return fcoo_combine(fcoo_wc_partials(o, d, y), o.seg_rows_wc,

@@ -5,10 +5,12 @@ On the CPU the wrappers run their kernels' plain PyTorch versions.  These
 tests hold the plain versions against the reference's Pallas kernels run
 in interpret mode on the same operands (as tests/test_formats.py and
 tests/test_fcoo.py run them), B5's and B6's segment partials included,
-zeros and all; they hold the F-COO ops to a float64 oracle with a
-tolerance scaled by the sum of |terms| per output (fp32 sums in two orders
-differ by more than a fixed bound on long duplicate runs, ROADMAP §C); and
-they check the wrappers' dispatch and operand checks.  The CUDA kernels
+zeros and all, and B5's fused ``y = M w`` against the reference's F-COO
+matvec (kernel plus scatter-add); they hold the F-COO ops to a float64
+oracle with a tolerance scaled by the sum of |terms| per output (fp32 sums
+in two orders differ by more than a fixed bound on long duplicate runs,
+ROADMAP §C) on the cases B5's carries exist for; and they check the
+wrappers' dispatch and operand checks.  The CUDA kernels
 themselves are held against the plain versions by ``chip_smoke.py`` and by
 the ``gpu``-marked tests below on a card.
 
@@ -176,6 +178,27 @@ def test_dsc_fcoo_partials_match_pallas_kernel(case, compute_dtype):
 
 @pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("case", SHAPES)
+def test_dsc_fcoo_fused_matches_reference_matvec(case, compute_dtype):
+    """B5's fused y = M w (its plain version: interior stores, carries, an
+    ordered fold) equals the reference's F-COO matvec, the Pallas kernel's
+    partials scatter-added over seg_rows_dsc, on the same encoded Phi."""
+    enc, jenc, o, d, w, _ = _fcoo_pair(case, compute_dtype)
+    dt = ops.storage_cast(torch.tensor(d), compute_dtype)
+    got = fcoo.dsc_fcoo(o.atoms, o.fibers, o.values, o.voxels, dt,
+                        torch.tensor(w), n_voxels=o.n_voxels)
+    matvec, _ = jops.make_fcoo_ops(jenc, jnp.asarray(d), interpret=True,
+                                   compute_dtype=compute_dtype)
+    want = np.asarray(matvec(jnp.asarray(w)))
+    assert got.shape == (enc.n_voxels, d.shape[1]) == want.shape
+    np.testing.assert_allclose(to_numpy(got), want, **TOL[compute_dtype])
+    # and the partials folded by the port's own combine
+    folded = ops.fcoo_combine(ops.fcoo_dsc_partials(o, dt, torch.tensor(w)),
+                              o.seg_rows_dsc, o.n_voxels)
+    np.testing.assert_allclose(to_numpy(got), to_numpy(folded), **FP32)
+
+
+@pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", SHAPES)
 def test_wc_fcoo_partials_match_pallas_kernel(case, compute_dtype):
     """B6's (n_chunks, K) partials, read through wc_perm, equal the Pallas
     kernel's over the reference's pre-gathered view."""
@@ -222,28 +245,74 @@ def _oracle(t, d, w, y):
     return ym, ys, wm, ws
 
 
-@pytest.mark.parametrize("case", ["run-across-chunks", "chunk-at-k-limit"])
-def test_fcoo_ops_match_float64_oracle(case):
+def _line_phi(voxels, fibers, n_voxels, n_fibers, n_atoms=4):
+    """A Phi whose coefficients lie on the given voxel and fiber ids."""
+    n = len(voxels)
+    return PhiTensor(atoms=torch.arange(n, dtype=torch.int32) % n_atoms,
+                     voxels=torch.tensor(voxels, dtype=torch.int32),
+                     fibers=torch.tensor(fibers, dtype=torch.int32),
+                     values=torch.linspace(-1, 1, n), n_atoms=n_atoms,
+                     n_voxels=n_voxels, n_fibers=n_fibers)
+
+
+def _oracle_case(case):
+    """(Phi, c_tile) of each edge of the F-COO fold."""
     if case == "run-across-chunks":
         # ~130 duplicate triples on voxel 3 / fiber 5 span several chunks
-        _, t = _phi(300, 6, 40, 20, seed=11, hot=130)
-        c_tile = 32
-    else:
+        return _phi(300, 6, 40, 20, seed=11, hot=130)[1], 32
+    if case == "chunk-at-k-limit":
         # every slot its own segment: a chunk holds c_tile segments, K's
         # largest value
-        nv = nf = 64
-        t = PhiTensor(atoms=torch.arange(nv, dtype=torch.int32) % 4,
-                      voxels=torch.arange(nv, dtype=torch.int32),
-                      fibers=torch.arange(nf, dtype=torch.int32).flip(0),
-                      values=torch.linspace(-1, 1, nv), n_atoms=4,
-                      n_voxels=nv, n_fibers=nf)
-        c_tile = 32
+        nv = 64
+        return _line_phi(np.arange(nv), np.arange(nv)[::-1].copy(), nv,
+                         nv), 32
+    if case == "run-across-three-chunks":
+        # voxel 5's run fills chunks 1 and 2 and spills into 0 and 3: two
+        # chunks of one segment, each carrying it first and last
+        v = np.r_[0:5, np.full(100, 5), 6:20]
+        return _line_phi(v, np.arange(v.size) % 7, 24, 7), 32
+    if case == "run-starts-at-chunk-boundary":
+        # voxel 9's run starts in slot 0 of chunk 1 and voxel 26's run ends
+        # in its last slot
+        v = np.r_[np.repeat(np.arange(8), 4), np.full(10, 9), 10:26,
+                  np.full(6, 26), np.repeat(np.arange(27, 43), 2)]
+        return _line_phi(v, np.arange(v.size) % 11, 50, 11), 32
+    if case == "one-chunk":
+        # fewer coefficients than c_tile: one chunk, padded
+        v = np.r_[2, 2, 5, 7, 7, 7, 11]
+        return _line_phi(v, np.arange(v.size), 13, 8), 32
+    # voxels with no coefficient: gaps inside chunks, between chunks, before
+    # the first and after the last
+    v = np.r_[np.full(20, 4), np.arange(30, 60) * 2, np.full(18, 150)]
+    return _line_phi(v, np.arange(v.size) % 9, 170, 9), 32
+
+
+@pytest.mark.parametrize("case", ["run-across-chunks", "chunk-at-k-limit",
+                                  "run-across-three-chunks",
+                                  "run-starts-at-chunk-boundary", "one-chunk",
+                                  "empty-voxels"])
+def test_fcoo_ops_match_float64_oracle(case):
+    t, c_tile = _oracle_case(case)
     enc = FcooPhi.encode(t, c_tile=c_tile, seg_tile=4)
+    ranks = enc.dsc_ranks.reshape(enc.n_chunks, c_tile)
+    voxels = enc.voxels.reshape(enc.n_chunks, c_tile)
     if case == "run-across-chunks":          # voxel 3 and fiber 5 each
         assert sum(3 in r for r in enc.seg_rows_dsc) > 1     # span chunks
         assert sum(5 in r for r in enc.seg_rows_wc) > 1
-    else:
+    elif case == "chunk-at-k-limit":
         assert enc.k_dsc == enc.k_wc == c_tile
+    elif case == "run-across-three-chunks":
+        assert sum(5 in r for r in enc.seg_rows_dsc) >= 3
+        assert (ranks[:, -1] == 0).sum() >= 2   # chunks of one segment
+    elif case == "run-starts-at-chunk-boundary":
+        assert voxels[1, 0] == 9 and voxels[0, -1] != 9
+        assert voxels[1, -1] == 26 and voxels[2, 0] != 26
+    elif case == "one-chunk":
+        assert enc.n_chunks == 1
+    else:
+        present = np.unique(t.voxels.numpy())
+        assert present[0] > 0 and present[-1] < t.n_voxels - 1
+        assert np.diff(present).max() > 1
     d, w, y = _inputs(t.n_atoms, t.n_voxels, t.n_fibers, 8, seed=12)
     matvec, rmatvec = ops.make_fcoo_ops(enc, torch.tensor(d))
     ym, ys, wm, ws = _oracle(t, d, w, y)
@@ -252,6 +321,8 @@ def test_fcoo_ops_match_float64_oracle(case):
     got_w = to_numpy(rmatvec(torch.tensor(y))).astype(np.float64)
     assert np.all(np.abs(got_y - ym) <= eps * ys + 1e-12)
     assert np.all(np.abs(got_w - wm) <= eps * ws + 1e-12)
+    empty = np.setdiff1d(np.arange(t.n_voxels), t.voxels.numpy())
+    assert not got_y[empty].any()
 
 
 def test_empty_fcoo_phi_launches_nothing_and_gives_zeros():
@@ -299,9 +370,12 @@ def test_format_wrappers_dispatch_by_device_and_check_operands():
 
     _, _, f, d2, w2, y2 = _fcoo_pair("ragged", "fp32")
     d2, w2, y2 = torch.tensor(d2), torch.tensor(w2), torch.tensor(y2)
+    with pytest.raises(ValueError, match="n_voxels"):
+        fcoo.dsc_fcoo(f.atoms, f.fibers, f.values, f.voxels, d2, w2,
+                      n_voxels=-1)
     with pytest.raises(ValueError, match="seg_k"):
-        fcoo.dsc_fcoo(f.atoms, f.fibers, f.values, f.dsc_ranks, d2, w2,
-                      seg_k=0)
+        fcoo.wc_fcoo(f.wc_perm, f.atoms.reshape(-1), f.voxels.reshape(-1),
+                     f.values.reshape(-1), f.wc_ranks, d2, y2, seg_k=0)
     with pytest.raises(ValueError, match="contiguous"):
         fcoo.wc_fcoo(f.wc_perm.t().contiguous().t(), f.atoms.reshape(-1),
                      f.voxels.reshape(-1), f.values.reshape(-1), f.wc_ranks,
@@ -366,13 +440,22 @@ def test_wc_sell_kernel_matches_plain_on_card(compute_dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
 def test_dsc_fcoo_kernel_matches_plain_on_card(compute_dtype):
+    """The fused B5 against its plain version and against the Pallas-style
+    partials folded by the combine; a second launch is bit-identical."""
     t, d, w, _ = _on_card(compute_dtype)
     o = ops.fcoo_operands(FcooPhi.encode(t, c_tile=64), "cuda",
                           compute_dtype=compute_dtype)
-    args = (o.atoms, o.fibers, o.values, o.dsc_ranks, d, w)
-    _held_to_plain("dsc_fcoo", lambda: fcoo.dsc_fcoo(*args, seg_k=o.k_dsc),
-                   lambda: fcoo.dsc_fcoo_plain(*args, seg_k=o.k_dsc),
+    args = (o.atoms, o.fibers, o.values, o.voxels, d, w)
+    _held_to_plain("dsc_fcoo",
+                   lambda: fcoo.dsc_fcoo(*args, n_voxels=o.n_voxels),
+                   lambda: fcoo.dsc_fcoo_fused_plain(*args,
+                                                     n_voxels=o.n_voxels),
                    compute_dtype)
+    got = fcoo.dsc_fcoo(*args, n_voxels=o.n_voxels)
+    assert torch.equal(got, fcoo.dsc_fcoo(*args, n_voxels=o.n_voxels))
+    folded = ops.fcoo_combine(ops.fcoo_dsc_partials(o, d, w),
+                              o.seg_rows_dsc, o.n_voxels)
+    torch.testing.assert_close(got, folded, **TOL[compute_dtype])
 
 
 @pytest.mark.gpu

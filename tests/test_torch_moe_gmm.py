@@ -127,25 +127,65 @@ def test_build_knows_the_source():
     assert _build.library_path("moe_gmm").name.startswith("libmoe_gmm-")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d,f,t_tile,E", [
-    (256, 128, 256, 64, 4), (128, 256, 128, 8, 16), (144, 200, 136, 24, 16),
-    (216, 64, 72, 72, 3)])
-def test_cuda_kernel_matches_plain_version_on_card(dtype, rows, d, f, t_tile,
-                                                   E):
+def _on_card(rows, d, f, E, dtype, seed):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    g = torch.Generator(device="cuda").manual_seed(rows + d)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
     w = (torch.randn(E, d, f, generator=g, device="cuda") / d ** 0.5).to(dtype)
-    eot = torch.randint(0, E, (rows // t_tile,), generator=g, device="cuda",
-                        dtype=torch.int32)
+    return g, x, w
+
+
+def _held_to_plain(eot, x, w, t_tile):
+    rows, d = x.shape
     n = _build.launches("moe_gmm")
     got = moe_gmm(eot, x, w, t_tile=t_tile, f_tile=8)
     torch.cuda.synchronize()
     assert _build.launches("moe_gmm") == n + 1
-    want = ref.moe_gmm_ref(x.view(-1, t_tile, d), w, eot).view(rows, f)
-    tol = FP32 if dtype == torch.float32 else BF16
+    want = ref.moe_gmm_ref(x.view(-1, t_tile, d), w, eot).view(rows, -1)
+    tol = FP32 if x.dtype == torch.float32 else BF16
     torch.testing.assert_close(got, want, **tol)
     assert torch.equal(got, moe_gmm(eot, x, w, t_tile=t_tile, f_tile=8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,f,t_tile,E", [
+    (256, 128, 256, 64, 4), (128, 256, 128, 8, 16), (144, 200, 136, 24, 16),
+    (216, 64, 72, 72, 3), (256, 96, 200, 16, 5), (512, 128, 264, 32, 6),
+    (768, 192, 320, 128, 3), (264, 40, 24, 24, 16)])
+def test_cuda_kernel_matches_plain_version_on_card(dtype, rows, d, f, t_tile,
+                                                   E):
+    """t_tile 8 to 128 (and 24, 72: tiles cut into 64-row pieces), ragged
+    N (200, 136, 72), the reference's ragged 40 -> 24; random ids."""
+    g, x, w = _on_card(rows, d, f, E, dtype, rows + d)
+    eot = torch.randint(0, E, (rows // t_tile,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    _held_to_plain(eot, x, w, t_tile)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ids,t_tile", [
+    ([0, 1, 2, 3, 4, 5, 6, 7], 64),           # a new expert every tile
+    ([0, 1, 2, 3, 4, 5, 6, 7] * 2, 32),       # and inside a 128-row block
+    ([5, 5, 0, 7, 7, 7, 2, 0], 64),           # unsorted, runs of equal ids
+    ([-3, 0, 8, 99, 2, -1, 7, 4], 64),        # out of range: clamped
+])
+def test_cuda_kernel_expert_layouts_on_card(dtype, ids, t_tile):
+    _, x, w = _on_card(len(ids) * t_tile, 128, 192, 8, dtype, len(ids))
+    _held_to_plain(torch.tensor(ids, dtype=torch.int32, device="cuda"), x, w,
+                   t_tile)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["prefill gate", "decode down"])
+def test_cuda_kernel_at_serve_shapes_on_card(shape):
+    """Phi-3.5-MoE's expert products on the serve path: 16 experts, 320
+    rows each (t_tile 64) at prefill, 8 (t_tile 8) at decode; bf16."""
+    rows, d, f, t_tile = {"prefill gate": (5120, 4096, 6400, 64),
+                          "decode down": (128, 6400, 4096, 8)}[shape]
+    _, x, w = _on_card(rows, d, f, 16, torch.bfloat16, 3)
+    eot = torch.arange(16, dtype=torch.int32, device="cuda").repeat_interleave(
+        rows // t_tile // 16)
+    _held_to_plain(eot, x, w, t_tile)
