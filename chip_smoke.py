@@ -45,8 +45,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                at every step, prefill and decode times, peak memory and a
                torch.profiler breakdown of the prefill and of one decode
                step; B7 timed at both shapes beside torch.bmm, and with
-               its blocks ordered row blocks outer (a row block's column
-               slabs together), which re-reads each expert's W.
+               every tile on one expert (that expert's W from L2).
 
 Then it prints one JSON line describing the kernels, the card's name and
 power limit as nvidia-smi gives them, and, last, the result line.
@@ -146,6 +145,9 @@ def phase_build() -> None:
     seconds = _build.build()
     log("build", f"{len(seconds)} kernels in {time.perf_counter() - t0:.2f} s "
         f"(per source: {', '.join(f'{k} {v:.2f} s' for k, v in seconds.items())})")
+    # one line per kernel: its name (demangled by the toolkit's cu++filt
+    # where it has one), registers, shared memory and spills
+    rows = []
     for name in seconds:
         path = _build.log_path(name)
         if not path.exists():
@@ -153,45 +155,19 @@ def phase_build() -> None:
         entry = spills = ""
         for line in path.read_text().splitlines():
             if "Compiling entry function" in line:
-                entry = kernel_name(line.split("'")[1])
+                entry = line.split("'")[1]
             elif "spill" in line:
                 spills = line.strip()
             elif "registers" in line:
-                log("build", f"{name}: {entry}: "
-                    f"{line.split(':', 1)[1].strip()}; {spills}")
-
-
-def kernel_name(mangled: str) -> str:
-    """``dsc_fcoo_kernel<__nv_bfloat16, true>`` from an Itanium-mangled
-    kernel name (template arguments: types, bools and ints)."""
-    import re
-    # the innermost length-prefixed identifier ending in _kernel (its
-    # length may follow other digits, as in a namespace's hash)
-    found = [(m.end(), mangled[m.end():m.end() + int(m.group()[j:])])
-             for m in re.finditer(r"\d+", mangled)
-             for j in range(len(m.group()))
-             if mangled[m.end():m.end() + int(m.group()[j:])]
-             .endswith("_kernel")]
-    if not found:
-        return mangled
-    start, name = max(found)
-    rest = mangled[start + len(name):]
-    args, rest = [], rest[1:] if rest.startswith("I") else ""
-    while rest and rest[0] != "E":
-        lit = re.match(r"L([bi])(\d+)E", rest)
-        ident = re.match(r"(\d+)", rest)
-        if lit:
-            args.append(("false", "true")[int(lit.group(2))]
-                        if lit.group(1) == "b" else lit.group(2))
-            rest = rest[lit.end():]
-        elif ident:
-            n = int(ident.group(1))
-            args.append(rest[ident.end():ident.end() + n])
-            rest = rest[ident.end() + n:]
-        else:
-            args.append({"f": "float", "i": "int"}.get(rest[0], rest[0]))
-            rest = rest[1:]
-    return name + (f"<{', '.join(args)}>" if args else "")
+                rows.append((name, entry,
+                             f"{line.split(':', 1)[1].strip()}; {spills}"))
+    filt = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    names = [entry for _, entry, _ in rows]
+    if rows and os.path.exists(filt):
+        names = subprocess.run([filt, *names], capture_output=True, text=True,
+                               check=True, timeout=60).stdout.splitlines()
+    for (name, _, usage), entry in zip(rows, names, strict=True):
+        log("build", f"{name}: {entry}: {usage}")
 
 
 # ----------------------------------------------------------------------------
@@ -389,8 +365,7 @@ def check_format_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
                 # the fused B5 against the TPU kernel's partials (plain)
                 # folded by the seg_rows combine
                 compare(name, f"{case} vs partials + combine", got,
-                        ops.fcoo_combine(ops.fcoo_dsc_partials(ops_, d, x),
-                                         ops_.seg_rows_dsc, ops_.n_voxels),
+                        ops.fcoo_dsc_folded(fc, ops_, d, x),
                         dtype, {})
     facts = dict(
         empty_rows=int(np.sum(sd.row_nnz == 0) + np.sum(sw.row_nnz == 0)),
@@ -649,7 +624,8 @@ def phase_formats(problem, w_opt) -> dict:
             layouts[fmt] = fc.nbytes
             shape = (f"F-COO {fc.n_chunks} chunks of {fc.c_tile}, k_dsc "
                      f"{fc.k_dsc}, k_wc {fc.k_wc}, {fc.nbytes / 2**20:.1f} MiB"
-                     f" resident; per call B5 writes y and "
+                     " encoded (the DSC ranks and segment map stay on the "
+                     "host); per call B5 writes y and "
                      f"{fc.n_chunks * 2 * n_theta * 4 / 2**20:.2f} MiB of "
                      "carries (the TPU kernel's partials would be "
                      f"{fc.n_chunks * fc.k_dsc * n_theta * 4 / 2**20:.1f} MiB,"
@@ -672,7 +648,7 @@ def phase_formats(problem, w_opt) -> dict:
         torch.testing.assert_close(w, w_opt, **TRAJ_TOL)
         del engine
         torch.cuda.empty_cache()
-    log("formats", f"F-COO resident bytes over the two SELL encodes: "
+    log("formats", f"F-COO encoded bytes over the two SELL encodes: "
         f"{layouts['fcoo'] / layouts['sell']:.4f} (the reference's table12 "
         "gate is 0.6)")
 
@@ -1187,10 +1163,8 @@ def gmm_bound(s: dict) -> tuple:
 
 def phase_lm_timing(cfg, launches: int, errors: dict) -> dict:
     """B7 at its two serve shapes in bf16 (CUDA events, 20 launches) beside
-    its bound, itself with row blocks outer (ROWS_OUTER) and with every
-    tile on one expert, its plain version and torch.bmm over (E, capacity,
-    K)."""
-    from repro_torch.kernels import moe_gmm as MG
+    its bound, itself with every tile on one expert, its plain version and
+    torch.bmm over (E, capacity, K)."""
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.ref import moe_gmm_ref
     rows = {}
@@ -1200,14 +1174,6 @@ def phase_lm_timing(cfg, launches: int, errors: dict) -> dict:
         x, w = x.bfloat16(), w.bfloat16()
         e = w.shape[0]
         ms = time_ms(lambda: moe_gmm(ids, x, w, t_tile=s["t_tile"]))
-        # row blocks outer: a row block's column slabs run together, so each
-        # of an expert's row blocks streams its whole W (the previous order)
-        MG.ROWS_OUTER = 1
-        try:
-            rows_outer_ms = time_ms(lambda: moe_gmm(ids, x, w,
-                                                    t_tile=s["t_tile"]))
-        finally:
-            MG.ROWS_OUTER = 0
         # every tile on expert 0: W (one expert's) is read from device
         # memory once and then hit in L2, so the gap to ms is what the
         # misses on 16 experts' W cost
@@ -1221,14 +1187,13 @@ def phase_lm_timing(cfg, launches: int, errors: dict) -> dict:
         bound_ms, bound_by = gmm_bound(s)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms,
-                          rows_outer_ms=rows_outer_ms,
                           one_expert_ms=one_expert_ms,
                           shape=f"{s['m']} x {s['k']} -> {s['n']}, t_tile "
                                 f"{s['t_tile']}, {e} experts, bf16")
         log("timing", f"moe_gmm {name} ({rows[name]['shape']}): {ms:.4f} ms "
             f"(bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of "
             f"it; {2.0 * s['m'] * s['k'] * s['n'] / ms / 1e9:.1f} TFLOP/s); "
-            f"row blocks outer {rows_outer_ms:.4f} ms; every tile on expert 0 "
+            f"every tile on expert 0 "
             f"{one_expert_ms:.4f} ms; plain {plain_ms:.4f} ms; "
             f"torch.bmm {library_ms:.4f} ms ({ms / library_ms:.2f}x)")
         del x, w, xb
@@ -1239,7 +1204,6 @@ def phase_lm_timing(cfg, launches: int, errors: dict) -> dict:
                 ms=main_row["ms"], plain_ms=main_row["plain_ms"],
                 bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
                 library_ms=main_row["library_ms"], shape=main_row["shape"],
-                rows_outer_ms=main_row["rows_outer_ms"],
                 one_expert_ms=main_row["one_expert_ms"],
                 decode=rows["decode down"])
 

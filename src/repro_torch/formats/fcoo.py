@@ -18,10 +18,11 @@ irregularity into segment metadata:
 
 Kernel B5 (``kernels/fcoo.py``) writes ``y`` directly and folds runs that
 cross chunks itself; kernel B6 writes per-chunk segment partials, and one
-``index_add_`` over ``seg_rows_wc`` folds them.  ``seg_rows_dsc`` serves
-the tests' partials-based yardstick.
+``index_add_`` over ``seg_rows_wc`` folds them.  ``dsc_ranks`` and
+``seg_rows_dsc`` serve the partials-based yardstick only and stay on the
+host.
 
-``nbytes`` counts every array the executor keeps resident.  The port
+``nbytes`` counts every array of the encoding, as the reference does.  The port
 defines the padding overhead of an empty Phi as 0.0; the reference's
 ``0 / max(1, 0) - 1`` gives -1.0 there.
 """
@@ -173,8 +174,9 @@ class FcooPhi:
 
     @property
     def nbytes(self) -> int:
-        """Every array the executor keeps resident: stream, WC view
-        permutation, both rank vectors, both segment maps."""
+        """Every array of the encoding, as the reference counts it: stream,
+        WC view permutation, both rank vectors, both segment maps (the
+        card holds all but the DSC ranks and segment map)."""
         return int(self.atoms.nbytes + self.voxels.nbytes
                    + self.fibers.nbytes + self.values.nbytes
                    + self.wc_perm.nbytes + self.dsc_ranks.nbytes

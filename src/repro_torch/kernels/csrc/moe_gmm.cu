@@ -43,9 +43,9 @@
 //    expert_of_tile (32 tiles per step) at the start; the host never reads
 //    the ids, and launches as many blocks as one-tile runs would need
 //    (blocks past the ids' own count exit at once).  A grid that runs one
-//    tile's column blocks together instead (rows_outer, and the previous
-//    design's order) streams an expert's whole W (52 MB at 4096 x 6400,
-//    more than the 50 MB L2) once per tile or row block.
+//    tile's column blocks together instead (the previous design's order)
+//    streams an expert's whole W (52 MB at 4096 x 6400, more than the
+//    50 MB L2) once per tile or row block.
 //  * Decode tiles of 8 rows take a 64-row wgmma each, 56 rows predicated
 //    off, one group per block (the second warpgroup idles); W's bytes
 //    bound the call there.
@@ -438,13 +438,12 @@ __device__ __forceinline__ int clamp_expert(int e, int n_experts) {
 // Blocks are numbered run by run (a run: consecutive tiles of one expert),
 // slab by slab within a run, row block by row block within a slab; a row
 // block pairs the run's groups 2 b and 2 b + 1 (the last alone when the
-// run has an odd number).  With rows_outer, row blocks are outer and slabs
-// inner within a run instead.  Warp 0 scans the ids 32 tiles at a time:
+// run has an odd number).  Warp 0 scans the ids 32 tiles at a time:
 // per tile its run's first tile and the row blocks it starts, a running
 // sum of those (P), and from P the run holding block L's row blocks.
 __device__ Sched schedule(const int* __restrict__ expert_of_tile,
                           int n_tiles, int subs, int n_experts, int n_slabs,
-                          int bn, int rows_outer) {
+                          int bn) {
   const unsigned all = 0xffffffffu;
   const int lane = threadIdx.x % 32;
   const long long L = blockIdx.x;
@@ -503,10 +502,8 @@ __device__ Sched schedule(const int* __restrict__ expert_of_tile,
   if (p_end < 0) p_end = p;
   const int blocks = p_end - p_before;           // row blocks of the run
   const long long in_run = L - static_cast<long long>(n_slabs) * p_before;
-  const int slab = static_cast<int>(rows_outer ? in_run % n_slabs
-                                               : in_run / blocks);
-  const int rb = static_cast<int>(rows_outer ? in_run / n_slabs
-                                             : in_run % blocks);
+  const int slab = static_cast<int>(in_run / blocks);
+  const int rb = static_cast<int>(in_run % blocks);
   const int groups = (end_tile - rs) * subs;
   return {rs * subs + 2 * rb, 2 * rb + 1 < groups, slab * bn, 1};
 }
@@ -530,8 +527,7 @@ __global__ void __launch_bounds__(kThreads, 1) moe_gmm_bf16_kernel(
     __grid_constant__ const CUtensorMap tm_x,
     __grid_constant__ const CUtensorMap tm_w,
     const int* __restrict__ expert_of_tile, __nv_bfloat16* __restrict__ out,
-    int n_tiles, int t_tile, int subs, int n_experts, int K, int N,
-    int rows_outer) {
+    int n_tiles, int t_tile, int subs, int n_experts, int K, int N) {
   extern __shared__ unsigned char smem_raw[];
   Shared& sh = *reinterpret_cast<Shared*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
@@ -539,7 +535,7 @@ __global__ void __launch_bounds__(kThreads, 1) moe_gmm_bf16_kernel(
 
   if (threadIdx.x < 32) {
     const Sched sc = schedule(expert_of_tile, n_tiles, subs, n_experts,
-                              (N + kBN - 1) / kBN, kBN, rows_outer);
+                              (N + kBN - 1) / kBN, kBN);
     if (threadIdx.x == 0) {
       s_sched = sc;
       for (int s = 0; s < kStages; ++s) {
@@ -690,7 +686,7 @@ bool make_map(CUtensorMap* map, const void* base, int rank,
 
 cudaError_t launch(const int* expert_of_tile, const __nv_bfloat16* x,
                    const __nv_bfloat16* w, __nv_bfloat16* out, int n_tiles,
-                   int t_tile, int n_experts, int K, int N, int rows_outer,
+                   int t_tile, int n_experts, int K, int N,
                    cudaStream_t stream) {
   const int subs = (t_tile + kGroupRows - 1) / kGroupRows;
   if (static_cast<long long>(n_tiles) * subs > (1 << 30)) {
@@ -721,7 +717,7 @@ cudaError_t launch(const int* expert_of_tile, const __nv_bfloat16* x,
   if (e != cudaSuccess) return e;
   moe_gmm_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, kSmemBytes,
                         stream>>>(tm_x, tm_w, expert_of_tile, out, n_tiles,
-                                  t_tile, subs, n_experts, K, N, rows_outer);
+                                  t_tile, subs, n_experts, K, N);
   return cudaGetLastError();
 }
 
@@ -736,9 +732,7 @@ bool bad_sizes(int n_tiles, int t_tile, int n_experts, int K, int N,
 }  // namespace
 
 // C entry points, one per element type.  Each returns cudaGetLastError()
-// after its launch (0 = launched).  rows_outer (bf16): a run's row blocks
-// outer and its column slabs inner, instead of slabs outer (the default,
-// 0), which reads each expert's W once.
+// after its launch (0 = launched).
 extern "C" int moe_gmm_f32(const int* expert_of_tile, const float* x,
                            const float* w, float* out, int n_tiles,
                            int t_tile, int n_experts, int K, int N,
@@ -759,12 +753,12 @@ extern "C" int moe_gmm_f32(const int* expert_of_tile, const float* x,
 extern "C" int moe_gmm_bf16(const int* expert_of_tile, const __nv_bfloat16* x,
                             const __nv_bfloat16* w, __nv_bfloat16* out,
                             int n_tiles, int t_tile, int n_experts, int K,
-                            int N, int rows_outer, void* stream) {
+                            int N, void* stream) {
   if (bad_sizes(n_tiles, t_tile, n_experts, K, N, 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_tiles == 0 || N == 0) return static_cast<int>(cudaSuccess);
   return static_cast<int>(wg::launch(expert_of_tile, x, w, out, n_tiles,
-                                     t_tile, n_experts, K, N, rows_outer,
+                                     t_tile, n_experts, K, N,
                                      static_cast<cudaStream_t>(stream)));
 }

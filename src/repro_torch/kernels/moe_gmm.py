@@ -33,18 +33,8 @@ from repro_torch.kernels.ref import moe_gmm_ref
 
 DEFAULT_T_TILE = 128
 DEFAULT_F_TILE = 128
-#: bf16 block order within a run of one expert's tiles: 0 runs its column
-#: slabs outer and row blocks inner, so the run's row blocks read each slice
-#: of the expert's W together (once from device memory); 1 runs row blocks
-#: outer, each streaming the whole W (a measurement of what that costs)
-ROWS_OUTER = 0
 
-_SIGNATURES = {
-    "moe_gmm_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-    + [ctypes.c_void_p],
-    "moe_gmm_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p],
-}
+_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ENTRY = {torch.float32: "moe_gmm_f32", torch.bfloat16: "moe_gmm_bf16"}
 
 
@@ -98,10 +88,9 @@ def moe_gmm(expert_of_tile: torch.Tensor, x_p: torch.Tensor,
         return out
     if d_model == 0:
         return out.zero_()
-    lib = _build.load("moe_gmm", _SIGNATURES)
-    sizes = [n_tiles, t_tile, n_exp, d_model, d_ff]
-    if x_p.dtype == torch.bfloat16:
-        sizes.append(ROWS_OUTER)
+    lib = _build.load("moe_gmm",
+                      {name: _SIGNATURE for name in _ENTRY.values()})
     _build.launch(lib, _ENTRY[x_p.dtype], "moe_gmm", dev,
-                  [expert_of_tile, x_p, w_experts, out], sizes)
+                  [expert_of_tile, x_p, w_experts, out],
+                  [n_tiles, t_tile, n_exp, d_model, d_ff])
     return out

@@ -218,6 +218,8 @@ class FcooOperands:
 
     The stream arrays are one resident copy: B5 reads them as
     ``(n_chunks, c_tile)`` views, B6 reads them flat through ``wc_perm``.
+    B5 finds its segments from ``voxels``, so the DSC ranks and segment map
+    stay on the host.
     """
 
     atoms: torch.Tensor           # int32[n_chunks, c_tile]
@@ -225,11 +227,8 @@ class FcooOperands:
     fibers: torch.Tensor          # int32[n_chunks, c_tile]
     values: torch.Tensor          # storage dtype [n_chunks, c_tile]
     wc_perm: torch.Tensor         # int32[n_chunks, c_tile]
-    dsc_ranks: torch.Tensor       # int32[n_chunks, c_tile]
     wc_ranks: torch.Tensor        # int32[n_chunks, c_tile]
-    seg_rows_dsc: torch.Tensor    # int64[n_chunks * k_dsc]
     seg_rows_wc: torch.Tensor     # int64[n_chunks * k_wc]
-    k_dsc: int
     k_wc: int
     n_voxels: int
     n_fibers: int
@@ -253,11 +252,9 @@ def fcoo_operands(fc, device, *, compute_dtype: str = "fp32"
         fibers=t(fc.fibers).reshape(shape),
         values=storage_cast(t(fc.values), compute_dtype).reshape(shape),
         wc_perm=t(fc.wc_perm).reshape(shape),
-        dsc_ranks=t(fc.dsc_ranks).reshape(shape),
         wc_ranks=t(fc.wc_ranks).reshape(shape),
-        seg_rows_dsc=t(fc.seg_rows_dsc, torch.int64).reshape(-1),
         seg_rows_wc=t(fc.seg_rows_wc, torch.int64).reshape(-1),
-        k_dsc=fc.k_dsc, k_wc=fc.k_wc, n_voxels=fc.n_voxels,
+        k_wc=fc.k_wc, n_voxels=fc.n_voxels,
         n_fibers=fc.n_fibers)
 
 
@@ -268,12 +265,25 @@ def fcoo_dsc(o: FcooOperands, d: torch.Tensor,
                                 n_voxels=o.n_voxels)
 
 
-def fcoo_dsc_partials(o: FcooOperands, d: torch.Tensor,
+def fcoo_dsc_partials(fc, o: FcooOperands, d: torch.Tensor,
                       w: torch.Tensor) -> torch.Tensor:
     """The Pallas kernel's (n_chunks, k_dsc, Ntheta) segment partials over
-    ``o``, in plain PyTorch (a yardstick: B5 writes y itself)."""
-    return fcoo_kernel.dsc_fcoo_plain(o.atoms, o.fibers, o.values,
-                                      o.dsc_ranks, d, w, seg_k=o.k_dsc)
+    ``o``, in plain PyTorch, with the ranks of ``fc`` (the host encoding
+    ``o`` was made from): a yardstick, since B5 writes y itself."""
+    ranks = torch.as_tensor(np.ascontiguousarray(fc.dsc_ranks),
+                            device=d.device).reshape(o.atoms.shape)
+    return fcoo_kernel.dsc_fcoo_plain(o.atoms, o.fibers, o.values, ranks, d,
+                                      w, seg_k=fc.k_dsc)
+
+
+def fcoo_dsc_folded(fc, o: FcooOperands, d: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """y = M w the reference's way: :func:`fcoo_dsc_partials` folded over
+    ``fc.seg_rows_dsc`` by :func:`fcoo_combine` (a yardstick for B5)."""
+    seg_rows = torch.as_tensor(np.ascontiguousarray(fc.seg_rows_dsc),
+                               dtype=torch.int64, device=d.device).reshape(-1)
+    return fcoo_combine(fcoo_dsc_partials(fc, o, d, w), seg_rows,
+                        fc.n_voxels)
 
 
 def fcoo_wc_partials(o: FcooOperands, d: torch.Tensor,

@@ -159,7 +159,7 @@ def test_dsc_fcoo_partials_match_pallas_kernel(case, compute_dtype):
     for slot, zeros past each chunk's last segment included."""
     enc, jenc, o, d, w, _ = _fcoo_pair(case, compute_dtype)
     dt = ops.storage_cast(torch.tensor(d), compute_dtype)
-    got = ops.fcoo_dsc_partials(o, dt, torch.tensor(w))
+    got = ops.fcoo_dsc_partials(enc, o, dt, torch.tensor(w))
     shape = (jenc.n_chunks, jenc.c_tile)
     scaled = (jnp.take(jnp.asarray(w), jnp.asarray(jenc.fibers))
               * jnp.asarray(jenc.values).astype(JDT[compute_dtype]))
@@ -192,8 +192,7 @@ def test_dsc_fcoo_fused_matches_reference_matvec(case, compute_dtype):
     assert got.shape == (enc.n_voxels, d.shape[1]) == want.shape
     np.testing.assert_allclose(to_numpy(got), want, **TOL[compute_dtype])
     # and the partials folded by the port's own combine
-    folded = ops.fcoo_combine(ops.fcoo_dsc_partials(o, dt, torch.tensor(w)),
-                              o.seg_rows_dsc, o.n_voxels)
+    folded = ops.fcoo_dsc_folded(enc, o, dt, torch.tensor(w))
     np.testing.assert_allclose(to_numpy(got), to_numpy(folded), **FP32)
 
 
@@ -443,8 +442,8 @@ def test_dsc_fcoo_kernel_matches_plain_on_card(compute_dtype):
     """The fused B5 against its plain version and against the Pallas-style
     partials folded by the combine; a second launch is bit-identical."""
     t, d, w, _ = _on_card(compute_dtype)
-    o = ops.fcoo_operands(FcooPhi.encode(t, c_tile=64), "cuda",
-                          compute_dtype=compute_dtype)
+    enc = FcooPhi.encode(t, c_tile=64)
+    o = ops.fcoo_operands(enc, "cuda", compute_dtype=compute_dtype)
     args = (o.atoms, o.fibers, o.values, o.voxels, d, w)
     _held_to_plain("dsc_fcoo",
                    lambda: fcoo.dsc_fcoo(*args, n_voxels=o.n_voxels),
@@ -453,8 +452,7 @@ def test_dsc_fcoo_kernel_matches_plain_on_card(compute_dtype):
                    compute_dtype)
     got = fcoo.dsc_fcoo(*args, n_voxels=o.n_voxels)
     assert torch.equal(got, fcoo.dsc_fcoo(*args, n_voxels=o.n_voxels))
-    folded = ops.fcoo_combine(ops.fcoo_dsc_partials(o, d, w),
-                              o.seg_rows_dsc, o.n_voxels)
+    folded = ops.fcoo_dsc_folded(enc, o, d, w)
     torch.testing.assert_close(got, folded, **TOL[compute_dtype])
 
 
