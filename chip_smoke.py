@@ -13,10 +13,12 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   3. kernels — each kernel against its plain PyTorch version on the same
                inputs, at the main path's operands and at two small ragged
                shapes (an empty row or row block, a row longer than one
-               slot tile, a run that spans several tiles and F-COO chunks,
-               a dictionary larger than shared memory), in fp32 and bf16
-               storage, and B5 (which writes y = M w) also against the TPU
-               kernel's partials folded by the seg_rows combine; an empty
+               slot tile, a run that spans several tiles and three or more
+               F-COO chunks, a dictionary larger than shared memory), in
+               fp32 and bf16 storage, a second launch of each bit-identical
+               to the first, and B5 and B6 (which write y = M w and
+               w = M^T y) also against the TPU kernels' partials folded by
+               the seg_rows combine; an empty
                F-COO Phi, which launches nothing; plus the kernel,
                kernel-sell and kernel-fcoo executors against the dense
                oracle on a small problem.
@@ -27,12 +29,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                the ``opt`` executor on the same card.
   5. formats — the same solve with ``format="sell"`` (kernels B3/B4) and
                ``format="fcoo"`` (B5/B6), each with its launch counts,
-               losses, peak memory and weights against ``opt``; then
+               losses, peak memory, a torch.profiler breakdown of a step
+               and weights against ``opt``; a second full fcoo solve gives
+               bit-identical weights and the fcoo step runs no index_add_;
+               the F-COO layout's encoded and card-resident bytes; then
                ``format="auto"``, whose FormatPlan is logged and whose
                chosen executor runs a few iterations.
   6. timing  — each kernel at the main path's shapes (CUDA events) beside
                its bound, its plain version and one PyTorch library call;
-               for B6 also the kernel with its ``seg_rows`` combine.
+               for B6 also the bound if every slot read its Y row from
+               device memory.
   7. lm      — kernel B7 (the MoE expert FFN's grouped matmul) against its
                plain version in bf16 and fp32 at the prefill gate shape,
                the decode down shape, ragged shapes and expert layouts that
@@ -321,19 +327,29 @@ def run_format(name: str, o, d, x, plain: bool = False):
         fn = fcoo.dsc_fcoo_fused_plain if plain else fcoo.dsc_fcoo
         return fn(o.atoms, o.fibers, o.values, o.voxels, d, x,
                   n_voxels=o.n_voxels)
-    fn = fcoo.wc_fcoo_plain if plain else fcoo.wc_fcoo
-    return fn(o.wc_perm, o.atoms.reshape(-1), o.voxels.reshape(-1),
-              o.values.reshape(-1), o.wc_ranks, d, x, seg_k=o.k_wc)
+    fn = fcoo.wc_fcoo_fused_plain if plain else fcoo.wc_fcoo
+    return fn(o.wc_perm, o.wc_fibers, o.atoms.reshape(-1),
+              o.voxels.reshape(-1), o.values.reshape(-1), d, x,
+              n_fibers=o.n_fibers)
 
 
 def runs_across_chunks(fc, op: str) -> int:
     """Output rows whose run of one op continues from a chunk into the
-    next (the case the seg_rows combine exists for)."""
+    next (the case the carries and the ordered fold exist for)."""
     seg_rows = fc.seg_rows_dsc if op == "dsc" else fc.seg_rows_wc
     ranks = (fc.dsc_ranks if op == "dsc" else fc.wc_ranks).reshape(
         fc.n_chunks, fc.c_tile)
     last = seg_rows[np.arange(fc.n_chunks), ranks[:, -1]]
     return int(np.sum(last[:-1] == seg_rows[1:, 0]))
+
+
+def longest_run_chunks(fc, op: str) -> int:
+    """The most chunks one output row's run of one op touches."""
+    ids = fc.voxels if op == "dsc" else fc.fibers[fc.wc_perm]
+    chunk = np.arange(ids.size) // fc.c_tile
+    _, first = np.unique(ids, return_index=True)
+    last = ids.size - 1 - np.unique(ids[::-1], return_index=True)[1]
+    return int((chunk[last] - chunk[first]).max(initial=-1) + 1)
 
 
 def check_format_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
@@ -361,12 +377,13 @@ def check_format_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
             if not torch.equal(got, run_format(name, ops_, d, x)):
                 raise AssertionError(f"{name} {case} {dtype}: a second "
                                      "launch differs")
-            if name == "dsc_fcoo":
-                # the fused B5 against the TPU kernel's partials (plain)
-                # folded by the seg_rows combine
+            if name in ("dsc_fcoo", "wc_fcoo"):
+                # the fused B5 / B6 against the TPU kernel's partials
+                # (plain) folded by the seg_rows combine
+                folded = (ops.fcoo_dsc_folded if name == "dsc_fcoo"
+                          else ops.fcoo_wc_folded)
                 compare(name, f"{case} vs partials + combine", got,
-                        ops.fcoo_dsc_folded(fc, ops_, d, x),
-                        dtype, {})
+                        folded(fc, ops_, d, x), dtype, {})
     facts = dict(
         empty_rows=int(np.sum(sd.row_nnz == 0) + np.sum(sw.row_nnz == 0)),
         longest_row=int(max(sd.row_nnz.max(initial=0),
@@ -374,7 +391,9 @@ def check_format_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
         slot_tile=sd.slot_tile, sell_widths=(sd.width, sw.width),
         fcoo_chunks=fc.n_chunks, k=(fc.k_dsc, fc.k_wc),
         runs_across_chunks=(runs_across_chunks(fc, "dsc"),
-                            runs_across_chunks(fc, "wc")))
+                            runs_across_chunks(fc, "wc")),
+        longest_run_chunks=(longest_run_chunks(fc, "dsc"),
+                            longest_run_chunks(fc, "wc")))
     log("kernels", f"{case} (formats): {facts}")
     return facts
 
@@ -441,7 +460,8 @@ def phase_kernels(problem, errors: dict) -> None:
     facts = check_format_kernels("ragged", ragged, ragged_d, c_tile=64,
                                  row_tile=8, errors=errors, seed=15)
     if (facts["empty_rows"] == 0 or facts["longest_row"] <= facts["slot_tile"]
-            or min(facts["runs_across_chunks"]) == 0):
+            or min(facts["runs_across_chunks"]) == 0
+            or min(facts["longest_run_chunks"]) < 3):
         raise AssertionError("ragged case did not exercise the format "
                              f"kernels' edges: {facts}")
     big_d = torch.as_tensor(g.normal(size=(2048, 96)), dtype=torch.float32,
@@ -507,9 +527,9 @@ def solve_and_check(phase: str, engine, problem, fmt: str) -> tuple:
     return w, launches
 
 
-def steady_step(phase: str, engine, w) -> None:
+def steady_step(phase: str, engine, w) -> list:
     """Steady-state iteration time on the compacted operator, and where it
-    goes on the device."""
+    goes on the device: returns profile_step's rows."""
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     state = engine.init_state(w)
@@ -521,7 +541,7 @@ def steady_step(phase: str, engine, w) -> None:
     step_ms = start.elapsed_time(stop) / 20
     log(phase, f"steady-state step: {step_ms:.4f} ms per iteration (CUDA "
         "events over 20 iterations, compacted Phi)")
-    profile_step(phase, engine, state, step_ms)
+    return profile_step(phase, engine, state, step_ms)
 
 
 def phase_main(problem) -> tuple:
@@ -553,10 +573,11 @@ def phase_main(problem) -> tuple:
 
 
 def profile_step(phase: str, engine, state, step_ms: float,
-                 k: int = 10) -> None:
+                 k: int = 10) -> list:
     """Device time per iteration by kernel (torch.profiler over ``k``
     iterations) and the device's busy share of the iteration measured
-    without the profiler."""
+    without the profiler.  Returns (ms, calls, name) per device kernel per
+    iteration, [] if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -575,13 +596,13 @@ def profile_step(phase: str, engine, state, step_ms: float,
             for short in ("dsc_coo_kernel", "wc_coo_kernel",
                           "dsc_sell_kernel", "wc_sell_kernel",
                           "dsc_fcoo_kernel", "dsc_fcoo_fold_kernel",
-                          "wc_fcoo_kernel"):
+                          "wc_fcoo_kernel", "wc_fcoo_fold_kernel"):
                 if short in name:
                     name = short
             rows.append((us / k / 1e3, evt.count / k, name[:60]))
     if not rows:
         log(phase, "profiler saw no device time: breakdown not measured")
-        return
+        return rows
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     log(phase, f"device time per iteration {busy:.4f} ms = "
@@ -590,6 +611,7 @@ def profile_step(phase: str, engine, state, step_ms: float,
     for ms, calls, name in rows[:10]:
         log(phase, f"  {ms:.4f} ms  {ms / busy:6.1%}  {calls:4.1f} calls  "
             f"{name}")
+    return rows
 
 
 # ----------------------------------------------------------------------------
@@ -602,6 +624,7 @@ def phase_formats(problem, w_opt) -> dict:
     launches of B3-B6 on their paths."""
     from repro_torch.core.life import LifeConfig, LifeEngine
     from repro_torch.formats.select import DEFAULT_CANDIDATES
+    from repro_torch.kernels import ops
     cfg = LifeConfig(n_iters=MAIN_ITERS, compact_every=COMPACT_EVERY,
                      plan_cache_dir="")
     launches, layouts = {}, {}
@@ -622,25 +645,33 @@ def phase_formats(problem, w_opt) -> dict:
         else:
             fc = plans["fcoo"]
             layouts[fmt] = fc.nbytes
+            # what fcoo_operands uploads, as the engine's make_fcoo_ops did
+            card_bytes = ops.fcoo_operands(fc, "cuda").nbytes
+            torch.cuda.empty_cache()
             shape = (f"F-COO {fc.n_chunks} chunks of {fc.c_tile}, k_dsc "
-                     f"{fc.k_dsc}, k_wc {fc.k_wc}, {fc.nbytes / 2**20:.1f} MiB"
-                     " encoded (the DSC ranks and segment map stay on the "
-                     "host); per call B5 writes y and "
-                     f"{fc.n_chunks * 2 * n_theta * 4 / 2**20:.2f} MiB of "
-                     "carries (the TPU kernel's partials would be "
-                     f"{fc.n_chunks * fc.k_dsc * n_theta * 4 / 2**20:.1f} MiB,"
-                     f" {np.mean(fc.seg_rows_dsc == fc.n_voxels):.1%} of their"
-                     " rows padding segments), B6 "
-                     f"{fc.n_chunks * fc.k_wc * 4 / 2**20:.2f} MiB of "
-                     f"partials, {np.mean(fc.seg_rows_wc == fc.n_fibers):.1%}"
-                     " of their rows padding segments that the WC combine "
-                     "adds to one dummy row")
+                     f"{fc.k_dsc}, k_wc {fc.k_wc}; FcooPhi.nbytes "
+                     f"{fc.nbytes} ({fc.nbytes / 2**20:.1f} MiB, the host "
+                     "encoding's nine arrays), FcooOperands.nbytes "
+                     f"{card_bytes} ({card_bytes / 2**20:.1f} MiB on the "
+                     "card: the stream, wc_perm and wc_fibers; the ranks and"
+                     " segment maps stay on the host); per call B5 writes y "
+                     f"and {fc.n_chunks * 2 * n_theta * 4 / 2**20:.2f} MiB of"
+                     f" carries, B6 w and {fc.n_chunks * 2 * 8 / 2**20:.3f} "
+                     "MiB of carries and their fibers (the TPU kernels' "
+                     "partials would be "
+                     f"{fc.n_chunks * fc.k_dsc * n_theta * 4 / 2**20:.1f} and"
+                     f" {fc.n_chunks * fc.k_wc * 4 / 2**20:.2f} MiB, "
+                     f"{np.mean(fc.seg_rows_dsc == fc.n_voxels):.1%} and "
+                     f"{np.mean(fc.seg_rows_wc == fc.n_fibers):.1%} of their "
+                     "rows padding segments)")
         log(phase, f"{engine.executor.name} engine built in "
             f"{time.perf_counter() - t0:.2f} s ({engine.format_plan.describe()}); "
             f"{shape}")
         w, launches_fmt = solve_and_check(phase, engine, problem, fmt)
         launches.update(launches_fmt)
-        steady_step(phase, engine, w)
+        rows = steady_step(phase, engine, w)
+        if fmt == "fcoo":
+            check_fcoo_deterministic(problem, cfg, w, rows)
         diff = (w - w_opt).abs()
         log(phase, f"weights vs opt executor: max abs diff "
             f"{float(diff.max()):.3e} (rtol {TRAJ_TOL['rtol']}, atol "
@@ -676,6 +707,33 @@ def phase_formats(problem, w_opt) -> dict:
     log("format-auto", f"{AUTO_ITERS} iterations on the chosen executor: "
         f"loss {ls[0]:.6e} -> {ls[-1]:.6e}")
     return launches
+
+
+def check_fcoo_deterministic(problem, cfg, w, rows: list) -> None:
+    """A second full ``format="fcoo"`` solve (a new engine, the same
+    problem) gives the first one's weights bit for bit, and the F-COO
+    step's profile holds no ``index_add_`` (B5 and B6 fold their chunks
+    themselves, without atomics)."""
+    from repro_torch.core.life import LifeEngine
+    engine = LifeEngine(problem, dataclasses.replace(cfg, format="fcoo"),
+                        device="cuda")
+    w2, _ = engine.run()
+    torch.cuda.synchronize()
+    same = torch.equal(w, w2)
+    log("format-fcoo", f"a second full fcoo solve gives bit-identical "
+        f"weights: {same} (max abs diff {float((w - w2).abs().max()):.3e})")
+    if not same:
+        raise AssertionError("two fcoo solves differ")
+    if not rows:
+        log("format-fcoo", "index_add_ in the step: not measured (the "
+            "profiler saw no device time)")
+        return
+    scatters = [name for _, _, name in rows
+                if "indexfunc" in name.lower() or "index_add" in name.lower()]
+    log("format-fcoo", f"index_add_ kernels in the step's profile: "
+        f"{scatters or 'none'}")
+    if scatters:
+        raise AssertionError(f"the fcoo step runs an index_add_: {scatters}")
 
 
 # ----------------------------------------------------------------------------
@@ -721,7 +779,6 @@ def csr_operator(phi, d, transpose: bool):
 
 
 def phase_timing(problem, launches: dict, errors: dict) -> list:
-    from repro_torch.kernels import ops
     phi, d = problem.phi, problem.dictionary
     t_dsc, t_wc = kernel_operands(phi, c_tile=256, row_tile=8,
                                   compute_dtype="fp32")
@@ -737,41 +794,37 @@ def phase_timing(problem, launches: dict, errors: dict) -> list:
     tile_bytes = lambda t: 4 * (t.tile_ptr.numel() + t.tile_len.numel())
     flops = 2.0 * nc * n_theta + nc
     # per kernel: its call, its plain version, its result over the function
-    # y = M w or w = M^T y, the kernel with its seg_rows combine (B6 only:
-    # B5 writes y itself), and the compulsory bytes: each index and value
+    # y = M w or w = M^T y, and the compulsory bytes: each index and value
     # of a real coefficient read once, D and the dense input read once, the
-    # output (y or w, not B6's partials) written once
+    # output (y or w) written once
     rows = [
         ("dsc_coo", w, lambda pl=False: run_dsc(t_dsc, d, w, plain=pl),
-         lambda out: out[:nv], None,
+         lambda out: out[:nv],
          nc * 16 + tile_bytes(t_dsc) + nf * 4
          + t_dsc.n_row_blocks * t_dsc.row_tile * n_theta * 4),
         ("dsc_sell", w,
          lambda pl=False: run_format("dsc_sell", o["dsc_sell"], d, w, pl),
-         lambda out: out[:nv], None,
+         lambda out: out[:nv],
          nc * 12 + sd.row_nnz.nbytes + nf * 4
          + sd.atoms.shape[0] * n_theta * 4),
         ("dsc_fcoo", w, lambda pl=False: run_format("dsc_fcoo", fo, d, w, pl),
-         lambda out: out, None,
+         lambda out: out,
          nc * 16 + nf * 4 + nv * n_theta * 4),
         ("wc_coo", y, lambda pl=False: run_wc(t_wc, d, y, plain=pl),
-         lambda out: out[:nf], None,
+         lambda out: out[:nf],
          nc * 16 + tile_bytes(t_wc) + nv * n_theta * 4
          + t_wc.n_row_blocks * t_wc.row_tile * 4),
         ("wc_sell", y,
          lambda pl=False: run_format("wc_sell", o["wc_sell"], d, y, pl),
-         lambda out: out[:nf], None,
+         lambda out: out[:nf],
          nc * 12 + sw.row_nnz.nbytes + nv * n_theta * 4
          + sw.atoms.shape[0] * 4),
         ("wc_fcoo", y, lambda pl=False: run_format("wc_fcoo", fo, d, y, pl),
-         lambda out: ops.fcoo_combine(out, fo.seg_rows_wc, nf),
-         lambda: ops.fcoo_combine(ops.fcoo_wc_partials(fo, d, y),
-                                  fo.seg_rows_wc, nf),
-         nc * 20 + nv * n_theta * 4 + nf * 4),
+         lambda out: out, nc * 20 + nv * n_theta * 4 + nf * 4),
     ]
     csr = {}
     entries = []
-    for name, x, run, result, with_combine, bytes_moved in rows:
+    for name, x, run, result, bytes_moved in rows:
         op = name.split("_")[0]
         if op not in csr:
             csr.clear()
@@ -791,10 +844,14 @@ def phase_timing(problem, launches: dict, errors: dict) -> list:
                      ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=library_ms)
         extra = ""
-        if with_combine is not None:
-            entry["ms_with_combine"] = time_ms(with_combine)
-            extra = (f"; with its seg_rows combine "
-                     f"{entry['ms_with_combine']:.4f} ms")
+        if name == "wc_fcoo":
+            # fiber order gathers one Y row per slot: the bound if no
+            # gathered row hit in L2
+            entry["gather_bound_ms"], _ = bound(
+                bytes_moved + d_bytes + nc * n_theta * 4 - nv * n_theta * 4,
+                flops)
+            extra = (f"; bound with a Y row read per slot "
+                     f"{entry['gather_bound_ms']:.4f} ms")
         log("timing", f"{name}: {ms:.4f} ms (bound {bound_ms:.4f} ms by "
             f"{bound_by}, {bound_ms / ms:.1%} of it){extra}; plain "
             f"{plain_ms:.4f} ms; torch.sparse.mm CSR {library_ms:.4f} ms; "

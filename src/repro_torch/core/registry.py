@@ -18,8 +18,9 @@ The ladder (paper §6.3.1/§6.4.1):
   kernel       inspector-planned COO tiles on the CUDA kernels B1/B2
   kernel-sell  blocked-ELL layout (formats/sell.py) on kernels B3/B4
   kernel-fcoo  ONE segment-flagged F-COO stream (formats/fcoo.py) feeding
-               both ops through kernels B5 (y written directly) and B6
-               (partials and a ``seg_rows_wc`` combine)
+               both ops through kernels B5 and B6, which write y and w
+               directly (carries of runs across chunks, an ordered fold,
+               no atomics)
   alto         ALTO single-index sort order (formats/alto.py), one Phi copy
                serving both ops through the naive ops
   auto         runtime autotune of the sort dimension per op (paper §4.1.2)
@@ -231,8 +232,10 @@ def _make_kernel_sell(phi, problem, config, cache) -> Executor:
 @REGISTRY.register("kernel-fcoo", consumes="fcoo")
 def _make_kernel_fcoo(phi, problem, config, cache) -> Executor:
     """Kernels B5/B6 over ONE F-COO copy (formats/fcoo.py): the single
-    linearized stream and its segment metadata serve matvec AND rmatvec;
-    the WC view is read through ``wc_perm`` inside B6, not copied."""
+    linearized stream serves matvec AND rmatvec; the WC view is read
+    through ``wc_perm`` inside B6, not copied (only its fibers are, so B6
+    finds its runs with coalesced loads).  Each op is one launch that
+    writes its output, with no partials to combine."""
     from repro_torch.formats.fcoo import FcooPhi
     from repro_torch.kernels import ops as kops
     fc = FcooPhi.encode(phi, c_tile=config.c_tile, seg_tile=config.seg_tile)

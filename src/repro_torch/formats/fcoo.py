@@ -16,13 +16,13 @@ irregularity into segment metadata:
     (``seg_rows_*``) names each segment's output row (padding segments
     point at a dummy row one past the end).
 
-Kernel B5 (``kernels/fcoo.py``) writes ``y`` directly and folds runs that
-cross chunks itself; kernel B6 writes per-chunk segment partials, and one
-``index_add_`` over ``seg_rows_wc`` folds them.  ``dsc_ranks`` and
-``seg_rows_dsc`` serve the partials-based yardstick only and stay on the
-host.
+Kernels B5 and B6 (``kernels/fcoo.py``) write ``y`` and ``w`` directly and
+fold runs that cross chunks themselves, finding segments from the voxels
+and from the fiber-major view's fibers.  The ranks and ``seg_rows_*`` maps
+serve the partials-based yardsticks only and stay on the host.
 
-``nbytes`` counts every array of the encoding, as the reference does.  The port
+``nbytes`` counts every array of the encoding, as the reference does;
+``kernels/ops.py:FcooOperands.nbytes`` counts what the card holds.  The port
 defines the padding overhead of an empty Phi as 0.0; the reference's
 ``0 / max(1, 0) - 1`` gives -1.0 there.
 """
@@ -175,8 +175,9 @@ class FcooPhi:
     @property
     def nbytes(self) -> int:
         """Every array of the encoding, as the reference counts it: stream,
-        WC view permutation, both rank vectors, both segment maps (the
-        card holds all but the DSC ranks and segment map)."""
+        WC view permutation, both rank vectors, both segment maps.  The
+        card holds the stream, ``wc_perm`` and ``fibers[wc_perm]`` instead
+        (``kernels/ops.py:FcooOperands.nbytes``)."""
         return int(self.atoms.nbytes + self.voxels.nbytes
                    + self.fibers.nbytes + self.values.nbytes
                    + self.wc_perm.nbytes + self.dsc_ranks.nbytes

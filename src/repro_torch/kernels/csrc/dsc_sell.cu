@@ -11,141 +11,195 @@
 // value (10 with bf16 values) and gathers 4 bytes of w, does 2 * Ntheta
 // flops, and writes the (rows_padded, Ntheta) float output once: a few
 // flops per byte, well below the ~20 fp32 flops per byte at which an H100
-// stops waiting on device memory.  The output (100 MB at Nv = 262,144,
+// stops waiting on device memory.  The output (100.7 MB at Nv = 262,144,
 // Ntheta = 96) is most of the compulsory traffic.
 //
 // Design:
-//  * One thread block owns one block of row_tile output rows at a time and
-//    writes those rows once, zeros for empty rows and for the padding rows
-//    past n_rows.  No other block touches them: no atomics, and each output
-//    element is summed in slot order, so results repeat bit for bit.
-//  * Each row reads only its row_nnz[r] real slots, never its padding, so
-//    the width of the layout (the longest row, rounded up) costs memory but
-//    no bandwidth.  The TPU kernel's slot-chunk grid axis, its @pl.when
-//    zero-init and the 128-lane padding of Ntheta are not carried over.
-//  * The real slots of a row block are staged in shared memory in pieces of
-//    kPiece (atom, row, scaled value), with coalesced loads and parallel
-//    gathers of w; a row longer than a piece spans several pieces.
-//  * Each thread owns output columns.  Slots arrive in row order, so a
-//    thread sums a run of equal rows in a register and adds it to the
-//    shared row_tile x Ntheta accumulator when the row changes.
-//  * Blocks stride over row blocks with only as many blocks as are resident,
-//    so the dictionary is staged into shared memory once per block; when it
-//    does not fit it is read through the read-only cache (kSmemD = false).
+//  * SELL rows are independent and row r's real slots are the first
+//    row_nnz[r] of its row, so a warp owns output rows: each warp takes a
+//    contiguous range of rows (adjacent rows' slots share cache lines) and
+//    writes every row of it once, zeros for empty rows and for the padding
+//    rows past n_rows.  No atomics, and each output element is summed in
+//    slot order, so results repeat bit for bit.
+//  * Per row, the lanes load up to 32 slots' atom, fiber and value in one
+//    coalesced load each and gather w[fiber] in parallel; shuffles
+//    broadcast each slot; each lane owns columns lane, lane + 32, ... and
+//    sums them in registers (kCols = ceil(Ntheta / 32) of them, columns in
+//    passes of 128 above Ntheta = 128); the row is stored once, coalesced.
+//    A row longer than 32 slots loads its further slots as it goes.  The
+//    row's padding slots are never read.
+//  * The loads run ahead of the sums: while a warp sums row r, it has row
+//    r + 1's w gathers and row r + 2's slot loads in flight, and the
+//    row_nnz of 32 rows come in one load.
+//  * Blocks of 512 threads stay resident and stage D into shared memory
+//    once (read through the read-only cache when it does not fit,
+//    kSmemD = false).  After that one barrier there is none: warps never
+//    wait for each other.  The TPU kernel's slot-chunk grid axis, its
+//    @pl.when zero-init and the 128-lane padding of Ntheta are not carried
+//    over.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr int kPiece = 256;  // slots staged in shared memory at a time
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
-template <typename T, bool kSmemD>
-__global__ void __launch_bounds__(kMaxThreads) dsc_sell_kernel(
+// One row's slots as this lane holds them: slot `lane` of the first 32.
+struct RowSlots {
+  int nnz = 0;      // real slots of the row (warp-uniform)
+  int atom = 0;
+  int fiber = 0;
+  float value = 0.f;
+};
+
+template <typename T, bool kSmemD, int kCols>
+__global__ void __launch_bounds__(kThreads) dsc_sell_kernel(
     const int* __restrict__ atoms, const int* __restrict__ fibers,
     const T* __restrict__ values, const int* __restrict__ row_nnz,
     const T* __restrict__ dict, const float* __restrict__ w,
-    float* __restrict__ out, int n_rows, int n_row_blocks, int width,
-    int row_tile, int n_atoms, int n_theta) {
+    float* __restrict__ out, int n_rows, int rows_padded, int width,
+    int n_atoms, int n_theta) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int block_elems = row_tile * n_theta;
-  float* s_acc = reinterpret_cast<float*>(smem);             // R x Ntheta
-  float* s_scaled = s_acc + block_elems;                      // kPiece
-  int* s_atom = reinterpret_cast<int*>(s_scaled + kPiece);    // kPiece
-  int* s_row = s_atom + kPiece;                               // kPiece
-  int* s_start = s_row + kPiece;                              // R + 1
-  T* s_dict = reinterpret_cast<T*>(s_start + row_tile + 1);   // Na x Ntheta
-
+  T* s_dict = reinterpret_cast<T*>(smem);  // Na x Ntheta
   if constexpr (kSmemD) {
     for (int i = threadIdx.x; i < n_atoms * n_theta; i += blockDim.x) {
       s_dict[i] = dict[i];
     }
+    __syncthreads();
   }
   const T* d = kSmemD ? s_dict : dict;
+  const int lane = threadIdx.x % 32;
+  const int n_warps = gridDim.x * kWarps;
+  const int per_warp = (rows_padded + n_warps - 1) / n_warps;
+  const int warp = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int r0 = min(warp * per_warp, rows_padded);
+  const int r1 = min(r0 + per_warp, rows_padded);
+  const int nnz_end = min(r1, n_rows);  // rows past n_rows hold no slot
 
-  for (int rb = blockIdx.x; rb < n_row_blocks; rb += gridDim.x) {
-    const int row0 = rb * row_tile;
-    for (int i = threadIdx.x; i < block_elems; i += blockDim.x) s_acc[i] = 0.f;
-    if (threadIdx.x == 0) {
-      // offsets of each row's real slots in the row block's slot list;
-      // padding rows past n_rows hold none
-      int acc = 0;
-      for (int r = 0; r < row_tile; ++r) {
-        s_start[r] = acc;
-        acc += row0 + r < n_rows ? row_nnz[row0 + r] : 0;
-      }
-      s_start[row_tile] = acc;
+  int nnz_block = 0;  // row_nnz of rows r0 + 32k + lane, for the loads ahead
+  // row q's first 32 slots; rows are asked for in order r0, r0 + 1, ...
+  auto load_row = [&](int q) {
+    RowSlots s;
+    if (q >= r1) return s;
+    if (((q - r0) & 31) == 0) {
+      nnz_block = q + lane < nnz_end ? row_nnz[q + lane] : 0;
     }
-    __syncthreads();
-    const int total = s_start[row_tile];
-    for (int base = 0; base < total; base += kPiece) {
-      const int n = total - base < kPiece ? total - base : kPiece;
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int flat = base + i;
-        int r = 0;
-        while (flat >= s_start[r + 1]) ++r;
-        const size_t slot = static_cast<size_t>(row0 + r) * width
-                            + (flat - s_start[r]);
-        s_atom[i] = atoms[slot];
-        s_row[i] = r;
-        s_scaled[i] = __ldg(w + fibers[slot]) * to_float(values[slot]);
-      }
-      __syncthreads();
-      for (int col = threadIdx.x; col < n_theta; col += blockDim.x) {
-        int cur = s_row[0];
-        float run = 0.f;
-        for (int i = 0; i < n; ++i) {
-          const int r = s_row[i];
-          if (r != cur) {
-            s_acc[cur * n_theta + col] += run;
-            run = 0.f;
-            cur = r;
+    s.nnz = __shfl_sync(kFull, nnz_block, (q - r0) & 31);
+    if (lane < s.nnz) {
+      const size_t slot = static_cast<size_t>(q) * width + lane;
+      s.atom = atoms[slot];
+      s.fiber = fibers[slot];
+      s.value = to_float(values[slot]);
+    }
+    return s;
+  };
+
+  RowSlots cur = load_row(r0);
+  float cur_w = lane < cur.nnz ? __ldg(w + cur.fiber) : 0.f;
+  RowSlots next = load_row(r0 + 1);
+  for (int r = r0; r < r1; ++r) {
+    const RowSlots after = load_row(r + 2);
+    const float next_w = lane < next.nnz ? __ldg(w + next.fiber) : 0.f;
+
+    const float scaled = cur_w * cur.value;
+    for (int c0 = 0; c0 < n_theta; c0 += 32 * kCols) {
+      float acc[kCols];
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) acc[k] = 0.f;
+      for (int base = 0; base < cur.nnz; base += 32) {
+        int atom = cur.atom;
+        float sc = scaled;
+        if (base > 0) {  // a row longer than 32 slots: its next piece
+          atom = 0;
+          sc = 0.f;
+          if (base + lane < cur.nnz) {
+            const size_t slot = static_cast<size_t>(r) * width + base + lane;
+            atom = atoms[slot];
+            sc = __ldg(w + fibers[slot]) * to_float(values[slot]);
           }
-          run = fmaf(load_dict<kSmemD>(d + s_atom[i] * n_theta + col),
-                     s_scaled[i], run);
         }
-        s_acc[cur * n_theta + col] += run;
+        const int m = cur.nnz - base < 32 ? cur.nnz - base : 32;
+        for (int s = 0; s < m; ++s) {
+          const T* drow = d + __shfl_sync(kFull, atom, s) * n_theta;
+          const float ss = __shfl_sync(kFull, sc, s);
+#pragma unroll
+          for (int k = 0; k < kCols; ++k) {
+            const int col = c0 + lane + 32 * k;
+            if (col < n_theta) {
+              acc[k] = fmaf(load_dict<kSmemD>(drow + col), ss, acc[k]);
+            }
+          }
+        }
       }
-      __syncthreads();  // the piece's readers are done before the next one
+      float* dst = out + static_cast<size_t>(r) * n_theta;
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        const int col = c0 + lane + 32 * k;
+        if (col < n_theta) dst[col] = acc[k];
+      }
     }
-    float* dst = out + static_cast<size_t>(row0) * n_theta;
-    for (int i = threadIdx.x; i < block_elems; i += blockDim.x) dst[i] = s_acc[i];
-    __syncthreads();  // the block is written before the next one is zeroed
+
+    cur = next;
+    cur_w = next_w;
+    next = after;
   }
+}
+
+template <typename T, bool kSmemD, int kCols>
+cudaError_t launch_main(const int* atoms, const int* fibers, const T* values,
+                        const int* row_nnz, const T* dict, const float* w,
+                        float* out, int n_rows, int rows_padded, int width,
+                        int n_atoms, int n_theta, size_t smem,
+                        cudaStream_t stream) {
+  auto kernel = dsc_sell_kernel<T, kSmemD, kCols>;
+  int grid = 0;
+  cudaError_t e = resident_grid(kernel, kThreads, smem,
+                                (rows_padded + kWarps - 1) / kWarps, &grid);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem, stream>>>(atoms, fibers, values, row_nnz,
+                                           dict, w, out, n_rows, rows_padded,
+                                           width, n_atoms, n_theta);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kSmemD>
+cudaError_t launch_by_width(const int* atoms, const int* fibers,
+                            const T* values, const int* row_nnz,
+                            const T* dict, const float* w, float* out,
+                            int n_rows, int rows_padded, int width,
+                            int n_atoms, int n_theta, size_t smem,
+                            cudaStream_t stream) {
+#define DSC_SELL_ARGS                                                   \
+  atoms, fibers, values, row_nnz, dict, w, out, n_rows, rows_padded, \
+      width, n_atoms, n_theta, smem, stream
+  switch ((n_theta + 31) / 32) {
+    case 1: return launch_main<T, kSmemD, 1>(DSC_SELL_ARGS);
+    case 2: return launch_main<T, kSmemD, 2>(DSC_SELL_ARGS);
+    case 3: return launch_main<T, kSmemD, 3>(DSC_SELL_ARGS);
+    default: return launch_main<T, kSmemD, 4>(DSC_SELL_ARGS);
+  }
+#undef DSC_SELL_ARGS
 }
 
 template <typename T>
 int dsc_sell_launch(const int* atoms, const int* fibers, const T* values,
                     const int* row_nnz, const T* dict, const float* w,
-                    float* out, int n_rows, int n_row_blocks, int width,
-                    int row_tile, int n_atoms, int n_theta,
-                    cudaStream_t stream) {
-  if (n_row_blocks <= 0) return static_cast<int>(cudaSuccess);
-  int threads = ((n_theta + 31) / 32) * 32;
-  threads = threads < 64 ? 64 : (threads > kMaxThreads ? kMaxThreads : threads);
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(row_tile) * n_theta + kPiece)
-      + sizeof(int) * (2 * static_cast<size_t>(kPiece) + row_tile + 1);
+                    float* out, int n_rows, int rows_padded, int width,
+                    int n_atoms, int n_theta, cudaStream_t stream) {
+  if (rows_padded <= 0) return static_cast<int>(cudaSuccess);
   const size_t dict_bytes = sizeof(T) * static_cast<size_t>(n_atoms) * n_theta;
-  const bool stage_dict =
-      smem + dict_bytes <= static_cast<size_t>(smem_optin_bytes());
-  int grid = 0;
   cudaError_t e;
-  if (stage_dict) {
-    e = resident_grid(dsc_sell_kernel<T, true>, threads, smem + dict_bytes,
-                      n_row_blocks, &grid);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    dsc_sell_kernel<T, true><<<grid, threads, smem + dict_bytes, stream>>>(
-        atoms, fibers, values, row_nnz, dict, w, out, n_rows, n_row_blocks,
-        width, row_tile, n_atoms, n_theta);
+  if (dict_bytes <= static_cast<size_t>(smem_optin_bytes())) {
+    e = launch_by_width<T, true>(atoms, fibers, values, row_nnz, dict, w, out,
+                                 n_rows, rows_padded, width, n_atoms, n_theta,
+                                 dict_bytes, stream);
   } else {
-    e = resident_grid(dsc_sell_kernel<T, false>, threads, smem, n_row_blocks,
-                      &grid);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    dsc_sell_kernel<T, false><<<grid, threads, smem, stream>>>(
-        atoms, fibers, values, row_nnz, dict, w, out, n_rows, n_row_blocks,
-        width, row_tile, n_atoms, n_theta);
+    e = launch_by_width<T, false>(atoms, fibers, values, row_nnz, dict, w,
+                                  out, n_rows, rows_padded, width, n_atoms,
+                                  n_theta, 0, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -155,23 +209,21 @@ int dsc_sell_launch(const int* atoms, const int* fibers, const T* values,
 extern "C" int dsc_sell_f32(const int* atoms, const int* fibers,
                             const float* values, const int* row_nnz,
                             const float* dict, const float* w, float* out,
-                            int n_rows, int n_row_blocks, int width,
-                            int row_tile, int n_atoms, int n_theta,
-                            void* stream) {
+                            int n_rows, int rows_padded, int width,
+                            int n_atoms, int n_theta, void* stream) {
   return dsc_sell_launch<float>(atoms, fibers, values, row_nnz, dict, w, out,
-                                n_rows, n_row_blocks, width, row_tile,
-                                n_atoms, n_theta,
+                                n_rows, rows_padded, width, n_atoms, n_theta,
                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int dsc_sell_bf16(const int* atoms, const int* fibers,
                              const __nv_bfloat16* values, const int* row_nnz,
                              const __nv_bfloat16* dict, const float* w,
-                             float* out, int n_rows, int n_row_blocks,
-                             int width, int row_tile, int n_atoms,
-                             int n_theta, void* stream) {
+                             float* out, int n_rows, int rows_padded,
+                             int width, int n_atoms, int n_theta,
+                             void* stream) {
   return dsc_sell_launch<__nv_bfloat16>(atoms, fibers, values, row_nnz, dict,
-                                        w, out, n_rows, n_row_blocks, width,
-                                        row_tile, n_atoms, n_theta,
+                                        w, out, n_rows, rows_padded, width,
+                                        n_atoms, n_theta,
                                         static_cast<cudaStream_t>(stream));
 }

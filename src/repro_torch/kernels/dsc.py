@@ -36,7 +36,9 @@ by :func:`repro_torch.kernels.ops.sell_operands`):
   w              float32[Nf]
 
 B3 result: float32[rows_padded, Ntheta]; every row is written, zeros for
-empty rows and for the padding rows past ``n_rows``.
+empty rows and for the padding rows past ``n_rows``.  B3 runs a warp per
+row; ``row_tile`` only fixes the padded row count (``rows_padded`` is a
+multiple of it).
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ from repro_torch.kernels import _build
 
 _SIGNATURE = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ENTRY = {torch.float32: "dsc_coo_f32", torch.bfloat16: "dsc_coo_bf16"}
-_SELL_SIGNATURE = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+_SELL_SIGNATURE = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
 _SELL_ENTRY = {torch.float32: "dsc_sell_f32", torch.bfloat16: "dsc_sell_bf16"}
 
@@ -198,6 +200,5 @@ def dsc_sell(atoms, fibers, values, row_nnz, dictionary, w, *,
                       {name: _SELL_SIGNATURE for name in _SELL_ENTRY.values()})
     _build.launch(lib, _SELL_ENTRY[dictionary.dtype], "dsc_sell", dev,
                   [atoms, fibers, values, row_nnz, dictionary, w, out],
-                  [row_nnz.numel(), rows_padded // row_tile, width, row_tile,
-                   n_atoms, n_theta])
+                  [row_nnz.numel(), rows_padded, width, n_atoms, n_theta])
     return out

@@ -1,24 +1,24 @@
 """The F-COO kernels B5 (DSC) and B6 (WC): wrappers and plain versions.
 
 ``csrc/dsc_fcoo.cu`` (B5) replaces the Pallas TPU kernel
-``repro/kernels/fcoo.py:dsc_fcoo_pallas`` together with the reference's
-scatter-add of its partials, and ``csrc/wc_fcoo.cu`` (B6) replaces
-``repro/kernels/fcoo.py:wc_fcoo_pallas``; each source's note says what
+``repro/kernels/fcoo.py:dsc_fcoo_pallas`` and ``csrc/wc_fcoo.cu`` (B6)
+replaces ``repro/kernels/fcoo.py:wc_fcoo_pallas``, each together with the
+reference's scatter-add of its partials; each source's note says what
 bounds it on the card and what its design does about that.
 
-B5 computes ``y = M w`` directly: segments inside a chunk are stored to
-their voxel's row, a chunk's first and last segments go to a carry buffer,
-and an ordered fold adds the carries of runs that cross chunks.
-:func:`dsc_fcoo_fused_plain` is its plain version, with the same dataflow.
-:func:`dsc_fcoo_plain` keeps the Pallas kernel's per-chunk segment partials
-slot for slot (zeros past a chunk's last segment); the tests hold it
-against the Pallas kernel.  B6 writes per-chunk segment partials, exactly
-the reference kernel's output, and
-:func:`repro_torch.kernels.ops.make_fcoo_ops` folds them over
-``seg_rows_wc`` with one ``index_add_``.  A wrapper launches its kernel on
-CUDA tensors (counted in :data:`repro_torch.kernels._build.LAUNCHES`), runs
-its plain PyTorch version on CPU tensors, and raises on anything else.
-Sums are taken in float32 whatever the storage type.
+Both compute their op directly, ``y = M w`` and ``w = Mᵀ y``, with one
+dataflow: segments (runs of equal output ids) inside a chunk are stored to
+their output row, a chunk's first and last segments go to a carry buffer,
+and an ordered fold adds the carries of runs that cross chunks, so no
+output takes an atomic.  :func:`dsc_fcoo_fused_plain` and
+:func:`wc_fcoo_fused_plain` are their plain versions, with the same
+dataflow.  :func:`dsc_fcoo_plain` and :func:`wc_fcoo_plain` keep the Pallas
+kernels' per-chunk segment partials slot for slot (zeros past a chunk's
+last segment); the tests hold them against the Pallas kernels.  A wrapper
+launches its kernel on CUDA tensors (counted in
+:data:`repro_torch.kernels._build.LAUNCHES`), runs its plain PyTorch
+version on CPU tensors, and raises on anything else.  Sums are taken in
+float32 whatever the storage type.
 
 Operands (one ``formats/fcoo.py:FcooPhi`` on the device, built by
 :func:`repro_torch.kernels.ops.fcoo_operands`):
@@ -28,12 +28,12 @@ Operands (one ``formats/fcoo.py:FcooPhi`` on the device, built by
       values    float32 | bfloat16 [n_chunks, c_tile]
       w         float32[Nf]
       result    float32[n_voxels, Ntheta]
-  B6: wc_perm, ranks        int32[n_chunks, c_tile]  the fiber-major view
-                                                     and its WC ranks
+  B6: wc_perm, wc_fibers    int32[n_chunks, c_tile]  the fiber-major view
+                                                     and its fibers
       atoms, voxels  int32[Ncp]        the stream itself, read through
       values    float32 | bfloat16 [Ncp]   wc_perm inside the kernel
       y         float32[Nv, Ntheta]
-      result    float32[n_chunks, seg_k]
+      result    float32[n_fibers]
 
 ``dictionary`` is [Na, Ntheta] in the values' dtype.
 """
@@ -49,7 +49,7 @@ from repro_torch.kernels.dsc import _device_of
 _DSC_SIGNATURE = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                   + [ctypes.c_void_p])
 _DSC_ENTRY = {torch.float32: "dsc_fcoo_f32", torch.bfloat16: "dsc_fcoo_bf16"}
-_WC_SIGNATURE = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+_WC_SIGNATURE = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                  + [ctypes.c_void_p])
 _WC_ENTRY = {torch.float32: "wc_fcoo_f32", torch.bfloat16: "wc_fcoo_bf16"}
 
@@ -58,11 +58,6 @@ def _check_dictionary(dictionary, dev) -> None:
     _build.check_operand(dictionary, "dictionary", device=dev,
                          dtypes=(torch.float32, torch.bfloat16),
                          shape=(None, None))
-
-
-def _check_seg_k(seg_k: int, c_tile: int) -> None:
-    if not 1 <= seg_k <= max(1, c_tile):
-        raise ValueError(f"seg_k={seg_k} must lie in 1..c_tile={c_tile}")
 
 
 def _slot_segments(ranks: torch.Tensor, seg_k: int) -> torch.Tensor:
@@ -178,8 +173,10 @@ def dsc_fcoo(atoms, fibers, values, voxels, dictionary, w, *,
 
 def wc_fcoo_plain(wc_perm, atoms, voxels, values, ranks, dictionary, y, *,
                   seg_k: int) -> torch.Tensor:
-    """Plain PyTorch version of B6: gathers through ``wc_perm``, row dot
-    products and one ``index_add_`` onto the (chunk, rank) partials."""
+    """The Pallas kernel's (n_chunks, seg_k) segment partials, in plain
+    PyTorch: gathers through ``wc_perm``, row dot products and one
+    ``index_add_`` onto the (chunk, rank) partials.  Not on the card path:
+    B6 writes ``w`` (:func:`wc_fcoo`)."""
     n_chunks, _ = wc_perm.shape
     j = wc_perm.long()
     dots = (dictionary[atoms[j]].float() * y[voxels[j]]).sum(dim=-1)
@@ -190,19 +187,59 @@ def wc_fcoo_plain(wc_perm, atoms, voxels, values, ranks, dictionary, y, *,
     return out.reshape(n_chunks, seg_k)
 
 
-def wc_fcoo(wc_perm, atoms, voxels, values, ranks, dictionary, y, *,
-            seg_k: int) -> torch.Tensor:
-    """Run B6 on CUDA tensors; on CPU tensors, the plain version.
+def wc_fcoo_fused_plain(wc_perm, wc_fibers, atoms, voxels, values,
+                        dictionary, y, *, n_fibers: int) -> torch.Tensor:
+    """Plain PyTorch version of B6, ``w = Mᵀ y`` with the kernel's dataflow:
+    segment sums in slot order, interior segments stored to their fiber,
+    each chunk's first and last segment carried (0.0 last for a chunk of
+    one segment), and the carries of each run added in chunk order."""
+    n_chunks, c_tile = wc_perm.shape
+    dev = y.device
+    w = torch.zeros((n_fibers,), dtype=torch.float32, device=dev)
+    if n_chunks == 0:
+        return w
+    j = wc_perm.long()
+    prods = ((dictionary[atoms[j]].float() * y[voxels[j]]).sum(dim=-1)
+             * values[j].float())
+    starts = torch.ones_like(wc_fibers, dtype=torch.bool)
+    starts[:, 1:] = wc_fibers[:, 1:] != wc_fibers[:, :-1]
+    rank = starts.long().cumsum(1) - 1              # chunk-local segment
+    chunk = torch.arange(n_chunks, device=dev)
+    seg = torch.zeros((n_chunks * c_tile,), dtype=torch.float32, device=dev)
+    seg.index_add_(0, (chunk[:, None] * c_tile + rank).reshape(-1),
+                   prods.reshape(-1))
+    seg = seg.view(n_chunks, c_tile)
+    last = rank[:, -1]
+    inner_c, inner_i = torch.nonzero(
+        starts & (rank > 0) & (rank < last[:, None]), as_tuple=True)
+    w[wc_fibers[inner_c, inner_i].long()] = seg[inner_c,
+                                                rank[inner_c, inner_i]]
+    tail = torch.where(last > 0, seg[chunk, last], torch.zeros((), device=dev))
+    carry = torch.stack([seg[:, 0], tail], 1).reshape(-1)
+    carry_fib = torch.stack([wc_fibers[:, 0], wc_fibers[:, -1]],
+                            1).reshape(-1)
+    run_start = torch.ones_like(carry_fib, dtype=torch.bool)
+    run_start[1:] = carry_fib[1:] != carry_fib[:-1]
+    run = run_start.long().cumsum(0) - 1
+    runs = torch.zeros_like(carry).index_add_(0, run, carry)
+    w[carry_fib[run_start].long()] = runs[run[run_start]]
+    return w
+
+
+def wc_fcoo(wc_perm, wc_fibers, atoms, voxels, values, dictionary, y, *,
+            n_fibers: int) -> torch.Tensor:
+    """Run B6, ``w = Mᵀ y`` as (n_fibers,) float32, on CUDA tensors; on CPU
+    tensors, the plain version.
 
     Raises:
         ValueError, TypeError: an operand on another device, of another
-            dtype or shape, or not contiguous.
+            dtype or shape, or not contiguous; a negative ``n_fibers``.
         RuntimeError: the CUDA launch was refused.
     """
     dev = y.device
     n_chunks, c_tile = wc_perm.shape
     n_padded = n_chunks * c_tile
-    for name, t in (("wc_perm", wc_perm), ("ranks", ranks)):
+    for name, t in (("wc_perm", wc_perm), ("wc_fibers", wc_fibers)):
         _build.check_operand(t, name, device=dev, dtypes=(torch.int32,),
                              shape=(n_chunks, c_tile))
     for name, t in (("atoms", atoms), ("voxels", voxels)):
@@ -213,16 +250,20 @@ def wc_fcoo(wc_perm, atoms, voxels, values, ranks, dictionary, y, *,
                          dtypes=(dictionary.dtype,), shape=(n_padded,))
     _build.check_operand(y, "y", device=dev, dtypes=(torch.float32,),
                          shape=(None, dictionary.shape[1]))
-    _check_seg_k(seg_k, c_tile)
+    if n_fibers < 0:
+        raise ValueError(f"n_fibers={n_fibers} must be >= 0")
     dev = _device_of(y, "wc_fcoo")
     if dev.type == "cpu":
-        return wc_fcoo_plain(wc_perm, atoms, voxels, values, ranks,
-                             dictionary, y, seg_k=seg_k)
+        return wc_fcoo_fused_plain(wc_perm, wc_fibers, atoms, voxels, values,
+                                   dictionary, y, n_fibers=n_fibers)
     n_atoms, n_theta = dictionary.shape
-    out = torch.empty((n_chunks, seg_k), dtype=torch.float32, device=dev)
+    w = torch.empty((n_fibers,), dtype=torch.float32, device=dev)
+    carry = torch.empty((n_chunks, 2), dtype=torch.float32, device=dev)
+    carry_fib = torch.empty((n_chunks, 2), dtype=torch.int32, device=dev)
     lib = _build.load("wc_fcoo",
                       {name: _WC_SIGNATURE for name in _WC_ENTRY.values()})
     _build.launch(lib, _WC_ENTRY[dictionary.dtype], "wc_fcoo", dev,
-                  [wc_perm, atoms, voxels, values, ranks, dictionary, y, out],
-                  [n_chunks, c_tile, seg_k, n_atoms, n_theta])
-    return out
+                  [wc_perm, wc_fibers, atoms, voxels, values, dictionary, y,
+                   w, carry, carry_fib],
+                  [n_chunks, c_tile, n_fibers, n_atoms, n_theta])
+    return w

@@ -14,10 +14,12 @@ way.
 Four things of the reference do not carry over: the 128-lane padding of
 Ntheta, the ``_visited_mask`` (the kernels write every output row, zeros
 included), the XLA pre-gathers of Y rows for the WC kernels (B2, B4 and B6
-gather them themselves), and the per-call regather of the F-COO stream's
-atoms and values through ``wc_perm`` (B6 reads through ``wc_perm`` itself,
-so the stream stays one resident copy).  B5 folds runs that cross
-F-COO chunks itself, so only B6's partials are combined here.
+gather them themselves), the per-call regather of the F-COO stream's atoms
+and values through ``wc_perm`` (B6 reads through ``wc_perm`` itself, so the
+stream stays one resident copy), and the scatter-adds that fold the F-COO
+kernels' partials: B5 and B6 fold runs that cross chunks themselves, in a
+fixed order.  :func:`fcoo_combine` folds the Pallas kernels' partials only
+for the yardsticks :func:`fcoo_dsc_folded` and :func:`fcoo_wc_folded`.
 
 Compute dtype (DESIGN.md §10.3): ``compute_dtype="bf16"`` stores the static
 operands — the dictionary and the Phi values — in bfloat16, while every
@@ -218,8 +220,9 @@ class FcooOperands:
 
     The stream arrays are one resident copy: B5 reads them as
     ``(n_chunks, c_tile)`` views, B6 reads them flat through ``wc_perm``.
-    B5 finds its segments from ``voxels``, so the DSC ranks and segment map
-    stay on the host.
+    B5 and B6 find their segments from the voxels and from ``wc_fibers``
+    (``fibers[wc_perm]``, the fiber-major view's fibers), so the ranks and
+    segment maps of both ops stay on the host.
     """
 
     atoms: torch.Tensor           # int32[n_chunks, c_tile]
@@ -227,9 +230,7 @@ class FcooOperands:
     fibers: torch.Tensor          # int32[n_chunks, c_tile]
     values: torch.Tensor          # storage dtype [n_chunks, c_tile]
     wc_perm: torch.Tensor         # int32[n_chunks, c_tile]
-    wc_ranks: torch.Tensor        # int32[n_chunks, c_tile]
-    seg_rows_wc: torch.Tensor     # int64[n_chunks * k_wc]
-    k_wc: int
+    wc_fibers: torch.Tensor       # int32[n_chunks, c_tile]
     n_voxels: int
     n_fibers: int
 
@@ -237,25 +238,29 @@ class FcooOperands:
     def n_chunks(self) -> int:
         return self.atoms.shape[0]
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes the card holds for the layout (``FcooPhi.nbytes`` counts
+        the host encoding's nine arrays, as the reference does)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.atoms, self.voxels, self.fibers,
+                             self.values, self.wc_perm, self.wc_fibers))
+
 
 def fcoo_operands(fc, device, *, compute_dtype: str = "fp32"
                   ) -> FcooOperands:
     """Upload ``fc`` to ``device`` once; values in their storage dtype."""
     shape = (fc.n_chunks, fc.c_tile)
 
-    def t(a, dtype=None):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=device)
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a),
+                               device=device).reshape(shape)
 
     return FcooOperands(
-        atoms=t(fc.atoms).reshape(shape), voxels=t(fc.voxels).reshape(shape),
-        fibers=t(fc.fibers).reshape(shape),
-        values=storage_cast(t(fc.values), compute_dtype).reshape(shape),
-        wc_perm=t(fc.wc_perm).reshape(shape),
-        wc_ranks=t(fc.wc_ranks).reshape(shape),
-        seg_rows_wc=t(fc.seg_rows_wc, torch.int64).reshape(-1),
-        k_wc=fc.k_wc, n_voxels=fc.n_voxels,
-        n_fibers=fc.n_fibers)
+        atoms=t(fc.atoms), voxels=t(fc.voxels), fibers=t(fc.fibers),
+        values=storage_cast(t(fc.values), compute_dtype),
+        wc_perm=t(fc.wc_perm), wc_fibers=t(fc.fibers[fc.wc_perm]),
+        n_voxels=fc.n_voxels, n_fibers=fc.n_fibers)
 
 
 def fcoo_dsc(o: FcooOperands, d: torch.Tensor,
@@ -265,33 +270,61 @@ def fcoo_dsc(o: FcooOperands, d: torch.Tensor,
                                 n_voxels=o.n_voxels)
 
 
+def fcoo_wc(o: FcooOperands, d: torch.Tensor,
+            y: torch.Tensor) -> torch.Tensor:
+    """B6 over ``o``: w = Mᵀ y, (n_fibers,)."""
+    return fcoo_kernel.wc_fcoo(o.wc_perm, o.wc_fibers, o.atoms.reshape(-1),
+                               o.voxels.reshape(-1), o.values.reshape(-1), d,
+                               y, n_fibers=o.n_fibers)
+
+
+def _host_ranks(ranks, o: FcooOperands, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(ranks),
+                           device=device).reshape(o.atoms.shape)
+
+
+def _host_seg_rows(seg_rows, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(seg_rows), dtype=torch.int64,
+                           device=device).reshape(-1)
+
+
 def fcoo_dsc_partials(fc, o: FcooOperands, d: torch.Tensor,
                       w: torch.Tensor) -> torch.Tensor:
     """The Pallas kernel's (n_chunks, k_dsc, Ntheta) segment partials over
     ``o``, in plain PyTorch, with the ranks of ``fc`` (the host encoding
     ``o`` was made from): a yardstick, since B5 writes y itself."""
-    ranks = torch.as_tensor(np.ascontiguousarray(fc.dsc_ranks),
-                            device=d.device).reshape(o.atoms.shape)
-    return fcoo_kernel.dsc_fcoo_plain(o.atoms, o.fibers, o.values, ranks, d,
-                                      w, seg_k=fc.k_dsc)
+    return fcoo_kernel.dsc_fcoo_plain(
+        o.atoms, o.fibers, o.values, _host_ranks(fc.dsc_ranks, o, d.device),
+        d, w, seg_k=fc.k_dsc)
 
 
 def fcoo_dsc_folded(fc, o: FcooOperands, d: torch.Tensor,
                     w: torch.Tensor) -> torch.Tensor:
     """y = M w the reference's way: :func:`fcoo_dsc_partials` folded over
     ``fc.seg_rows_dsc`` by :func:`fcoo_combine` (a yardstick for B5)."""
-    seg_rows = torch.as_tensor(np.ascontiguousarray(fc.seg_rows_dsc),
-                               dtype=torch.int64, device=d.device).reshape(-1)
-    return fcoo_combine(fcoo_dsc_partials(fc, o, d, w), seg_rows,
+    return fcoo_combine(fcoo_dsc_partials(fc, o, d, w),
+                        _host_seg_rows(fc.seg_rows_dsc, d.device),
                         fc.n_voxels)
 
 
-def fcoo_wc_partials(o: FcooOperands, d: torch.Tensor,
+def fcoo_wc_partials(fc, o: FcooOperands, d: torch.Tensor,
                      y: torch.Tensor) -> torch.Tensor:
-    """B6 over ``o``: (n_chunks, k_wc) segment partials."""
-    return fcoo_kernel.wc_fcoo(o.wc_perm, o.atoms.reshape(-1),
-                               o.voxels.reshape(-1), o.values.reshape(-1),
-                               o.wc_ranks, d, y, seg_k=o.k_wc)
+    """The Pallas kernel's (n_chunks, k_wc) segment partials over ``o``, in
+    plain PyTorch, with the ranks of ``fc``: a yardstick, since B6 writes
+    w itself."""
+    return fcoo_kernel.wc_fcoo_plain(
+        o.wc_perm, o.atoms.reshape(-1), o.voxels.reshape(-1),
+        o.values.reshape(-1), _host_ranks(fc.wc_ranks, o, d.device), d, y,
+        seg_k=fc.k_wc)
+
+
+def fcoo_wc_folded(fc, o: FcooOperands, d: torch.Tensor,
+                   y: torch.Tensor) -> torch.Tensor:
+    """w = Mᵀ y the reference's way: :func:`fcoo_wc_partials` folded over
+    ``fc.seg_rows_wc`` by :func:`fcoo_combine` (a yardstick for B6)."""
+    return fcoo_combine(fcoo_wc_partials(fc, o, d, y),
+                        _host_seg_rows(fc.seg_rows_wc, d.device),
+                        fc.n_fibers)
 
 
 def fcoo_combine(parts: torch.Tensor, seg_rows: torch.Tensor,
@@ -307,9 +340,9 @@ def fcoo_combine(parts: torch.Tensor, seg_rows: torch.Tensor,
 def make_fcoo_ops(fc, dictionary: torch.Tensor, *,
                   compute_dtype: str = "fp32"):
     """(matvec, rmatvec) over ONE resident ``formats/fcoo.py:FcooPhi``,
-    running kernel B5 (which folds its chunks itself) and kernel B6 with
-    the ``seg_rows_wc`` combine (their plain versions on CPU tensors).  An
-    empty Phi launches nothing and gives zeros."""
+    running kernels B5 and B6, one launch each, which fold their chunks
+    themselves (their plain versions on CPU tensors).  An empty Phi
+    launches nothing and gives zeros."""
     dev = dictionary.device
     n_theta = dictionary.shape[1]
     if fc.n_chunks == 0:
@@ -324,7 +357,6 @@ def make_fcoo_ops(fc, dictionary: torch.Tensor, *,
         return fcoo_dsc(o, d, w)
 
     def rmatvec(y: torch.Tensor) -> torch.Tensor:
-        return fcoo_combine(fcoo_wc_partials(o, d, y), o.seg_rows_wc,
-                            o.n_fibers)
+        return fcoo_wc(o, d, y)
 
     return matvec, rmatvec

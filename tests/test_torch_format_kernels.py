@@ -5,12 +5,13 @@ On the CPU the wrappers run their kernels' plain PyTorch versions.  These
 tests hold the plain versions against the reference's Pallas kernels run
 in interpret mode on the same operands (as tests/test_formats.py and
 tests/test_fcoo.py run them), B5's and B6's segment partials included,
-zeros and all, and B5's fused ``y = M w`` against the reference's F-COO
-matvec (kernel plus scatter-add); they hold the F-COO ops to a float64
-oracle with a tolerance scaled by the sum of |terms| per output (fp32 sums
-in two orders differ by more than a fixed bound on long duplicate runs,
-ROADMAP §C) on the cases B5's carries exist for; and they check the
-wrappers' dispatch and operand checks.  The CUDA kernels
+zeros and all, and B5's fused ``y = M w`` and B6's fused ``w = Mᵀ y``
+against the reference's F-COO matvec and rmatvec (kernel plus
+scatter-add); they hold the F-COO ops to a float64 oracle with a tolerance
+scaled by the sum of |terms| per output (fp32 sums in two orders differ by
+more than a fixed bound on long duplicate runs, ROADMAP §C) on the cases
+the carries of B5 and B6 exist for; and they check the wrappers' dispatch
+and operand checks.  The CUDA kernels
 themselves are held against the plain versions by ``chip_smoke.py`` and by
 the ``gpu``-marked tests below on a card.
 
@@ -203,7 +204,7 @@ def test_wc_fcoo_partials_match_pallas_kernel(case, compute_dtype):
     kernel's over the reference's pre-gathered view."""
     enc, jenc, o, d, _, y = _fcoo_pair(case, compute_dtype)
     dt = ops.storage_cast(torch.tensor(d), compute_dtype)
-    got = ops.fcoo_wc_partials(o, dt, torch.tensor(y))
+    got = ops.fcoo_wc_partials(enc, o, dt, torch.tensor(y))
     shape = (jenc.n_chunks, jenc.c_tile)
     perm = jnp.asarray(jenc.wc_perm)
     y_pad = jops.pad_lanes(jnp.asarray(y))
@@ -219,6 +220,27 @@ def test_wc_fcoo_partials_match_pallas_kernel(case, compute_dtype):
     assert got.shape == (enc.n_chunks, enc.k_wc)
     np.testing.assert_allclose(to_numpy(got), np.asarray(want),
                                **TOL[compute_dtype])
+
+
+@pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", SHAPES)
+def test_wc_fcoo_fused_matches_reference_rmatvec(case, compute_dtype):
+    """B6's fused w = Mᵀ y (its plain version: interior stores, carries, an
+    ordered fold) equals the reference's F-COO rmatvec, the Pallas kernel's
+    partials scatter-added over seg_rows_wc, on the same encoded Phi."""
+    enc, jenc, o, d, _, y = _fcoo_pair(case, compute_dtype)
+    dt = ops.storage_cast(torch.tensor(d), compute_dtype)
+    got = fcoo.wc_fcoo(o.wc_perm, o.wc_fibers, o.atoms.reshape(-1),
+                       o.voxels.reshape(-1), o.values.reshape(-1), dt,
+                       torch.tensor(y), n_fibers=o.n_fibers)
+    _, rmatvec = jops.make_fcoo_ops(jenc, jnp.asarray(d), interpret=True,
+                                    compute_dtype=compute_dtype)
+    want = np.asarray(rmatvec(jnp.asarray(y)))
+    assert got.shape == (enc.n_fibers,) == want.shape
+    np.testing.assert_allclose(to_numpy(got), want, **TOL[compute_dtype])
+    # and the partials folded by the port's own combine
+    folded = ops.fcoo_wc_folded(enc, o, dt, torch.tensor(y))
+    np.testing.assert_allclose(to_numpy(got), to_numpy(folded), **FP32)
 
 
 # ----------------------------------------------------------------------------
@@ -280,10 +302,10 @@ def _oracle_case(case):
         # fewer coefficients than c_tile: one chunk, padded
         v = np.r_[2, 2, 5, 7, 7, 7, 11]
         return _line_phi(v, np.arange(v.size), 13, 8), 32
-    # voxels with no coefficient: gaps inside chunks, between chunks, before
-    # the first and after the last
+    # voxels and fibers with no coefficient: gaps inside chunks, between
+    # chunks, before the first and after the last
     v = np.r_[np.full(20, 4), np.arange(30, 60) * 2, np.full(18, 150)]
-    return _line_phi(v, np.arange(v.size) % 9, 170, 9), 32
+    return _line_phi(v, 1 + 2 * (np.arange(v.size) % 9), 170, 20), 32
 
 
 @pytest.mark.parametrize("case", ["run-across-chunks", "chunk-at-k-limit",
@@ -309,9 +331,10 @@ def test_fcoo_ops_match_float64_oracle(case):
     elif case == "one-chunk":
         assert enc.n_chunks == 1
     else:
-        present = np.unique(t.voxels.numpy())
-        assert present[0] > 0 and present[-1] < t.n_voxels - 1
-        assert np.diff(present).max() > 1
+        for ids, n in ((t.voxels, t.n_voxels), (t.fibers, t.n_fibers)):
+            present = np.unique(ids.numpy())
+            assert present[0] > 0 and present[-1] < n - 1
+            assert np.diff(present).max() > 1
     d, w, y = _inputs(t.n_atoms, t.n_voxels, t.n_fibers, 8, seed=12)
     matvec, rmatvec = ops.make_fcoo_ops(enc, torch.tensor(d))
     ym, ys, wm, ws = _oracle(t, d, w, y)
@@ -322,6 +345,9 @@ def test_fcoo_ops_match_float64_oracle(case):
     assert np.all(np.abs(got_w - wm) <= eps * ws + 1e-12)
     empty = np.setdiff1d(np.arange(t.n_voxels), t.voxels.numpy())
     assert not got_y[empty].any()
+    # fibers with no coefficient come out exactly 0
+    empty = np.setdiff1d(np.arange(t.n_fibers), t.fibers.numpy())
+    assert np.all(got_w[empty] == 0.0)
 
 
 def test_empty_fcoo_phi_launches_nothing_and_gives_zeros():
@@ -372,17 +398,16 @@ def test_format_wrappers_dispatch_by_device_and_check_operands():
     with pytest.raises(ValueError, match="n_voxels"):
         fcoo.dsc_fcoo(f.atoms, f.fibers, f.values, f.voxels, d2, w2,
                       n_voxels=-1)
-    with pytest.raises(ValueError, match="seg_k"):
-        fcoo.wc_fcoo(f.wc_perm, f.atoms.reshape(-1), f.voxels.reshape(-1),
-                     f.values.reshape(-1), f.wc_ranks, d2, y2, seg_k=0)
+    stream = (f.atoms.reshape(-1), f.voxels.reshape(-1),
+              f.values.reshape(-1))
+    with pytest.raises(ValueError, match="n_fibers"):
+        fcoo.wc_fcoo(f.wc_perm, f.wc_fibers, *stream, d2, y2, n_fibers=-1)
     with pytest.raises(ValueError, match="contiguous"):
-        fcoo.wc_fcoo(f.wc_perm.t().contiguous().t(), f.atoms.reshape(-1),
-                     f.voxels.reshape(-1), f.values.reshape(-1), f.wc_ranks,
-                     d2, y2, seg_k=f.k_wc)
+        fcoo.wc_fcoo(f.wc_perm.t().contiguous().t(), f.wc_fibers, *stream,
+                     d2, y2, n_fibers=f.n_fibers)
     with pytest.raises(ValueError, match="is on"):
-        fcoo.wc_fcoo(f.wc_perm, f.atoms.reshape(-1), f.voxels.reshape(-1),
-                     f.values.reshape(-1), f.wc_ranks, d2, y2.to("meta"),
-                     seg_k=f.k_wc)
+        fcoo.wc_fcoo(f.wc_perm, f.wc_fibers, *stream, d2, y2.to("meta"),
+                     n_fibers=f.n_fibers)
     with pytest.raises(ValueError, match="op="):
         ops.make_dsc_sell(SellPhi.encode(PhiTensor(
             atoms=o.atoms[:0, 0], voxels=o.atoms[:0, 0],
@@ -406,11 +431,15 @@ def _on_card(compute_dtype):
 
 
 def _held_to_plain(name, kernel, plain, compute_dtype):
+    """One launch of ``kernel`` against ``plain``; a second launch is
+    bit-identical (no atomics, one summation order).  Returns the first."""
     n = _build.launches(name)
     got = kernel()
     torch.cuda.synchronize()
     assert _build.launches(name) == n + 1
     torch.testing.assert_close(got, plain(), **TOL[compute_dtype])
+    assert torch.equal(got, kernel())
+    return got
 
 
 @pytest.mark.gpu
@@ -445,13 +474,10 @@ def test_dsc_fcoo_kernel_matches_plain_on_card(compute_dtype):
     enc = FcooPhi.encode(t, c_tile=64)
     o = ops.fcoo_operands(enc, "cuda", compute_dtype=compute_dtype)
     args = (o.atoms, o.fibers, o.values, o.voxels, d, w)
-    _held_to_plain("dsc_fcoo",
-                   lambda: fcoo.dsc_fcoo(*args, n_voxels=o.n_voxels),
-                   lambda: fcoo.dsc_fcoo_fused_plain(*args,
-                                                     n_voxels=o.n_voxels),
-                   compute_dtype)
-    got = fcoo.dsc_fcoo(*args, n_voxels=o.n_voxels)
-    assert torch.equal(got, fcoo.dsc_fcoo(*args, n_voxels=o.n_voxels))
+    got = _held_to_plain(
+        "dsc_fcoo", lambda: fcoo.dsc_fcoo(*args, n_voxels=o.n_voxels),
+        lambda: fcoo.dsc_fcoo_fused_plain(*args, n_voxels=o.n_voxels),
+        compute_dtype)
     folded = ops.fcoo_dsc_folded(enc, o, d, w)
     torch.testing.assert_close(got, folded, **TOL[compute_dtype])
 
@@ -459,11 +485,16 @@ def test_dsc_fcoo_kernel_matches_plain_on_card(compute_dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
 def test_wc_fcoo_kernel_matches_plain_on_card(compute_dtype):
+    """The fused B6 against its plain version and against the Pallas-style
+    partials folded by the combine; a second launch is bit-identical."""
     t, d, _, y = _on_card(compute_dtype)
-    o = ops.fcoo_operands(FcooPhi.encode(t, c_tile=64), "cuda",
-                          compute_dtype=compute_dtype)
-    args = (o.wc_perm, o.atoms.reshape(-1), o.voxels.reshape(-1),
-            o.values.reshape(-1), o.wc_ranks, d, y)
-    _held_to_plain("wc_fcoo", lambda: fcoo.wc_fcoo(*args, seg_k=o.k_wc),
-                   lambda: fcoo.wc_fcoo_plain(*args, seg_k=o.k_wc),
-                   compute_dtype)
+    enc = FcooPhi.encode(t, c_tile=64)
+    o = ops.fcoo_operands(enc, "cuda", compute_dtype=compute_dtype)
+    args = (o.wc_perm, o.wc_fibers, o.atoms.reshape(-1),
+            o.voxels.reshape(-1), o.values.reshape(-1), d, y)
+    got = _held_to_plain(
+        "wc_fcoo", lambda: fcoo.wc_fcoo(*args, n_fibers=o.n_fibers),
+        lambda: fcoo.wc_fcoo_fused_plain(*args, n_fibers=o.n_fibers),
+        compute_dtype)
+    folded = ops.fcoo_wc_folded(enc, o, d, y)
+    torch.testing.assert_close(got, folded, **TOL[compute_dtype])
