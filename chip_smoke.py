@@ -473,6 +473,24 @@ def phase_kernels(problem, errors: dict) -> None:
         raise AssertionError("large-dictionary case fits in shared memory")
     check_format_kernels("large-dictionary", big, big_d, c_tile=128,
                          row_tile=4, errors=errors, seed=16)
+    # every width that B3 and B6 dispatch on, with D staged in shared memory
+    # (96 atoms) and read from global memory (8192 atoms): Ntheta 16, 64
+    # and 128 take B6's float4 paths of 1, 2 and 4 vectors per lane and
+    # B3's 1, 2 and 4 columns per lane, 160 B6's scalar path and B3's two
+    # passes over the columns (96 and 37 ran above)
+    huge = random_phi(20000, 8192, 3001, 999, seed=5, hot=300)
+    for n_theta in (16, 64, 128, 160):
+        for label, p, na, c_tile, row_tile in (
+                ("", ragged, 96, 64, 8),
+                ("-global-dictionary", huge, 8192, 128, 4)):
+            d_n = torch.as_tensor(g.normal(size=(na, n_theta)),
+                                  dtype=torch.float32, device="cuda")
+            if label and na * n_theta * 2 <= SMEM_OPTIN_BYTES:
+                raise AssertionError(f"{na} x {n_theta} fits in shared "
+                                     "memory")
+            check_format_kernels(f"width-{n_theta}{label}", p, d_n,
+                                 c_tile=c_tile, row_tile=row_tile,
+                                 errors=errors, seed=17)
     check_empty_fcoo()
     check_small_engine()
 
@@ -624,7 +642,6 @@ def phase_formats(problem, w_opt) -> dict:
     launches of B3-B6 on their paths."""
     from repro_torch.core.life import LifeConfig, LifeEngine
     from repro_torch.formats.select import DEFAULT_CANDIDATES
-    from repro_torch.kernels import ops
     cfg = LifeConfig(n_iters=MAIN_ITERS, compact_every=COMPACT_EVERY,
                      plan_cache_dir="")
     launches, layouts = {}, {}
@@ -645,9 +662,7 @@ def phase_formats(problem, w_opt) -> dict:
         else:
             fc = plans["fcoo"]
             layouts[fmt] = fc.nbytes
-            # what fcoo_operands uploads, as the engine's make_fcoo_ops did
-            card_bytes = ops.fcoo_operands(fc, "cuda").nbytes
-            torch.cuda.empty_cache()
+            card_bytes = plans["fcoo_operands"].nbytes
             shape = (f"F-COO {fc.n_chunks} chunks of {fc.c_tile}, k_dsc "
                      f"{fc.k_dsc}, k_wc {fc.k_wc}; FcooPhi.nbytes "
                      f"{fc.nbytes} ({fc.nbytes / 2**20:.1f} MiB, the host "
@@ -845,13 +860,13 @@ def phase_timing(problem, launches: dict, errors: dict) -> list:
                      bound_by=bound_by, library_ms=library_ms)
         extra = ""
         if name == "wc_fcoo":
-            # fiber order gathers one Y row per slot: the bound if no
-            # gathered row hit in L2
-            entry["gather_bound_ms"], _ = bound(
+            # fiber order gathers one Y row per slot; if no gathered row hit
+            # in L2 (an estimate, not a bound: L2 hits are not measured)
+            no_reuse_ms, _ = bound(
                 bytes_moved + d_bytes + nc * n_theta * 4 - nv * n_theta * 4,
                 flops)
-            extra = (f"; bound with a Y row read per slot "
-                     f"{entry['gather_bound_ms']:.4f} ms")
+            extra = (f"; estimate with a Y row read from memory per slot "
+                     f"(no L2 reuse) {no_reuse_ms:.4f} ms")
         log("timing", f"{name}: {ms:.4f} ms (bound {bound_ms:.4f} ms by "
             f"{bound_by}, {bound_ms / ms:.1%} of it){extra}; plain "
             f"{plain_ms:.4f} ms; torch.sparse.mm CSR {library_ms:.4f} ms; "

@@ -239,10 +239,13 @@ def _make_kernel_fcoo(phi, problem, config, cache) -> Executor:
     from repro_torch.formats.fcoo import FcooPhi
     from repro_torch.kernels import ops as kops
     fc = FcooPhi.encode(phi, c_tile=config.c_tile, seg_tile=config.seg_tile)
+    o = kops.fcoo_operands(fc, problem.dictionary.device,
+                           compute_dtype=config.compute_dtype)
     matvec, rmatvec = kops.make_fcoo_ops(fc, problem.dictionary,
-                                         compute_dtype=config.compute_dtype)
+                                         compute_dtype=config.compute_dtype,
+                                         operands=o)
     return Executor(name="kernel-fcoo", matvec=matvec, rmatvec=rmatvec,
-                    plans=dict(fcoo=fc))
+                    plans=dict(fcoo=fc, fcoo_operands=o))
 
 
 @REGISTRY.register("alto", consumes="alto")

@@ -28,7 +28,7 @@ sum is taken in float32; ``w`` and ``Y`` stay float32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -338,11 +338,14 @@ def fcoo_combine(parts: torch.Tensor, seg_rows: torch.Tensor,
 
 
 def make_fcoo_ops(fc, dictionary: torch.Tensor, *,
-                  compute_dtype: str = "fp32"):
+                  compute_dtype: str = "fp32",
+                  operands: Optional[FcooOperands] = None):
     """(matvec, rmatvec) over ONE resident ``formats/fcoo.py:FcooPhi``,
     running kernels B5 and B6, one launch each, which fold their chunks
-    themselves (their plain versions on CPU tensors).  An empty Phi
-    launches nothing and gives zeros."""
+    themselves (their plain versions on CPU tensors).  ``operands`` are
+    ``fc`` already uploaded by the caller, which then reads their bytes;
+    by default they are uploaded here.  An empty Phi launches nothing and
+    gives zeros."""
     dev = dictionary.device
     n_theta = dictionary.shape[1]
     if fc.n_chunks == 0:
@@ -350,7 +353,8 @@ def make_fcoo_ops(fc, dictionary: torch.Tensor, *,
                                       dtype=torch.float32, device=dev),
                 lambda y: torch.zeros((fc.n_fibers,), dtype=torch.float32,
                                       device=dev))
-    o = fcoo_operands(fc, dev, compute_dtype=compute_dtype)
+    o = operands if operands is not None else fcoo_operands(
+        fc, dev, compute_dtype=compute_dtype)
     d = storage_cast(dictionary, compute_dtype).contiguous()
 
     def matvec(w: torch.Tensor) -> torch.Tensor:

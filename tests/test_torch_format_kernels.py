@@ -498,3 +498,37 @@ def test_wc_fcoo_kernel_matches_plain_on_card(compute_dtype):
         compute_dtype)
     folded = ops.fcoo_wc_folded(enc, o, d, y)
     torch.testing.assert_close(got, folded, **TOL[compute_dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_atoms", [40, 8192])
+@pytest.mark.parametrize("n_theta", [16, 64, 128, 160])
+@pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
+def test_sell_dsc_and_fcoo_wc_at_every_width_on_card(compute_dtype, n_theta,
+                                                     n_atoms):
+    """B3 and B6 at every width they dispatch on: Ntheta 16, 64 and 128 take
+    B6's float4 paths of 1, 2 and 4 vectors and B3's 1, 2 and 4 columns per
+    lane, 160 B6's scalar path and B3's two column passes; 40 atoms stage D
+    in shared memory, 8192 atoms do not fit there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, t = _phi(3000, n_atoms, 500, 300, seed=11, hot=200, skip=np.r_[8:16])
+    t = t.to("cuda")
+    d32, w, y = _inputs(n_atoms, 500, 300, n_theta, seed=12)
+    d = ops.storage_cast(torch.tensor(d32).cuda(), compute_dtype)
+    w, y = torch.tensor(w).cuda(), torch.tensor(y).cuda()
+    o = ops.sell_operands(SellPhi.encode(t, op="dsc"), "cuda",
+                          compute_dtype=compute_dtype)
+    args = (o.atoms, o.others, o.values, o.row_nnz, d, w)
+    _held_to_plain("dsc_sell", lambda: dsc.dsc_sell(*args, row_tile=8),
+                   lambda: dsc.dsc_sell_plain(*args, row_tile=8),
+                   compute_dtype)
+    o = ops.fcoo_operands(FcooPhi.encode(t, c_tile=64), "cuda",
+                          compute_dtype=compute_dtype)
+    args = (o.wc_perm, o.wc_fibers, o.atoms.reshape(-1),
+            o.voxels.reshape(-1), o.values.reshape(-1), d, y)
+    _held_to_plain("wc_fcoo",
+                   lambda: fcoo.wc_fcoo(*args, n_fibers=o.n_fibers),
+                   lambda: fcoo.wc_fcoo_fused_plain(*args,
+                                                    n_fibers=o.n_fibers),
+                   compute_dtype)
