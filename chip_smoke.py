@@ -18,7 +18,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                fp32 and bf16 storage, a second launch of each bit-identical
                to the first, and B5 and B6 (which write y = M w and
                w = M^T y) also against the TPU kernels' partials folded by
-               the seg_rows combine; an empty
+               the seg_rows combine; B1-B6 at every width they dispatch
+               on (Ntheta 16, 64, 128 and 160, D in shared memory and
+               from global memory), B1/B2 at row_tile 4, 8 and 16 with
+               row blocks of several tiles, tiles longer than 32 slots
+               and row blocks no tile visits; an empty
                F-COO Phi, which launches nothing; plus the kernel,
                kernel-sell and kernel-fcoo executors against the dense
                oracle on a small problem.
@@ -258,7 +262,8 @@ def compare(name: str, case: str, got, want, dtype: str, errors: dict) -> None:
 def check_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
                   errors: dict, seed: int) -> dict:
     """Both kernels against their plain versions on ``phi``, fp32 and bf16
-    storage.  Returns the shape facts this case exercised."""
+    storage.  Returns the shape facts this case exercised, each a
+    (dsc, wc) pair where it differs by op."""
     from repro_torch.kernels.ops import storage_cast
     g = torch.Generator(device="cuda").manual_seed(seed)
     w = torch.rand(phi.n_fibers, generator=g, device="cuda")
@@ -279,20 +284,37 @@ def check_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
                 and torch.equal(got_wc, run_wc(t_wc, d, y))):
             raise AssertionError(f"{case} {dtype}: a second launch differs")
         # row blocks no tile visits come out exactly zero
-        spans = t_dsc.tile_ptr.diff().cpu()
-        empty = torch.nonzero(spans == 0).flatten()
-        if empty.numel():
-            rows = (empty[:, None] * row_tile
+        spans, empty = [], []
+        for name, t, out in (("dsc_coo", t_dsc, got), ("wc_coo", t_wc,
+                                                        got_wc)):
+            span = t.tile_ptr.diff().cpu()
+            none = torch.nonzero(span == 0).flatten()
+            rows = (none[:, None] * row_tile
                     + torch.arange(row_tile)[None, :]).flatten().cuda()
-            if torch.count_nonzero(got[rows]).item():
-                raise AssertionError(f"dsc_coo {case}: unvisited row block "
-                                     "is not zero")
-        facts = dict(empty_row_blocks=int(empty.numel()),
-                     max_tiles_per_row_block=int(spans.max()),
+            if torch.count_nonzero(out[rows]).item():
+                raise AssertionError(f"{name} {case}: unvisited row block is "
+                                     "not zero")
+            spans.append(span)
+            empty.append(int(none.numel()))
+        facts = dict(row_tile=row_tile, n_theta=int(d32.shape[1]),
+                     empty_row_blocks=tuple(empty),
+                     max_tiles_per_row_block=tuple(int(sp.max())
+                                                   for sp in spans),
+                     longest_tile=(int(t_dsc.tile_len.max()),
+                                   int(t_wc.tile_len.max())),
                      dict_bytes={dt: d32.numel() * sz for dt, sz in
                                  (("fp32", 4), ("bf16", 2))})
     log("kernels", f"{case}: {facts}")
     return facts
+
+
+def check_ragged_edges(case: str, facts: dict) -> None:
+    """In both ops: a row block no tile visits, a row block of two or more
+    tiles and a tile longer than one batch of 32 slots."""
+    if (min(facts["empty_row_blocks"]) == 0
+            or min(facts["max_tiles_per_row_block"]) < 2
+            or min(facts["longest_tile"]) <= 32):
+        raise AssertionError(f"{case} did not exercise its edges: {facts}")
 
 
 def format_operands(phi, *, c_tile: int, row_tile: int, compute_dtype: str):
@@ -453,10 +475,9 @@ def phase_kernels(problem, errors: dict) -> None:
                         skip_blocks=(10, 11, 20))
     ragged_d = torch.as_tensor(g.normal(size=(96, 37)), dtype=torch.float32,
                                device="cuda")
-    facts = check_kernels("ragged", ragged, ragged_d, c_tile=64,
-                          row_tile=8, errors=errors, seed=12)
-    if facts["empty_row_blocks"] == 0 or facts["max_tiles_per_row_block"] < 2:
-        raise AssertionError(f"ragged case did not exercise its edges: {facts}")
+    check_ragged_edges("ragged", check_kernels(
+        "ragged", ragged, ragged_d, c_tile=64, row_tile=8, errors=errors,
+        seed=12))
     facts = check_format_kernels("ragged", ragged, ragged_d, c_tile=64,
                                  row_tile=8, errors=errors, seed=15)
     if (facts["empty_rows"] == 0 or facts["longest_row"] <= facts["slot_tile"]
@@ -473,11 +494,12 @@ def phase_kernels(problem, errors: dict) -> None:
         raise AssertionError("large-dictionary case fits in shared memory")
     check_format_kernels("large-dictionary", big, big_d, c_tile=128,
                          row_tile=4, errors=errors, seed=16)
-    # every width that B3 and B6 dispatch on, with D staged in shared memory
-    # (96 atoms) and read from global memory (8192 atoms): Ntheta 16, 64
-    # and 128 take B6's float4 paths of 1, 2 and 4 vectors per lane and
-    # B3's 1, 2 and 4 columns per lane, 160 B6's scalar path and B3's two
-    # passes over the columns (96 and 37 ran above)
+    # every width that the B1-B6 kernels dispatch on, with D staged in
+    # shared memory (96 atoms) and read from global memory (8192 atoms):
+    # Ntheta 16, 64 and 128 take B2's and B6's float4 paths of 1, 2 and 4
+    # vectors per lane and B1's and B3's 1, 2 and 4 columns per lane, 160
+    # B2's and B6's scalar path and B1's and B3's two passes over the
+    # columns (96 and 37 ran above); row_tile 8 and 4 there, 16 below
     huge = random_phi(20000, 8192, 3001, 999, seed=5, hot=300)
     for n_theta in (16, 64, 128, 160):
         for label, p, na, c_tile, row_tile in (
@@ -488,9 +510,18 @@ def phase_kernels(problem, errors: dict) -> None:
             if label and na * n_theta * 2 <= SMEM_OPTIN_BYTES:
                 raise AssertionError(f"{na} x {n_theta} fits in shared "
                                      "memory")
-            check_format_kernels(f"width-{n_theta}{label}", p, d_n,
-                                 c_tile=c_tile, row_tile=row_tile,
-                                 errors=errors, seed=17)
+            case = f"width-{n_theta}{label}"
+            facts = check_kernels(case, p, d_n, c_tile=c_tile,
+                                  row_tile=row_tile, errors=errors, seed=17)
+            if not label:
+                check_ragged_edges(case, facts)
+            check_format_kernels(case, p, d_n, c_tile=c_tile,
+                                 row_tile=row_tile, errors=errors, seed=17)
+    d_96 = torch.as_tensor(g.normal(size=(96, 96)), dtype=torch.float32,
+                           device="cuda")
+    check_ragged_edges("row-tile-16", check_kernels(
+        "row-tile-16", ragged, d_96, c_tile=64, row_tile=16, errors=errors,
+        seed=18))
     check_empty_fcoo()
     check_small_engine()
 

@@ -43,7 +43,6 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 
 // One row's slots as this lane holds them: slot `lane` of the first 32.
 struct RowSlots {

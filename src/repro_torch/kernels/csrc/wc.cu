@@ -8,38 +8,54 @@
 // in XLA before its call; here the kernel gathers each Y row itself, so no
 // Nc x Ntheta stream is ever written to device memory.
 //
-// Bound: bytes.  Per coefficient the kernel reads 16 bytes of indices and
-// value (14 with bf16 values) and gathers one Ntheta-float row of Y, and
+// Bound: bytes.  Per real coefficient the kernel reads 16 bytes of indices
+// and value (14 with bf16 values) and gathers one Ntheta-float Y row, and
 // does 2 * Ntheta flops: well below the ~20 fp32 flops per byte at which an
-// H100 stops waiting on device memory.  The Y row gathers dominate; rows
-// of neighbouring voxels recur along a streamline, so many hit in L2.
+// H100 stops waiting on device memory.  The compulsory traffic counts Y
+// once (100.7 MB at Nv = 262,144, Ntheta = 96); fiber order gathers a row
+// per slot (0.40 GB at the smoke size if no row hit the 50 MB L2), so what
+// decides is how many Y rows each warp has in flight.
 //
-// Design:
-//  * One thread block owns one fiber block (R fibers) at a time, walks the
-//    contiguous range of tiles the host's tile_ptr gives it, and writes the
-//    R weights once, zeros included.  No atomics; each weight is summed in
-//    one fixed order, so results are identical run to run.
-//  * Blocks stride over fiber blocks with only as many blocks as are
-//    resident, staging D into shared memory once per block; when D does not
-//    fit it is read through the read-only cache (kSmemD = false).
-//  * A tile's atoms, voxels, rows and values are staged into shared memory
-//    by all threads; only its real prefix (tile_len) is read.
-//  * Each warp takes a contiguous chunk of the tile.  Per coefficient the
-//    warp's lanes stride over Ntheta (coalesced loads of the Y row and the D
-//    row), and a butterfly of shuffles sums the dot product.  Coefficients
-//    are fiber-sorted, so lane 0 sums a run of equal fibers in a register
-//    and adds it to the warp's slot of a shared (warps x R) table when the
-//    fiber changes; at the end of the fiber block the R weights are summed
-//    over the warps in warp order.
+// Design (the one of B6, csrc/wc_fcoo.cu, simpler here: a fiber block
+// belongs wholly to one warp, so there are no carries and no fold):
+//  * A warp owns a contiguous range of fiber blocks.  It first zeroes their
+//    R weights each (so fibers that no slot reaches come out 0), then
+//    stores each fiber's sum once; no other warp touches those weights.
+//  * The warp walks its fiber blocks' tiles in batches of up to 32 real
+//    slots (common.cuh:TileWalk): each lane loads one slot's atom, voxel,
+//    value and local row, coalesced; only a tile's real prefix (tile_len)
+//    is read.  Those loads run one batch ahead of the sums.
+//  * The warp splits into 4 groups of 8 lanes, one slot each
+//    (common.cuh:batch_dots, shared with B6): every lane loads kVecs
+//    float4s of the slot's Y row and of D's row (Ntheta = 96: 3 each), so 4
+//    rows are in flight per step and up to 32 per batch; three shuffles
+//    sum each dot product.  Ntheta that is not a multiple of 4, or above
+//    128, takes a scalar column loop instead (kVecs = 0).
+//  * Rows in flight per warp and warps per SM pull against each other
+//    through the registers.  The launch bounds ask for one resident block
+//    of 512 threads per SM: 128 registers a thread (with a 24-byte spill at
+//    Ntheta = 96), 16 warps.  In a probe on the card that beat one block
+//    of 256 threads at 160 registers (B6's choice), two such blocks at
+//    128, three at 80, four blocks of 128 threads at 128 (spilling more)
+//    and ptxas's own 59 registers; 384 threads ran level.
+//  * A segmented scan over the batch's 32 products, keyed by the output row
+//    (a fixed tree), sums each run of one fiber; the run left open at the
+//    batch's end is carried to the next batch in a register.  The lane at
+//    a run's end stores it to out[rb * R + row].
+//  * Blocks stage D into shared memory once (read through the read-only
+//    cache when it does not fit, kSmemD = false); after that there is no
+//    block barrier.  No atomics: every weight is summed in one fixed order
+//    (slots of a batch by the scan's tree, batches in slot order), so a
+//    second launch is bit-identical.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 
-template <typename T, bool kSmemD>
-__global__ void __launch_bounds__(kThreads) wc_coo_kernel(
+template <typename T, bool kSmemD, int kVecs>
+__global__ void __launch_bounds__(kThreads, 1) wc_coo_kernel(
     const int* __restrict__ tile_ptr, const int* __restrict__ tile_len,
     const int* __restrict__ atoms, const int* __restrict__ voxels,
     const T* __restrict__ values, const int* __restrict__ local_row,
@@ -47,69 +63,113 @@ __global__ void __launch_bounds__(kThreads) wc_coo_kernel(
     float* __restrict__ out, int n_row_blocks, int c_tile, int row_tile,
     int n_atoms, int n_theta) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_part = reinterpret_cast<float*>(smem);           // warps x R
-  float* s_val = s_part + kWarps * row_tile;                 // c_tile
-  int* s_atom = reinterpret_cast<int*>(s_val + c_tile);      // c_tile
-  int* s_vox = s_atom + c_tile;                              // c_tile
-  int* s_row = s_vox + c_tile;                               // c_tile
-  T* s_dict = reinterpret_cast<T*>(s_row + c_tile);          // Na x Ntheta
-
+  T* s_dict = reinterpret_cast<T*>(smem);  // Na x Ntheta
   if constexpr (kSmemD) {
     for (int i = threadIdx.x; i < n_atoms * n_theta; i += blockDim.x) {
       s_dict[i] = dict[i];
     }
+    __syncthreads();
   }
   const T* d = kSmemD ? s_dict : dict;
-  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const unsigned upto = kFull >> (31 - lane);
+  const int n_warps = gridDim.x * kWarps;
+  const int per_warp = (n_row_blocks + n_warps - 1) / n_warps;
+  const int warp = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int rb0 = min(warp * per_warp, n_row_blocks);
+  const int rb1 = min(rb0 + per_warp, n_row_blocks);
+  if (rb0 >= rb1) return;
 
-  for (int rb = blockIdx.x; rb < n_row_blocks; rb += gridDim.x) {
-    for (int i = threadIdx.x; i < kWarps * row_tile; i += blockDim.x) {
-      s_part[i] = 0.f;
-    }
-    const int t_end = tile_ptr[rb + 1];
-    for (int t = tile_ptr[rb]; t < t_end; ++t) {
-      __syncthreads();  // last tile's readers are done; zeros and D visible
-      const int n = tile_len[t];
-      const size_t base = static_cast<size_t>(t) * c_tile;
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        s_atom[i] = atoms[base + i];
-        s_vox[i] = voxels[base + i];
-        s_row[i] = local_row[base + i];
-        s_val[i] = to_float(values[base + i]);
-      }
-      __syncthreads();
-      const int chunk = (n + kWarps - 1) / kWarps;
-      const int lo = warp * chunk;
-      const int hi = lo + chunk < n ? lo + chunk : n;
-      int cur = lo < hi ? s_row[lo] : 0;
-      float run = 0.f;
-      for (int i = lo; i < hi; ++i) {
-        const T* drow = d + s_atom[i] * n_theta;
-        const float* yrow = y + static_cast<size_t>(s_vox[i]) * n_theta;
-        float p = 0.f;
-        for (int c = lane; c < n_theta; c += 32) {
-          p = fmaf(load_dict<kSmemD>(drow + c), __ldg(yrow + c), p);
-        }
-        p = warp_sum(p);
-        const int r = s_row[i];
-        if (r != cur) {
-          if (lane == 0) s_part[warp * row_tile + cur] += run;
-          run = 0.f;
-          cur = r;
-        }
-        run = fmaf(p, s_val[i], run);
-      }
-      if (lo < hi && lane == 0) s_part[warp * row_tile + cur] += run;
-    }
-    __syncthreads();
-    for (int r = threadIdx.x; r < row_tile; r += blockDim.x) {
-      float s = 0.f;
-      for (int k = 0; k < kWarps; ++k) s += s_part[k * row_tile + r];
-      out[static_cast<size_t>(rb) * row_tile + r] = s;
-    }
-    __syncthreads();  // the block is written before the next one is zeroed
+  // zeros first; __syncwarp orders them before the runs' stores below
+  for (int i = rb0 * row_tile + lane; i < rb1 * row_tile; i += 32) {
+    out[i] = 0.f;
   }
+  __syncwarp();
+
+  TileWalk walk(tile_ptr, tile_len, rb0, rb1, c_tile, lane);
+  CooBatch b = walk.next();
+  CooSlot s = load_slot(b, atoms, voxels, values, local_row, lane);
+  int cur = -1;     // output row of the run left open by the last batch
+  float run = 0.f;  // its sum so far
+  while (b.m > 0) {
+    const CooBatch b1 = walk.next();
+    const CooSlot s1 = load_slot(b1, atoms, voxels, values, local_row, lane);
+
+    const bool active = lane < b.m;
+    float mine = batch_dots<T, kSmemD, kVecs>(d, y, s.atom, s.other, lane,
+                                              n_theta);
+    mine = active ? mine * s.value : 0.f;
+    const int key = b.rb * row_tile + s.row;
+
+    // segmented inclusive scan: x ends as the sum of the lane's run from
+    // its first lane in this batch up to the lane
+    const int key_up = __shfl_up_sync(kFull, key, 1);
+    const unsigned heads =
+        __ballot_sync(kFull, active && (lane == 0 || key != key_up));
+    const int start = 31 - __clz(heads & upto);
+    float x = segmented_scan(mine, start, lane);
+    const int key_down = __shfl_down_sync(kFull, key, 1);
+    const unsigned ends =
+        __ballot_sync(kFull, active && (lane == b.m - 1 || key_down != key));
+
+    // the run left open by the last batch either ends there or goes on in
+    // this batch's first run
+    const int key0 = __shfl_sync(kFull, key, 0);
+    if (cur >= 0 && key0 != cur) {
+      if (lane == 0) out[cur] = run;
+    } else if (cur >= 0 && start == 0) {
+      x += run;
+    }
+    // runs that end inside the batch are complete; the one at lane m - 1
+    // stays open
+    const unsigned closing = ends & ~(1u << (b.m - 1));
+    if ((closing >> lane) & 1u) out[key] = x;
+    run = __shfl_sync(kFull, x, b.m - 1);
+    cur = __shfl_sync(kFull, key, b.m - 1);
+
+    b = b1;
+    s = s1;
+  }
+  if (cur >= 0 && lane == 0) out[cur] = run;
+}
+
+template <typename T, bool kSmemD, int kVecs>
+cudaError_t launch_main(const int* tile_ptr, const int* tile_len,
+                        const int* atoms, const int* voxels, const T* values,
+                        const int* local_row, const T* dict, const float* y,
+                        float* out, int n_row_blocks, int c_tile,
+                        int row_tile, int n_atoms, int n_theta, size_t smem,
+                        cudaStream_t stream) {
+  auto kernel = wc_coo_kernel<T, kSmemD, kVecs>;
+  int grid = 0;
+  cudaError_t e = resident_grid(kernel, kThreads, smem,
+                                (n_row_blocks + kWarps - 1) / kWarps, &grid);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      tile_ptr, tile_len, atoms, voxels, values, local_row, dict, y, out,
+      n_row_blocks, c_tile, row_tile, n_atoms, n_theta);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kSmemD>
+cudaError_t launch_by_width(int vecs, const int* tile_ptr,
+                            const int* tile_len, const int* atoms,
+                            const int* voxels, const T* values,
+                            const int* local_row, const T* dict,
+                            const float* y, float* out, int n_row_blocks,
+                            int c_tile, int row_tile, int n_atoms,
+                            int n_theta, size_t smem, cudaStream_t stream) {
+#define WC_COO_ARGS                                                        \
+  tile_ptr, tile_len, atoms, voxels, values, local_row, dict, y, out,    \
+      n_row_blocks, c_tile, row_tile, n_atoms, n_theta, smem, stream
+  switch (vecs) {
+    case 1: return launch_main<T, kSmemD, 1>(WC_COO_ARGS);
+    case 2: return launch_main<T, kSmemD, 2>(WC_COO_ARGS);
+    case 3: return launch_main<T, kSmemD, 3>(WC_COO_ARGS);
+    case 4: return launch_main<T, kSmemD, 4>(WC_COO_ARGS);
+    default: return launch_main<T, kSmemD, 0>(WC_COO_ARGS);
+  }
+#undef WC_COO_ARGS
 }
 
 template <typename T>
@@ -119,30 +179,22 @@ int wc_launch(const int* tile_ptr, const int* tile_len, const int* atoms,
               int c_tile, int row_tile, int n_atoms, int n_theta,
               cudaStream_t stream) {
   if (n_row_blocks <= 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(kWarps) * row_tile
-                                       + c_tile)
-                      + 3 * sizeof(int) * static_cast<size_t>(c_tile);
   const size_t dict_bytes = sizeof(T) * static_cast<size_t>(n_atoms) * n_theta;
-  const bool stage_dict =
-      smem + dict_bytes <= static_cast<size_t>(smem_optin_bytes());
-  int grid = 0;
+  const bool stage_dict = dict_bytes <= static_cast<size_t>(smem_optin_bytes());
+  const int vecs = dot_vecs(n_theta, y, dict, stage_dict);
   cudaError_t e;
   if (stage_dict) {
-    e = resident_grid(wc_coo_kernel<T, true>, kThreads, smem + dict_bytes,
-                      n_row_blocks, &grid);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    wc_coo_kernel<T, true><<<grid, kThreads, smem + dict_bytes, stream>>>(
-        tile_ptr, tile_len, atoms, voxels, values, local_row, dict, y, out,
-        n_row_blocks, c_tile, row_tile, n_atoms, n_theta);
+    e = launch_by_width<T, true>(vecs, tile_ptr, tile_len, atoms, voxels,
+                                 values, local_row, dict, y, out,
+                                 n_row_blocks, c_tile, row_tile, n_atoms,
+                                 n_theta, dict_bytes, stream);
   } else {
-    e = resident_grid(wc_coo_kernel<T, false>, kThreads, smem, n_row_blocks,
-                      &grid);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    wc_coo_kernel<T, false><<<grid, kThreads, smem, stream>>>(
-        tile_ptr, tile_len, atoms, voxels, values, local_row, dict, y, out,
-        n_row_blocks, c_tile, row_tile, n_atoms, n_theta);
+    e = launch_by_width<T, false>(vecs, tile_ptr, tile_len, atoms, voxels,
+                                  values, local_row, dict, y, out,
+                                  n_row_blocks, c_tile, row_tile, n_atoms,
+                                  n_theta, 0, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }
 
 }  // namespace

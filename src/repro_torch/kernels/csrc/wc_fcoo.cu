@@ -33,11 +33,12 @@
 //    fiber-major copy, wc_fibers = fibers[wc_perm]) and then its atom, voxel
 //    and value through wc_perm.  Those loads run one batch ahead of the
 //    sums, and the wc_perm loads two ahead.
-//  * The warp splits into 4 groups of 8 lanes, one slot each: every lane
-//    loads kVecs float4s of the slot's Y row and of D's row (Ntheta = 96:
-//    3 each), so 4 rows are in flight per step and up to 32 per batch;
-//    three shuffles sum each dot product.  Ntheta that is not a multiple
-//    of 4, or above 128, takes a scalar column loop instead (kVecs = 0).
+//  * The warp splits into 4 groups of 8 lanes, one slot each
+//    (common.cuh:batch_dots, shared with B2): every lane loads kVecs
+//    float4s of the slot's Y row and of D's row (Ntheta = 96: 3 each), so
+//    4 rows are in flight per step and up to 32 per batch; three shuffles
+//    sum each dot product.  Ntheta that is not a multiple of 4, or above
+//    128, takes a scalar column loop instead (kVecs = 0).
 //    Rows in flight per warp matter more than warps: the launch bounds ask
 //    for one resident block per SM, so the kernel takes the registers to
 //    hoist a batch's loads (168 at Ntheta = 96 in fp32).  That was faster
@@ -46,12 +47,13 @@
 //    blocks per SM, which spill.
 //  * The stream is fiber-sorted, so runs are found from the fibers
 //    themselves: a segmented scan over the batch's 32 products (a fixed
-//    tree), plus the run left open by the batch before.  A segment that is
-//    neither the first nor the last of its chunk is the whole of its
-//    fiber's run: the lane at its end stores it straight to w[fiber].  The
-//    first and last segments may continue runs of the neighbouring chunks:
-//    they go to a carry buffer (n_chunks, 2) with their fibers (a chunk of
-//    one segment carries it first and 0.0 last, on the same fiber).
+//    tree, common.cuh:segmented_scan), plus the run left open by the batch
+//    before.  A segment that is neither the first nor the last of its
+//    chunk is the whole of its fiber's run: the lane at its end stores it
+//    straight to w[fiber].  The first and last segments may continue runs
+//    of the neighbouring chunks: they go to a carry buffer (n_chunks, 2)
+//    with their fibers (a chunk of one segment carries it first and 0.0
+//    last, on the same fiber).
 //  * wc_fcoo_fold_kernel, the second kernel, gives one thread to each carry
 //    that starts a run (its fiber differs from the carry before it): it adds
 //    the run's carries in chunk order, however many chunks the run spans,
@@ -66,64 +68,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kGroup = 8;  // lanes that share one slot's dot product
 constexpr int kFoldThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
-
-// Four consecutive D entries as floats (16-byte aligned for float, 8 for
-// bf16), from shared memory or through the read-only cache.
-template <bool kSmem>
-__device__ __forceinline__ float4 load_dict4(const float* p) {
-  const float4* q = reinterpret_cast<const float4*>(p);
-  if constexpr (kSmem) {
-    return *q;
-  } else {
-    return __ldg(q);
-  }
-}
-
-template <bool kSmem>
-__device__ __forceinline__ float4 load_dict4(const __nv_bfloat16* p) {
-  const uint2* q = reinterpret_cast<const uint2*>(p);
-  uint2 u;
-  if constexpr (kSmem) {
-    u = *q;
-  } else {
-    u = __ldg(q);
-  }
-  // bf16 is the top half of a float; the lower address holds the low half
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
-// Lane lg's share of <drow, yrow>: float4 columns lg, lg + 8, ... (kVecs of
-// them), or every 8th column from lg when kVecs == 0.
-template <typename T, bool kSmemD, int kVecs>
-__device__ __forceinline__ float group_dot(const T* drow, const float* yrow,
-                                           int lg, int n_theta) {
-  float p = 0.f;
-  if constexpr (kVecs > 0) {
-#pragma unroll
-    for (int k = 0; k < kVecs; ++k) {
-      const int q = lg + kGroup * k;
-      if (4 * q < n_theta) {
-        const float4 yv = __ldg(reinterpret_cast<const float4*>(yrow) + q);
-        const float4 dv = load_dict4<kSmemD>(drow + 4 * q);
-        p = fmaf(dv.x, yv.x, p);
-        p = fmaf(dv.y, yv.y, p);
-        p = fmaf(dv.z, yv.z, p);
-        p = fmaf(dv.w, yv.w, p);
-      }
-    }
-  } else {
-    for (int c = lg; c < n_theta; c += kGroup) {
-      p = fmaf(load_dict<kSmemD>(drow + c), __ldg(yrow + c), p);
-    }
-  }
-  return p;
-}
 
 template <typename T, bool kSmemD, int kVecs>
 __global__ void __launch_bounds__(kThreads, 1) wc_fcoo_kernel(
@@ -143,8 +88,6 @@ __global__ void __launch_bounds__(kThreads, 1) wc_fcoo_kernel(
   }
   const T* d = kSmemD ? s_dict : dict;
   const int lane = threadIdx.x % 32;
-  const int lg = lane % kGroup;
-  const int group_lane0 = lane - lg;
   const unsigned below = (1u << lane) - 1u;
   const unsigned upto = kFull >> (31 - lane);
   const int n_batches = (c_tile + 31) / 32;
@@ -188,21 +131,7 @@ __global__ void __launch_bounds__(kThreads, 1) wc_fcoo_kernel(
         f2 = wc_fibers[chunk + 32 * (b + 2) + lane];
       }
 
-      // group q takes slots 8q .. 8q + 7 of the batch, one per step, so
-      // the product of slot `lane` ends on lane `lane`
-      float mine = 0.f;
-#pragma unroll
-      for (int it = 0; it < kGroup; ++it) {
-        const int as = __shfl_sync(kFull, a, group_lane0 + it);
-        const int vs = __shfl_sync(kFull, v, group_lane0 + it);
-        float p = group_dot<T, kSmemD, kVecs>(
-            d + static_cast<size_t>(as) * n_theta,
-            y + static_cast<size_t>(vs) * n_theta, lg, n_theta);
-        p += __shfl_xor_sync(kFull, p, 4);
-        p += __shfl_xor_sync(kFull, p, 2);
-        p += __shfl_xor_sync(kFull, p, 1);
-        if (lg == it) mine = p;
-      }
+      float mine = batch_dots<T, kSmemD, kVecs>(d, y, a, v, lane, n_theta);
       const bool active = lane < n;
       mine = active ? mine * val : 0.f;
 
@@ -212,12 +141,7 @@ __global__ void __launch_bounds__(kThreads, 1) wc_fcoo_kernel(
       const unsigned heads =
           __ballot_sync(kFull, active && (lane == 0 || f != f_up));
       const int start = 31 - __clz(heads & upto);
-      float x = mine;
-#pragma unroll
-      for (int dd = 1; dd < 32; dd <<= 1) {
-        const float o = __shfl_up_sync(kFull, x, dd);
-        if (lane - dd >= start) x += o;
-      }
+      float x = segmented_scan(mine, start, lane);
       const int f_down = __shfl_down_sync(kFull, f, 1);
       const unsigned ends =
           __ballot_sync(kFull, active && (lane == n - 1 || f_down != f));
@@ -338,11 +262,7 @@ int wc_fcoo_launch(const int* wc_perm, const int* wc_fibers, const int* atoms,
   if (e != cudaSuccess || n_chunks <= 0) return static_cast<int>(e);
   const size_t dict_bytes = sizeof(T) * static_cast<size_t>(n_atoms) * n_theta;
   const bool stage_dict = dict_bytes <= static_cast<size_t>(smem_optin_bytes());
-  // float4 columns need Ntheta % 4 == 0 and aligned rows of Y and of D
-  const bool aligned =
-      n_theta % 4 == 0 && reinterpret_cast<size_t>(y) % 16 == 0
-      && (stage_dict || reinterpret_cast<size_t>(dict) % (4 * sizeof(T)) == 0);
-  const int vecs = aligned && n_theta <= 4 * 32 ? (n_theta + 31) / 32 : 0;
+  const int vecs = dot_vecs(n_theta, y, dict, stage_dict);
   if (stage_dict) {
     e = launch_by_width<T, true>(vecs, wc_perm, wc_fibers, atoms, voxels,
                                  values, dict, y, w, carry, carry_fib,

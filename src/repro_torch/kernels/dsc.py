@@ -22,8 +22,13 @@ B1 operands (built once from a ``TilePlan`` by
   dictionary   [Na, Ntheta], the same dtype as ``values_p``
   w            float32[Nf]
 
-B1 result: float32[n_row_blocks * row_tile, Ntheta]; every row is written,
-zeros for row blocks no tile visits.
+B1 result: float32[n_row_blocks * row_tile, Ntheta]; every row is written
+once, zeros for rows no coefficient reaches and for row blocks no tile
+visits.  B1 runs a warp per contiguous range of row blocks, walking their
+tiles in batches of 32 real slots; it relies on each tile's real slots
+being a prefix (``tile_len``) and on ``local_row`` never decreasing within
+a row block, across its tiles too, which :func:`ops.coo_tiles` gives for a
+plan over sorted ids.
 
 B3 operands (a voxel-row ``formats/sell.py:SellPhi`` on the device, built
 by :func:`repro_torch.kernels.ops.sell_operands`):

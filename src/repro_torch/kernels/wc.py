@@ -23,7 +23,10 @@ B2 operands (built once from a ``TilePlan`` by
   y            float32[Nv, Ntheta]
 
 B2 result: float32[n_fib_blocks * row_tile]; every fiber is written, zeros
-for fiber blocks no tile visits.
+for fibers no coefficient reaches.  B2 runs a warp per contiguous range of
+fiber blocks, walking their tiles in batches of 32 real slots and summing
+each fiber's run by a segmented warp scan, as B6 does over F-COO chunks;
+it relies on the same tile layout as B1 (``kernels/dsc.py``).
 
 B4 operands (a fiber-row ``formats/sell.py:SellPhi`` on the device, built
 by :func:`repro_torch.kernels.ops.sell_operands`):

@@ -207,6 +207,60 @@ def test_coo_tiles_layout_and_padding():
         ops.coo_tiles(other, plan, other.fibers, 20)
 
 
+@pytest.mark.parametrize("op", ["dsc", "wc"])
+@pytest.mark.parametrize("nc,c_tile,row_tile", [
+    (900, 8, 4), (900, 32, 8), (2500, 64, 16), (2500, 256, 8), (0, 32, 8)])
+def test_coo_tiles_give_what_the_kernels_walk(op, nc, c_tile, row_tile):
+    """What B1 and B2 rely on (csrc/common.cuh:TileWalk): every tile's real
+    slots are a prefix of it, tile_ptr covers the tiles in order, each real
+    slot's row block * row_tile + local_row is its sorted id, and local_row
+    lies in [0, row_tile) and never decreases within a row block, across
+    its tiles too.  The plans have empty row blocks and a row block of
+    several tiles (a hot id)."""
+    r = np.random.default_rng(nc + c_tile + row_tile)
+    nv = nf = 160
+    skip = np.r_[16:32, 96:100]
+    ids = lambda n: np.r_[r.choice(np.setdiff1d(np.arange(n), skip), nc),
+                          np.full(nc // 10, 5)]
+    v, f = ids(nv), ids(nf)
+    n = v.size
+    tphi = PhiTensor(atoms=torch.tensor(r.integers(0, 12, n),
+                                        dtype=torch.int32),
+                     voxels=torch.tensor(v, dtype=torch.int32),
+                     fibers=torch.tensor(f, dtype=torch.int32),
+                     values=torch.tensor(r.normal(size=n), dtype=torch.float32),
+                     n_atoms=12, n_voxels=nv, n_fibers=nf)
+    t, plan = _operands(tphi, op, c_tile, row_tile)
+    sorted_ids = np.sort(v if op == "dsc" else f)
+    tile_ptr, tile_len = to_numpy(t.tile_ptr), to_numpy(t.tile_len)
+    local_row = to_numpy(t.local_row_p)
+    sel = plan.sel.reshape(plan.n_tiles, c_tile)
+    # tile_ptr covers the tiles, in order, each row block's own
+    assert t.n_row_blocks == -(-nv // row_tile)
+    assert tile_ptr[0] == 0 and tile_ptr[-1] == plan.n_tiles
+    assert np.all(np.diff(tile_ptr) >= 0)
+    for b in range(t.n_row_blocks):
+        assert np.all(plan.row_block[tile_ptr[b]:tile_ptr[b + 1]] == b)
+    # a real prefix per tile: real slots first, padding (value 0) after
+    real = np.arange(c_tile)[None, :] < tile_len[:, None]
+    np.testing.assert_array_equal(sel < n, real)
+    assert np.all(to_numpy(t.values_p)[~real] == 0)
+    assert int(tile_len.sum()) == n
+    if n:
+        assert tile_len.min() >= 1 and tile_len.max() <= c_tile
+    # local_row in [0, row_tile), the sorted id, nondecreasing by row block
+    assert np.all((local_row >= 0) & (local_row < row_tile))
+    rows = (plan.row_block[:, None] * row_tile + local_row)[real]
+    np.testing.assert_array_equal(rows, sorted_ids)
+    spans = np.diff(tile_ptr)
+    for b in range(t.n_row_blocks):
+        walked = local_row[tile_ptr[b]:tile_ptr[b + 1]][
+            real[tile_ptr[b]:tile_ptr[b + 1]]]
+        assert np.all(np.diff(walked) >= 0)
+    if n:   # the plan has the edges the kernels handle
+        assert np.any(spans == 0) and spans.max() >= 2
+
+
 def test_wrappers_dispatch_by_device_and_check_operands():
     _, tphi = _problem(100, 12, 40, 30, seed=8)
     t, _ = _operands(tphi, "dsc", 32, 8)
@@ -249,21 +303,32 @@ def test_build_names_sources_and_refuses_without_toolkit(monkeypatch,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_atoms,row_tile", [(40, 8), (40, 16), (8192, 4)])
+@pytest.mark.parametrize("n_theta", [16, 64, 96, 128, 160])
 @pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
-def test_cuda_kernels_match_plain_versions_on_card(compute_dtype):
+def test_cuda_kernels_match_plain_versions_on_card(compute_dtype, n_theta,
+                                                   n_atoms, row_tile):
+    """B1 and B2 at every width they dispatch on: Ntheta 16, 64 and 128 take
+    B1's 1, 2 and 4 columns per lane and B2's float4 paths of 1, 2 and 4
+    vectors, 160 B1's two column passes and B2's scalar path; 40 atoms
+    stage D in shared memory, 8192 atoms do not fit there.  A second launch
+    is bit-identical and the rows no coefficient reaches are exactly 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    _, tphi = _problem(3000, 40, 500, 300, seed=10, skip_rows=np.r_[8:16])
+    skip = np.r_[8:24]
+    _, tphi = _problem(3000, n_atoms, 500, 300, seed=10, skip_rows=skip)
     tphi = tphi.to("cuda")
-    d = ops.storage_cast(torch.tensor(_dictionary(40, 96)).cuda(),
+    d = ops.storage_cast(torch.tensor(_dictionary(n_atoms, n_theta)).cuda(),
                          compute_dtype)
     tol = FP32 if compute_dtype == "fp32" else BF16
     w = torch.rand(300, device="cuda")
-    y = torch.randn(500, 96, device="cuda")
+    y = torch.randn(500, n_theta, device="cuda")
     for op, x in (("dsc", w), ("wc", y)):
-        t, _ = _operands(tphi, op, 64, 8, compute_dtype)
+        t, _ = _operands(tphi, op, 64, row_tile, compute_dtype)
         n = _build.launches(f"{op}_coo")
         got = _run(op, t, d, x)
         torch.cuda.synchronize()
         assert _build.launches(f"{op}_coo") == n + 1
         torch.testing.assert_close(got, _run(op, t, d, x, plain=True), **tol)
+        assert torch.equal(got, _run(op, t, d, x))
+        assert torch.count_nonzero(got[skip]) == 0
