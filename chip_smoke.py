@@ -18,7 +18,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                fp32 and bf16 storage, a second launch of each bit-identical
                to the first, and B5 and B6 (which write y = M w and
                w = M^T y) also against the TPU kernels' partials folded by
-               the seg_rows combine; B1-B6 at every width they dispatch
+               the seg_rows combine, and B4 against a float64 oracle
+               (ragged: empty fiber rows, padding rows, a row longer than
+               a batch, a packed batch spanning three or more rows);
+               B1-B6 at every width they dispatch
                on (Ntheta 16, 64, 128 and 160, D in shared memory and
                from global memory), B1/B2 at row_tile 4, 8 and 16 with
                row blocks of several tiles, tiles longer than 32 slots
@@ -34,8 +37,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   5. formats — the same solve with ``format="sell"`` (kernels B3/B4) and
                ``format="fcoo"`` (B5/B6), each with its launch counts,
                losses, peak memory, a torch.profiler breakdown of a step
-               and weights against ``opt``; a second full fcoo solve gives
-               bit-identical weights and the fcoo step runs no index_add_;
+               and weights against ``opt``; a second full sell solve and
+               a second full fcoo solve each give bit-identical weights,
+               and neither step runs an index_add_;
                the F-COO layout's encoded and card-resident bytes; then
                ``format="auto"``, whose FormatPlan is logged and whose
                chosen executor runs a few iterations.
@@ -117,6 +121,12 @@ KERNELS = {
 }
 KERNELS["moe_gmm"] = dict(source="src/repro_torch/kernels/csrc/moe_gmm.cu",
                           replaces="src/repro/kernels/moe_gmm.py:33")
+#: csrc/wc_sell.cu's kMinRows and kWarps: B4 gives each warp exactly
+#: kMinRows fiber rows while blocks of kWarps such warps need no more blocks
+#: than the card has SMs
+WC_SELL_MIN_ROWS, WC_SELL_WARPS = 8, 16
+#: unit roundoff of float32
+U32 = 2.0 ** -24
 #: the two kernels each full-width path runs, by LifeConfig.format
 PATH_KERNELS = {"coo": ("dsc_coo", "wc_coo"), "sell": ("dsc_sell", "wc_sell"),
                 "fcoo": ("dsc_fcoo", "wc_fcoo")}
@@ -374,6 +384,56 @@ def longest_run_chunks(fc, op: str) -> int:
     return int((chunk[last] - chunk[first]).max(initial=-1) + 1)
 
 
+def sell_batch_rows(sw):
+    """The most fiber rows one of B4's packed batches spans (csrc/common.cuh:
+    SellWalk packs the real slots of a warp's rows into batches of 32), or
+    None where the rows are too many for each warp to own
+    WC_SELL_MIN_ROWS of them."""
+    rows_padded = sw.atoms.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if rows_padded > sms * WC_SELL_WARPS * WC_SELL_MIN_ROWS:
+        return None
+    rows = np.repeat(np.arange(sw.row_nnz.size), sw.row_nnz)
+    warp = rows // WC_SELL_MIN_ROWS
+    pos = np.arange(rows.size) - np.searchsorted(warp, warp)  # in the warp
+    batch = warp * (sw.width * WC_SELL_MIN_ROWS) + pos // 32
+    pairs = np.unique(np.stack([batch, rows]), axis=1)
+    return int(np.unique(pairs[0], return_counts=True)[1].max(initial=0))
+
+
+def check_wc_sell_oracle(case: str, got, o, d, y, dtype: str) -> None:
+    """B4 against a float64 oracle on the same stored operands: |error| at
+    most n * u * sum |terms| per fiber, n the longest chain of float32
+    roundings in B4's order (a lane's products: ceil(Ntheta / 8) columns,
+    or 4 per float4; 3 shuffle adds, the value, 5 scan levels, a carry per
+    batch the row spans).  The plain version's distance is logged beside
+    it, not held."""
+    from repro_torch.kernels.dsc import sell_slots
+    from repro_torch.kernels.wc import wc_sell_plain
+    real, rows = sell_slots(o.atoms, o.row_nnz)
+    a, v = o.atoms[real].long(), o.others[real].long()
+    da, yv = d.double()[a], y.double()[v]
+    val = o.values[real].double()
+    n_out = o.atoms.shape[0]
+    want = torch.zeros(n_out, dtype=torch.float64, device="cuda").index_add_(
+        0, rows[real], (da * yv).sum(1) * val)
+    scale = torch.zeros_like(want).index_add_(
+        0, rows[real], (da.abs() * yv.abs()).sum(1) * val.abs())
+    n_theta = d.shape[1]
+    chain = max(-(-n_theta // 8), 4 * -(-n_theta // 32))
+    n = chain + 3 + 1 + 5 + -(-int(o.row_nnz.max()) // 32)
+    err = (got.double() - want).abs()
+    plain_err = (wc_sell_plain(o.atoms, o.others, o.values, o.row_nnz, d,
+                               y).double() - want).abs()
+    units = lambda e: float((e / (U32 * scale.clamp_min(1e-300))).max())
+    log("kernels", f"wc_sell {case} {dtype} vs float64 oracle: max |err| "
+        f"{units(err):.2f} u * sum|terms| (bound {n} u); plain version "
+        f"{units(plain_err):.2f} u")
+    if not bool((err <= n * U32 * scale + 1e-30).all()):
+        raise AssertionError(f"wc_sell {case} {dtype}: off the float64 "
+                             f"oracle by more than {n} u * sum|terms|")
+
+
 def check_format_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
                          errors: dict, seed: int) -> dict:
     """B3-B6 against their plain versions on ``phi``, fp32 and bf16
@@ -399,6 +459,8 @@ def check_format_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
             if not torch.equal(got, run_format(name, ops_, d, x)):
                 raise AssertionError(f"{name} {case} {dtype}: a second "
                                      "launch differs")
+            if name == "wc_sell":
+                check_wc_sell_oracle(case, got, ops_, d, x, dtype)
             if name in ("dsc_fcoo", "wc_fcoo"):
                 # the fused B5 / B6 against the TPU kernel's partials
                 # (plain) folded by the seg_rows combine
@@ -415,7 +477,11 @@ def check_format_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
         runs_across_chunks=(runs_across_chunks(fc, "dsc"),
                             runs_across_chunks(fc, "wc")),
         longest_run_chunks=(longest_run_chunks(fc, "dsc"),
-                            longest_run_chunks(fc, "wc")))
+                            longest_run_chunks(fc, "wc")),
+        wc_empty_rows=int(np.sum(sw.row_nnz == 0)),
+        wc_longest_row=int(sw.row_nnz.max(initial=0)),
+        wc_padding_rows=sw.atoms.shape[0] - sw.n_rows,
+        wc_batch_rows=sell_batch_rows(sw))
     log("kernels", f"{case} (formats): {facts}")
     return facts
 
@@ -480,9 +546,14 @@ def phase_kernels(problem, errors: dict) -> None:
         seed=12))
     facts = check_format_kernels("ragged", ragged, ragged_d, c_tile=64,
                                  row_tile=8, errors=errors, seed=15)
+    # B4's edges: empty fiber rows, a row of more than one batch, padding
+    # rows past n_rows, a packed batch spanning three or more rows
     if (facts["empty_rows"] == 0 or facts["longest_row"] <= facts["slot_tile"]
             or min(facts["runs_across_chunks"]) == 0
-            or min(facts["longest_run_chunks"]) < 3):
+            or min(facts["longest_run_chunks"]) < 3
+            or facts["wc_empty_rows"] == 0 or facts["wc_longest_row"] <= 32
+            or facts["wc_padding_rows"] == 0
+            or (facts["wc_batch_rows"] or 0) < 3):
         raise AssertionError("ragged case did not exercise the format "
                              f"kernels' edges: {facts}")
     big_d = torch.as_tensor(g.normal(size=(2048, 96)), dtype=torch.float32,
@@ -716,8 +787,7 @@ def phase_formats(problem, w_opt) -> dict:
         w, launches_fmt = solve_and_check(phase, engine, problem, fmt)
         launches.update(launches_fmt)
         rows = steady_step(phase, engine, w)
-        if fmt == "fcoo":
-            check_fcoo_deterministic(problem, cfg, w, rows)
+        check_deterministic(problem, cfg, fmt, w, rows)
         diff = (w - w_opt).abs()
         log(phase, f"weights vs opt executor: max abs diff "
             f"{float(diff.max()):.3e} (rtol {TRAJ_TOL['rtol']}, atol "
@@ -755,31 +825,33 @@ def phase_formats(problem, w_opt) -> dict:
     return launches
 
 
-def check_fcoo_deterministic(problem, cfg, w, rows: list) -> None:
-    """A second full ``format="fcoo"`` solve (a new engine, the same
-    problem) gives the first one's weights bit for bit, and the F-COO
-    step's profile holds no ``index_add_`` (B5 and B6 fold their chunks
-    themselves, without atomics)."""
+def check_deterministic(problem, cfg, fmt: str, w, rows: list) -> None:
+    """A second full solve with ``format=fmt`` (a new engine, the same
+    problem) gives the first one's weights bit for bit, and the step's
+    profile holds no ``index_add_`` (B3-B6 write their outputs themselves,
+    without atomics)."""
     from repro_torch.core.life import LifeEngine
-    engine = LifeEngine(problem, dataclasses.replace(cfg, format="fcoo"),
+    phase = f"format-{fmt}"
+    engine = LifeEngine(problem, dataclasses.replace(cfg, format=fmt),
                         device="cuda")
     w2, _ = engine.run()
     torch.cuda.synchronize()
     same = torch.equal(w, w2)
-    log("format-fcoo", f"a second full fcoo solve gives bit-identical "
-        f"weights: {same} (max abs diff {float((w - w2).abs().max()):.3e})")
+    log(phase, f"a second full {fmt} solve gives bit-identical weights: "
+        f"{same} (max abs diff {float((w - w2).abs().max()):.3e})")
     if not same:
-        raise AssertionError("two fcoo solves differ")
+        raise AssertionError(f"two {fmt} solves differ")
     if not rows:
-        log("format-fcoo", "index_add_ in the step: not measured (the "
-            "profiler saw no device time)")
+        log(phase, "index_add_ in the step: not measured (the profiler saw "
+            "no device time)")
         return
     scatters = [name for _, _, name in rows
                 if "indexfunc" in name.lower() or "index_add" in name.lower()]
-    log("format-fcoo", f"index_add_ kernels in the step's profile: "
+    log(phase, f"index_add_ kernels in the step's profile: "
         f"{scatters or 'none'}")
     if scatters:
-        raise AssertionError(f"the fcoo step runs an index_add_: {scatters}")
+        raise AssertionError(f"the {fmt} step runs an index_add_: "
+                             f"{scatters}")
 
 
 # ----------------------------------------------------------------------------

@@ -36,7 +36,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Row dot products <D[atom], Y[voxel]> of a batch of 32 slots (B2, B6).
+// Row dot products <D[atom], Y[voxel]> of a batch of 32 slots (B2, B4, B6).
 // ---------------------------------------------------------------------------
 
 constexpr int kGroup = 8;  // lanes that share one slot's dot product
@@ -221,7 +221,7 @@ class TileWalk {
 struct CooSlot {
   int atom = 0;
   int other = 0;  // fiber (DSC) or voxel (WC)
-  int row = 0;    // row within the row block
+  int row = 0;    // row within the row block (COO), the row (SELL)
   float value = 0.f;
 };
 
@@ -238,6 +238,101 @@ __device__ __forceinline__ CooSlot load_slot(const CooBatch& b,
     s.other = others[i];
     s.row = local_row[i];
     s.value = to_float(values[i]);
+  }
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// A warp's walk over SELL rows (B4).
+// ---------------------------------------------------------------------------
+
+// One batch of a SellWalk: up to 32 consecutive real slots of the warp's
+// rows.  m is warp-uniform; row and slot are this lane's own (row -1 and
+// slot 0 on lanes m .. 31).
+struct SellBatch {
+  int m;        // real slots in the batch; 0 once the walk is done
+  int row;      // the row of this lane's slot
+  size_t slot;  // its index in the (rows_padded, width) slot arrays
+};
+
+// The real slots of rows [r0, r1) of a SELL layout (row r's are its prefix
+// [0, row_nnz[r]) of `width` slots), in row order, packed into batches of
+// up to 32: a batch may span several rows, a row of more than 32 slots
+// spans batches and a row of none yields nothing.  row_nnz is read 32 rows
+// at a time (lane i holds row base + i) and scanned over the lanes, so each
+// lane holds where its row ends in the window's packed stream; a lane finds
+// the row of its slot by a binary search over those ends (five shuffles).
+// Every lane holds the same walk.  r1 may not pass the end of row_nnz.
+class SellWalk {
+ public:
+  __device__ SellWalk(const int* row_nnz, int r0, int r1, int width,
+                      int lane)
+      : row_nnz_(row_nnz), r_end_(r1), width_(width), lane_(lane) {
+    window(r0);
+  }
+
+  __device__ SellBatch next() {
+    SellBatch b{0, -1, 0};
+    while (b.m < 32) {
+      if (pos_ == total_) {  // the window is done: on to the next one
+        if (base_ + 32 >= r_end_) break;
+        window(base_ + 32);
+        continue;
+      }
+      const int take = min(32 - b.m, total_ - pos_);
+      const int q = pos_ + lane_ - b.m;  // this lane's slot in the window
+      // k: the rows of the window that end at or before slot q
+      int k = 0;
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1) {
+        if (__shfl_sync(kFull, end_, k + step - 1) <= q) k += step;
+      }
+      const int start = __shfl_sync(kFull, end_ - nnz_, k);
+      if (lane_ >= b.m && lane_ < b.m + take) {
+        b.row = base_ + k;
+        b.slot = static_cast<size_t>(b.row) * width_ + (q - start);
+      }
+      b.m += take;
+      pos_ += take;
+    }
+    return b;
+  }
+
+ private:
+  // rows [base, base + 32): nnz_ and end_ (the inclusive scan of nnz_) of
+  // this lane's row, total_ the window's real slots
+  __device__ void window(int base) {
+    base_ = base;
+    nnz_ = base + lane_ < r_end_ ? row_nnz_[base + lane_] : 0;
+    end_ = nnz_;
+#pragma unroll
+    for (int dd = 1; dd < 32; dd <<= 1) {
+      const int o = __shfl_up_sync(kFull, end_, dd);
+      if (lane_ >= dd) end_ += o;
+    }
+    total_ = __shfl_sync(kFull, end_, 31);
+    pos_ = 0;
+  }
+
+  const int* row_nnz_;
+  int r_end_, width_, lane_;
+  int base_;         // first row of the window
+  int nnz_, end_;    // this lane's row: real slots, end in the window
+  int total_;        // real slots of the window
+  int pos_;          // slot of the window that the next batch starts at
+};
+
+template <typename T>
+__device__ __forceinline__ CooSlot load_slot(const SellBatch& b,
+                                             const int* atoms,
+                                             const int* others,
+                                             const T* values, int lane) {
+  CooSlot s;
+  if (lane < b.m) {
+    s.atom = atoms[b.slot];
+    s.other = others[b.slot];
+    s.row = b.row;
+    s.value = to_float(values[b.slot]);
   }
   return s;
 }

@@ -39,7 +39,10 @@ by :func:`repro_torch.kernels.ops.sell_operands`):
   y              float32[Nv, Ntheta]
 
 B4 result: float32[rows_padded]; every row is written, zeros for empty rows
-and for the padding rows past ``n_rows``.
+and for the padding rows past ``n_rows``.  B4 runs B2's design over fiber
+rows: a warp owns a contiguous range of rows and packs their real slots
+(each row's prefix ``[0, row_nnz[r])``) into batches of 32 that span rows
+(``csrc/common.cuh:SellWalk``), so short rows leave no lane idle.
 """
 from __future__ import annotations
 

@@ -350,6 +350,107 @@ def test_fcoo_ops_match_float64_oracle(case):
     assert np.all(got_w[empty] == 0.0)
 
 
+# ----------------------------------------------------------------------------
+# B4: the fiber-row SELL layout it walks, its plain version vs float64
+# ----------------------------------------------------------------------------
+
+#: real slots of each fiber row of the B4 edge case: empty rows, rows of
+#: more than one batch of 32, and (8 rows per warp) a first batch over rows
+#: 0, 2, 3 and 4 and a second that finishes row 4 and spans rows 6 and 7;
+#: 13 fibers padded to 16 rows
+B4_EDGE_NNZ = (2, 0, 1, 3, 40, 0, 5, 1, 0, 70, 2, 0, 33)
+
+
+def _b4_edge_phi():
+    nnz = np.asarray(B4_EDGE_NNZ)
+    f = np.repeat(np.arange(nnz.size), nnz)
+    r = np.random.default_rng(21)
+    n = f.size
+    return PhiTensor(atoms=torch.tensor(r.integers(0, 6, n), dtype=torch.int32),
+                     voxels=torch.tensor(r.integers(0, 30, n),
+                                         dtype=torch.int32),
+                     fibers=torch.tensor(f, dtype=torch.int32),
+                     values=torch.tensor(r.normal(size=n), dtype=torch.float32),
+                     n_atoms=6, n_voxels=30, n_fibers=nnz.size)
+
+
+def _b4_case(case):
+    """(Phi, row_tile, slot_tile) of a B4 test case."""
+    if case == "edges":
+        return _b4_edge_phi(), 8, 32
+    if case == "hot-fiber":        # ~130 duplicates on fiber 5
+        return _phi(300, 6, 40, 20, seed=11, hot=130)[1], 8, 32
+    nc, na, nv, nf, hot, skip, _, rt, st, _ = SHAPES[case]
+    return _phi(nc, na, nv, nf, seed=nc, hot=hot, skip=skip)[1], rt, st
+
+
+@pytest.mark.parametrize("case", ["edges", "hot-fiber", *SHAPES])
+def test_wc_sell_layout_holds_what_b4_walks(case):
+    """B4 reads only row r's prefix [0, row_nnz[r]) of the fiber-row SELL
+    arrays and finds rows from row_nnz alone: each row's real slots are
+    that prefix and hold the fiber's coefficients, padding slots hold
+    index 0 and value 0, the shape is a (row_tile, slot_tile) multiple and
+    row_nnz counts every coefficient once."""
+    t, rt, st = _b4_case(case)
+    enc = SellPhi.encode(t, op="wc", row_tile=rt, slot_tile=st)
+    rows_padded, width = enc.atoms.shape
+    assert rows_padded % rt == 0 and width % st == 0
+    assert rows_padded >= enc.n_rows == enc.row_nnz.size == t.n_fibers
+    assert enc.row_nnz.sum() == t.atoms.numel()
+    nnz = np.zeros(rows_padded, np.int64)
+    nnz[:enc.n_rows] = enc.row_nnz
+    real = np.arange(width)[None, :] < nnz[:, None]
+    assert not enc.atoms[~real].any() and not enc.others[~real].any()
+    assert not enc.values[~real].any()
+    f = t.fibers.numpy()
+    for r in range(enc.n_rows):
+        got = sorted(zip(enc.atoms[r, :nnz[r]], enc.others[r, :nnz[r]],
+                         enc.values[r, :nnz[r]]))
+        mine = f == r
+        want = sorted(zip(t.atoms.numpy()[mine], t.voxels.numpy()[mine],
+                          t.values.numpy()[mine]))
+        assert got == want
+    if case == "edges":
+        assert rows_padded - enc.n_rows == 3
+        assert (enc.row_nnz == 0).sum() == 4 and (enc.row_nnz > 32).sum() == 3
+
+
+@pytest.mark.parametrize("case", ["edges", "hot-fiber", *SHAPES])
+def test_wc_sell_plain_matches_float64_oracle(case):
+    """B4's plain version against float64 on the edges B4 walks (empty
+    rows, rows of more than 32 slots, padding rows, a hot fiber), within
+    8 eps of the sum of |terms| per fiber; empty and padding rows exactly
+    0."""
+    t, rt, st = _b4_case(case)
+    enc = SellPhi.encode(t, op="wc", row_tile=rt, slot_tile=st)
+    o = ops.sell_operands(enc, "cpu")
+    d, w, y = _inputs(t.n_atoms, t.n_voxels, t.n_fibers, 12, seed=13)
+    got = to_numpy(wc.wc_sell_plain(o.atoms, o.others, o.values, o.row_nnz,
+                                    torch.tensor(d), torch.tensor(y)))
+    _, _, wm, ws = _oracle(t, d, w, y)
+    assert got.shape == (enc.atoms.shape[0],)
+    eps = 8 * np.finfo(np.float32).eps
+    assert np.all(np.abs(got[:t.n_fibers] - wm) <= eps * ws + 1e-12)
+    assert not got[t.n_fibers:].any()
+    assert np.all(got[:t.n_fibers][enc.row_nnz == 0] == 0.0)
+
+
+def test_wc_sell_probe_builds_each_variant_from_the_tree():
+    """The B4 probe's variants are the tree's sources with one change each:
+    the launch shape, or batches that stop at each row's end."""
+    from repro_torch.tune import probe_wc_sell as probe
+    cu = (_build.CSRC / "wc_sell.cu").read_text()
+    cuh = (_build.CSRC / "common.cuh").read_text()
+    v = probe.variants()
+    assert sorted(v) == sorted([*probe.SHAPES, "per_row"])
+    for name, (threads, blocks) in probe.SHAPES.items():
+        assert v[name][1] == cuh and v[name][0] != cu
+        assert f"__launch_bounds__(kThreads, {blocks})" in v[name][0]
+        assert f"constexpr int kThreads = {threads};" in v[name][0]
+    assert v["per_row"][0] == cu and "row_end - pos_" in v["per_row"][1]
+    assert "row_end - pos_" not in cuh
+
+
 def test_empty_fcoo_phi_launches_nothing_and_gives_zeros():
     t = PhiTensor(atoms=torch.zeros(0, dtype=torch.int32),
                   voxels=torch.zeros(0, dtype=torch.int32),
@@ -506,10 +607,11 @@ def test_wc_fcoo_kernel_matches_plain_on_card(compute_dtype):
 @pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
 def test_sell_dsc_and_fcoo_wc_at_every_width_on_card(compute_dtype, n_theta,
                                                      n_atoms):
-    """B3 and B6 at every width they dispatch on: Ntheta 16, 64 and 128 take
-    B6's float4 paths of 1, 2 and 4 vectors and B3's 1, 2 and 4 columns per
-    lane, 160 B6's scalar path and B3's two column passes; 40 atoms stage D
-    in shared memory, 8192 atoms do not fit there."""
+    """B3, B4 and B6 at every width they dispatch on: Ntheta 16, 64 and 128
+    take B4's and B6's float4 paths of 1, 2 and 4 vectors and B3's 1, 2 and
+    4 columns per lane, 160 B4's and B6's scalar path and B3's two column
+    passes; 40 atoms stage D in shared memory, 8192 atoms do not fit
+    there."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     _, t = _phi(3000, n_atoms, 500, 300, seed=11, hot=200, skip=np.r_[8:16])
@@ -523,6 +625,11 @@ def test_sell_dsc_and_fcoo_wc_at_every_width_on_card(compute_dtype, n_theta,
     _held_to_plain("dsc_sell", lambda: dsc.dsc_sell(*args, row_tile=8),
                    lambda: dsc.dsc_sell_plain(*args, row_tile=8),
                    compute_dtype)
+    o = ops.sell_operands(SellPhi.encode(t, op="wc"), "cuda",
+                          compute_dtype=compute_dtype)
+    args = (o.atoms, o.others, o.values, o.row_nnz, d, y)
+    _held_to_plain("wc_sell", lambda: wc.wc_sell(*args),
+                   lambda: wc.wc_sell_plain(*args), compute_dtype)
     o = ops.fcoo_operands(FcooPhi.encode(t, c_tile=64), "cuda",
                           compute_dtype=compute_dtype)
     args = (o.wc_perm, o.wc_fibers, o.atoms.reshape(-1),
@@ -532,3 +639,25 @@ def test_sell_dsc_and_fcoo_wc_at_every_width_on_card(compute_dtype, n_theta,
                    lambda: fcoo.wc_fcoo_fused_plain(*args,
                                                     n_fibers=o.n_fibers),
                    compute_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
+def test_wc_sell_kernel_edges_on_card(compute_dtype):
+    """B4 on B4_EDGE_NNZ's layout: empty fiber rows, rows of more than 32
+    slots, padding rows past n_rows and packed batches spanning three and
+    more rows, one of which finishes a row that the batch before it left
+    open; empty and padding rows exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    t = _b4_edge_phi()
+    enc = SellPhi.encode(t, op="wc")
+    d32, _, y = _inputs(t.n_atoms, t.n_voxels, t.n_fibers, 96, seed=22)
+    o = ops.sell_operands(enc, "cuda", compute_dtype=compute_dtype)
+    d = ops.storage_cast(torch.tensor(d32).cuda(), compute_dtype)
+    args = (o.atoms, o.others, o.values, o.row_nnz, d, torch.tensor(y).cuda())
+    got = _held_to_plain("wc_sell", lambda: wc.wc_sell(*args),
+                         lambda: wc.wc_sell_plain(*args), compute_dtype)
+    empty = np.r_[np.nonzero(enc.row_nnz == 0)[0],
+                  np.arange(enc.n_rows, enc.atoms.shape[0])]
+    assert torch.count_nonzero(got[empty]) == 0
