@@ -43,6 +43,28 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                the F-COO layout's encoded and card-resident bytes; then
                ``format="auto"``, whose FormatPlan is logged and whose
                chosen executor runs a few iterations.
+  8. tune    — (after 5, before 6) ``tune="full"`` with
+               ``compute_dtype="auto"`` on the kernel, kernel-sell and
+               kernel-fcoo executors at full width, each with a fresh plan
+               cache under build/: every candidate's measured cost, the
+               winner and the search's seconds; a ``tune="cached"``
+               rebuild that makes no measurement and gives the same plan;
+               the winner's kernels against their plain versions where
+               phase 3 has not held its layout; the tuned engine's
+               launches and weights over 20 iterations; its step beside
+               the untuned engine's.
+  9. cohort  — synth_cohort(4, base_seed=0) at the main problem's size
+               through BatchedLifeEngine (opt, naive, auto, and
+               format="alto"), 20 iterations each, every subject against
+               its own LifeEngine(opt) solve; step(10) twice equals
+               run(20) bit for bit; step time, subjects per second, peak
+               memory and a torch.profiler breakdown beside four single
+               solves.
+  10. checkpoint — the kernel engine run 50 iterations, saved through
+               repro_torch.checkpoint.manager, restored into a fresh
+               engine and run 50 more: bit-identical to 100 uninterrupted
+               iterations; the same round trip for the cohort; the save
+               and restore seconds and bytes.
   6. timing  — each kernel at the main path's shapes (CUDA events) beside
                its bound, its plain version and one PyTorch library call;
                for B6 also the bound if every slot read its Y row from
@@ -80,8 +102,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 #: fp32 tolerance of the conformance matrix (tests/test_conformance.py:77)
 FP32_TOL = dict(rtol=2e-4, atol=2e-5)
-#: bf16-storage contract, copied from repro/tune/plan.py:25-26
-BF16_RTOL = BF16_ATOL = 2e-2
 #: the conformance trajectory bound for weights (tests/test_conformance.py)
 TRAJ_TOL = dict(rtol=2e-2, atol=2e-3)
 #: NVIDIA H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor
@@ -134,6 +154,12 @@ PATH_KERNELS = {"coo": ("dsc_coo", "wc_coo"), "sell": ("dsc_sell", "wc_sell"),
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def bf16_tol() -> dict:
+    """The bf16-storage contract (repro_torch/tune/plan.py)."""
+    from repro_torch.tune.plan import BF16_ATOL, BF16_RTOL
+    return dict(rtol=BF16_RTOL, atol=BF16_ATOL)
 
 
 # ----------------------------------------------------------------------------
@@ -257,7 +283,7 @@ def run_wc(t, d, y, plain: bool = False):
 
 def compare(name: str, case: str, got, want, dtype: str, errors: dict) -> None:
     torch.cuda.synchronize()
-    tol = FP32_TOL if dtype == "fp32" else dict(rtol=BF16_RTOL, atol=BF16_ATOL)
+    tol = FP32_TOL if dtype == "fp32" else bf16_tol()
     diff = (got - want).abs()
     max_abs = float(diff.max()) if diff.numel() else 0.0
     big = want.abs() > tol["atol"]      # relative error where it means one
@@ -327,14 +353,15 @@ def check_ragged_edges(case: str, facts: dict) -> None:
         raise AssertionError(f"{case} did not exercise its edges: {facts}")
 
 
-def format_operands(phi, *, c_tile: int, row_tile: int, compute_dtype: str):
+def format_operands(phi, *, c_tile: int, row_tile: int, compute_dtype: str,
+                    slot_tile: int = 32):
     """The four format kernels' layouts and device operands for ``phi``, as
     the kernel-sell and kernel-fcoo executors build them."""
     from repro_torch.formats.fcoo import FcooPhi
     from repro_torch.formats.sell import SellPhi
     from repro_torch.kernels import ops
-    sd = SellPhi.encode(phi, op="dsc", row_tile=row_tile)
-    sw = SellPhi.encode(phi, op="wc", row_tile=row_tile)
+    sd = SellPhi.encode(phi, op="dsc", row_tile=row_tile, slot_tile=slot_tile)
+    sw = SellPhi.encode(phi, op="wc", row_tile=row_tile, slot_tile=slot_tile)
     fc = FcooPhi.encode(phi, c_tile=c_tile)
     return (sd, sw, fc,
             dict(dsc_sell=ops.sell_operands(sd, "cuda",
@@ -435,7 +462,7 @@ def check_wc_sell_oracle(case: str, got, o, d, y, dtype: str) -> None:
 
 
 def check_format_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
-                         errors: dict, seed: int) -> dict:
+                         errors: dict, seed: int, slot_tile: int = 32) -> dict:
     """B3-B6 against their plain versions on ``phi``, fp32 and bf16
     storage.  Returns the shape facts this case exercised."""
     from repro_torch.kernels import ops
@@ -446,7 +473,8 @@ def check_format_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
     for dtype in ("fp32", "bf16"):
         sd, sw, fc, o = format_operands(phi, c_tile=c_tile,
                                         row_tile=row_tile,
-                                        compute_dtype=dtype)
+                                        compute_dtype=dtype,
+                                        slot_tile=slot_tile)
         d = storage_cast(d32, dtype).contiguous()
         for name, ops_, x in (("dsc_sell", o["dsc_sell"], w),
                               ("wc_sell", o["wc_sell"], y),
@@ -647,18 +675,24 @@ def solve_and_check(phase: str, engine, problem, fmt: str) -> tuple:
     return w, launches
 
 
+def time_steps(engine, state, k: int = 20) -> tuple:
+    """Milliseconds per iteration of ``engine.step`` over ``k`` iterations
+    (CUDA events) after two warm ones from ``state``; returns (ms, the
+    warmed state)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    state, _ = engine.step(state, 2)
+    start.record()
+    engine.step(state, k)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / k, state
+
+
 def steady_step(phase: str, engine, w) -> list:
     """Steady-state iteration time on the compacted operator, and where it
     goes on the device: returns profile_step's rows."""
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    state = engine.init_state(w)
-    state, _ = engine.step(state, 2)
-    start.record()
-    engine.step(state, 20)
-    stop.record()
-    torch.cuda.synchronize()
-    step_ms = start.elapsed_time(stop) / 20
+    step_ms, state = time_steps(engine, engine.init_state(w))
     log(phase, f"steady-state step: {step_ms:.4f} ms per iteration (CUDA "
         "events over 20 iterations, compacted Phi)")
     return profile_step(phase, engine, state, step_ms)
@@ -978,6 +1012,410 @@ def phase_timing(problem, launches: dict, errors: dict) -> list:
     csr.clear()
     torch.cuda.empty_cache()
     return entries
+
+
+# ----------------------------------------------------------------------------
+# 8. tuning at full width: tune="full", then a warm tune="cached" rebuild
+# ----------------------------------------------------------------------------
+
+#: the layout of each kernel executor that phase 3 holds against the plain
+#: versions at the main path's shapes
+MAIN_LAYOUTS = {"kernel": dict(c_tile=256, row_tile=8),
+                "kernel-sell": dict(row_tile=8, slot_tile=32),
+                "kernel-fcoo": dict(c_tile=256)}
+#: (LifeConfig.executor, LifeConfig.format) of each tuned path
+TUNE_PATHS = (("kernel", "coo"), ("opt", "sell"), ("opt", "fcoo"))
+TUNE_ITERS = 20
+
+
+def check_tuned_layout(phase: str, problem, name: str, params: dict,
+                       errors: dict) -> None:
+    """The winner's kernels against their plain versions at its layout,
+    unless phase 3 held that layout already."""
+    if params == MAIN_LAYOUTS[name]:
+        log(phase, f"the winner's layout {params} is the main path's, held "
+            "against the plain versions in phase 3")
+        return
+    case = f"tuned-{name}-" + "-".join(f"{k}{v}" for k, v in
+                                       sorted(params.items()))
+    phi, d = problem.phi, problem.dictionary
+    if name == "kernel":
+        check_kernels(case, phi, d, c_tile=params["c_tile"],
+                      row_tile=params["row_tile"], errors=errors, seed=19)
+    elif name == "kernel-sell":
+        check_format_kernels(case, phi, d, c_tile=256,
+                             row_tile=params["row_tile"],
+                             slot_tile=params["slot_tile"], errors=errors,
+                             seed=19)
+    else:
+        check_format_kernels(case, phi, d, c_tile=params["c_tile"],
+                             row_tile=8, errors=errors, seed=19)
+
+
+def warmed_calls_ms(fn, x, warm_seconds: float, idle_seconds: float) -> list:
+    """ms per call of ``fn(x)`` over 3 calls between CUDA events, each time
+    after ``idle_seconds`` of idle card and one warm-up call: with no more
+    warm-up, then with ``warm_seconds`` more of warm-up calls."""
+    out = []
+    for warm in (0.0, warm_seconds):
+        torch.cuda.synchronize()
+        time.sleep(idle_seconds)
+        until = time.perf_counter() + warm
+        while True:
+            fn(x)
+            torch.cuda.synchronize()
+            if time.perf_counter() >= until:
+                break
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            fn(x)
+        stop.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(stop) / 3)
+    return out
+
+
+def phase_tune(problem, errors: dict) -> None:
+    """tune="full" with compute_dtype="auto" on each kernel executor (a
+    fresh plan cache each), its measurements and winner; a tune="cached"
+    rebuild that measures nothing and replays the plan; the tuned engine's
+    launches and weights; its step beside the untuned engine's."""
+    import shutil
+    from repro_torch.core.life import LifeConfig, LifeEngine
+    from repro_torch.core.registry import REGISTRY
+    from repro_torch.kernels import _build
+    from repro_torch.tune import search
+    from repro_torch.tune.space import search_space
+    opt_cfg = LifeConfig(executor="opt", n_iters=TUNE_ITERS,
+                         plan_cache_dir="")
+    w_opt = {}
+    for executor, fmt in TUNE_PATHS:
+        phase = f"tune-{fmt}"
+        cache_dir = os.path.join(ROOT, "build", "tune-cache", fmt)
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        cfg = LifeConfig(executor=executor, format=fmt, tune="full",
+                         compute_dtype="auto", n_iters=TUNE_ITERS,
+                         plan_cache_dir=cache_dir)
+        n0 = search.measurement_count()
+        t0 = time.perf_counter()
+        engine = LifeEngine(problem, cfg, device="cuda")
+        search_s = time.perf_counter() - t0
+        plan, name = engine.tune_plan, engine.executor.name
+        n_cands = len(search_space(name, cfg, budget=cfg.tune_budget))
+        log(phase, f"tune=full: {plan.describe()}; search and build "
+            f"{search_s:.2f} s, {search.measurement_count() - n0} timed "
+            f"calls for {n_cands} candidates (tune_budget "
+            f"{cfg.tune_budget}); cost 2 x DSC + 1.5 x WC per candidate "
+            "(CUDA events over 3 calls after "
+            f"{search.CUDA_WARM_SECONDS * 1e3:.0f} ms of warm-up), cheapest "
+            "first:")
+        for label, cost in sorted(plan.measurements.items(),
+                                  key=lambda kv: kv[1]):
+            log(phase, f"  {cost * 1e3:.4f} ms  {label}")
+        if plan.reason != "search" or len(plan.measurements) != n_cands:
+            raise AssertionError(f"{phase}: {plan.describe()} measured "
+                                 f"{len(plan.measurements)} of {n_cands}")
+        del engine
+        n1 = search.measurement_count()
+        t0 = time.perf_counter()
+        warm = LifeEngine(problem, dataclasses.replace(cfg, tune="cached"),
+                          device="cuda")
+        made = search.measurement_count() - n1
+        log(phase, f"tune=cached rebuild in {time.perf_counter() - t0:.2f} "
+            f"s: {made} measurements, the same plan: "
+            f"{warm.tune_plan == plan}")
+        if made or warm.tune_plan != plan:
+            raise AssertionError(f"{phase}: the warm rebuild measured {made}"
+                                 " times or gave another plan")
+        check_tuned_layout(phase, problem, name, plan.params, errors)
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        w, losses = warm.run()
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        dsc_name, wc_name = PATH_KERNELS[fmt]
+        want = {dsc_name: 2 * TUNE_ITERS, wc_name: TUNE_ITERS
+                + TUNE_ITERS // 2}
+        ls = losses.cpu().numpy()
+        log(phase, f"tuned engine, {TUNE_ITERS} iterations: launches "
+            f"{counts} (expected {want}); loss {ls[0]:.6e} -> {ls[-1]:.6e}")
+        if counts != want:
+            raise AssertionError(f"{phase}: launch counts {counts} != {want}")
+        if not (np.all(np.isfinite(ls)) and ls[-1] < ls[0]):
+            raise AssertionError(f"{phase}: losses not finite or rising")
+        dt = warm.resolved_compute_dtype
+        for key in {"fp32", dt}:
+            if key not in w_opt:
+                w_opt[key], _ = LifeEngine(problem, dataclasses.replace(
+                    opt_cfg, compute_dtype=key), device="cuda").run()
+        tol = TRAJ_TOL if dt == "fp32" else bf16_tol()
+        diff = float((w - w_opt["fp32"]).abs().max())
+        same = float((w - w_opt[dt]).abs().max())
+        log(phase, f"weights ({dt}) vs fp32 opt: max abs diff {diff:.3e} "
+            f"(rtol {tol['rtol']}, atol {tol['atol']}); vs {dt} opt "
+            f"{same:.3e} (rtol {TRAJ_TOL['rtol']}, atol {TRAJ_TOL['atol']})")
+        torch.testing.assert_close(w, w_opt["fp32"], **tol)
+        torch.testing.assert_close(w, w_opt[dt], **TRAJ_TOL)
+
+        # the tuned step beside the untuned one, in turns on one card
+        untuned = LifeEngine(problem, dataclasses.replace(
+            cfg, tune="off", compute_dtype="fp32"), device="cuda")
+        times = {"untuned": [], "tuned": []}
+        for label in ("untuned", "tuned", "tuned", "untuned"):
+            eng = warm if label == "tuned" else untuned
+            times[label].append(time_steps(eng, eng.init_state(w))[0])
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        log(phase, f"step on the full Phi (CUDA events, 20 iterations, "
+            f"turns untuned/tuned/tuned/untuned): tuned {ms['tuned']:.4f} "
+            f"ms {plan.params} {dt}, untuned {ms['untuned']:.4f} ms "
+            f"{MAIN_LAYOUTS[name]} fp32; tuned / untuned "
+            f"{ms['tuned'] / ms['untuned']:.3f}")
+        # the search's calls with one warm-up call and with its own, as a
+        # candidate meets them: after an idle card, and freshly built
+        w1 = torch.ones_like(w)
+        y1 = torch.ones(problem.phi.n_voxels, problem.dictionary.shape[1],
+                        device="cuda")
+        warm_s = search.CUDA_WARM_SECONDS
+        for label, ex, idle in (
+                ("after 0.5 s of idle card", untuned.executor, 0.5),
+                ("freshly built", REGISTRY.create(
+                    name, problem.phi, problem, dataclasses.replace(
+                        cfg, tune="off", compute_dtype="fp32")), 0.0)):
+            dsc_ms = warmed_calls_ms(ex.matvec, w1, warm_s, idle)
+            wc_ms = warmed_calls_ms(ex.rmatvec, y1, warm_s, idle)
+            log(phase, f"untuned DSC / WC {label}, 3 calls after 1 warm-up "
+                f"call: {dsc_ms[0]:.4f} / {wc_ms[0]:.4f} ms; after "
+                f"{warm_s * 1e3:.0f} ms more (the search's warm-up): "
+                f"{dsc_ms[1]:.4f} / {wc_ms[1]:.4f} ms")
+        del warm, untuned, ex
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------------
+# 9. the cohort solve at full width
+# ----------------------------------------------------------------------------
+
+COHORT = 4
+COHORT_ITERS = 20
+#: (LifeConfig.executor, LifeConfig.format) of each cohort solve
+COHORT_PATHS = (("opt", "coo"), ("naive", "coo"), ("auto", "coo"),
+                ("opt", "alto"))
+
+
+def phase_cohort(problem) -> list:
+    """synth_cohort of COHORT subjects at the main problem's size, solved
+    by BatchedLifeEngine on each recipe and format="alto", each subject
+    against its own LifeEngine(opt) solve; the stepped API; step time,
+    subjects per second, peak memory and a profile beside the
+    single-subject solves.  Returns the cohort."""
+    from repro_torch.core.batched import BatchedLifeEngine
+    from repro_torch.core.life import LifeConfig, LifeEngine
+    from repro_torch.data.dmri import synth_cohort
+    kw = {k: v for k, v in MAIN_PROBLEM.items() if k != "seed"}
+    t0 = time.perf_counter()
+    cohort = synth_cohort(COHORT, base_seed=MAIN_PROBLEM["seed"],
+                          device="cuda", **kw)
+    log("cohort", f"synth_cohort({COHORT}, base_seed="
+        f"{MAIN_PROBLEM['seed']}) in {time.perf_counter() - t0:.1f} s: Nc "
+        f"{[p.phi.n_coeffs for p in cohort]}")
+    p0 = cohort[0].phi
+    if not all(torch.equal(getattr(p0, f), getattr(problem.phi, f))
+               for f in ("atoms", "voxels", "fibers", "values")):
+        raise AssertionError("subject 0 is not the main problem")
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    single_cfg = LifeConfig(executor="opt", n_iters=COHORT_ITERS,
+                            plan_cache_dir="")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    start.record()
+    singles = [LifeEngine(p, single_cfg, device="cuda").run()
+               for p in cohort]
+    stop.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    single_steps = []
+    for p in cohort:
+        eng = LifeEngine(p, single_cfg, device="cuda")
+        single_steps.append(time_steps(eng, eng.init_state())[0])
+    log("cohort", f"{COHORT} single-subject opt solves of {COHORT_ITERS} "
+        f"iterations, one after another: {wall:.3f} s wall (engine builds "
+        f"included), {start.elapsed_time(stop):.3f} ms by CUDA events, "
+        f"{COHORT / wall:.2f} subjects/s; steps {single_steps} ms (sum "
+        f"{sum(single_steps):.4f}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    for executor, fmt in COHORT_PATHS:
+        phase = f"cohort-{executor}-{fmt}"
+        cfg = LifeConfig(executor=executor, format=fmt,
+                         n_iters=COHORT_ITERS, plan_cache_dir="")
+        t0 = time.perf_counter()
+        eng = BatchedLifeEngine(cohort, cfg, device="cuda")
+        built = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        start.record()
+        w, losses = eng.run()
+        stop.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if tuple(w.shape) != (COHORT, p0.n_fibers) or tuple(
+                losses.shape) != (COHORT, COHORT_ITERS):
+            raise AssertionError(f"{phase}: shapes {tuple(w.shape)}, "
+                                 f"{tuple(losses.shape)}")
+        if not (torch.isfinite(w).all() and torch.isfinite(losses).all()):
+            raise AssertionError(f"{phase}: not finite")
+        w_diff = l_diff = 0.0
+        for s, (w1, l1) in enumerate(singles):
+            torch.testing.assert_close(w[s], w1, **TRAJ_TOL)
+            torch.testing.assert_close(losses[s], l1, rtol=TRAJ_TOL["rtol"],
+                                       atol=0.0)
+            w_diff = max(w_diff, float((w[s] - w1).abs().max()))
+            l_diff = max(l_diff, float(((losses[s] - l1).abs()
+                                        / l1.abs()).max()))
+        plan = (f", {eng.format_plan.describe()}" if eng.format_plan
+                else "")
+        log(phase, f"built in {built:.2f} s (Nc padded to {eng.nc_padded}"
+            f"{plan}); {COHORT_ITERS} iterations {wall:.3f} s wall, "
+            f"{start.elapsed_time(stop):.3f} ms by CUDA events, "
+            f"{COHORT / wall:.2f} subjects/s; peak memory {peak:.1f} MiB; "
+            f"each subject vs its own opt solve: weights max abs diff "
+            f"{w_diff:.3e} (rtol {TRAJ_TOL['rtol']}, atol "
+            f"{TRAJ_TOL['atol']}), losses max rel diff {l_diff:.3e}")
+        if (executor, fmt) == ("opt", "coo"):
+            half = COHORT_ITERS // 2
+            st, l1 = eng.step(eng.init_states(), half)
+            st, l2 = eng.step(st, half)
+            torch.cuda.synchronize()
+            same = (torch.equal(st.w, w)
+                    and torch.equal(torch.cat([l1, l2], dim=1), losses))
+            log(phase, f"step({half}) twice equals run({COHORT_ITERS}) bit "
+                f"for bit: {same}")
+            if not same:
+                raise AssertionError(f"{phase}: chained steps differ from "
+                                     "the run")
+            step_ms, state = time_steps(eng, eng.init_states(w))
+            log(phase, f"steady step of the cohort: {step_ms:.4f} ms per "
+                f"iteration (CUDA events over 20 iterations) against "
+                f"{sum(single_steps):.4f} ms for the {COHORT} single steps; "
+                f"{COHORT / (step_ms * COHORT_ITERS / 1e3):.1f} subjects/s "
+                f"for {COHORT_ITERS}-iteration solves at that step")
+            profile_step(phase, eng, state, step_ms)
+        del eng
+        torch.cuda.empty_cache()
+    return cohort
+
+
+# ----------------------------------------------------------------------------
+# 10. checkpoint and resume
+# ----------------------------------------------------------------------------
+
+CKPT_HALF = 50
+
+
+def save_restore(phase: str, path: str, tree: dict, template: dict) -> dict:
+    """``tree`` saved and restored through the port's manager into the
+    shape of ``template``, on the card; logs seconds and bytes."""
+    from repro_torch.checkpoint import manager as ckpt
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(path, CKPT_HALF, tree)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, flat, manifest = ckpt.restore(path)
+    restored = ckpt.place(ckpt.unflatten_like(template, flat), "cuda")
+    torch.cuda.synchronize()
+    log(phase, f"saved in {save_s:.4f} s, restored onto the card in "
+        f"{time.perf_counter() - t0:.4f} s: step {step}, "
+        f"{manifest['n_arrays']} arrays, {manifest['bytes']} bytes "
+        f"({manifest['dtypes']})")
+    return restored
+
+
+def phase_checkpoint(problem, cohort) -> None:
+    """The kernel engine for CKPT_HALF iterations, saved, restored into a
+    fresh engine and run CKPT_HALF more: bit-identical to 2 * CKPT_HALF
+    uninterrupted iterations (no compaction).  The same for the cohort
+    state."""
+    import shutil
+    from repro_torch.core.batched import BatchedLifeEngine
+    from repro_torch.core.life import LifeConfig, LifeEngine
+    from repro_torch.kernels import _build
+    root = os.path.join(ROOT, "build", "checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    n = 2 * CKPT_HALF
+
+    cfg = LifeConfig(executor="kernel", plan_cache_dir="")
+    whole = LifeEngine(problem, cfg, device="cuda")
+    st_whole, l_whole = whole.step(whole.init_state(), n)
+    del whole
+    first = LifeEngine(problem, cfg, device="cuda")
+    st, l1 = first.step(first.init_state(), CKPT_HALF)
+    del first
+    fresh = LifeEngine(problem, cfg, device="cuda")
+    restored = save_restore(
+        "checkpoint", os.path.join(root, "single"),
+        {"state": st, "losses": l1},
+        {"state": fresh.init_state(), "losses": torch.zeros(CKPT_HALF)})
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    st2, l2 = fresh.step(restored["state"], CKPT_HALF)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    want = {"dsc_coo": 2 * CKPT_HALF, "wc_coo": CKPT_HALF + CKPT_HALF // 2}
+    same = (torch.equal(st2.w, st_whole.w) and st2.it == st_whole.it
+            and torch.equal(torch.cat([restored["losses"], l2]), l_whole))
+    log("checkpoint", f"kernel engine: {CKPT_HALF} iterations, saved, "
+        f"restored into a fresh engine, {CKPT_HALF} more (launches {counts},"
+        f" expected {want}): bit-identical to {n} uninterrupted iterations:"
+        f" {same} (max abs diff "
+        f"{float((st2.w - st_whole.w).abs().max()):.3e})")
+    if counts != want or not same:
+        raise AssertionError("the resumed kernel solve differs")
+    del fresh
+
+    bcfg = LifeConfig(executor="opt", plan_cache_dir="")
+    eng = BatchedLifeEngine(cohort, bcfg, device="cuda")
+    a, la = eng.step(eng.init_states(), n)
+    b, lb = eng.step(eng.init_states(), n)
+    torch.cuda.synchronize()
+    deterministic = torch.equal(a.w, b.w) and torch.equal(la, lb)
+    st, l1 = eng.step(eng.init_states(), CKPT_HALF)
+    fresh = BatchedLifeEngine(cohort, bcfg, device="cuda")
+    restored = save_restore(
+        "checkpoint", os.path.join(root, "cohort"),
+        {"stacked": st, "losses": l1},
+        {"stacked": fresh.init_states(),
+         "losses": torch.zeros(COHORT, CKPT_HALF)})
+    st2, l2 = fresh.step(restored["stacked"], CKPT_HALF)
+    torch.cuda.synchronize()
+    losses = torch.cat([restored["losses"], l2], dim=1)
+    bits = torch.equal(st2.w, a.w) and torch.equal(losses, la)
+    log("checkpoint", f"cohort (opt, {COHORT} subjects): two uninterrupted "
+        f"runs of {n} bit-identical: {deterministic}; resumed after "
+        f"{CKPT_HALF} bit-identical to uninterrupted: {bits} (max abs diff "
+        f"{float((st2.w - a.w).abs().max()):.3e}); counters "
+        f"{restored['stacked'].it.tolist()} -> {st2.it.tolist()}")
+    if deterministic and not bits:
+        raise AssertionError("the resumed cohort differs from a run that "
+                             "repeats bit for bit")
+    if not deterministic:
+        torch.testing.assert_close(st2.w, a.w, **FP32_TOL)
+        torch.testing.assert_close(losses, la, **FP32_TOL)
+        log("checkpoint", "the cohort run does not repeat bit for bit; the "
+            f"resumed one is within rtol {FP32_TOL['rtol']}, atol "
+            f"{FP32_TOL['atol']}")
+    if not np.array_equal(st2.it, np.full(COHORT, n)):
+        raise AssertionError(f"cohort counters {st2.it} != {n}")
+    del eng, fresh
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------------
@@ -1411,6 +1849,17 @@ def main() -> int:
     phase_kernels(problem, errors)
     launches, w_opt = phase_main(problem)
     launches.update(phase_formats(problem, w_opt))
+    t0 = time.perf_counter()
+    phase_tune(problem, errors)
+    log("tune", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cohort = phase_cohort(problem)
+    log("cohort", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_checkpoint(problem, cohort)
+    log("checkpoint", f"phase took {time.perf_counter() - t0:.1f} s")
+    del cohort
+    torch.cuda.empty_cache()
     entries = phase_timing(problem, launches, errors)
     del problem, w_opt
     torch.cuda.empty_cache()

@@ -2,7 +2,9 @@
 
 The reference's problems, weights and solver states cross into the port as
 numpy arrays (``np.asarray`` of the reference's arrays), never by importing
-the reference: the port runs where JAX is not installed.  A test that
+the reference: the port runs where JAX is not installed.  Solver states
+cross both ways (:func:`state_from_reference`, :func:`state_to_reference`),
+single-subject and stacked.  A test that
 holds the two packages against each other builds its problem once, with
 the reference, and hands the same arrays to both; the LM side's
 parameters cross the same way (:func:`lm_params_from_reference`).
@@ -14,6 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.sbbnnls import SbbnnlsState
 from repro_torch.core.std import PhiTensor
 from repro_torch.data.dmri import LifeProblem, problem_stats
 from repro_torch.device import DeviceLike, resolve_device
@@ -49,6 +52,31 @@ def from_reference(atoms, voxels, fibers, values, n_atoms: int,
 def weights_from_reference(w, *, device: DeviceLike = None) -> torch.Tensor:
     """Solver weights (or any float array) of the reference as a tensor."""
     return torch.tensor(np.asarray(w), device=resolve_device(device))
+
+
+def state_from_reference(w, it, loss, *,
+                         device: DeviceLike = None) -> SbbnnlsState:
+    """The port's solver state from the arrays of a reference
+    ``SbbnnlsState``.
+
+    A single subject's 0-d ``it`` becomes a host int; a stacked (cohort)
+    state's ``(S,)`` ``it`` stays a host int32 array, as the port's
+    batched solver keeps it.  ``w`` and ``loss`` go to ``device``."""
+    dev = resolve_device(device)
+    it = np.asarray(it)
+    return SbbnnlsState(
+        w=torch.tensor(np.asarray(w), device=dev),
+        it=int(it) if it.ndim == 0 else it.astype(np.int32),
+        loss=torch.tensor(np.asarray(loss), device=dev))
+
+
+def state_to_reference(state: SbbnnlsState
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(w, it, loss)`` of a port solver state as numpy arrays in the
+    reference's dtypes (``it`` int32: 0-d single, ``(S,)`` stacked), to
+    build the reference's ``SbbnnlsState`` from."""
+    return (to_numpy(state.w), np.asarray(state.it, np.int32),
+            to_numpy(state.loss))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

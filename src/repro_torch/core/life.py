@@ -14,10 +14,12 @@ Tile, SpMV and format plans are memoized through the persistent
 reached zero and rebuilds the executor over the smaller Phi, keeping the
 solver state (and so its iteration parity).
 
-``LifeConfig`` keeps the reference's field names.  The fields of later
-slices (tuning, the mesh) accept only the values the port runs, and others
-raise ``ValueError`` naming the slice that brings them.  The observability
-gauges arrive with the observability slice.
+``LifeConfig`` keeps the reference's field names.  ``tune="cached"`` or
+``"full"`` resolves a :class:`~repro_torch.tune.plan.TunePlan` beneath the
+executor (``tune/tuner.py``; ``compute_dtype="auto"`` is its searched
+dtype axis).  The mesh fields accept only the values the port runs, and
+others raise ``ValueError`` naming the slice that brings them.  The
+observability gauges arrive with the observability slice.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from repro_torch.core.sbbnnls import (SbbnnlsState, nnls_loss, sbbnnls_init,
 from repro_torch.core.std import PhiTensor
 from repro_torch.data.dmri import LifeProblem
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tune.tuner import validate_config as validate_tuning
 
 EXECUTORS = REGISTRY.names()          # public alias; registry is the truth
 
@@ -77,14 +80,21 @@ class LifeConfig:
     format: str = "coo"
     slot_tile: int = 32             # SELL width is a multiple of this
     seg_tile: int = 16              # F-COO segments per chunk round to this
-    tune: str = "off"               # kernel autotuning: the tuning slice (A7)
+    # kernel autotuning (tune/tuner.py): "off" runs the constants above;
+    # "cached" replays a persisted TunePlan when one exists (never
+    # measures); "full" searches the layout space on a cache miss and
+    # persists the winner per (dataset, executor, backend, devices)
+    tune: str = "off"
     # learned selection (A11); until it is ported "auto" and "off" both
     # select as the reference does with no trained predictor
     predict: str = "auto"
     # storage dtype of the static operands (dictionary + Phi values):
-    # "fp32" or "bf16" (bf16 storage, fp32 accumulation); "auto" is a
-    # searched axis of the tuning slice (A7)
+    # "fp32", "bf16" (bf16 storage, fp32 accumulation; accuracy contract
+    # tune/plan.py BF16_RTOL) or "auto" (a searched axis; needs tune !=
+    # "off")
     compute_dtype: str = "fp32"
+    # cap on measured candidates per search (the default configuration is
+    # never truncated away)
     tune_budget: int = 12
     sell_accept: float = 1.0
     sell_reject: float = 4.0
@@ -108,15 +118,7 @@ def validate_config(config: LifeConfig) -> None:
     if config.format not in FORMAT_CHOICES:
         raise ValueError(f"format must be one of {FORMAT_CHOICES}, got "
                          f"{config.format!r}")
-    if config.tune != "off":
-        raise ValueError(f"tune={config.tune!r} is not ported yet: tuning "
-                         "arrives with the tuning slice (ROADMAP A7)")
-    if config.compute_dtype == "auto":
-        raise ValueError('compute_dtype="auto" is a searched axis of the '
-                         "tuning slice (ROADMAP A7), not ported yet")
-    if config.compute_dtype not in ("fp32", "bf16"):
-        raise ValueError("compute_dtype must be 'fp32' or 'bf16', got "
-                         f"{config.compute_dtype!r}")
+    validate_tuning(config)
     if config.shard_rows * config.shard_cols > 1:
         raise ValueError("shard_rows x shard_cols > 1 is not ported yet: the "
                          "mesh partition arrives with the mesh slice "
@@ -164,6 +166,22 @@ class LifeEngine:
     def format_plan(self):
         """Chosen FormatPlan (format != "coo" only; None otherwise)."""
         return self.executor.plans.get("format")
+
+    @property
+    def tune_plan(self):
+        """Resolved TunePlan (tune != "off" only; None otherwise)."""
+        return self.executor.plans.get("tune")
+
+    @property
+    def resolved_compute_dtype(self) -> str:
+        """The storage dtype this engine runs under: the tune plan's
+        winner when a search resolved ``compute_dtype="auto"``, the config
+        value otherwise."""
+        plan = self.tune_plan
+        if plan is not None:
+            return plan.compute_dtype
+        cd = self.config.compute_dtype
+        return "fp32" if cd == "auto" else cd
 
     @property
     def dsc_plan(self):

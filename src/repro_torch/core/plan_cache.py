@@ -2,8 +2,9 @@
 
 Torch counterpart of ``repro/core/plan_cache.py``.  A ``TilePlan`` (kernel
 tile geometry), an ``SpmvPlan`` (the ``auto`` executor's measured sort
-choice) or a ``FormatPlan`` (the format selector's choice) is keyed by a
-content hash of the index arrays, the geometry and the backend, and
+choice), a ``FormatPlan`` (the format selector's choice) or a ``TunePlan``
+(the kernel autotuner's winner) is keyed by a content hash of the index
+arrays, the geometry and the backend, and
 serialized to disk, so re-constructing an engine on the same dataset
 replaces the host inspector and its measurements with one ``np.load``.
 Every key carries the backend (``cpu`` / ``cuda``): a choice measured on
@@ -15,7 +16,9 @@ Layout: ``<cache_dir>/<digest>.npz`` holding the plan arrays and a
 ``LifeConfig.plan_cache_dir`` overrides it per engine and ``""`` disables
 caching.  Entries are written atomically (temporary file + rename).
 
-The tune and shard plan kinds arrive with their slices.
+A TunePlan's key also carries the device count (1 on the CPU,
+``torch.cuda.device_count()`` on the card).  The shard plan kind arrives
+with the mesh slice (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -93,6 +96,31 @@ def format_plan_key(atoms: np.ndarray, voxels: np.ndarray, fibers: np.ndarray,
     h.update(",".join(sorted(allowed)).encode())
     h.update(np.float64([sell_accept, sell_reject]).tobytes())
     h.update(np.int64(list(sizes) + [row_tile, slot_tile]).tobytes())
+    for arr in (atoms, voxels, fibers):
+        h.update(np.ascontiguousarray(arr, np.int64).tobytes())
+    return h.hexdigest()
+
+
+def tune_plan_key(atoms: np.ndarray, voxels: np.ndarray, fibers: np.ndarray,
+                  *, sizes, n_theta: int, executor: str, fmt: str,
+                  backend: str, n_devices: int, compute_dtype: str,
+                  budget: int = 0, mesh=(1, 1)) -> str:
+    """Digest for a TunePlan: the full index content, the problem geometry,
+    the executor/format pair the search bound, the platform (backend,
+    device count and ``(R, C)`` mesh shape), the requested compute-dtype
+    mode and the search budget.
+
+    A plan tuned on one backend misses cleanly on another instead of
+    replaying layouts measured on other silicon.  The *requested* dtype is
+    in the key, not the resolved winner, so ``compute_dtype="auto"`` and
+    an explicit "fp32" never share an entry.
+    """
+    h = hashlib.sha256()
+    h.update(b"tune-plan-v%d:" % _FORMAT_VERSION)
+    h.update(("%s|%s|%s|%s" % (executor, fmt, backend, compute_dtype))
+             .encode())
+    h.update(np.int64(list(sizes) + [n_theta, n_devices, budget]
+                      + list(mesh)).tobytes())
     for arr in (atoms, voxels, fibers):
         h.update(np.ascontiguousarray(arr, np.int64).tobytes())
     return h.hexdigest()
@@ -241,6 +269,30 @@ class PlanCache:
             payload["order"] = np.asarray(plan.order, np.int64)
         self._write(key, payload)
 
+    def get_tune_plan(self, key: str):
+        raw = self._read(key)
+        self.stats.record(raw is not None)
+        if raw is None:
+            return None
+        return _parse_tune_plan(raw)
+
+    def put_tune_plan(self, key: str, plan) -> None:
+        pk = sorted(plan.params)
+        mk = sorted(plan.measurements)
+        sk = sorted(plan.stats)
+        self._write(key, dict(
+            executor=np.str_(plan.executor), backend=np.str_(plan.backend),
+            n_devices=np.int64(plan.n_devices),
+            compute_dtype=np.str_(plan.compute_dtype),
+            reason=np.str_(plan.reason),
+            params_keys=np.asarray(pk, np.str_),
+            params_vals=np.asarray([plan.params[k] for k in pk], np.int64),
+            meas_keys=np.asarray(mk, np.str_),
+            meas_vals=np.asarray([plan.measurements[k] for k in mk],
+                                 np.float64),
+            stats_keys=np.asarray(sk, np.str_),
+            stats_vals=np.asarray([plan.stats[k] for k in sk], np.float64)))
+
     def get_format_plan(self, key: str) -> Optional[FormatPlan]:
         raw = self._read(key)
         self.stats.record(raw is not None)
@@ -266,3 +318,24 @@ class PlanCache:
             params_vals=np.asarray([plan.params[k] for k in pk], np.int64),
             stats_keys=np.asarray(sk, np.str_),
             stats_vals=np.asarray([plan.stats[k] for k in sk], np.float64)))
+
+
+def _parse_tune_plan(raw: dict):
+    """Raw npz dict -> TunePlan, or None on a malformed payload.  ``stats``
+    may be absent, as in the reference's plans written before it had
+    them."""
+    from repro_torch.tune.plan import TunePlan
+    try:
+        params = {str(k): int(v) for k, v in
+                  zip(raw["params_keys"], raw["params_vals"])}
+        meas = {str(k): float(v) for k, v in
+                zip(raw["meas_keys"], raw["meas_vals"])}
+        stats = {str(k): float(v) for k, v in
+                 zip(raw.get("stats_keys", ()), raw.get("stats_vals", ()))}
+        return TunePlan(
+            executor=str(raw["executor"]), backend=str(raw["backend"]),
+            n_devices=int(raw["n_devices"]), params=params,
+            compute_dtype=str(raw["compute_dtype"]),
+            reason=str(raw["reason"]), measurements=meas, stats=stats)
+    except (KeyError, ValueError):
+        return None

@@ -116,13 +116,28 @@ class ExecutorRegistry:
     def create(self, name: str, phi: PhiTensor, problem, config,
                cache: Optional[PlanCache] = None) -> Executor:
         """Instantiate executor ``name`` for ``phi`` (which may be a
-        compacted descendant of ``problem.phi``) on phi's device."""
+        compacted descendant of ``problem.phi``) on phi's device.
+
+        Tuning hook: with ``config.tune != "off"`` the kernel autotuner
+        resolves a :class:`~repro_torch.tune.plan.TunePlan` for this
+        (dataset, executor, backend) through the plan cache; its launch
+        parameters are substituted into the config the factory sees, and
+        the plan lands in ``executor.plans["tune"]``.
+        """
         if name not in self._factories:
             raise ValueError(
                 f"executor must be one of {self.names()}, got {name!r}")
         if cache is None:
             cache = PlanCache("")        # disabled cache
-        return self._factories[name](phi, problem, config, cache)
+        tune_plan = None
+        if getattr(config, "tune", "off") != "off":
+            from repro_torch.tune.tuner import resolve_plan
+            tune_plan = resolve_plan(name, phi, problem, config, cache)
+            config = tune_plan.apply(config)
+        executor = self._factories[name](phi, problem, config, cache)
+        if tune_plan is not None:
+            executor.plans["tune"] = tune_plan
+        return executor
 
 
 REGISTRY = ExecutorRegistry()

@@ -11,11 +11,17 @@ the iteration parity is a branch on ``state.it``, an integer held on the
 host: choosing whether to launch the second WC never waits on the device.
 Everything else (the step sizes, ``_safe_div``, the losses) stays on the
 device, and the losses are stacked there and returned at the end.
+
+:func:`batched_step` is the same iteration for a cohort of ``S`` subjects
+(the reference vmaps :func:`sbbnnls_step`): weights ``(S, Nf)``, one
+step size per subject from per-subject dots, and a host array of ``S``
+iteration counters in place of the reference's ``lax.cond`` under vmap.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
@@ -52,6 +58,75 @@ def sbbnnls_step(matvec: MatVec, rmatvec: MatVec, b: torch.Tensor,
     w_new = torch.clamp_min(w - alpha * gt, 0.0)
     loss = 0.5 * _dot(y, y)
     return SbbnnlsState(w=w_new, it=it + 1, loss=loss)
+
+
+def batched_step(matvec: MatVec, rmatvec: MatVec, b: torch.Tensor,
+                 state: SbbnnlsState) -> SbbnnlsState:
+    """One SBBNNLS iteration for every subject of a cohort.
+
+    ``state.w`` is ``(S, Nf)``, ``state.it`` a host int array of ``S``
+    counters and ``state.loss`` ``(S,)``; ``matvec`` maps ``(S, Nf)`` to
+    ``(S, Nv, Ntheta)`` and ``rmatvec`` back, and ``b`` is
+    ``(S, Nv, Ntheta)``.  Each subject takes the step size of its own
+    iteration parity (a select per subject, as ``lax.cond`` under vmap
+    is); the even branch's extra WC runs only when some subject is on an
+    even iteration.
+    """
+    w, it = state.w, state.it
+    y = matvec(w) - b                       # DSC (+ residual)
+    g = rmatvec(y)                          # WC
+    gt = projected_gradient(w, g)
+    v = matvec(gt)                          # DSC
+    vv_dot = _dots(v, v)
+    odd = it % 2 == 1
+    alpha = None
+    if odd.any():
+        alpha = _safe_div(_dots(gt, gt), vv_dot)
+    if not odd.all():
+        vv = projected_gradient(w, rmatvec(v))   # WC (even iterations)
+        even = _safe_div(vv_dot, _dots(vv, vv))
+        alpha = even if alpha is None else torch.where(
+            torch.as_tensor(odd, device=w.device), alpha, even)
+    w_new = torch.clamp_min(w - alpha[:, None] * gt, 0.0)
+    loss = 0.5 * _dots(y, y)
+    return SbbnnlsState(w=w_new, it=it + 1, loss=loss)
+
+
+def batched_steps(matvec: MatVec, rmatvec: MatVec, b: torch.Tensor,
+                  state: SbbnnlsState, n_iters: int
+                  ) -> Tuple[SbbnnlsState, torch.Tensor]:
+    """Advance a cohort's state by ``n_iters`` iterations; returns (state,
+    losses ``(S, n_iters)``).  Chained calls compute one uninterrupted
+    run, as :func:`sbbnnls_steps` does."""
+    losses = []
+    for _ in range(n_iters):
+        state = batched_step(matvec, rmatvec, b, state)
+        losses.append(state.loss)
+    if not losses:
+        return state, state.w.new_zeros((state.w.shape[0], 0))
+    return state, torch.stack(losses, dim=1)
+
+
+def batched_init(w0: torch.Tensor) -> SbbnnlsState:
+    """Fresh cohort state at iteration 0: ``w0`` is ``(S, Nf)``."""
+    s = w0.shape[0]
+    return SbbnnlsState(w=w0, it=np.zeros((s,), np.int32),
+                        loss=w0.new_zeros((s,)))
+
+
+def _dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-subject dot products of two ``(S, ...)`` tensors: ``(S,)``.
+
+    On the card, one ``torch.dot`` (cuBLAS dot) per subject: the batched
+    product below runs there as a gemv with one output per subject, 60% of
+    a four-subject step (32.8 of 54.7 ms, NVIDIA H100).  On the CPU, one
+    ``torch.bmm``, whose summation order gives the reference's vmapped
+    trajectory within 1e-5 (``torch.dot``'s drifts past it on one weight
+    in 12 iterations)."""
+    if a.is_cuda:
+        return torch.stack([_dot(x, y) for x, y in zip(a, b)])
+    s = a.shape[0]
+    return torch.bmm(a.reshape(s, 1, -1), b.reshape(s, -1, 1)).reshape(s)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,7 @@ reproduces its JAX-drawn gradient directions), and so is ``b``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -156,3 +156,18 @@ def synth_connectome(
     return LifeProblem(phi=phi, dictionary=dictionary, b=b, w_true=w_true_t,
                        stats=problem_stats(atoms_u, voxels_u, n_fibers),
                        grid=grid)
+
+
+def synth_cohort(n_subjects: int, *, base_seed: int = 0,
+                 algorithm: str = "PROB", **kwargs) -> List[LifeProblem]:
+    """Cohort of subjects sharing the acquisition, varying the anatomy.
+
+    Subject ``s`` is ``synth_connectome(seed=base_seed + s, ...)``, so the
+    cohort is the reference's array for array.  All subjects share grid,
+    n_fibers, n_theta and n_atoms, and so the same dictionary; their
+    streamlines differ, so their coefficient counts Nc differ, which is
+    the padding :class:`~repro_torch.core.batched.BatchedLifeEngine`
+    absorbs.
+    """
+    return [synth_connectome(seed=base_seed + s, algorithm=algorithm,
+                             **kwargs) for s in range(n_subjects)]

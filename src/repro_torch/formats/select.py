@@ -35,7 +35,7 @@ the executor registry name.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -171,18 +171,26 @@ def _measure_formats(phi: PhiTensor, dictionary: torch.Tensor,
     return plan.restructure                        # holds the format name
 
 
-def resolve_format(phi: PhiTensor, problem, config, cache=None
-                   ) -> FormatPlan:
+def resolve_format(phi: PhiTensor, problem, config, cache=None,
+                   allowed: Optional[Tuple[str, ...]] = None,
+                   mesh_aware: bool = True) -> FormatPlan:
     """Engine entry point: honour an explicit ``config.format`` or select.
 
+    ``allowed`` restricts the candidate set (the batched engine passes the
+    formats that stack across subjects: SELL widths are per-subject
+    shapes).  ``mesh_aware=False`` is for callers to which the mesh
+    fields mean placement only (the batched engine); with it a mesh
+    request is not refused here.
+
     Raises:
-        ValueError: an unknown format, or a mesh request
+        ValueError: an unknown format, an explicit format outside
+            ``allowed``, or (``mesh_aware``) a mesh request
             (``shard_rows * shard_cols > 1``), whose mesh-aware candidate
             set arrives with the mesh slice (ROADMAP A13).
     """
     fmt = config.format
     row_tile, slot_tile = config.row_tile, config.slot_tile
-    if config.shard_rows * config.shard_cols > 1:
+    if mesh_aware and config.shard_rows * config.shard_cols > 1:
         raise ValueError("shard_rows x shard_cols > 1 is not ported yet: the "
                          "mesh partition arrives with the mesh slice "
                          "(ROADMAP A13)")
@@ -191,9 +199,13 @@ def resolve_format(phi: PhiTensor, problem, config, cache=None
             raise ValueError(
                 f"format must be one of {format_names() + ('auto',)}, "
                 f"got {fmt!r}")
+        if allowed is not None and fmt not in allowed:
+            raise ValueError(
+                f"format {fmt!r} is not supported here (allowed: {allowed})")
         return FormatPlan(fmt, "explicit",
                           dict(row_tile=row_tile, slot_tile=slot_tile))
     return choose_format(
         phi, problem.dictionary, row_tile=row_tile, slot_tile=slot_tile,
-        allowed=DEFAULT_CANDIDATES, sell_accept=config.sell_accept,
-        sell_reject=config.sell_reject, cache=cache)
+        allowed=tuple(allowed) if allowed is not None else DEFAULT_CANDIDATES,
+        sell_accept=config.sell_accept, sell_reject=config.sell_reject,
+        cache=cache)

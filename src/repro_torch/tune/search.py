@@ -3,12 +3,14 @@
 Torch counterpart of ``repro/tune/search.py``.  The paper selects its
 restructuring at runtime from "the average execution time for three runs";
 this module is that loop, shared by the restructuring choice
-(``core/restructure.autotune_plan``) and the format choice
-(``formats/select``), so their outcomes stay comparable.
+(``core/restructure.autotune_plan``), the format choice
+(``formats/select``) and the kernel autotuner (``tune/tuner``), so their
+outcomes stay comparable.
 
-A call is timed to its end: when its result holds a CUDA tensor, the card
-is synchronized after the warm-up and after the timed calls, so the clock
-measures the device's work and not its enqueue.
+A call is timed to its end.  When the warm-up's result lies on the card,
+the warm-up goes on for at least :data:`CUDA_WARM_SECONDS` and the timed
+calls are bracketed by CUDA events, so the cost is the device's time for
+them; otherwise the host clock times them.
 """
 from __future__ import annotations
 
@@ -21,6 +23,10 @@ import torch
 #: measurement defaults, mirroring the paper's "three runs" protocol
 DEFAULT_WARMUP = 1
 DEFAULT_REPEATS = 3
+#: on the card, warm-up calls go on until this long has passed: with one
+#: warm-up call, some freshly built candidates measured up to 3x their
+#: cost in a later step, and with this warm-up none did (PERF.md §6)
+CUDA_WARM_SECONDS = 0.02
 
 #: process-lifetime count of :func:`time_call` invocations: a complete
 #: audit of measurement work, since every search times through it
@@ -42,16 +48,32 @@ def block(out: torch.Tensor) -> torch.Tensor:
 
 def time_call(fn: Callable, *args, warmup: int = DEFAULT_WARMUP,
               repeats: int = DEFAULT_REPEATS) -> float:
-    """Mean seconds per blocking call after ``warmup`` warm-up calls."""
+    """Mean seconds per call after ``warmup`` warm-up calls: between CUDA
+    events when the warm-up's result lies on the card (warm-up extended
+    to :data:`CUDA_WARM_SECONDS`), else by the host clock until the last
+    result is computed."""
     global _N_MEASURED
     _N_MEASURED += 1
-    for _ in range(warmup):
-        block(fn(*args))
-    t0 = time.perf_counter()
     out = None
+    for _ in range(warmup):
+        out = block(fn(*args))
+    if out is not None and out.is_cuda:
+        warm_until = time.perf_counter() + CUDA_WARM_SECONDS
+        while time.perf_counter() < warm_until:
+            block(fn(*args))
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(repeats):
+            fn(*args)
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / 1e3 / max(1, repeats)
+    t0 = time.perf_counter()
     for _ in range(repeats):
         out = fn(*args)
-    block(out)
+    if out is not None:
+        block(out)
     return (time.perf_counter() - t0) / max(1, repeats)
 
 
@@ -59,8 +81,11 @@ def measure_candidates(candidates: Sequence, run: Callable[[object], float],
                        ) -> Tuple[int, dict]:
     """Run ``run(candidate) -> cost_seconds`` for every candidate.
 
-    Returns (index of the cheapest candidate, {label: cost}).  Duplicate
-    labels get a ``#<index>`` suffix instead of overwriting one another.
+    Returns (index of the cheapest candidate, {label: cost}).  A dict
+    candidate is labelled by its sorted ``k=v`` pairs (nested dicts
+    likewise), anything else by ``str``, as the reference labels them, so
+    persisted measurements carry the reference's keys.  Duplicate labels
+    get a ``#<index>`` suffix instead of overwriting one another.
     """
     if not candidates:
         raise ValueError("need at least one candidate")
@@ -68,7 +93,7 @@ def measure_candidates(candidates: Sequence, run: Callable[[object], float],
     best_i, best_cost = 0, None
     for i, cand in enumerate(candidates):
         cost = float(run(cand))
-        label = str(cand)
+        label = _label(cand)
         if label in costs:
             warnings.warn(f"duplicate search candidate label {label!r}; "
                           f"keying repeat as {label}#{i}", stacklevel=2)
@@ -77,3 +102,13 @@ def measure_candidates(candidates: Sequence, run: Callable[[object], float],
         if best_cost is None or cost < best_cost:
             best_i, best_cost = i, cost
     return best_i, costs
+
+
+def _label(cand) -> str:
+    if isinstance(cand, dict):
+        parts = []
+        for k in sorted(cand):
+            v = cand[k]
+            parts.append(f"{k}={_label(v) if isinstance(v, dict) else v}")
+        return ",".join(parts)
+    return str(cand)

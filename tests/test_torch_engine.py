@@ -149,8 +149,8 @@ def test_format_paths_match_reference_engine_with_compaction(executor, fmt,
     (dict(executor="nope"), "must be one of"),
     (dict(format="sell", shard_rows=2), "mesh slice"),
     (dict(format="csr"), "format must be one of"),
-    (dict(tune="full"), "tuning slice"),
-    (dict(compute_dtype="auto"), "tuning slice"),
+    (dict(tune="always"), "tune must be one of"),
+    (dict(compute_dtype="auto"), "searched axis"),
     (dict(compute_dtype="fp16"), "compute_dtype"),
     (dict(shard_rows=2), "mesh slice"),
 ])
