@@ -65,10 +65,28 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                engine and run 50 more: bit-identical to 100 uninterrupted
                iterations; the same round trip for the cohort; the save
                and restore seconds and bytes.
+  11. serve  — (after 10) a LifeService with observability on, slices of
+               16 iterations, five jobs of 64: subjects 2 and 3 of phase
+               9's cohort with format="sell" (B3/B4) and "fcoo" (B5/B6),
+               subjects 0 and 1 with "auto" (one cohort bucket), and after
+               the first tick the main problem with "auto" and priority
+               1, which joins that bucket.  B3-B6's launches (2 DSC + 1.5
+               WC per iteration of the solo jobs); the counter algebra at
+               every tick; each solo job bit-identical to its own
+               LifeEngine solve, each cohort job within the trajectory
+               tolerance of its own opt solve; step histograms for every
+               executor; engine.roofline.fraction of kernel-sell and
+               kernel-fcoo in (0, 1.05]; then the same service killed
+               after two ticks and resumed from its checkpoint by a fresh
+               one, every job bit-identical to the uninterrupted run.
+               Logs each job's latency, jobs/s, peak memory, the
+               obs.snapshot() line, a Chrome trace under build/serve/ and
+               the solo sell step with obs on and off.
   6. timing  — each kernel at the main path's shapes (CUDA events) beside
-               its bound, its plain version and one PyTorch library call;
-               for B6 also the bound if every slot read its Y row from
-               device memory.
+               its bound (the compulsory work of
+               repro_torch/roofline/spmv_bytes.py), its plain version and
+               one PyTorch library call; for B6 also the bound if every
+               slot read its Y row from device memory.
   7. lm      — kernel B7 (the MoE expert FFN's grouped matmul) against its
                plain version in bf16 and fp32 at the prefill gate shape,
                the decode down shape, ragged shapes and expert layouts that
@@ -104,14 +122,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FP32_TOL = dict(rtol=2e-4, atol=2e-5)
 #: the conformance trajectory bound for weights (tests/test_conformance.py)
 TRAJ_TOL = dict(rtol=2e-2, atol=2e-3)
-#: NVIDIA H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor
-#: cores (both at the full 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
 #: shared memory one block may opt in to on an H100 (227 KB)
 SMEM_OPTIN_BYTES = 232_448
-#: NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate (700 W)
-BF16_FLOPS_PER_S = 989e12
 
 MAIN_PROBLEM = dict(n_fibers=50_000, n_theta=96, n_atoms=96,
                     grid=(64, 64, 64), algorithm="PROB", seed=0)
@@ -906,10 +918,13 @@ def time_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     return start.elapsed_time(stop) / n
 
 
-def bound(bytes_moved: float, flops: float):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(bytes_moved: float, flops: float, flops_per_s=None):
+    """Least milliseconds on the card and what sets them: the H100 SXM data
+    sheet's rates at 700 W (repro_torch/roofline/analysis.py: HBM3 3.35
+    TB/s, fp32 67 TFLOP/s unless ``flops_per_s`` is given)."""
+    from repro_torch.roofline.analysis import bound as least_seconds
+    t, by = least_seconds(bytes_moved, flops, flops_per_s)
+    return t * 1e3, by
 
 
 def csr_operator(phi, d, transpose: bool):
@@ -942,41 +957,50 @@ def phase_timing(problem, launches: dict, errors: dict) -> list:
     w = torch.rand(nf, device="cuda",
                    generator=torch.Generator(device="cuda").manual_seed(5))
     y = (run_dsc(t_dsc, d, w)[:nv] - problem.b).contiguous()
-    d_bytes = d.numel() * d.element_size()
-    tile_bytes = lambda t: 4 * (t.tile_ptr.numel() + t.tile_len.numel())
-    flops = 2.0 * nc * n_theta + nc
     # per kernel: its call, its plain version, its result over the function
-    # y = M w or w = M^T y, and the compulsory bytes: each index and value
-    # of a real coefficient read once, D and the dense input read once, the
-    # output (y or w) written once
+    # y = M w or w = M^T y, and its compulsory work
+    # (repro_torch/roofline/spmv_bytes.py): each index and value of a real
+    # coefficient read once, D and the dense input read once, the output
+    # (y or w) written once
+    from repro_torch.roofline import spmv_bytes as sb
+    kw = dict(d_bytes=d.numel() * d.element_size())
+    work = {
+        "dsc_coo": sb.dsc_coo(nc, n_theta, n_fibers=nf,
+                              n_row_blocks=t_dsc.n_row_blocks,
+                              n_tiles=t_dsc.tile_len.numel(),
+                              row_tile=t_dsc.row_tile, **kw),
+        "dsc_sell": sb.dsc_sell(nc, n_theta, n_fibers=nf,
+                                n_rows=sd.row_nnz.size,
+                                rows_padded=sd.atoms.shape[0], **kw),
+        "dsc_fcoo": sb.stream(nc, n_theta, n_voxels=nv, n_fibers=nf, **kw),
+        "wc_coo": sb.wc_coo(nc, n_theta, n_voxels=nv,
+                            n_row_blocks=t_wc.n_row_blocks,
+                            n_tiles=t_wc.tile_len.numel(),
+                            row_tile=t_wc.row_tile, **kw),
+        "wc_sell": sb.wc_sell(nc, n_theta, n_voxels=nv,
+                              n_rows=sw.row_nnz.size,
+                              rows_padded=sw.atoms.shape[0], **kw),
+        "wc_fcoo": sb.wc_fcoo(nc, n_theta, n_voxels=nv, n_fibers=nf, **kw),
+    }
     rows = [
         ("dsc_coo", w, lambda pl=False: run_dsc(t_dsc, d, w, plain=pl),
-         lambda out: out[:nv],
-         nc * 16 + tile_bytes(t_dsc) + nf * 4
-         + t_dsc.n_row_blocks * t_dsc.row_tile * n_theta * 4),
+         lambda out: out[:nv]),
         ("dsc_sell", w,
          lambda pl=False: run_format("dsc_sell", o["dsc_sell"], d, w, pl),
-         lambda out: out[:nv],
-         nc * 12 + sd.row_nnz.nbytes + nf * 4
-         + sd.atoms.shape[0] * n_theta * 4),
+         lambda out: out[:nv]),
         ("dsc_fcoo", w, lambda pl=False: run_format("dsc_fcoo", fo, d, w, pl),
-         lambda out: out,
-         nc * 16 + nf * 4 + nv * n_theta * 4),
+         lambda out: out),
         ("wc_coo", y, lambda pl=False: run_wc(t_wc, d, y, plain=pl),
-         lambda out: out[:nf],
-         nc * 16 + tile_bytes(t_wc) + nv * n_theta * 4
-         + t_wc.n_row_blocks * t_wc.row_tile * 4),
+         lambda out: out[:nf]),
         ("wc_sell", y,
          lambda pl=False: run_format("wc_sell", o["wc_sell"], d, y, pl),
-         lambda out: out[:nf],
-         nc * 12 + sw.row_nnz.nbytes + nv * n_theta * 4
-         + sw.atoms.shape[0] * 4),
+         lambda out: out[:nf]),
         ("wc_fcoo", y, lambda pl=False: run_format("wc_fcoo", fo, d, y, pl),
-         lambda out: out, nc * 20 + nv * n_theta * 4 + nf * 4),
+         lambda out: out),
     ]
     csr = {}
     entries = []
-    for name, x, run, result, bytes_moved in rows:
+    for name, x, run, result in rows:
         op = name.split("_")[0]
         if op not in csr:
             csr.clear()
@@ -990,7 +1014,7 @@ def phase_timing(problem, launches: dict, errors: dict) -> list:
         ms = time_ms(run)
         plain_ms = time_ms(lambda: run(True))
         library_ms = time_ms(lambda: torch.sparse.mm(m, xv))
-        bound_ms, bound_by = bound(bytes_moved + d_bytes, flops)
+        bound_ms, bound_by = bound(work[name].bytes, work[name].flops)
         entry = dict(name=name, route="cuda", **KERNELS[name],
                      launches=launches[name], max_abs_err=errors[name],
                      ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1000,8 +1024,8 @@ def phase_timing(problem, launches: dict, errors: dict) -> list:
             # fiber order gathers one Y row per slot; if no gathered row hit
             # in L2 (an estimate, not a bound: L2 hits are not measured)
             no_reuse_ms, _ = bound(
-                bytes_moved + d_bytes + nc * n_theta * 4 - nv * n_theta * 4,
-                flops)
+                work[name].bytes + nc * n_theta * 4 - nv * n_theta * 4,
+                work[name].flops)
             extra = (f"; estimate with a Y row read from memory per slot "
                      f"(no L2 reuse) {no_reuse_ms:.4f} ms")
         log("timing", f"{name}: {ms:.4f} ms (bound {bound_ms:.4f} ms by "
@@ -1419,6 +1443,223 @@ def phase_checkpoint(problem, cohort) -> None:
 
 
 # ----------------------------------------------------------------------------
+# 11. the LiFE solve service, with observability on
+# ----------------------------------------------------------------------------
+
+SERVE_ITERS = 64
+SERVE_SLICE = 16
+#: (job id, cohort subject or None for the main problem, format, priority),
+#: in order of submission; the last arrives after the first tick
+SERVE_JOBS = (("s2-sell", 2, "sell", 0), ("s3-fcoo", 3, "fcoo", 0),
+              ("s0-auto", 0, "auto", 0), ("s1-auto", 1, "auto", 0),
+              ("main-auto", None, "auto", 1))
+#: an engine.roofline.fraction above this means the byte count is wrong
+ROOFLINE_CEILING = 1.05
+
+
+def serve_counters_hold(obs) -> bool:
+    """The scheduler's counter algebra (serve/scheduler.py)."""
+    return obs.value("serve.jobs.admitted") == (
+        obs.value("serve.jobs.completed") + obs.value("serve.jobs.failed")
+        + obs.value("serve.jobs.cancelled") + obs.value("serve.queue.depth")
+        + obs.value("serve.jobs.running"))
+
+
+def serve_trace(problem, cohort, *, ckpt_dir=None, kill_after=None) -> dict:
+    """Drive a LifeService through SERVE_JOBS: four submissions, one tick,
+    the late arrival, then ticks to the end (or ``kill_after`` ticks, when
+    the service checkpoints and is dropped).  Checks the counter algebra
+    at every tick.  Returns the service, its wall seconds and the seconds
+    spent in submit (the host digest of each dataset)."""
+    from repro_torch import obs
+    from repro_torch.core.life import LifeConfig
+    from repro_torch.serve import LifeService
+    cfg = LifeConfig(executor="opt", n_iters=SERVE_ITERS,
+                     plan_cache_dir=os.path.join(ROOT, "build", "serve",
+                                                 "plans"))
+    svc = LifeService(cfg, ckpt_dir=ckpt_dir, slice_iters=SERVE_SLICE,
+                      checkpoint_every=kill_after or 0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks = 0
+    submit_s = 0.0
+    for jid, subject, fmt, priority in SERVE_JOBS:
+        if jid == SERVE_JOBS[-1][0]:
+            svc.step()
+            ticks += 1
+        t1 = time.perf_counter()
+        svc.submit(problem if subject is None else cohort[subject],
+                   job_id=jid, format=fmt, priority=priority)
+        submit_s += time.perf_counter() - t1
+    while svc.scheduler.active() and ticks != kill_after:
+        svc.step()
+        ticks += 1
+        if not serve_counters_hold(obs):
+            raise AssertionError(f"serve: counter algebra broken at tick "
+                                 f"{ticks}: {obs.snapshot()['counters']}")
+    torch.cuda.synchronize()
+    return dict(service=svc, seconds=time.perf_counter() - t0, ticks=ticks,
+                submit_seconds=submit_s)
+
+
+def phase_serve(problem, cohort) -> None:
+    """Phase 11: a LifeService over the cohort and the main problem with
+    observability on; bit-identical resume, launches, counters, the
+    engines' step histograms and roofline gauges."""
+    import shutil
+    from repro_torch import obs
+    from repro_torch.core.life import LifeConfig, LifeEngine
+    from repro_torch.kernels import _build
+    from repro_torch.serve import LifeService
+    root = os.path.join(ROOT, "build", "serve")
+    shutil.rmtree(root, ignore_errors=True)
+    obs.enable()
+    obs.reset()
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    run = serve_trace(problem, cohort)
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    svc = run["service"]
+    n = len(SERVE_JOBS)
+    want = {"dsc_sell": 2 * SERVE_ITERS, "wc_sell": 3 * SERVE_ITERS // 2,
+            "dsc_fcoo": 2 * SERVE_ITERS, "wc_fcoo": 3 * SERVE_ITERS // 2}
+    latencies = {jid: svc.job(jid).prior_elapsed + svc.job(jid).finished_at
+                 - svc.job(jid).submitted_at for jid, *_ in SERVE_JOBS}
+    log("serve", f"{n} jobs of {SERVE_ITERS} iterations in {run['ticks']} "
+        f"ticks of {SERVE_SLICE}: {run['seconds']:.3f} s wall (engine builds "
+        f"and format selection included; submits, each hashing its dataset "
+        f"on the host, {run['submit_seconds']:.3f} s), "
+        f"{n / run['seconds']:.2f} jobs/s; "
+        f"peak memory {peak:.1f} MiB; launches {counts} (expected {want}: "
+        f"2 DSC + 1.5 WC per iteration of the solo sell and fcoo jobs)")
+    log("serve", "latency by job (submit to finish): " + ", ".join(
+        f"{jid} {t:.3f} s" for jid, t in latencies.items()))
+    if counts != want:
+        raise AssertionError(f"serve: launches {counts} != {want}")
+    results = {jid: svc.result(jid) for jid, *_ in SERVE_JOBS}
+    for jid, (w, losses) in results.items():
+        if tuple(w.shape) != (problem.phi.n_fibers,) or tuple(
+                losses.shape) != (SERVE_ITERS,):
+            raise AssertionError(f"serve: {jid} shapes {tuple(w.shape)}, "
+                                 f"{tuple(losses.shape)}")
+        if not (torch.isfinite(w).all() and torch.isfinite(losses).all()):
+            raise AssertionError(f"serve: {jid} not finite")
+
+    snap = svc.metrics_snapshot()
+    steps = {h["labels"].get("executor"): h for h in snap["histograms"]
+             if h["name"] == "engine.step.seconds" and h["count"]}
+    log("serve", "engine.step.seconds by executor: " + ", ".join(
+        f"{ex} {h['count']} steps, p50 {h['quantiles']['p50'] * 1e3:.3f} ms"
+        for ex, h in sorted(steps.items())))
+    if set(steps) != {"opt", "kernel-sell", "kernel-fcoo"}:
+        raise AssertionError(f"serve: step histograms for {sorted(steps)}")
+    # gauges of engines built in earlier phases stay registered at 0
+    fracs = {(g["labels"]["executor"], g["labels"]["format"]): g["value"]
+             for g in snap["gauges"]
+             if g["name"] == "engine.roofline.fraction" and g["value"]}
+    gbps = {(g["labels"]["executor"], g["labels"]["format"]): g["value"]
+            for g in snap["gauges"]
+            if g["name"] == "engine.achieved_bandwidth.gbps"}
+    log("serve", "last slice against the H100's 3.35 TB/s: " + ", ".join(
+        f"{ex}/{fmt} {f:.4f} ({gbps[ex, fmt]:.1f} GB/s)"
+        for (ex, fmt), f in sorted(fracs.items())))
+    for key in (("kernel-sell", "sell"), ("kernel-fcoo", "fcoo")):
+        if not 0.0 < fracs.get(key, 0.0) <= ROOFLINE_CEILING:
+            raise AssertionError(f"serve: roofline fraction {key} "
+                                 f"{fracs.get(key)} outside (0, "
+                                 f"{ROOFLINE_CEILING}]")
+    log("serve", "obs.snapshot() " + json.dumps(snap, allow_nan=False))
+    trace_path = os.path.join(root, "serve_trace.json")
+    with open(trace_path, "w") as f:
+        f.write(obs.TRACER.to_chrome_json())
+    log("serve", f"Chrome trace of {len(obs.TRACER.export_chrome())} spans "
+        f"written to {os.path.relpath(trace_path, ROOT)}")
+
+    # each job against its own engine's solve
+    cfg = LifeConfig(executor="opt", n_iters=SERVE_ITERS, plan_cache_dir="")
+    for jid, subject, fmt, _ in SERVE_JOBS:
+        p = problem if subject is None else cohort[subject]
+        w, losses = results[jid]
+        solo = fmt in ("sell", "fcoo")
+        w1, l1 = LifeEngine(p, dataclasses.replace(cfg, format=fmt if solo
+                                                   else "coo"),
+                            device="cuda").run()
+        diff = float((w - w1).abs().max())
+        if solo:
+            same = torch.equal(w, w1) and torch.equal(losses, l1)
+            log("serve", f"{jid} vs its own LifeEngine(format={fmt!r}) solve "
+                f"of {SERVE_ITERS} iterations: bit-identical {same} (max abs "
+                f"diff {diff:.3e})")
+            if not same:
+                raise AssertionError(f"serve: {jid} differs from its engine")
+        else:
+            torch.testing.assert_close(w, w1, **TRAJ_TOL)
+            log("serve", f"{jid} (cohort bucket) vs its own LifeEngine(opt) "
+                f"solve: max abs diff {diff:.3e} (rtol {TRAJ_TOL['rtol']}, "
+                f"atol {TRAJ_TOL['atol']}), bit-identical "
+                f"{torch.equal(w, w1) and torch.equal(losses, l1)}")
+    # the cohort bucket's format, as BatchedLifeEngine resolved it (a
+    # plan-cache hit now)
+    from repro_torch.core.plan_cache import PlanCache
+    from repro_torch.formats.select import resolve_format
+    fplan = resolve_format(cohort[0].phi, cohort[0],
+                           dataclasses.replace(cfg, format="auto"),
+                           PlanCache(os.path.join(root, "plans")),
+                           allowed=("coo", "alto"), mesh_aware=False)
+    log("serve", f"cohort bucket format: {fplan.describe()}")
+
+    # killed after two ticks, resumed by a fresh service on its directory
+    # (the counters start from 0 for each service)
+    ck = os.path.join(root, "ckpt")
+    obs.reset()
+    serve_trace(problem, cohort, ckpt_dir=ck, kill_after=2)
+    obs.reset()
+    resumed = LifeService(LifeConfig(executor="opt", n_iters=SERVE_ITERS,
+                                     plan_cache_dir=os.path.join(root,
+                                                                 "plans")),
+                          ckpt_dir=ck, slice_iters=SERVE_SLICE,
+                          device="cuda")
+    adopted = resumed.resumable_jobs
+    for jid, subject, fmt, priority in SERVE_JOBS:
+        resumed.submit(problem if subject is None else cohort[subject],
+                       job_id=jid, format=fmt, priority=priority)
+    done = {jid: resumed.scheduler.job(jid).done for jid, *_ in SERVE_JOBS}
+    got = resumed.run()
+    same = {jid: torch.equal(got[jid][0], results[jid][0])
+            and torch.equal(got[jid][1], results[jid][1])
+            for jid, *_ in SERVE_JOBS}
+    log("serve", f"killed after 2 ticks with {adopted} checkpointed "
+        f"(iterations done {done}); the resumed service's jobs bit-identical "
+        f"to the uninterrupted run: {same}")
+    if not all(same.values()):
+        raise AssertionError("serve: a resumed job differs")
+    if not serve_counters_hold(obs):
+        raise AssertionError("serve: counter algebra broken after resume")
+
+    # the solo sell step with obs on and off, side by side
+    eng = LifeEngine(cohort[2], dataclasses.replace(cfg, format="sell"),
+                     device="cuda")
+    state, _ = eng.step(eng.init_state(), 2)
+    times = {"on": [], "off": []}
+    for mode in ("off", "on") * 5:
+        (obs.enable if mode == "on" else obs.disable)()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step(state, SERVE_SLICE)
+        torch.cuda.synchronize()
+        times[mode].append((time.perf_counter() - t0) * 1e3 / SERVE_SLICE)
+    log("serve", f"solo sell step of {SERVE_SLICE} iterations, host clock "
+        f"to device completion, ms per iteration: obs off "
+        f"{sorted(times['off'])}, obs on {sorted(times['on'])}")
+    obs.disable()
+    obs.reset()
+    del svc, resumed, eng
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------------
 # 7. MoE serving at full width, on kernel B7
 # ----------------------------------------------------------------------------
 
@@ -1767,11 +2008,11 @@ def gmm_bound(s: dict) -> tuple:
     """Least time of one bf16 product of shape ``s``: x, the selected
     experts' W and out moved once over HBM, against 2 M K N operations on
     the bf16 tensor cores."""
+    from repro_torch.roofline.analysis import HW
     m, k, n = s["m"], s["k"], s["n"]
     n_sel = len(np.unique(s["ids"]))
-    t_bytes = 2 * (m * k + n_sel * k * n + m * n) / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * m * k * n / BF16_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound(2 * (m * k + n_sel * k * n + m * n), 2.0 * m * k * n,
+                 HW["peak_flops"])
 
 
 def phase_lm_timing(cfg, launches: int, errors: dict) -> dict:
@@ -1858,6 +2099,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_checkpoint(problem, cohort)
     log("checkpoint", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_serve(problem, cohort)
+    log("serve", f"phase took {time.perf_counter() - t0:.1f} s")
     del cohort
     torch.cuda.empty_cache()
     entries = phase_timing(problem, launches, errors)

@@ -2,11 +2,18 @@
 reference).
 
 The layout mirrors ``repro``: ``core/`` holds the STD data types, the plain
-SpMV executors, the inspector, the SBBNNLS solver, the executor registry and
-the engine; ``data/`` the synthetic connectome generator; ``kernels/`` the
-hand-written CUDA kernels for Hopper (``kernels/csrc``) with their wrappers
-and plain PyTorch versions.  ``bridge`` carries problems, weights and states
-across from the reference as numpy arrays.
+SpMV executors, the inspector, the SBBNNLS solver, the executor registry,
+the plan cache and the single-subject and cohort engines; ``data/`` the
+synthetic connectome generator; ``formats/`` the Phi layouts and their
+selection; ``tune/`` the kernel autotuner; ``checkpoint/`` solver-state
+checkpoints; ``obs/`` metrics and span tracing, wired into the engines,
+the plan cache, the tuner and the service; ``roofline/`` the H100's
+roofline terms and the SpMVs' compulsory bytes; ``serve/`` the
+multi-tenant solve service; ``kernels/`` the hand-written CUDA kernels for
+Hopper (``kernels/csrc``) with their wrappers and plain PyTorch versions;
+``configs/``, ``models/`` and ``launch/`` the MoE serving side-workload.
+``bridge`` carries problems, weights and states across from the reference
+as numpy arrays.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no device asked for they raise

@@ -39,6 +39,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import spmv
 from repro_torch.core.plan_cache import PlanCache
 from repro_torch.core.registry import _DSC_FNS, _WC_FNS, REGISTRY
@@ -47,7 +48,7 @@ from repro_torch.core.sbbnnls import (SbbnnlsState, batched_init,
                                       batched_steps)
 from repro_torch.core.std import PhiTensor
 from repro_torch.data.dmri import LifeProblem
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, fence, resolve_device
 
 # executor name -> (dsc sort dim or None, wc sort dim or None, dsc fn, wc fn)
 _BATCH_RECIPES = {
@@ -263,8 +264,23 @@ class BatchedLifeEngine:
         Per-subject iteration counters ride in the state, so subjects
         restored from a checkpoint keep their own Barzilai-Borwein parity
         and chained calls match one uninterrupted run exactly.  Returns
-        (states, ``(S, k)`` loss trace on the device)."""
-        return batched_steps(self._matvec, self._rmatvec, self.b, states, k)
+        (states, ``(S, k)`` loss trace on the device).  While
+        observability is on, the ``engine.step`` span and histogram time
+        the call between two fences of the card."""
+        if not obs.SWITCH.on:
+            return batched_steps(self._matvec, self._rmatvec, self.b,
+                                 states, k)
+        with obs.span("engine.step", {"executor": self.config.executor,
+                                      "batched": self.n_subjects, "k": k}):
+            fence(self.device)
+            t0 = time.perf_counter()
+            new, losses = batched_steps(self._matvec, self._rmatvec, self.b,
+                                        states, k)
+            fence(self.device)
+            obs.histogram("engine.step.seconds",
+                          executor=self.config.executor).observe(
+                time.perf_counter() - t0)
+        return new, losses
 
     def run(self, n_iters: Optional[int] = None,
             w0: Optional[torch.Tensor] = None

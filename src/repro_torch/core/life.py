@@ -18,8 +18,17 @@ solver state (and so its iteration parity).
 ``"full"`` resolves a :class:`~repro_torch.tune.plan.TunePlan` beneath the
 executor (``tune/tuner.py``; ``compute_dtype="auto"`` is its searched
 dtype axis).  The mesh fields accept only the values the port runs, and
-others raise ``ValueError`` naming the slice that brings them.  The
-observability gauges arrive with the observability slice.
+others raise ``ValueError`` naming the slice that brings them.
+
+Observability (:mod:`repro_torch.obs`), the reference's instruments: the
+``engine.build.seconds`` histogram per build, and per stepped call the
+``engine.step`` span, the ``engine.step.seconds`` histogram and the
+``engine.roofline.fraction`` / ``engine.achieved_bandwidth.gbps`` gauges.
+The bytes behind the gauges are the SpMVs' compulsory bytes
+(:mod:`repro_torch.roofline.spmv_bytes`), not a count from compiled code.
+While observability is on, a step fences the card before and after its
+launches, so the timed window ends when the device work does; while it is
+off, a step neither synchronizes nor allocates for the instruments.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.plan_cache import PlanCache
 from repro_torch.core.registry import REGISTRY, Executor, create_for_format
 from repro_torch.core.restructure import compact_by_weight
@@ -37,7 +47,7 @@ from repro_torch.core.sbbnnls import (SbbnnlsState, nnls_loss, sbbnnls_init,
                                       sbbnnls_steps)
 from repro_torch.core.std import PhiTensor
 from repro_torch.data.dmri import LifeProblem
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, fence, resolve_device
 from repro_torch.tune.tuner import validate_config as validate_tuning
 
 EXECUTORS = REGISTRY.names()          # public alias; registry is the truth
@@ -160,7 +170,21 @@ class LifeEngine:
                                               self.cache)
         self.matvec = self.executor.matvec
         self.rmatvec = self.executor.rmatvec
-        self.inspector_seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.inspector_seconds += dt
+        obs.histogram("engine.build.seconds").observe(dt)
+        # held instruments for the step loop (no-ops while disabled); the
+        # byte count is dropped here because compaction rebinds the SpMVs
+        # over a smaller Phi
+        self._op_bytes: Optional[float] = None
+        self._h_step = obs.histogram("engine.step.seconds",
+                                     executor=self.executor.name)
+        self._g_frac = obs.gauge("engine.roofline.fraction",
+                                 executor=self.executor.name,
+                                 format=self.config.format)
+        self._g_bw = obs.gauge("engine.achieved_bandwidth.gbps",
+                               executor=self.executor.name,
+                               format=self.config.format)
 
     @property
     def format_plan(self):
@@ -214,8 +238,49 @@ class LifeEngine:
         The iteration counter rides in the state, so chained calls
         reproduce one uninterrupted run exactly.  The losses stay on the
         device."""
-        return sbbnnls_steps(self.matvec, self.rmatvec, self.problem.b,
-                             state, k)
+        if not obs.SWITCH.on:
+            return sbbnnls_steps(self.matvec, self.rmatvec, self.problem.b,
+                                 state, k)
+        with obs.span("engine.step", {"executor": self.executor.name,
+                                      "format": self.config.format,
+                                      "k": k}) as sp:
+            fence(self.device)
+            t0 = time.perf_counter()
+            new, ls = sbbnnls_steps(self.matvec, self.rmatvec,
+                                    self.problem.b, state, k)
+            fence(self.device)
+            dt = time.perf_counter() - t0
+            self._h_step.observe(dt)
+            self._annotate_roofline(sp, k, dt)
+        return new, ls
+
+    def _annotate_roofline(self, sp, k: int, dt: float) -> None:
+        """Set the achieved-bandwidth gauges and span attributes (obs on
+        only): the weighted compulsory bytes of an iteration times ``k``
+        over the step's seconds, against the card's HBM rate."""
+        if dt <= 0.0:
+            return
+        from repro_torch.roofline.analysis import HW
+        bytes_per_iter = self._op_bytes_per_iter()
+        achieved = bytes_per_iter * k / dt
+        frac = achieved / HW["hbm_bw"]
+        self._g_bw.set(achieved / 1e9)
+        self._g_frac.set(frac)
+        sp.set_attr("bytes_accessed", bytes_per_iter * k)
+        sp.set_attr("achieved_gbps", achieved / 1e9)
+        sp.set_attr("roofline_fraction", frac)
+
+    def _op_bytes_per_iter(self) -> float:
+        """Weighted compulsory bytes of one SBBNNLS iteration over the
+        bound executor (memoized until the next build)."""
+        if self._op_bytes is None:
+            from repro_torch.roofline import spmv_bytes
+            n_atoms, n_theta = self.problem.dictionary.shape
+            dsc, wc = spmv_bytes.executor_work(
+                self.executor, self.phi, n_theta, n_atoms,
+                self.resolved_compute_dtype)
+            self._op_bytes = spmv_bytes.iteration_bytes(dsc, wc)
+        return self._op_bytes
 
     def run(self, n_iters: Optional[int] = None,
             w0: Optional[torch.Tensor] = None

@@ -19,6 +19,10 @@ caching.  Entries are written atomically (temporary file + rename).
 A TunePlan's key also carries the device count (1 on the CPU,
 ``torch.cuda.device_count()`` on the card).  The shard plan kind arrives
 with the mesh slice (ROADMAP A13).
+
+:class:`CacheStats` counts every lookup; while observability is on each
+lookup also counts in ``plan_cache.lookups{kind, outcome}`` (kinds
+``tile``, ``spmv``, ``tune``, ``format``, as in the reference).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.inspector import TilePlan
 from repro_torch.core.restructure import SpmvPlan
 from repro_torch.formats.base import FORMAT_VERSION as _PHI_FORMAT_VERSION
@@ -131,11 +136,17 @@ class CacheStats:
     hits: int = 0
     misses: int = 0
 
-    def record(self, hit: bool) -> None:
+    def record(self, hit: bool, kind: str = "plan") -> None:
         if hit:
             self.hits += 1
         else:
             self.misses += 1
+        # the lookup, labeled by plan kind, in the obs registry; the fields
+        # above stay authoritative (they count lookups made while
+        # observability was off too)
+        if obs.SWITCH.on:
+            obs.counter("plan_cache.lookups", kind=kind,
+                        outcome="hit" if hit else "miss").inc()
 
     @property
     def lookups(self) -> int:
@@ -227,7 +238,7 @@ class PlanCache:
 
     def get_tile_plan(self, key: str) -> Optional[TilePlan]:
         raw = self._read(key)
-        self.stats.record(raw is not None)
+        self.stats.record(raw is not None, "tile")
         if raw is None:
             return None
         try:
@@ -250,7 +261,7 @@ class PlanCache:
 
     def get_spmv_plan(self, key: str) -> Optional[SpmvPlan]:
         raw = self._read(key)
-        self.stats.record(raw is not None)
+        self.stats.record(raw is not None, "spmv")
         if raw is None:
             return None
         try:
@@ -271,7 +282,7 @@ class PlanCache:
 
     def get_tune_plan(self, key: str):
         raw = self._read(key)
-        self.stats.record(raw is not None)
+        self.stats.record(raw is not None, "tune")
         if raw is None:
             return None
         return _parse_tune_plan(raw)
@@ -295,7 +306,7 @@ class PlanCache:
 
     def get_format_plan(self, key: str) -> Optional[FormatPlan]:
         raw = self._read(key)
-        self.stats.record(raw is not None)
+        self.stats.record(raw is not None, "format")
         if raw is None:
             return None
         try:

@@ -24,3 +24,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is visible; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def fence(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU).  The instrumented step loops fence only while observability is
+    on, so their timed windows end when the device work does."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

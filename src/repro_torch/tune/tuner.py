@@ -24,7 +24,10 @@ card never replays.
 The reference's predict rung (a learned predictor answering a
 ``tune="cached"`` miss) arrives with learned selection (ROADMAP A11);
 until then :func:`_predicted` answers nothing, which is what the reference
-does with no ``predictor.json`` beside the cache.
+does with no ``predictor.json`` beside the cache, and the reference's
+``learn.predict`` counters wait with it.  A search records the reference's
+``tune.search`` span and its ``tune.searches``, ``tune.measurements`` and
+``tune.measurements.per_search`` instruments.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.bridge import to_numpy
 from repro_torch.tune import search
 from repro_torch.tune.plan import COMPUTE_DTYPES, TUNE_MODES, TunePlan
@@ -164,7 +168,15 @@ def resolve_plan(name: str, phi, problem, config, cache) -> Optional[TunePlan]:
         return (DSC_WEIGHT * search.time_call(ex.matvec, w_probe)
                 + WC_WEIGHT * search.time_call(ex.rmatvec, y_probe))
 
-    best_i, costs = search.measure_candidates(candidates, run)
+    with obs.span("tune.search", {"executor": name,
+                                  "candidates": len(candidates)}):
+        best_i, costs = search.measure_candidates(candidates, run)
+    # the cold path (a search builds and times every candidate), so the
+    # instruments are fetched per call rather than held
+    obs.counter("tune.searches", executor=name).inc()
+    obs.counter("tune.measurements").inc(float(len(candidates)))
+    obs.histogram("tune.measurements.per_search").observe(
+        float(len(candidates)))
     winner = candidates[best_i]
     plan = TunePlan(executor=name, backend=backend, n_devices=n_devices,
                     params=winner["params"],

@@ -55,7 +55,16 @@ def test_port_files_exist():
                  "src/repro_torch/tune/plan.py",
                  "src/repro_torch/tune/space.py",
                  "src/repro_torch/tune/tuner.py",
-                 "src/repro_torch/checkpoint/manager.py", "chip_smoke.py"):
+                 "src/repro_torch/checkpoint/manager.py",
+                 "src/repro_torch/obs/runtime.py",
+                 "src/repro_torch/obs/metrics.py",
+                 "src/repro_torch/obs/trace.py",
+                 "src/repro_torch/obs/__init__.py",
+                 "src/repro_torch/roofline/analysis.py",
+                 "src/repro_torch/roofline/spmv_bytes.py",
+                 "src/repro_torch/serve/scheduler.py",
+                 "src/repro_torch/serve/service.py",
+                 "src/repro_torch/serve/__init__.py", "chip_smoke.py"):
         assert want in names
 
 
