@@ -18,9 +18,12 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                fp32 and bf16 storage, a second launch of each bit-identical
                to the first, and B5 and B6 (which write y = M w and
                w = M^T y) also against the TPU kernels' partials folded by
-               the seg_rows combine, and B4 against a float64 oracle
-               (ragged: empty fiber rows, padding rows, a row longer than
-               a batch, a packed batch spanning three or more rows);
+               the seg_rows combine, and B1-B6 against float64 oracles on
+               the same stored operands, each within n u sum|terms| with
+               n the longest chain of roundings in its summation order,
+               the plain version's distance logged beside it (ragged:
+               empty fiber rows, padding rows, a row longer than a batch,
+               a packed batch spanning three or more rows);
                B1-B6 at every width they dispatch
                on (Ntheta 16, 64, 128 and 160, D in shared memory and
                from global memory), B1/B2 at row_tile 4, 8 and 16 with
@@ -41,8 +44,12 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                a second full fcoo solve each give bit-identical weights,
                and neither step runs an index_add_;
                the F-COO layout's encoded and card-resident bytes; then
-               ``format="auto"``, whose FormatPlan is logged and whose
-               chosen executor runs a few iterations.
+               ``format="auto"`` under ``executor="kernel"`` (its measured
+               rung times coo on B1, fcoo on B5, alto on its executor;
+               sell is struck by its padding), whose FormatPlan and
+               measured launches are logged and kept under build/learn/
+               for phase 12, and whose chosen executor runs a few
+               iterations.
   8. tune    — (after 5, before 6) ``tune="full"`` with
                ``compute_dtype="auto"`` on the kernel, kernel-sell and
                kernel-fcoo executors at full width, each with a fresh plan
@@ -82,6 +89,45 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                Logs each job's latency, jobs/s, peak memory, the
                obs.snapshot() line, a Chrome trace under build/serve/ and
                the solo sell step with obs on and off.
+  12. slice ten — (after 11) on phase 9's cohort and the main problem:
+               12a learned selection: phase 5's and 8's plans, the
+               format="auto" choices of subjects 0-2 under
+               executor="kernel" and a tune="full" kernel-sell search on
+               subject 0 train a predictor; subject 3, held out, builds
+               LifeEngine(format="auto", tune="cached", executor="kernel")
+               in a cache holding only predictor.json: both plans
+               "predicted", 0 measurements, no autotune_plan call, 2
+               learn.predict hits; 20 iterations (40 DSC + 30 WC launches)
+               within the trajectory tolerance of its opt solve; a
+               LifeFrontend's idle ticks then refine both plans in place.
+               12b the front line (obs on, slices of 16): reject, shed and
+               block at an admission bound of 2; phase 11's five jobs plus
+               a tune="cached" sell job replaying phase 8's plan (no
+               search) and a tune="full" fcoo job (one search); a w0 with
+               a NaN (rejected), a job that raises in its cohort bucket
+               (fails alone), a pending and a running job cancelled;
+               events per slice; solo jobs bit-identical to their
+               LifeEngine solves, cohort jobs within the trajectory
+               tolerance of their opt solves; shutdown(drain=False) after
+               the first slice and a fresh frontend resuming every job bit
+               for bit; compact_every > 0 refused; jobs/s, latencies,
+               peak memory, the admission instruments, obs.snapshot().
+               12c science on the main problem: crossval (k=4, 50
+               iterations) on kernel (B1/B2) below the null and within
+               rtol 1e-3 of opt; a 200-fiber virtual lesion on sell
+               (B3/B4) warm from phase 11's checkpoint (lesioned weights
+               exactly 0, warm iterations <= cold, evidence within rtol
+               1e-2 of opt); multires on fcoo (B5/B6) resumed bit for bit;
+               the pruned support equal on the CPU; the lesioned problem
+               resubmitted warm through the front line.  Launches: every
+               solve's exactly 2 DSC + 1.5 WC per iteration (12a 40 + 30;
+               12b B3/B4 128 + 96 for each 64-iteration sell job and the
+               cancelled one's iterations, B5/B6 likewise for the fcoo
+               jobs, the resumed legs 4 x 64 iterations; 12c B1/B2 400 +
+               300, B3/B4 and B5/B6 from the iterations each solve ran,
+               the resubmitted delta 32 + 24); launches inside the
+               measured rung and the searches are counted apart and
+               logged (their 20 ms warm-up makes them time-dependent).
   6. timing  — each kernel at the main path's shapes (CUDA events) beside
                its bound (the compulsory work of
                repro_torch/roofline/spmv_bytes.py), its plain version and
@@ -323,10 +369,14 @@ def check_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
         d = storage_cast(d32, dtype).contiguous()
         got = run_dsc(t_dsc, d, w)
         got_wc = run_wc(t_wc, d, y)
-        compare("dsc_coo", case, got, run_dsc(t_dsc, d, w, plain=True),
-                dtype, errors)
-        compare("wc_coo", case, got_wc, run_wc(t_wc, d, y, plain=True),
-                dtype, errors)
+        plain = run_dsc(t_dsc, d, w, plain=True)
+        plain_wc = run_wc(t_wc, d, y, plain=True)
+        compare("dsc_coo", case, got, plain, dtype, errors)
+        compare("wc_coo", case, got_wc, plain_wc, dtype, errors)
+        hold_to_oracle("dsc_coo", case, dtype, got, plain,
+                       *coo_oracle("dsc", t_dsc, d, w, got.shape[0]))
+        hold_to_oracle("wc_coo", case, dtype, got_wc, plain_wc,
+                       *coo_oracle("wc", t_wc, d, y, got_wc.shape[0]))
         # no atomics, one summation order: a second launch is bit-identical
         if not (torch.equal(got, run_dsc(t_dsc, d, w))
                 and torch.equal(got_wc, run_wc(t_wc, d, y))):
@@ -440,36 +490,137 @@ def sell_batch_rows(sw):
     return int(np.unique(pairs[0], return_counts=True)[1].max(initial=0))
 
 
-def check_wc_sell_oracle(case: str, got, o, d, y, dtype: str) -> None:
-    """B4 against a float64 oracle on the same stored operands: |error| at
-    most n * u * sum |terms| per fiber, n the longest chain of float32
-    roundings in B4's order (a lane's products: ceil(Ntheta / 8) columns,
-    or 4 per float4; 3 shuffle adds, the value, 5 scan levels, a carry per
-    batch the row spans).  The plain version's distance is logged beside
-    it, not held."""
-    from repro_torch.kernels.dsc import sell_slots
-    from repro_torch.kernels.wc import wc_sell_plain
-    real, rows = sell_slots(o.atoms, o.row_nnz)
-    a, v = o.atoms[real].long(), o.others[real].long()
-    da, yv = d.double()[a], y.double()[v]
-    val = o.values[real].double()
-    n_out = o.atoms.shape[0]
-    want = torch.zeros(n_out, dtype=torch.float64, device="cuda").index_add_(
-        0, rows[real], (da * yv).sum(1) * val)
+def dot_chain(n_theta: int) -> int:
+    """Roundings of one slot's dot product in B2, B4 and B6
+    (common.cuh:batch_dots): a lane's products, ceil(Ntheta / 8) columns or
+    4 per float4, then a 3-step shuffle tree."""
+    return max(-(-n_theta // 8), 4 * -(-n_theta // 32)) + 3
+
+
+def run_stats(ids, chunk_of=None):
+    """Per output id of a stream: (slots, chunks or tiles the id's slots
+    lie in), each a numpy array over the ids present."""
+    ids = ids.long()
+    lengths = torch.bincount(ids)
+    present = torch.nonzero(lengths).flatten()
+    if chunk_of is None:
+        return lengths[present].cpu().numpy(), None
+    pairs = torch.unique(torch.stack([ids, chunk_of.long()]), dim=1)
+    spans = torch.bincount(pairs[0], minlength=lengths.numel())
+    return lengths[present].cpu().numpy(), spans[present].cpu().numpy()
+
+
+def dsc_oracle(rows, a, f, val, d, w, n_out: int):
+    """y = M w in float64 over the given slots, and sum |terms| per
+    element."""
+    da = d.double()[a]
+    sc = w.double()[f] * val.double()
+    want = torch.zeros(n_out, d.shape[1], dtype=torch.float64,
+                       device="cuda").index_add_(0, rows, da * sc[:, None])
     scale = torch.zeros_like(want).index_add_(
-        0, rows[real], (da.abs() * yv.abs()).sum(1) * val.abs())
-    n_theta = d.shape[1]
-    chain = max(-(-n_theta // 8), 4 * -(-n_theta // 32))
-    n = chain + 3 + 1 + 5 + -(-int(o.row_nnz.max()) // 32)
+        0, rows, da.abs() * sc.abs()[:, None])
+    return want, scale
+
+
+def wc_oracle(rows, a, v, val, d, y, n_out: int):
+    """w = M^T y in float64 over the given slots, and sum |terms| per
+    fiber."""
+    da, yv = d.double()[a], y.double()[v]
+    val = val.double()
+    want = torch.zeros(n_out, dtype=torch.float64, device="cuda").index_add_(
+        0, rows, (da * yv).sum(1) * val)
+    scale = torch.zeros_like(want).index_add_(
+        0, rows, (da.abs() * yv.abs()).sum(1) * val.abs())
+    return want, scale
+
+
+def coo_oracle(op: str, t, d, x, n_out: int):
+    """B1 (op "dsc") or B2 ("wc") in float64 over a tile layout's real
+    slots, with the longest rounding chain n of the kernel's order.  B1:
+    w * value, then one FMA per slot of the row in slot order (n = the
+    longest row + 2).  B2: a slot's dot and its value, a 5-level segmented
+    scan within a batch of 32 slots, a carry per batch, batches in slot
+    order and at most one more batch per tile the row spans."""
+    n_tiles, c_tile = t.atoms_p.shape
+    dev = t.atoms_p.device
+    tile_rb = torch.searchsorted(t.tile_ptr.long(),
+                                 torch.arange(n_tiles, device=dev),
+                                 right=True) - 1
+    real = torch.arange(c_tile, device=dev)[None, :] < t.tile_len[:, None]
+    rows = (tile_rb[:, None] * t.row_tile + t.local_row_p)[real]
+    tiles = torch.arange(n_tiles, device=dev)[:, None].expand(-1, c_tile)[real]
+    a, o, val = t.atoms_p[real].long(), t.others_p[real].long(), \
+        t.values_p[real]
+    lengths, spans = run_stats(rows, tiles)
+    if op == "dsc":
+        want, scale = dsc_oracle(rows, a, o, val, d, x, n_out)
+        n = int(lengths.max(initial=0)) + 2
+    else:
+        want, scale = wc_oracle(rows, a, o, val, d, x, n_out)
+        n = dot_chain(d.shape[1]) + 1 + 5 + int(
+            (-(-lengths // 32) + spans).max(initial=0))
+    return want, scale, n
+
+
+def format_oracle(name: str, o, d, x, n_out: int):
+    """B3-B6 in float64 over their operands' slots (F-COO padding slots
+    hold value 0), with the longest rounding chain n of each order.  B3:
+    w * value, then one FMA per slot of the row (n = the longest row + 2).
+    B4: a slot's dot and value, 5 scan levels, a carry per batch of 32 the
+    row spans.  B5: w * value, an FMA per slot of the run within a chunk,
+    then the run's carries added in chunk order (n = run + chunks + 2).
+    B6: as B4 within a chunk (an open batch at each chunk edge), then the
+    carries in chunk order.  Runs are counted over slots of nonzero value:
+    a padding slot adds an exact 0."""
+    from repro_torch.kernels.dsc import sell_slots
+    if name in ("dsc_sell", "wc_sell"):
+        real, rows = sell_slots(o.atoms, o.row_nnz)
+        rows, a, other = rows[real], o.atoms[real].long(), \
+            o.others[real].long()
+        val = o.values[real]
+        longest = int(o.row_nnz.max()) if o.row_nnz.numel() else 0
+        if name == "dsc_sell":
+            return (*dsc_oracle(rows, a, other, val, d, x, n_out),
+                    longest + 2)
+        return (*wc_oracle(rows, a, other, val, d, x, n_out),
+                dot_chain(d.shape[1]) + 1 + 5 + -(-longest // 32))
+    # a slot of value 0 (the padding) adds an exact 0: no rounding
+    c_tile = o.atoms.shape[1]
+    chunk = torch.arange(o.atoms.numel(), device=o.atoms.device) // c_tile
+    a, v, f = (t.reshape(-1).long() for t in (o.atoms, o.voxels, o.fibers))
+    val = o.values.reshape(-1)
+    if name == "dsc_fcoo":
+        live = val != 0
+        lengths, spans = run_stats(v[live], chunk[live])
+        return (*dsc_oracle(v, a, f, val, d, x, n_out),
+                int((lengths + spans).max(initial=0)) + 2)
+    perm = o.wc_perm.reshape(-1).long()
+    live = val[perm] != 0
+    lengths, spans = run_stats(o.wc_fibers.reshape(-1)[live], chunk[live])
+    return (*wc_oracle(f, a, v, val, d, x, n_out),
+            dot_chain(d.shape[1]) + 1 + 5 + int(
+                (-(-lengths // 32) + 2 * spans).max(initial=0)))
+
+
+def hold_to_oracle(name: str, case: str, dtype: str, got, plain, want,
+                   scale, n: int) -> None:
+    """``got`` against a float64 oracle on the same stored operands:
+    |error| at most n * u * sum |terms| per output element, n the
+    kernel's longest chain of float32 roundings.  The plain version's
+    distance is logged beside it, not held."""
     err = (got.double() - want).abs()
-    plain_err = (wc_sell_plain(o.atoms, o.others, o.values, o.row_nnz, d,
-                               y).double() - want).abs()
-    units = lambda e: float((e / (U32 * scale.clamp_min(1e-300))).max())
-    log("kernels", f"wc_sell {case} {dtype} vs float64 oracle: max |err| "
+    plain_err = (plain.double() - want).abs()
+
+    def units(e) -> float:
+        if not e.numel():
+            return 0.0
+        return float((e / (U32 * scale.clamp_min(1e-300))).max())
+
+    log("kernels", f"{name} {case} {dtype} vs float64 oracle: max |err| "
         f"{units(err):.2f} u * sum|terms| (bound {n} u); plain version "
         f"{units(plain_err):.2f} u")
     if not bool((err <= n * U32 * scale + 1e-30).all()):
-        raise AssertionError(f"wc_sell {case} {dtype}: off the float64 "
+        raise AssertionError(f"{name} {case} {dtype}: off the float64 "
                              f"oracle by more than {n} u * sum|terms|")
 
 
@@ -493,14 +644,14 @@ def check_format_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
                               ("dsc_fcoo", o["fcoo"], w),
                               ("wc_fcoo", o["fcoo"], y)):
             got = run_format(name, ops_, d, x)
-            compare(name, case, got, run_format(name, ops_, d, x, plain=True),
-                    dtype, errors)
+            plain = run_format(name, ops_, d, x, plain=True)
+            compare(name, case, got, plain, dtype, errors)
             # no atomics, one summation order: a second launch is identical
             if not torch.equal(got, run_format(name, ops_, d, x)):
                 raise AssertionError(f"{name} {case} {dtype}: a second "
                                      "launch differs")
-            if name == "wc_sell":
-                check_wc_sell_oracle(case, got, ops_, d, x, dtype)
+            hold_to_oracle(name, case, dtype, got, plain,
+                           *format_oracle(name, ops_, d, x, got.shape[0]))
             if name in ("dsc_fcoo", "wc_fcoo"):
                 # the fused B5 / B6 against the TPU kernel's partials
                 # (plain) folded by the seg_rows combine
@@ -845,14 +996,25 @@ def phase_formats(problem, w_opt) -> dict:
         f"{layouts['fcoo'] / layouts['sell']:.4f} (the reference's table12 "
         "gate is 0.6)")
 
+    # the coo candidate is timed on B1, the executor that runs it here; the
+    # plan is kept for phase 12's training cache
+    import shutil
+    from repro_torch.kernels import _build
+    auto_dir = os.path.join(ROOT, "build", "learn", "phase5")
+    shutil.rmtree(auto_dir, ignore_errors=True)
+    _build.reset_launches()
     t0 = time.perf_counter()
     engine = LifeEngine(problem, dataclasses.replace(
-        cfg, format="auto", n_iters=AUTO_ITERS, compact_every=0),
-        device="cuda")
+        cfg, executor="kernel", format="auto", n_iters=AUTO_ITERS,
+        compact_every=0, plan_cache_dir=auto_dir), device="cuda")
+    torch.cuda.synchronize()
+    measured = {k: v for k, v in _build.LAUNCHES.items() if v}
     plan = engine.format_plan
     st = plan.stats
     log("format-auto", f"resolved {plan.describe()} -> executor "
-        f"{engine.executor.name} in {time.perf_counter() - t0:.2f} s; SELL "
+        f"{engine.executor.name} in {time.perf_counter() - t0:.2f} s, the "
+        f"measured rung launching {measured} (B1 for coo, B5 for fcoo: one "
+        f"warm-up call, 20 ms more of them, 3 timed); SELL "
         f"overhead dsc {st['dsc.sell_overhead']:.3f}, wc "
         f"{st['wc.sell_overhead']:.3f} (accept <= {cfg.sell_accept}, reject "
         f">= {cfg.sell_reject}); run mean dsc {st['dsc.run_mean']:.2f}, wc "
@@ -1660,6 +1822,683 @@ def phase_serve(problem, cohort) -> None:
 
 
 # ----------------------------------------------------------------------------
+# 12. learned selection, the async front line and the science workloads
+# ----------------------------------------------------------------------------
+
+LEARN_ITERS = 20
+#: the front line's jobs: (job id, cohort subject or None for the main
+#: problem, format, priority, tune, compute_dtype); phase 11's five, then
+#: a tune="cached" sell job replaying phase 8's plan and a tune="full"
+#: fcoo job that searches once
+FRONT_JOBS = tuple(
+    (jid, subject, fmt, priority, None, None)
+    for jid, subject, fmt, priority in SERVE_JOBS) + (
+    ("tc-sell", None, "sell", 0, "cached", "auto"),
+    ("tf-fcoo", 3, "fcoo", 0, "full", None))
+ADMISSION_BOUND = 2
+LESION_FIBERS = 200
+CROSSVAL_FOLDS = 4
+CROSSVAL_ITERS = 50
+RESUBMIT_ITERS = 16
+WAIT_S = 300.0
+
+
+def path_launches(fmt: str, iters: int) -> dict:
+    """B1-B6's launches for ``iters`` iterations from an even counter on
+    path ``fmt``: 2 DSC + 1.5 WC per iteration."""
+    dsc, wc = PATH_KERNELS[fmt]
+    return {dsc: 2 * iters, wc: iters + iters // 2}
+
+
+def add_launches(total: dict, more: dict) -> dict:
+    for k, v in more.items():
+        if v:
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+class MeasuredLaunches:
+    """Kernel launches made inside ``search.time_call`` (the measured rung
+    of format selection and the tune searches), counted apart from the
+    solves' so that those can be held exactly; the measured ones depend on
+    the 20 ms warm-up and are logged."""
+
+    def __enter__(self):
+        from repro_torch.kernels import _build
+        from repro_torch.tune import search
+        self.counts: dict = {}
+        self._search, self._orig = search, search.time_call
+
+        def timed(fn, *args, **kw):
+            before = dict(_build.LAUNCHES)
+            try:
+                return self._orig(fn, *args, **kw)
+            finally:
+                add_launches(self.counts, {
+                    k: v - before.get(k, 0)
+                    for k, v in _build.LAUNCHES.items()})
+
+        search.time_call = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._search.time_call = self._orig
+
+
+def hold_launches(phase: str, what: str, measured: dict, want: dict) -> None:
+    """All launches since the last reset, less the measured ones, must be
+    exactly ``want``."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    total = {k: v for k, v in _build.LAUNCHES.items() if v}
+    solve = {k: v - measured.get(k, 0) for k, v in total.items()
+             if v - measured.get(k, 0)}
+    log(phase, f"{what}: launches {total}, of them in measurements "
+        f"{measured or 'none'}; the solves' {solve} (expected {want})")
+    if solve != want:
+        raise AssertionError(f"{phase}: {what}: solve launches {solve} != "
+                             f"{want}")
+
+
+def copy_plans(src: str, dst: str) -> int:
+    """Copy the ``.npz`` plan entries of cache ``src`` into ``dst``."""
+    import shutil
+    os.makedirs(dst, exist_ok=True)
+    names = [n for n in os.listdir(src) if n.endswith(".npz")]
+    for n in names:
+        shutil.copy(os.path.join(src, n), os.path.join(dst, n))
+    return len(names)
+
+
+def plan_keys(p, name: str) -> tuple:
+    """The FormatPlan key of ``format="auto"`` under ``executor="kernel"``
+    and the TunePlan key of executor ``name`` (fp32, default budget) for
+    problem ``p``, as the selector and the tuner compute them."""
+    from repro_torch.bridge import to_numpy
+    from repro_torch.core.plan_cache import format_plan_key, tune_plan_key
+    from repro_torch.core.registry import REGISTRY
+    from repro_torch.formats import select as fsel
+    from repro_torch.tune.tuner import device_count
+    ids = tuple(to_numpy(t) for t in (p.phi.atoms, p.phi.voxels,
+                                       p.phi.fibers))
+    sizes = (p.phi.n_atoms, p.phi.n_voxels, p.phi.n_fibers)
+    fkey = format_plan_key(*ids, sizes=sizes, row_tile=8, slot_tile=32,
+                           allowed=fsel.DEFAULT_CANDIDATES, backend="cuda",
+                           coo_executor="kernel",
+                           sell_accept=fsel.DEFAULT_SELL_ACCEPT,
+                           sell_reject=fsel.DEFAULT_SELL_REJECT)
+    tkey = tune_plan_key(*ids, sizes=sizes,
+                         n_theta=int(p.dictionary.shape[1]), executor=name,
+                         fmt=REGISTRY.consumes(name), backend="cuda",
+                         n_devices=device_count("cuda"), compute_dtype="fp32",
+                         budget=12, mesh=(1, 1))
+    return fkey, tkey
+
+
+def phase_learn(cohort) -> None:
+    """12a: a predictor trained on phases 5 and 8's plans and subjects 0-2
+    answers subject 3's cold start with zero measurements; the front
+    line's idle ticks then refine both plans in place.  Launches: the
+    predicted engine's 20 iterations exactly 2 DSC + 1.5 WC each of its
+    path (40 + 30); the refinement's all inside measurements."""
+    import shutil
+    from repro_torch import obs
+    from repro_torch.core.life import LifeConfig, LifeEngine
+    from repro_torch.core.plan_cache import PlanCache
+    from repro_torch.formats import select as fsel
+    from repro_torch.formats.select import resolve_format
+    from repro_torch.kernels import _build
+    from repro_torch.learn import (clear_load_memo, predictor_path, refine,
+                                   train_predictor)
+    from repro_torch.serve import LifeFrontend
+    from repro_torch.tune import search
+    from repro_torch.tune.tuner import resolve_plan
+    root = os.path.join(ROOT, "build", "learn")
+    train_dir, cold_dir = (os.path.join(root, d) for d in ("train", "cold"))
+    shutil.rmtree(train_dir, ignore_errors=True)
+    shutil.rmtree(cold_dir, ignore_errors=True)
+    refine.QUEUE.clear()
+    clear_load_memo()
+    obs.enable()
+    obs.reset()
+
+    # 1. the training cache
+    t0 = time.perf_counter()
+    copied = copy_plans(os.path.join(root, "phase5"), train_dir)
+    for fmt in ("coo", "sell", "fcoo"):
+        copied += copy_plans(os.path.join(ROOT, "build", "tune-cache", fmt),
+                             train_dir)
+    cache = PlanCache(train_dir)
+    _build.reset_launches()
+    with MeasuredLaunches() as m:
+        picks = []
+        for s in range(3):
+            cfg = LifeConfig(executor="kernel", format="auto",
+                             plan_cache_dir=train_dir)
+            plan = resolve_format(cohort[s].phi, cohort[s], cfg, cache)
+            picks.append(plan.format)
+            log("learn", f"subject {s}: format=auto under executor=kernel "
+                f"-> {plan.describe()}")
+        sell_cfg = LifeConfig(executor="opt", format="sell", tune="full",
+                              plan_cache_dir=train_dir)
+        tplan = resolve_plan("kernel-sell", cohort[0].phi, cohort[0],
+                             sell_cfg, cache)
+    hold_launches("learn", "training selections and search", m.counts, {})
+    log("learn", f"tune=full kernel-sell (fp32) on subject 0: "
+        f"{tplan.describe()} over {len(tplan.measurements)} candidates")
+    predictor = train_predictor(cache)
+    if predictor is None or predictor.tune_model is None:
+        raise AssertionError("learn: no predictor trained")
+    log("learn", f"training cache: {copied} plans copied from phases 5 and "
+        f"8, then subjects 0-2 picked {picks}; train_predictor: "
+        f"{predictor.n_format_examples} format examples, "
+        f"{predictor.n_tune_examples} tune examples, tune groups "
+        f"{sorted(predictor.tune_model.groups)}; "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # 2-3. subject 3, held out, in a cache holding only predictor.json
+    os.makedirs(cold_dir)
+    shutil.copy(predictor_path(train_dir), predictor_path(cold_dir))
+    calls = []
+    orig_autotune = fsel.autotune_plan
+    fsel.autotune_plan = lambda *a, **k: calls.append(1) or orig_autotune(
+        *a, **k)
+    try:
+        n0 = search.measurement_count()
+        t0 = time.perf_counter()
+        cfg = LifeConfig(executor="kernel", format="auto", tune="cached",
+                         n_iters=LEARN_ITERS, plan_cache_dir=cold_dir)
+        engine = LifeEngine(cohort[3], cfg, device="cuda")
+        build_s = time.perf_counter() - t0
+        made = search.measurement_count() - n0
+    finally:
+        fsel.autotune_plan = orig_autotune
+    fplan, tplan = engine.format_plan, engine.tune_plan
+    hits = {kind: obs.value("learn.predict", kind=kind, outcome="hit")
+            for kind in ("format", "tune")}
+    log("learn", f"subject 3 cold start in {build_s:.2f} s: "
+        f"{fplan.describe()}, {tplan.describe()} on executor "
+        f"{engine.executor.name}; {made} measurements, {len(calls)} "
+        f"autotune_plan calls; learn.predict hits {hits}; refine queue "
+        f"{len(refine.QUEUE)}")
+    if (fplan.reason, tplan.reason) != ("predicted", "predicted") or made \
+            or calls or hits != {"format": 1.0, "tune": 1.0}:
+        raise AssertionError("learn: the cold start was not predicted with "
+                             "zero measurements")
+
+    # 4. the predicted engine's solve against subject 3's opt solve
+    _build.reset_launches()
+    w, losses = engine.run()
+    hold_launches("learn", f"{LEARN_ITERS} iterations on the predicted "
+                  "plans", {}, path_launches(fplan.format, LEARN_ITERS))
+    w_opt, _ = LifeEngine(cohort[3], LifeConfig(
+        executor="opt", n_iters=LEARN_ITERS, plan_cache_dir=""),
+        device="cuda").run()
+    diff = float((w - w_opt).abs().max())
+    log("learn", f"weights vs subject 3's opt solve: max abs diff "
+        f"{diff:.3e} (rtol {TRAJ_TOL['rtol']}, atol {TRAJ_TOL['atol']}); "
+        f"loss {float(losses[0]):.6e} -> {float(losses[-1]):.6e}")
+    torch.testing.assert_close(w, w_opt, **TRAJ_TOL)
+    name = engine.executor.name
+    del engine
+
+    # 5-6. the front line's idle ticks drain the refine queue
+    fkey, tkey = plan_keys(cohort[3], name)
+    cold = PlanCache(cold_dir)
+    before = (cold.get_format_plan(fkey), cold.get_tune_plan(tkey))
+    queued = len(refine.QUEUE)
+    _build.reset_launches()
+    with MeasuredLaunches() as m:
+        t0 = time.perf_counter()
+        fe = LifeFrontend(LifeConfig(plan_cache_dir=cold_dir),
+                          idle_wait=0.001, device="cuda")
+        deadline = time.monotonic() + WAIT_S
+        done = lambda: obs.value("learn.refine.completed", kind="format") \
+            + obs.value("learn.refine.completed", kind="tune") \
+            + obs.value("learn.refine.failed", kind="format") \
+            + obs.value("learn.refine.failed", kind="tune")
+        while done() < queued and time.monotonic() < deadline:
+            time.sleep(0.01)
+        refine_s = time.perf_counter() - t0
+        fe.shutdown(timeout=WAIT_S)
+    hold_launches("learn", "refinement", m.counts, {})
+    after = (cold.get_format_plan(fkey), cold.get_tune_plan(tkey))
+    log("learn", f"refinement of {queued} tasks on the front line's idle "
+        f"ticks: {refine_s:.2f} s; format {before[0].describe()} -> "
+        f"{after[0].describe()}; tune {before[1].describe()} -> "
+        f"{after[1].describe()} ({len(after[1].measurements)} candidates);"
+        f" predicted format equals the refined one: "
+        f"{before[0].format == after[0].format}; last error "
+        f"{refine.QUEUE.last_error!r}")
+    if (queued != 2 or len(refine.QUEUE) or refine.QUEUE.last_error
+            is not None or after[0].reason not in ("heuristic", "autotune")
+            or after[1].reason != "search"):
+        raise AssertionError("learn: the refinement did not overwrite both "
+                             "predicted plans")
+    obs.disable()
+    obs.reset()
+    torch.cuda.empty_cache()
+
+
+def front_problem(problem, cohort, subject):
+    return problem if subject is None else cohort[subject]
+
+
+def submit_front(fe, problem, cohort, jobs, adopted=()) -> dict:
+    """``submit_async`` each of ``jobs``; returns {job id: handle}.  A job
+    the service re-adopts from its checkpoint is resubmitted without its
+    compute dtype: the checkpoint holds the one it resolved to."""
+    handles = {}
+    for jid, subject, fmt, priority, tune, dtype in jobs:
+        handles[jid] = fe.submit_async(
+            front_problem(problem, cohort, subject), job_id=jid, format=fmt,
+            priority=priority, tune=tune,
+            compute_dtype=None if jid in adopted else dtype, timeout=WAIT_S)
+    return handles
+
+
+def backpressure_demos() -> None:
+    """The three policies at an admission bound of ADMISSION_BOUND, with
+    the driver not started (the queue fills deterministically); cancelling
+    a pending job frees a place without the driver."""
+    import threading
+    from repro_torch import obs
+    from repro_torch.core.life import LifeConfig
+    from repro_torch.serve import AdmissionQueueFull, LifeFrontend
+    from repro_torch.data.dmri import synth_connectome
+    p = synth_connectome(n_fibers=64, n_theta=16, n_atoms=24,
+                         grid=(10, 10, 10), seed=1, device="cuda")
+    cfg = LifeConfig(executor="opt", plan_cache_dir="")
+
+    def frontend(policy):
+        return LifeFrontend(cfg, max_queue=ADMISSION_BOUND,
+                            backpressure=policy, start=False, device="cuda")
+
+    fe = frontend("reject")
+    held = [fe.submit_async(p, n_iters=4) for _ in range(ADMISSION_BOUND)]
+    try:
+        fe.submit_async(p, n_iters=4)
+        raise AssertionError("front: reject admitted past the bound")
+    except AdmissionQueueFull as exc:
+        log("front", f"reject at {ADMISSION_BOUND} pending: "
+            f"AdmissionQueueFull({exc}); serve.admission.rejected "
+            f"{obs.value('serve.admission.rejected')}")
+    for h in held:
+        h.cancel()
+
+    fe = frontend("shed")
+    lo = fe.submit_async(p, n_iters=4, priority=0)
+    mid = fe.submit_async(p, n_iters=4, priority=3)
+    hi = fe.submit_async(p, n_iters=4, priority=5)
+    low_new = fe.submit_async(p, n_iters=4, priority=1)
+    log("front", f"shed at {ADMISSION_BOUND} pending: priority 0 -> "
+        f"{lo.status()} ({lo.exception(timeout=1)}), a newcomer of "
+        f"priority 1 -> {low_new.status()}, priorities 3 and 5 -> "
+        f"{mid.status()}, {hi.status()}; serve.admission.shed "
+        f"{obs.value('serve.admission.shed')}")
+    if (lo.status(), low_new.status(), mid.status(), hi.status()) != (
+            "shed", "shed", "pending", "pending"):
+        raise AssertionError("front: shed did not evict the lowest priority")
+    mid.cancel()
+    hi.cancel()
+
+    fe = frontend("block")
+    held = [fe.submit_async(p, n_iters=4) for _ in range(ADMISSION_BOUND)]
+    got = []
+    t0 = time.perf_counter()
+    th = threading.Thread(target=lambda: got.append(
+        (fe.submit_async(p, n_iters=4, timeout=WAIT_S),
+         time.perf_counter())))
+    th.start()
+    time.sleep(0.2)
+    waiting = th.is_alive() and not got
+    held[0].cancel()                     # frees one place
+    th.join(WAIT_S)
+    if not waiting or th.is_alive() or not got:
+        raise AssertionError("front: block did not wait and then admit")
+    log("front", f"block at {ADMISSION_BOUND} pending: the submitter waited "
+        f"{got[0][1] - t0:.3f} s until a place freed, then its job was "
+        f"admitted ({got[0][0].status()}); serve.admission.depth "
+        f"{obs.value('serve.admission.depth')}")
+    for h in (held[1], got[0][0]):
+        h.cancel()
+
+
+def front_results(handles: dict, jids) -> dict:
+    return {jid: handles[jid].result(timeout=WAIT_S) for jid in jids}
+
+
+def phase_front(problem, cohort) -> dict:
+    """12b: the async front line over a LifeService (obs on, slices of 16)
+    at full width.  Launches: exactly 2 DSC + 1.5 WC per iteration of the
+    solo jobs (B3/B4: s2-sell and tc-sell 64 each and the cancelled sell
+    job's iterations; B5/B6: s3-fcoo and tf-fcoo 64 each), besides
+    tf-fcoo's one search; the resume legs together again 4 x 64 of the
+    solo jobs and no search.  Returns the healthy jobs' results."""
+    import dataclasses as dc
+    import shutil
+    from repro_torch import obs
+    from repro_torch.core.life import LifeConfig, LifeEngine
+    from repro_torch.kernels import _build
+    from repro_torch.serve import (JobCancelledError, JobFailedError,
+                                   LifeFrontend, LifeService)
+    root = os.path.join(ROOT, "build", "frontline")
+    shutil.rmtree(root, ignore_errors=True)
+    plans = os.path.join(root, "plans")
+    copied = copy_plans(os.path.join(ROOT, "build", "tune-cache", "sell"),
+                        plans)
+    cfg = LifeConfig(executor="opt", n_iters=SERVE_ITERS,
+                     plan_cache_dir=plans)
+    obs.enable()
+    obs.reset()
+    backpressure_demos()
+
+    # 1, 3, 4: the jobs, two poisoned tenants, two cancellations
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with MeasuredLaunches() as m:
+        t0 = time.perf_counter()
+        fe = LifeFrontend(cfg, ckpt_dir=os.path.join(root, "ckpt"),
+                          slice_iters=SERVE_SLICE, checkpoint_every=0,
+                          max_queue=16, device="cuda", start=False)
+        pending = fe.submit_async(cohort[1], job_id="cancel-pending",
+                                  format="fcoo")
+        if not pending.cancel() or pending.status() != "cancelled":
+            raise AssertionError("front: a pending job did not cancel")
+        first = [j for j in FRONT_JOBS if j[0] != SERVE_JOBS[-1][0]]
+        handles = submit_front(fe, problem, cohort, first)
+        nan_w0 = np.ones(problem.phi.n_fibers, np.float32)
+        nan_w0[7] = np.nan
+        handles["poison-nan"] = fe.submit_async(
+            cohort[2], job_id="poison-nan", format="sell", w0=nan_w0,
+            timeout=WAIT_S)
+        handles["poison-run"] = fe.submit_async(
+            dataclasses.replace(cohort[1], b=cohort[1].b[:-3]),
+            job_id="poison-run", format="auto", timeout=WAIT_S)
+        handles["cancel-running"] = fe.submit_async(
+            cohort[1], job_id="cancel-running", format="sell",
+            n_iters=100 * SERVE_ITERS, priority=2, timeout=WAIT_S)
+        fe.start()
+        # the most urgent job is cancelled after its first slice; the late
+        # arrival joins once the cohort bucket has run a slice
+        ev = handles["cancel-running"].events(timeout=WAIT_S)
+        if next(ev)["type"] != "progress" or \
+                not handles["cancel-running"].cancel():
+            raise AssertionError("front: a running job did not cancel")
+        next(handles["s0-auto"].events(timeout=WAIT_S))
+        handles.update(submit_front(fe, problem, cohort,
+                                    [j for j in FRONT_JOBS
+                                     if j[0] == SERVE_JOBS[-1][0]]))
+        jids = [j[0] for j in FRONT_JOBS]
+        results = front_results(handles, jids)
+        for jid in ("poison-nan", "poison-run", "cancel-running"):
+            handles[jid].exception(timeout=WAIT_S)
+        fe.shutdown(timeout=WAIT_S)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    svc = fe.service
+    cancelled_done = svc.job("cancel-running").done
+    want = {}
+    for jid, _, fmt, *_ in FRONT_JOBS:
+        if fmt in ("sell", "fcoo"):
+            add_launches(want, path_launches(fmt, SERVE_ITERS))
+    add_launches(want, path_launches("sell", cancelled_done))
+    hold_launches("front", f"{len(jids)} jobs, 2 poisoned, 2 cancelled",
+                  m.counts, want)
+    latencies = {jid: svc.job(jid).prior_elapsed + svc.job(jid).finished_at
+                 - svc.job(jid).submitted_at for jid in jids}
+    log("front", f"{len(jids)} jobs of {SERVE_ITERS} iterations through "
+        f"submit_async in {wall:.3f} s wall ({len(jids) / wall:.2f} jobs/s, "
+        f"builds, selection, one search and intake hashing included); peak"
+        f" memory {peak:.1f} MiB; latency by job: " + ", ".join(
+            f"{jid} {t:.3f} s" for jid, t in latencies.items()))
+    statuses = {jid: h.status() for jid, h in handles.items()}
+    statuses["cancel-pending"] = pending.status()
+    errors = {jid: repr(handles[jid].exception(timeout=WAIT_S))[:160]
+              for jid in ("poison-nan", "poison-run", "cancel-running")}
+    log("front", f"statuses {statuses}; errors {errors}")
+    ended = {jid: handles[jid].exception(timeout=WAIT_S)
+             for jid in ("poison-nan", "poison-run", "cancel-running")}
+    if (statuses["poison-nan"] != "rejected"
+            or not isinstance(ended["poison-nan"], ValueError)
+            or statuses["poison-run"] != "failed"
+            or not isinstance(ended["poison-run"], JobFailedError)
+            or statuses["cancel-running"] != "cancelled"
+            or not isinstance(ended["cancel-running"], JobCancelledError)
+            or any(statuses[j] != "done" for j in jids)):
+        raise AssertionError(f"front: unexpected statuses {statuses}")
+    searches = {ex: obs.value("tune.searches", executor=ex)
+                for ex in ("kernel-sell", "kernel-fcoo")}
+    log("front", f"tune.searches {searches} (tc-sell replays phase 8's plan "
+        f"from the {copied} plans copied, tf-fcoo searches once); "
+        f"serve.admission depth {obs.value('serve.admission.depth')}, "
+        f"rejected {obs.value('serve.admission.rejected')}, shed "
+        f"{obs.value('serve.admission.shed')}")
+    if searches != {"kernel-sell": 0.0, "kernel-fcoo": 1.0}:
+        raise AssertionError(f"front: tune searches {searches}")
+    if not serve_counters_hold(obs):
+        raise AssertionError("front: counter algebra broken")
+
+    # 5: events per slice; each job against its own solve
+    n = SERVE_ITERS // SERVE_SLICE
+    for jid in jids:
+        w, losses = results[jid]
+        if tuple(losses.shape) != (SERVE_ITERS,) or not (
+                torch.isfinite(w).all() and torch.isfinite(losses).all()):
+            raise AssertionError(f"front: {jid} not finite of its shape")
+    evs = list(handles["s2-sell"].events(timeout=WAIT_S))
+    progress = [e["done"] for e in evs if e["type"] == "progress"]
+    log("front", f"s2-sell events: {len(progress)} progress events at "
+        f"{progress}, then {evs[-1]}")
+    if progress != [SERVE_SLICE * (i + 1) for i in range(n)] or \
+            evs[-1] != {"type": "done"}:
+        raise AssertionError("front: s2-sell's events are not one per slice")
+    solo_cfg = dc.replace(cfg, n_iters=SERVE_ITERS)
+    opt_w = {}
+    for jid, subject, fmt, _, tune, dtype in FRONT_JOBS:
+        p = front_problem(problem, cohort, subject)
+        w, losses = results[jid]
+        if fmt in ("sell", "fcoo"):
+            jcfg = dc.replace(solo_cfg, format=fmt,
+                              tune="cached" if tune else "off",
+                              compute_dtype=dtype or "fp32")
+            eng = LifeEngine(p, jcfg, device="cuda")
+            w1, l1 = eng.run()
+            same = torch.equal(w, w1) and torch.equal(losses, l1)
+            log("front", f"{jid} vs its own LifeEngine({fmt}, tune="
+                f"{jcfg.tune}, {eng.resolved_compute_dtype}"
+                f"{', ' + eng.tune_plan.describe() if eng.tune_plan else ''}"
+                f") solve: bit-identical {same}")
+            if not same:
+                raise AssertionError(f"front: {jid} differs from its engine")
+        else:
+            key = 0 if subject is None else subject
+            if key not in opt_w:
+                opt_w[key], _ = LifeEngine(p, dc.replace(
+                    solo_cfg, plan_cache_dir=""), device="cuda").run()
+            torch.testing.assert_close(w, opt_w[key], **TRAJ_TOL)
+            log("front", f"{jid} (cohort bucket) vs its own opt solve: max "
+                f"abs diff {float((w - opt_w[key]).abs().max()):.3e}")
+    snap = svc.metrics_snapshot()
+    log("front", "obs.snapshot() " + json.dumps(snap, allow_nan=False))
+
+    # 6: shutdown(drain=False) mid-run, resumed by a fresh frontend
+    healthy = list(FRONT_JOBS)
+    ck = os.path.join(root, "ckpt-kill")
+    obs.reset()
+    _build.reset_launches()
+    with MeasuredLaunches() as m:
+        fe = LifeFrontend(cfg, ckpt_dir=ck, slice_iters=SERVE_SLICE,
+                          checkpoint_every=0, device="cuda", start=False)
+        killed = submit_front(fe, problem, cohort, healthy)
+        fe.start()
+        next(killed[SERVE_JOBS[-1][0]].events(timeout=WAIT_S))
+        fe.shutdown(drain=False, timeout=WAIT_S)
+        known = {j.job_id for j in fe.service.scheduler.jobs()}
+        stopped = {jid: fe.service.job(jid).done if jid in known else None
+                   for jid in killed}
+        ended = {jid: type(h.exception(timeout=WAIT_S)).__name__
+                 for jid, h in killed.items()}
+        fresh = LifeFrontend(service=LifeService(
+            cfg, ckpt_dir=ck, slice_iters=SERVE_SLICE, device="cuda"))
+        adopted = fresh.service.resumable_jobs
+        again = submit_front(fresh, problem, cohort, healthy, adopted)
+        got = front_results(again, [j[0] for j in healthy])
+        fresh.shutdown(timeout=WAIT_S)
+    want = {}
+    for jid, _, fmt, *_ in healthy:
+        if fmt in ("sell", "fcoo"):
+            add_launches(want, path_launches(fmt, SERVE_ITERS))
+    hold_launches("front", "killed and resumed legs", m.counts, want)
+    same = {jid: torch.equal(got[jid][0], results[jid][0])
+            and torch.equal(got[jid][1], results[jid][1])
+            for jid, *_ in healthy}
+    log("front", f"shutdown(drain=False) after the first slice: iterations "
+        f"done {stopped}, handles ended with {ended}; adopted {adopted}; "
+        f"the fresh frontend's jobs bit-identical to the uninterrupted run:"
+        f" {same}")
+    if set(ended.values()) - {"ShutdownError", "NoneType"} or not adopted \
+            or not all(same.values()):
+        raise AssertionError("front: a resumed job differs or a handle "
+                             "hung")
+
+    # 7: compaction is refused by the service on the card
+    try:
+        LifeService(LifeConfig(compact_every=50), device="cuda")
+        raise AssertionError("front: compact_every > 0 was accepted")
+    except ValueError as exc:
+        log("front", f"LifeService(LifeConfig(compact_every=50)) on the "
+            f"card: ValueError({exc})")
+    obs.disable()
+    obs.reset()
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_science(problem) -> None:
+    """12c: the science workloads on the main problem.  Launches, exactly:
+    crossval on kernel 4 folds x 50 iterations (B1 400, B2 300); the
+    lesion's warm and cold sell solves (B3 2(w + c), B4 1.5(w + c) for
+    their iterations w and c); multires on fcoo over both levels (B5
+    2(l1 + l2), B6 1.5(l1 + l2)), its resumed call none; the resubmitted
+    delta 16 sell iterations (B3 32, B4 24)."""
+    import shutil
+    from repro_torch.core.life import LifeConfig, LifeEngine
+    from repro_torch.data.dmri import fiber_bundles
+    from repro_torch.kernels import _build
+    from repro_torch.science import (crossval_rmse, lesion_problem,
+                                     multires_solve, prune_connectome,
+                                     resubmit_delta, solve_to_convergence,
+                                     virtual_lesion)
+    from repro_torch.serve import LifeFrontend
+    root = os.path.join(ROOT, "build", "science")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # 1. crossval on B1/B2 and on opt
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    cv = crossval_rmse(problem, LifeConfig(executor="kernel",
+                                           plan_cache_dir=""),
+                       k=CROSSVAL_FOLDS, n_iters=CROSSVAL_ITERS,
+                       device="cuda")
+    hold_launches("science", "crossval on kernel", {},
+                  path_launches("coo", CROSSVAL_FOLDS * CROSSVAL_ITERS))
+    cv_opt = crossval_rmse(problem, LifeConfig(executor="opt",
+                                               plan_cache_dir=""),
+                           k=CROSSVAL_FOLDS, n_iters=CROSSVAL_ITERS,
+                           device="cuda")
+    rel = max(abs(a - b) / b for a, b in zip(cv.fold_rmse, cv_opt.fold_rmse))
+    log("science", f"crossval k={CROSSVAL_FOLDS}, {CROSSVAL_ITERS} "
+        f"iterations a fold: kernel {cv.fold_rmse}, opt {cv_opt.fold_rmse},"
+        f" null {cv.null_rmse:.6f}; max rel diff {rel:.3e} (rtol 1e-3); "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not all(r < cv.null_rmse for r in cv.fold_rmse) or rel > 1e-3:
+        raise AssertionError("science: crossval off the null or off opt")
+
+    # 2. a virtual lesion on sell, warm from phase 11's checkpoint
+    t0 = time.perf_counter()
+    bundle = fiber_bundles(problem, bundle_size=LESION_FIBERS, seed=0)[0]
+    sell = LifeConfig(executor="opt", format="sell", plan_cache_dir="")
+    ck = os.path.join(ROOT, "build", "serve", "ckpt")
+    _build.reset_launches()
+    rep = virtual_lesion(problem, bundle, sell, ckpt_dir=ck,
+                         job_id="main-auto", device="cuda")
+    lesioned = lesion_problem(problem, bundle)
+    cold = solve_to_convergence(LifeEngine(lesioned, sell, device="cuda"))
+    hold_launches("science", "lesion warm and cold sell solves", {},
+                  path_launches("sell", rep.iters_warm + cold.iters))
+    rep_opt = virtual_lesion(problem, bundle, LifeConfig(
+        executor="opt", plan_cache_dir=""), ckpt_dir=ck, job_id="main-auto",
+        device="cuda")
+    zero = bool(np.all(rep.w_lesioned[bundle] == 0.0))
+    log("science", f"virtual lesion of {bundle.size} fibers on sell, warm "
+        f"from phase 11's main-auto: footprint {rep.footprint.size} voxels,"
+        f" rmse {rep.rmse_full:.6f} -> {rep.rmse_lesioned:.6f}, evidence "
+        f"{rep.evidence:+.6e} (opt {rep_opt.evidence:+.6e}); warm "
+        f"{rep.iters_warm} iterations, cold {cold.iters}; lesioned fibers "
+        f"exactly 0: {zero}; {time.perf_counter() - t0:.2f} s")
+    if not zero or rep.iters_warm > cold.iters or rep.iters_full or \
+            abs(rep.evidence - rep_opt.evidence) > 1e-2 * abs(
+                rep_opt.evidence):
+        raise AssertionError("science: the virtual lesion failed its holds")
+
+    # 3. multires on fcoo, resumed from its checkpoint
+    t0 = time.perf_counter()
+    fcoo = LifeConfig(executor="opt", format="fcoo", plan_cache_dir="")
+    mr_dir = os.path.join(root, "multires")
+    _build.reset_launches()
+    mr = multires_solve(problem, fcoo, factors=(2,), ckpt_dir=mr_dir,
+                        device="cuda")
+    again = multires_solve(problem, fcoo, factors=(2,), ckpt_dir=mr_dir,
+                           device="cuda")
+    hold_launches("science", "multires on fcoo and its resumed call", {},
+                  path_launches("fcoo", mr.total_iters))
+    same = bool(np.array_equal(again.final.w, mr.final.w))
+    log("science", f"{mr.describe()}; resumed: {again.describe()} "
+        f"(resumed_at {again.resumed_at}), final weights bit-identical "
+        f"{same}; {time.perf_counter() - t0:.2f} s")
+    if again.resumed_at != 2 or again.total_iters or not same:
+        raise AssertionError("science: multires did not resume bit for bit")
+
+    # 4. the pruned connectome, on the card and on the CPU
+    pr = prune_connectome(problem, mr.final.w)
+    pr_cpu = prune_connectome(problem.to("cpu"), mr.final.w)
+    log("science", pr.describe() + f"; support equals the CPU's: "
+        f"{np.array_equal(pr.support, pr_cpu.support)}")
+    if not np.array_equal(pr.support, pr_cpu.support) or \
+            pr.phi.n_coeffs != pr_cpu.phi.n_coeffs:
+        raise AssertionError("science: the pruned support differs on the CPU")
+
+    # 5. the lesioned problem resubmitted through the front line, warm
+    _build.reset_launches()
+    with LifeFrontend(LifeConfig(executor="opt", plan_cache_dir=""),
+                      refine=False, device="cuda") as fe:
+        h = resubmit_delta(fe, lesioned, rep.w_full, lesioned=bundle,
+                           n_iters=RESUBMIT_ITERS, format="sell")
+        w, losses = h.result(timeout=WAIT_S)
+    hold_launches("science", "resubmitted delta", {},
+                  path_launches("sell", RESUBMIT_ITERS))
+    zero = bool((w[torch.as_tensor(bundle, device=w.device)] == 0).all())
+    log("science", f"resubmit_delta through the front line: lesioned "
+        f"weights exactly 0 {zero}; first loss {float(losses[0]):.6e} "
+        f"against the cold start's {float(cold.losses[0]):.6e}")
+    if not zero or not float(losses[0]) < float(cold.losses[0]):
+        raise AssertionError("science: the warm resubmission failed")
+    torch.cuda.empty_cache()
+
+
+def phase_slice_ten(problem, cohort) -> None:
+    """Phase 12: 12a learned selection, 12b the front line, 12c science."""
+    for name, fn in (("learn", lambda: phase_learn(cohort)),
+                     ("front", lambda: phase_front(problem, cohort)),
+                     ("science", lambda: phase_science(problem))):
+        t0 = time.perf_counter()
+        fn()
+        log(name, f"sub-phase took {time.perf_counter() - t0:.1f} s")
+
+
+# ----------------------------------------------------------------------------
 # 7. MoE serving at full width, on kernel B7
 # ----------------------------------------------------------------------------
 
@@ -2102,6 +2941,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_serve(problem, cohort)
     log("serve", f"phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_slice_ten(problem, cohort)
+    log("slice-ten", f"phase 12 took {time.perf_counter() - t0:.1f} s")
     del cohort
     torch.cuda.empty_cache()
     entries = phase_timing(problem, launches, errors)

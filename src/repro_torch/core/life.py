@@ -95,8 +95,10 @@ class LifeConfig:
     # measures); "full" searches the layout space on a cache miss and
     # persists the winner per (dataset, executor, backend, devices)
     tune: str = "off"
-    # learned selection (A11); until it is ported "auto" and "off" both
-    # select as the reference does with no trained predictor
+    # learned selection (repro_torch.learn): "auto" lets a trained
+    # predictor.json beside the plan cache answer format and tune-plan
+    # misses with zero measurements (reason "predicted", refined in the
+    # background); "off" skips that rung
     predict: str = "auto"
     # storage dtype of the static operands (dictionary + Phi values):
     # "fp32", "bf16" (bf16 storage, fp32 accumulation; accuracy contract

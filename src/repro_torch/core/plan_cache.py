@@ -89,15 +89,17 @@ def spmv_plan_key(op: str, atoms: np.ndarray, voxels: np.ndarray,
 
 def format_plan_key(atoms: np.ndarray, voxels: np.ndarray, fibers: np.ndarray,
                     *, sizes, row_tile: int, slot_tile: int, allowed,
-                    backend: str, sell_accept: float = 0.0,
+                    backend: str, coo_executor: str, sell_accept: float = 0.0,
                     sell_reject: float = 0.0) -> str:
     """Digest for a FormatPlan: the full index content, mode sizes, layout
     geometry, the candidate set and thresholds the selector decided under,
-    and the backend its measured rung timed on.  Versioned by
+    the backend its measured rung timed on and the executor it timed the
+    coo candidate on (the reference's key has no executor: its measured
+    rung times jnp code for every candidate).  Versioned by
     ``formats.base.FORMAT_VERSION``."""
     h = hashlib.sha256()
     h.update(b"format-plan-v%d.%d:" % (_FORMAT_VERSION, _PHI_FORMAT_VERSION)
-             + backend.encode() + b":")
+             + backend.encode() + b":" + coo_executor.encode() + b":")
     h.update(",".join(sorted(allowed)).encode())
     h.update(np.float64([sell_accept, sell_reject]).tobytes())
     h.update(np.int64(list(sizes) + [row_tile, slot_tile]).tobytes())
@@ -309,16 +311,7 @@ class PlanCache:
         self.stats.record(raw is not None, "format")
         if raw is None:
             return None
-        try:
-            params = {str(k): int(v) for k, v in
-                      zip(raw["params_keys"], raw["params_vals"])}
-            stats = {str(k): float(v) for k, v in
-                     zip(raw["stats_keys"], raw["stats_vals"])}
-            return FormatPlan(format=str(raw["format"]),
-                              reason=str(raw["reason"]),
-                              params=params, stats=stats)
-        except (KeyError, ValueError):
-            return None
+        return _parse_format_plan(raw)
 
     def put_format_plan(self, key: str, plan: FormatPlan) -> None:
         pk = sorted(plan.params)
@@ -329,6 +322,55 @@ class PlanCache:
             params_vals=np.asarray([plan.params[k] for k in pk], np.int64),
             stats_keys=np.asarray(sk, np.str_),
             stats_vals=np.asarray([plan.stats[k] for k in sk], np.float64)))
+
+
+    # -- harvest iteration ---------------------------------------------------
+    def iter_plans(self):
+        """Yield every decodable (kind, plan) in the cache directory, kind
+        in {"format", "tune"}: the learn subsystem's harvest source.
+
+        Classification is structural, as in the reference (digests are
+        opaque): a FormatPlan payload carries a ``format`` entry, a
+        TunePlan payload an ``executor`` entry.  Other plan kinds and
+        corrupt or foreign files are skipped.  No lookup is counted: a
+        training sweep is not a cache workload."""
+        if not self.enabled:
+            return
+        try:
+            names = sorted(os.listdir(self.directory))
+        except OSError:
+            return
+        for name in names:
+            if not name.endswith(".npz"):
+                continue
+            try:
+                with np.load(os.path.join(self.directory, name),
+                             allow_pickle=False) as z:
+                    raw = {k: z[k] for k in z.files}
+            except (OSError, ValueError, KeyError):
+                continue
+            if "format" in raw:
+                plan = _parse_format_plan(raw)
+                if plan is not None:
+                    yield "format", plan
+            elif "executor" in raw:
+                plan = _parse_tune_plan(raw)
+                if plan is not None:
+                    yield "tune", plan
+
+
+def _parse_format_plan(raw: dict) -> Optional[FormatPlan]:
+    """Raw npz dict -> FormatPlan, or None on a malformed payload."""
+    try:
+        params = {str(k): int(v) for k, v in
+                  zip(raw["params_keys"], raw["params_vals"])}
+        stats = {str(k): float(v) for k, v in
+                 zip(raw["stats_keys"], raw["stats_vals"])}
+        return FormatPlan(format=str(raw["format"]),
+                          reason=str(raw["reason"]),
+                          params=params, stats=stats)
+    except (KeyError, ValueError):
+        return None
 
 
 def _parse_tune_plan(raw: dict):

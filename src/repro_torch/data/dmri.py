@@ -13,6 +13,10 @@ in the same order as the reference, so for one seed the Phi arrays and
 ``w_true`` equal the reference's array for array.  The dictionary is the
 reference's to float32 rounding (:func:`repro_torch.core.std.make_dictionary`
 reproduces its JAX-drawn gradient directions), and so is ``b``.
+
+:func:`coarsen_problem` (multi-resolution levels) and :func:`fiber_bundles`
+(virtual-lesion bundles) serve the science workloads
+(:mod:`repro_torch.science`).
 """
 from __future__ import annotations
 
@@ -171,3 +175,139 @@ def synth_cohort(n_subjects: int, *, base_seed: int = 0,
     """
     return [synth_connectome(seed=base_seed + s, algorithm=algorithm,
                              **kwargs) for s in range(n_subjects)]
+
+
+def coarsen_problem(problem: LifeProblem, factor: int, *,
+                    grid: Optional[Tuple[int, int, int]] = None
+                    ) -> LifeProblem:
+    """Voxel-coarsened problem for coarse-to-fine multi-resolution solves.
+
+    Merges every ``factor^3`` block of fine voxels into one coarse voxel:
+    Phi coefficients are remapped and deduped (values summed, like the
+    generator's own dedupe), and the signal rows of merged voxels are
+    summed, so the coarse clean signal is exactly the sum of the fine
+    clean signals and the fiber id space is untouched.  A coarse solve's
+    weights therefore warm-start the fine solve directly
+    (:func:`repro_torch.science.incremental.multires_solve`).  The
+    remapping runs in numpy on the host, as the reference's does; the
+    result's tensors lie on the problem's device.
+
+    Args:
+        problem: the fine problem; needs a voxel grid.
+        factor: coarsening factor per axis; 1 returns the input.
+        grid: grid override when ``problem.grid`` is unset.
+
+    Returns:
+        The coarsened :class:`LifeProblem` (its ``grid`` is the coarse
+        box).
+
+    Raises:
+        ValueError: if ``factor < 1`` or no grid is available.
+    """
+    if factor < 1:
+        raise ValueError(f"factor must be >= 1, got {factor}")
+    if factor == 1:
+        return problem
+    g = grid if grid is not None else problem.grid
+    if g is None:
+        raise ValueError("coarsen_problem needs a voxel grid: the problem "
+                         "has grid=None and no grid= was given")
+    gx, gy, gz = g
+    cgx, cgy, cgz = (-(-gx // factor), -(-gy // factor), -(-gz // factor))
+    phi = problem.phi
+    if gx * gy * gz != phi.n_voxels:
+        raise ValueError(f"grid {g} does not linearize to "
+                         f"n_voxels={phi.n_voxels}")
+
+    def to_coarse(vox: np.ndarray) -> np.ndarray:
+        x, rem = vox // (gy * gz), vox % (gy * gz)
+        y, z = rem // gz, rem % gz
+        return ((x // factor) * cgy + (y // factor)) * cgz + (z // factor)
+
+    dev = phi.device
+    atoms = phi.atoms.cpu().numpy().astype(np.int64)
+    cvox = to_coarse(phi.voxels.cpu().numpy().astype(np.int64))
+    fibers = phi.fibers.cpu().numpy().astype(np.int64)
+    values = phi.values.cpu().double().numpy()
+    n_cvox = cgx * cgy * cgz
+    key = (atoms * n_cvox + cvox) * phi.n_fibers + fibers
+    uniq, inv = np.unique(key, return_inverse=True)
+    val_sum = np.zeros(uniq.size, np.float64)
+    np.add.at(val_sum, inv, values)
+
+    def idx(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=torch.int32, device=dev)
+
+    sub = PhiTensor(
+        atoms=idx((uniq // phi.n_fibers) // n_cvox),
+        voxels=idx((uniq // phi.n_fibers) % n_cvox),
+        fibers=idx(uniq % phi.n_fibers),
+        values=torch.as_tensor(val_sum, dtype=phi.values.dtype, device=dev),
+        n_atoms=phi.n_atoms, n_voxels=n_cvox, n_fibers=phi.n_fibers)
+    b = problem.b
+    b_coarse = np.zeros((n_cvox, b.shape[1]), np.float64)
+    np.add.at(b_coarse, to_coarse(np.arange(gx * gy * gz, dtype=np.int64)),
+              b.cpu().double().numpy())
+    stats = dict(problem.stats)
+    stats["n_coeffs"] = float(sub.n_coeffs)
+    stats["n_voxels_touched"] = float(np.unique(
+        (uniq // phi.n_fibers) % n_cvox).size)
+    return LifeProblem(phi=sub, dictionary=problem.dictionary,
+                       b=torch.as_tensor(b_coarse, dtype=b.dtype, device=dev),
+                       w_true=problem.w_true, stats=stats,
+                       grid=(cgx, cgy, cgz))
+
+
+def fiber_bundles(problem: LifeProblem, *, bundle_size: int,
+                  n_bundles: int = 1, seed: int = 0) -> List[np.ndarray]:
+    """Disjoint, spatially coherent fiber bundles (lesion candidates).
+
+    Each bundle is a seed fiber plus its ``bundle_size - 1`` nearest
+    neighbours by coefficient-centroid distance (3-D positions when the
+    problem has a grid, linear voxel ids otherwise), a synthetic stand-in
+    for an anatomically grouped tract.  Only fibers with at least one Phi
+    coefficient are eligible, and bundles never overlap.  Host numpy, as
+    the reference's, so one seed gives the reference's bundles.
+
+    Args:
+        problem: the problem to draw bundles from.
+        bundle_size: fibers per bundle.
+        n_bundles: number of disjoint bundles.
+        seed: RNG seed for the bundle seed-fiber draw.
+
+    Returns:
+        ``n_bundles`` sorted int64 arrays of ``bundle_size`` fiber ids.
+
+    Raises:
+        ValueError: when fewer than ``n_bundles * bundle_size`` fibers
+            have coefficients.
+    """
+    fib = problem.phi.fibers.cpu().numpy().astype(np.int64)
+    vox = problem.phi.voxels.cpu().numpy().astype(np.int64)
+    if problem.grid is not None:
+        gx, gy, gz = problem.grid
+        pos = np.stack([vox // (gy * gz), (vox // gz) % gy, vox % gz],
+                       axis=1).astype(np.float64)
+    else:
+        pos = vox[:, None].astype(np.float64)
+    counts = np.bincount(fib, minlength=problem.phi.n_fibers)
+    sums = np.zeros((problem.phi.n_fibers, pos.shape[1]))
+    np.add.at(sums, fib, pos)
+    structural = np.nonzero(counts > 0)[0]
+    if structural.size < n_bundles * bundle_size:
+        raise ValueError(
+            f"need {n_bundles * bundle_size} fibers with coefficients, "
+            f"have {structural.size}")
+    centroids = sums[structural] / counts[structural, None]
+    rng = np.random.default_rng(seed)
+    available = np.ones(structural.size, bool)
+    bundles: List[np.ndarray] = []
+    for _ in range(n_bundles):
+        pool = np.nonzero(available)[0]
+        anchor = rng.choice(pool)
+        d = np.linalg.norm(centroids - centroids[anchor], axis=1)
+        d[~available] = np.inf
+        members = np.argsort(d, kind="stable")[:bundle_size]
+        available[members] = False
+        bundles.append(np.sort(structural[members]))
+    return bundles

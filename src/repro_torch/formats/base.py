@@ -117,8 +117,9 @@ class FormatPlan:
       "heuristic"  inspector run-length statistics were decisive;
       "autotune"   the measured rung timed the candidates;
       "explicit"   the caller forced ``config.format``;
-    (the reference's "predicted" arrives with learned selection, ROADMAP
-    A11).  ``params``: layout geometry (row_tile / slot_tile); ``stats``:
+      "predicted"  a trained predictor answered with zero measurements
+                   (``repro_torch.learn``; refined in place later).
+    ``params``: layout geometry (row_tile / slot_tile); ``stats``:
     the inspector statistics the decision was based on.
     """
 

@@ -11,7 +11,9 @@ once, and waits for them together.
 
 :data:`LAUNCHES` counts the launches of each kernel by name: :func:`launch`
 adds one for each launch it makes, and nothing else does (a wrapper that
-runs its plain version on CPU tensors launches nothing).
+runs its plain version on CPU tensors launches nothing).  Loading and
+counting are thread-safe: the serving front line launches kernels from its
+driver thread.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -29,6 +32,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: guards _LIBS and the builds behind it: the front line's driver thread
+#: launches kernels beside the main thread, and a library must be built
+#: and loaded once
+_LIBS_LOCK = threading.Lock()
+#: guards LAUNCHES' read-modify-write across threads
+_LAUNCHES_LOCK = threading.Lock()
 
 #: kernel launches by kernel name ("dsc_coo", "wc_coo", "dsc_sell", ...)
 LAUNCHES: Dict[str, int] = {}
@@ -112,15 +121,16 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     ``signatures`` maps each C entry point to its ``argtypes`` (pointers
     and the stream as ``c_void_p``, sizes as ``c_int``); every entry point
     returns a ``cudaError_t`` as ``int``."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn_name, argtypes in signatures.items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+    with _LIBS_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn_name, argtypes in signatures.items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIBS[name] = lib
     return lib
 
 
@@ -178,4 +188,5 @@ def launch(lib: ctypes.CDLL, fn_name: str, kernel: str, device,
                                     *ints, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {err}")
-    LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1

@@ -8,15 +8,22 @@ run alone on their kernels, long solves are time-sliced fairly through the
 stepped SBBNNLS API, and every solver state survives a kill through
 :mod:`repro_torch.checkpoint.manager`.
 
-The reference's async front line (``LifeFrontend``, ``JobHandle``,
-``AdmissionQueueFull``, ``BACKPRESSURE_POLICIES``) imports its learned
-selection and arrives with that slice (ROADMAP A11).
+:class:`~repro_torch.serve.frontend.LifeFrontend` is the traffic-facing
+front line: async submission (``submit_async`` -> :class:`JobHandle`), a
+bounded admission queue with configurable backpressure, per-job failure
+isolation (one bad tenant fails alone, batch-mates keep running), and
+graceful drain-and-checkpoint shutdown.
 """
+from repro_torch.serve.frontend import (BACKPRESSURE_POLICIES,
+                                        AdmissionQueueFull, JobHandle,
+                                        LifeFrontend, ShutdownError)
 from repro_torch.serve.scheduler import (BATCHABLE_FORMATS,
                                          TERMINAL_STATUSES, Job,
                                          JobCancelledError, JobFailedError,
                                          Scheduler, dataset_key)
 from repro_torch.serve.service import LifeService
 
-__all__ = ["BATCHABLE_FORMATS", "Job", "JobCancelledError", "JobFailedError",
-           "LifeService", "Scheduler", "TERMINAL_STATUSES", "dataset_key"]
+__all__ = ["AdmissionQueueFull", "BACKPRESSURE_POLICIES",
+           "BATCHABLE_FORMATS", "Job", "JobCancelledError", "JobFailedError",
+           "JobHandle", "LifeFrontend", "LifeService", "Scheduler",
+           "ShutdownError", "TERMINAL_STATUSES", "dataset_key"]

@@ -42,7 +42,8 @@ class TunePlan:
     ``compute_dtype`` is always resolved ("fp32" or "bf16", never "auto").
     ``reason`` records how the plan came to be: "search" (measured),
     "default" (nothing to search: no axes and a fixed dtype), "predicted"
-    (a learned predictor's answer; the port has none until ROADMAP A11),
+    (a learned predictor's answer, made with zero measurements and
+    refined in place by a background search, ``repro_torch.learn``),
     or "untuned" (a tune="cached" miss: the config's constants, never
     persisted).  ``measurements`` keeps each candidate's cost (label ->
     seconds); ``stats`` the ``phi_stats`` the plan was decided under.

@@ -21,11 +21,15 @@ op mix of SBBNNLS.  On the card the candidates run the CUDA kernels
 CPU tensors they run their plain versions, under a ``cpu`` key that the
 card never replays.
 
-The reference's predict rung (a learned predictor answering a
-``tune="cached"`` miss) arrives with learned selection (ROADMAP A11);
-until then :func:`_predicted` answers nothing, which is what the reference
-does with no ``predictor.json`` beside the cache, and the reference's
-``learn.predict`` counters wait with it.  A search records the reference's
+A ``tune="cached"`` miss first asks the learned predictor beside the
+cache (:func:`_predicted`, ``repro_torch.learn``): it replays the nearest
+trained dataset's winning params for this ``executor@backend`` with zero
+measurements (``reason="predicted"``, persisted, counted in
+``learn.predict``) and queues a ``tune="full"`` re-resolve on
+:data:`repro_torch.learn.refine.QUEUE`, which overwrites the plan in
+place.  A cached predicted plan counts as a miss under ``tune="full"``;
+under ``"cached"`` a hit on one re-queues its refinement.  A search
+records the reference's
 ``tune.search`` span and its ``tune.searches``, ``tune.measurements`` and
 ``tune.measurements.per_search`` instruments.
 """
@@ -40,7 +44,7 @@ from repro_torch import obs
 from repro_torch.bridge import to_numpy
 from repro_torch.tune import search
 from repro_torch.tune.plan import COMPUTE_DTYPES, TUNE_MODES, TunePlan
-from repro_torch.tune.space import current_params, search_space
+from repro_torch.tune.space import current_params, search_space, tile_axes
 
 #: SBBNNLS per-iteration op mix: DSC twice an iteration, WC on three
 #: iterations of two (the weighting formats/select.py measures under)
@@ -100,10 +104,57 @@ def _phi_stats_for(phi, config) -> dict:
 
 def _predicted(name: str, key: str, phi, problem, config,
                cache) -> Optional[TunePlan]:
-    """Zero-measurement rung for a ``tune="cached"`` miss: the learned
-    predictor's plan.  The port has no predictor until ROADMAP A11, so
-    this answers None and the caller runs the config's constants."""
-    return None
+    """Zero-measurement rung for a ``tune="cached"`` miss.
+
+    Replays the nearest trained dataset's winning params for this
+    ``executor@backend``, kept to the axes the executor exposes, with any
+    axis the example lacks taken from the config (a predicted plan is
+    always a legal configuration).  Returns None (the caller runs the
+    config's constants) when prediction is off, no predictor is trained,
+    or there is nothing to predict: an executor without tile axes under a
+    fixed dtype is fully determined already.
+    """
+    if getattr(config, "predict", "auto") == "off" or not cache.enabled:
+        return None
+    axes = tile_axes(name)
+    requested = getattr(config, "compute_dtype", "fp32")
+    if not axes and requested != "auto":
+        return None
+    from repro_torch.learn import load_predictor
+    predictor = load_predictor(cache.directory)
+    if predictor is None:
+        return None
+    backend = backend_name(phi.device)
+    stats = _phi_stats_for(phi, config)
+    payload = predictor.predict_tune(stats, executor=name, backend=backend)
+    if payload is None:
+        obs.counter("learn.predict", kind="tune", outcome="fallback").inc()
+        return None
+    obs.counter("learn.predict", kind="tune", outcome="hit").inc()
+    params = current_params(name, config)
+    params.update({ax: int(payload[ax]) for ax in axes if ax in payload})
+    dtype = _resolved_dtype(config)
+    if requested == "auto" and payload.get("compute_dtype") in COMPUTE_DTYPES:
+        dtype = payload["compute_dtype"]
+    plan = TunePlan(executor=name, backend=backend,
+                    n_devices=device_count(backend), params=params,
+                    compute_dtype=dtype, reason="predicted", stats=stats)
+    cache.put_tune_plan(key, plan)
+    _enqueue_refinement(name, key, phi, problem, config, cache)
+    return plan
+
+
+def _enqueue_refinement(name: str, key: str, phi, problem, config,
+                        cache) -> None:
+    """Queue a measured ``tune="full"`` re-resolve that overwrites a
+    predicted plan in place (the full mode treats the cached predicted
+    entry as a miss)."""
+    from repro_torch.learn import refine
+
+    def _task() -> None:
+        resolve_plan(name, phi, problem, replace(config, tune="full"), cache)
+
+    refine.QUEUE.push("tune", key, _task)
 
 
 def resolve_plan(name: str, phi, problem, config, cache) -> Optional[TunePlan]:
@@ -133,10 +184,14 @@ def resolve_plan(name: str, phi, problem, config, cache) -> Optional[TunePlan]:
         mesh=(int(getattr(config, "shard_rows", 1)),
               int(getattr(config, "shard_cols", 1))))
     plan = cache.get_tune_plan(key)
-    # a cached predicted plan is a miss for the full mode, which measures
-    # and overwrites it
-    if plan is not None and not (plan.reason == "predicted"
-                                 and mode == "full"):
+    if plan is not None and plan.reason == "predicted":
+        if mode == "full":
+            plan = None       # the refinement path: measure and overwrite
+        else:
+            # still serving a prediction: make sure its refinement is
+            # queued (a process restart drops the in-memory queue)
+            _enqueue_refinement(name, key, phi, problem, config, cache)
+    if plan is not None:
         return plan
     if mode == "cached":
         plan = _predicted(name, key, phi, problem, config, cache)

@@ -276,6 +276,98 @@ def test_selection_measured_rung_picks_a_candidate():
     assert search.measurement_count() - before == 3
 
 
+def _spy_coo_dsc(monkeypatch):
+    """Count the coo candidate's DSC builds and calls on B1's path
+    (``kernels/ops.py:make_dsc``) and on ``opt``'s (``core/spmv.py:dsc``)."""
+    from repro_torch.core import spmv
+    from repro_torch.kernels import ops as kops
+    seen = {"make_dsc": 0, "make_dsc.calls": 0, "spmv.dsc": 0}
+    make_dsc, dsc = kops.make_dsc, spmv.dsc
+
+    def spy_make_dsc(*a, **k):
+        seen["make_dsc"] += 1
+        matvec = make_dsc(*a, **k)
+
+        def counted(w):
+            seen["make_dsc.calls"] += 1
+            return matvec(w)
+        return counted
+
+    def spy_dsc(*a, **k):
+        seen["spmv.dsc"] += 1
+        return dsc(*a, **k)
+
+    monkeypatch.setattr(kops, "make_dsc", spy_make_dsc)
+    monkeypatch.setattr(spmv, "dsc", spy_dsc)
+    return seen
+
+
+@pytest.mark.parametrize("executor", ["kernel", "opt"])
+def test_measured_rung_times_coo_on_its_executor(executor, monkeypatch):
+    """The coo candidate is timed on what ``executor_for("coo", config)``
+    runs: B1 over the inspector's tile plan (``make_dsc``) under
+    ``executor="kernel"``, never ``opt``'s ``spmv.dsc``; ``spmv.dsc`` under
+    ``executor="opt"``.  SELL is struck, so coo, alto and fcoo are timed."""
+    from types import SimpleNamespace
+    _, t = _both(*_skewed())
+    d = torch.tensor(np.random.default_rng(5).normal(
+        size=(t.n_atoms, 8)).astype(np.float32))
+    seen = _spy_coo_dsc(monkeypatch)
+    before = search.measurement_count()
+    plan = fsel.resolve_format(
+        t, SimpleNamespace(dictionary=d),
+        LifeConfig(executor=executor, format="auto", c_tile=64,
+                   plan_cache_dir=""))
+    assert plan.reason == "autotune"
+    assert search.measurement_count() - before == 3
+    if executor == "kernel":
+        assert seen["make_dsc"] == 1 and seen["make_dsc.calls"] >= 2
+        assert seen["spmv.dsc"] == 0
+    else:
+        assert seen["make_dsc"] == 0 and seen["spmv.dsc"] >= 2
+
+
+def test_cohort_selection_still_times_opt_dsc(monkeypatch, tiny_cohort):
+    """The cohort engine (executor="opt", coo vs alto) times ``opt``'s
+    ``spmv.dsc`` for coo, as before the measured rung followed the
+    executor, and never builds B1's operands."""
+    from repro_torch.core.batched import BatchedLifeEngine
+    cohort = [_port(p) for p in tiny_cohort]
+    seen = _spy_coo_dsc(monkeypatch)
+    eng = BatchedLifeEngine(cohort, LifeConfig(executor="opt", format="auto",
+                                               plan_cache_dir=""),
+                            device="cpu")
+    assert eng.format_plan.reason == "autotune"
+    assert eng.format_plan.format in ("coo", "alto")
+    assert seen["make_dsc"] == 0 and seen["spmv.dsc"] >= 2
+
+
+def test_format_plan_key_carries_the_coo_executor(tmp_path, tiny_problem):
+    """A FormatPlan chosen with coo timed on B1 is not replayed for
+    ``opt`` (and the other way round): the key carries the executor."""
+    tp = _port(tiny_problem)
+    common = dict(sizes=(tp.phi.n_atoms, tp.phi.n_voxels, tp.phi.n_fibers),
+                  row_tile=8, slot_tile=32, allowed=fsel.DEFAULT_CANDIDATES,
+                  backend="cpu")
+    ids = (tp.phi.atoms.numpy(), tp.phi.voxels.numpy(),
+           tp.phi.fibers.numpy())
+    keys = {ex: format_plan_key(*ids, coo_executor=ex, **common)
+            for ex in ("opt", "kernel", "naive")}
+    assert len(set(keys.values())) == 3
+    cfg = LifeConfig(format="auto", c_tile=64, plan_cache_dir=str(tmp_path))
+    first = LifeEngine(tp, dataclasses.replace(cfg, executor="kernel"),
+                       device="cpu")
+    assert first.cache_stats.misses >= 1
+    other = LifeEngine(tp, dataclasses.replace(cfg, executor="opt"),
+                       device="cpu")
+    assert other.cache_stats.hits == 0
+    again = LifeEngine(tp, dataclasses.replace(cfg, executor="kernel"),
+                       device="cpu")
+    assert again.cache_stats.misses == 0
+    assert dataclasses.asdict(again.format_plan) == \
+        dataclasses.asdict(first.format_plan)
+
+
 @pytest.mark.parametrize("fmt", ["coo", "sell", "alto", "fcoo"])
 def test_selection_explicit_format_and_executor_match_reference(
         fmt, tiny_problem):
@@ -334,7 +426,7 @@ def test_warm_rebuild_reads_cached_format_plan(tmp_path):
     key = format_plan_key(
         t.atoms.numpy(), t.voxels.numpy(), t.fibers.numpy(),
         sizes=(t.n_atoms, t.n_voxels, t.n_fibers), row_tile=8, slot_tile=32,
-        allowed=fsel.DEFAULT_CANDIDATES, backend="cpu",
+        allowed=fsel.DEFAULT_CANDIDATES, backend="cpu", coo_executor="opt",
         sell_accept=fsel.DEFAULT_SELL_ACCEPT,
         sell_reject=fsel.DEFAULT_SELL_REJECT)
     theirs = JPlanCache(str(tmp_path)).get_format_plan(key)
@@ -343,8 +435,14 @@ def test_warm_rebuild_reads_cached_format_plan(tmp_path):
     assert key != format_plan_key(
         t.atoms.numpy(), t.voxels.numpy(), t.fibers.numpy(),
         sizes=(t.n_atoms, t.n_voxels, t.n_fibers), row_tile=8, slot_tile=32,
-        allowed=fsel.DEFAULT_CANDIDATES, backend="cuda",
+        allowed=fsel.DEFAULT_CANDIDATES, backend="cuda", coo_executor="opt",
         sell_accept=fsel.DEFAULT_SELL_ACCEPT,
+        sell_reject=fsel.DEFAULT_SELL_REJECT)
+    assert key != format_plan_key(
+        t.atoms.numpy(), t.voxels.numpy(), t.fibers.numpy(),
+        sizes=(t.n_atoms, t.n_voxels, t.n_fibers), row_tile=8, slot_tile=32,
+        allowed=fsel.DEFAULT_CANDIDATES, backend="cpu",
+        coo_executor="kernel", sell_accept=fsel.DEFAULT_SELL_ACCEPT,
         sell_reject=fsel.DEFAULT_SELL_REJECT)
     # other thresholds may choose otherwise: a different key
     fsel.choose_format(t, d, cache=cache, sell_accept=-1.0, sell_reject=-0.5)

@@ -68,6 +68,37 @@ def test_port_files_exist():
         assert want in names
 
 
+#: the learned-selection, front-line and science slice (ROADMAP A11, A12)
+SLICE_TEN = ("learn/features.py", "learn/model.py", "learn/harvest.py",
+             "learn/refine.py", "learn/__init__.py", "formats/select.py",
+             "tune/tuner.py", "core/plan_cache.py", "core/life.py",
+             "serve/frontend.py", "serve/__init__.py", "data/dmri.py",
+             "science/prune.py", "science/crossval.py",
+             "science/incremental.py", "science/lesion.py",
+             "science/__init__.py")
+
+
+@pytest.mark.parametrize("module", SLICE_TEN)
+def test_slice_ten_modules_exist_and_import_alone(module):
+    """Each module of the slice is in the port and imports in a fresh
+    interpreter that has neither jax nor the reference importable."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in FILES
+    name = "repro_torch." + module[:-3].replace("/", ".").removesuffix(
+        ".__init__")
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            f"import {name}\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)
                          .as_posix())
 def test_no_jax_or_reference_import(path):

@@ -302,6 +302,45 @@ def test_build_names_sources_and_refuses_without_toolkit(monkeypatch,
         _build.build(["dsc"])
 
 
+def test_load_builds_a_library_once_across_threads(monkeypatch):
+    """Two threads asking for one kernel library at once: the compiler
+    (stubbed) runs once and both get the same loaded library."""
+    import ctypes
+    import threading
+    import time
+    builds, loads = [], []
+
+    def slow_build(names):
+        builds.append(tuple(names))
+        time.sleep(0.2)                  # both threads arrive meanwhile
+        return {n: 0.0 for n in names}
+
+    class FakeLib:
+        def __init__(self, path):
+            loads.append(path)
+            self.entry = type("Fn", (), {})()
+
+    monkeypatch.setattr(_build, "build", slow_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    got = [None, None]
+    start = threading.Barrier(2)
+
+    def ask(i):
+        start.wait(timeout=10)
+        got[i] = _build.load("dsc", {"entry": [ctypes.c_int]})
+
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert builds == [("dsc",)] and len(loads) == 1
+    assert got[0] is got[1] is not None
+    assert got[0].entry.restype is ctypes.c_int
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_atoms,row_tile", [(40, 8), (40, 16), (8192, 4)])
 @pytest.mark.parametrize("n_theta", [16, 64, 96, 128, 160])
