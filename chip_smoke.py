@@ -128,6 +128,32 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                the resubmitted delta 32 + 24); launches inside the
                measured rung and the searches are counted apart and
                logged (their 20 ms warm-up makes them time-dependent).
+  13. mesh   — (after 12) the mesh partition on the main problem:
+               13a LifeEngine with executor="shard" and with format="sell"
+               + executor="shard-sell" at (1, 1), 20 iterations each:
+               B3/B4 launched exactly 2 DSC + 1.5 WC an iteration (one
+               cell), weights within the trajectory tolerance of opt,
+               shard-sell bit-identical to kernel-sell; a (2, 2) engine
+               refused (4 devices against 1).  13b B3 and B4 at every
+               cell shape of a (2, 2) sell partition (the common width,
+               padding rows) and at an empty cell (built on purpose where
+               the partition has none) against their plain versions and
+               float64 oracles, each timed beside its bound, with its
+               width, padding and bytes.  13c four ranks on the one card
+               (fresh interpreters, gloo over CUDA tensors: NCCL refuses
+               two ranks on one GPU), the partition built once in the
+               parent and each rank's cell written under build/mesh:
+               make_sharded_step at (2, 2) for 10 iterations within rtol
+               1e-3 / atol 1e-4 of LifeEngine(opt), make_sharded_step_1d
+               for 4, make_sharded_sell_ops (B3/B4 per rank, then
+               all_reduce) within 1e-6 relative of the local mesh's sums;
+               collective bytes per iteration (2-D below 1-D) and seconds
+               per iteration, gloo through host memory.  13d one NCCL rank
+               runs the 2-D step at (1, 1) for 5 iterations, bit-identical
+               to the local mesh.  13e a LifeService (slices of 16) with a
+               mesh=(1, 1) coo job and a sell job of 32 iterations, each
+               bit-identical to its own LifeEngine(shard*) solve, again
+               after a kill and resume; a mesh=(2, 2) submit refused.
   6. timing  — each kernel at the main path's shapes (CUDA events) beside
                its bound (the compulsory work of
                repro_torch/roofline/spmv_bytes.py), its plain version and
@@ -2499,6 +2525,422 @@ def phase_slice_ten(problem, cohort) -> None:
 
 
 # ----------------------------------------------------------------------------
+# 13. the mesh partition: shard / shard-sell, B3/B4 per cell, SPMD ranks
+# ----------------------------------------------------------------------------
+
+MESH_ITERS = 20
+MESH_SHAPE = (2, 2)
+MESH_SPMD_ITERS = 10
+MESH_1D_ITERS = 4
+MESH_NCCL_ITERS = 5
+MESH_SERVE_ITERS = 32
+MESH_SERVE_SLICE = 16
+#: the SPMD steps against LifeEngine(opt) (tests/test_distributed.py:58)
+SPMD_TOL = dict(rtol=1e-3, atol=1e-4)
+#: per-rank SpMVs against the local mesh's ordered sums, relative to the
+#: largest |value|
+SPMD_OPS_RTOL = 1e-6
+#: each SPMD run's deadline, the ranks' start-up included
+SPMD_DEADLINE_S = 240.0
+MESH_DIR = os.path.join(ROOT, "build", "mesh")
+
+
+def mesh_solve(problem, cfg):
+    """A LifeEngine solve of ``cfg`` with every launch count set to 0 just
+    before; returns (engine, weights, losses, launches, seconds)."""
+    from repro_torch.core.life import LifeEngine
+    from repro_torch.kernels import _build
+    eng = LifeEngine(problem, cfg, device="cuda")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    w, losses = eng.run()
+    torch.cuda.synchronize()
+    return (eng, w, losses, {k: v for k, v in _build.LAUNCHES.items() if v},
+            time.perf_counter() - t0)
+
+
+def mesh_engines(problem) -> dict:
+    """13a: the registry's mesh executors at (1, 1) on the card: exact
+    B3/B4 launches, weights against opt, shard-sell bit for bit
+    kernel-sell, a (2, 2) engine refused."""
+    from repro_torch.core.life import LifeConfig, LifeEngine
+    base = LifeConfig(n_iters=MESH_ITERS, plan_cache_dir="")
+    eng, w_opt, _, _, s_opt = mesh_solve(problem, base)
+    opt_ms, _ = time_steps(eng, eng.init_state())
+    sell_want = {"dsc_sell": 2 * MESH_ITERS, "wc_sell": 3 * MESH_ITERS // 2}
+    got = {}
+    for name, kw, want in (
+            ("shard", dict(executor="shard"), {}),
+            ("shard-sell", dict(executor="shard-sell", format="sell"),
+             sell_want),
+            ("kernel-sell", dict(executor="kernel-sell", format="sell"),
+             sell_want)):
+        eng, w, losses, counts, secs = mesh_solve(
+            problem, dataclasses.replace(base, **kw))
+        diff = float((w - w_opt).abs().max())
+        step_ms, _ = time_steps(eng, eng.init_state())
+        log("mesh", f"13a {name} (1, 1): executor {eng.executor.name}, "
+            f"{MESH_ITERS} iterations in {secs:.3f} s (opt {s_opt:.3f} s), "
+            f"launches {counts} (expected {want}), weights vs opt max abs "
+            f"diff {diff:.3e}, loss {float(losses[-1]):.6e}; step "
+            f"{step_ms:.4f} ms (opt {opt_ms:.4f} ms; CUDA events over 20 "
+            f"iterations)")
+        if eng.executor.name != name or counts != want:
+            raise AssertionError(f"mesh: {name} ran {eng.executor.name} "
+                                 f"with launches {counts} != {want}")
+        torch.testing.assert_close(w, w_opt, **TRAJ_TOL)
+        got[name] = (w, losses, counts)
+    same = (torch.equal(got["shard-sell"][0], got["kernel-sell"][0])
+            and torch.equal(got["shard-sell"][1], got["kernel-sell"][1]))
+    log("mesh", f"13a shard-sell (1, 1) bit-identical to kernel-sell (the "
+        f"cell is the whole Phi): {same}")
+    if not same:
+        raise AssertionError("mesh: shard-sell (1, 1) differs from "
+                             "kernel-sell")
+    try:
+        LifeEngine(problem, dataclasses.replace(
+            base, executor="shard-sell", format="sell",
+            shard_rows=MESH_SHAPE[0], shard_cols=MESH_SHAPE[1]),
+            device="cuda")
+    except ValueError as exc:
+        log("mesh", f"13a a {MESH_SHAPE} engine refused: {exc}")
+        if "needs 4 devices, have 1" not in str(exc):
+            raise
+    else:
+        raise AssertionError("mesh: a (2, 2) engine was not refused")
+    return got["shard-sell"][2]
+
+
+def sell_cell(shard, r: int, c: int):
+    """Cell (r, c) of a sell ShardPhi as a SellPhi (views of the stacked
+    arrays)."""
+    from repro_torch.formats.sell import SellPhi
+    return SellPhi(op=shard.op, atoms=shard.arrays["atoms"][r, c],
+                   others=shard.arrays["others"][r, c],
+                   values=shard.arrays["values"][r, c],
+                   row_nnz=shard.arrays["row_nnz"][r, c],
+                   row_tile=shard.row_tile, slot_tile=shard.slot_tile,
+                   n_atoms=shard.n_atoms, n_voxels=shard.nv_local,
+                   n_fibers=shard.nf_local)
+
+
+def mesh_cells(problem, errors: dict) -> tuple:
+    """13b: B3 and B4 at the cell shapes of a (2, 2) partition (and at an
+    empty cell) against their plain versions and float64 oracles, timed
+    beside their bounds.  Returns the sell ShardPhis and each cell's
+    device operands."""
+    from repro_torch.core.std import PhiTensor
+    from repro_torch.formats.sell import SellPhi
+    from repro_torch.formats.shard import encode_pair
+    from repro_torch.kernels import ops
+    from repro_torch.roofline import spmv_bytes as sb
+    phi, d = problem.phi, problem.dictionary
+    n_theta = d.shape[1]
+    t0 = time.perf_counter()
+    sd, sw = encode_pair(phi, cell_format="sell", R=MESH_SHAPE[0],
+                         C=MESH_SHAPE[1], row_tile=8, slot_tile=32)
+    log("mesh", f"13b {MESH_SHAPE} sell partition encoded in "
+        f"{time.perf_counter() - t0:.2f} s: voxel cuts "
+        f"{sd.voxel_cuts.tolist()}, fiber cuts {sd.fiber_cuts.tolist()}, "
+        f"nv_local {sd.nv_local}, nf_local {sd.nf_local}, cell nnz "
+        f"{sd.cell_nnz.tolist()}; DSC width {sd.arrays['atoms'].shape[3]} "
+        f"(padding {sd.padding_overhead:.3f}, {sd.nbytes} bytes), WC width "
+        f"{sw.arrays['atoms'].shape[3]} (padding "
+        f"{sw.padding_overhead:.3f}, {sw.nbytes} bytes)")
+    cells = {(r, c): (sell_cell(sd, r, c), sell_cell(sw, r, c))
+             for r in range(MESH_SHAPE[0]) for c in range(MESH_SHAPE[1])}
+    cases = {f"cell ({r},{c})": v for (r, c), v in cells.items()}
+    if not (sd.cell_nnz == 0).any():
+        # no cell of this partition is empty: build one on purpose, at the
+        # partition's cell shape
+        empty = PhiTensor(
+            atoms=torch.zeros(0, dtype=torch.int32),
+            voxels=torch.zeros(0, dtype=torch.int32),
+            fibers=torch.zeros(0, dtype=torch.int32),
+            values=torch.zeros(0), n_atoms=phi.n_atoms,
+            n_voxels=sd.nv_local, n_fibers=sd.nf_local)
+        cases["empty cell (built)"] = (
+            SellPhi.encode(empty, op="dsc", row_tile=8, slot_tile=32),
+            SellPhi.encode(empty, op="wc", row_tile=8, slot_tile=32))
+    g = torch.Generator(device="cuda").manual_seed(13)
+    operands = {}
+    rows = []
+    for case, (cd_, cw_) in cases.items():
+        od = ops.sell_operands(cd_, "cuda")
+        ow = ops.sell_operands(cw_, "cuda")
+        w = torch.rand(sd.nf_local, generator=g, device="cuda")
+        y = torch.randn(sd.nv_local, n_theta, generator=g, device="cuda")
+        for name, o, x, cell in (("dsc_sell", od, w, cd_),
+                                 ("wc_sell", ow, y, cw_)):
+            got = run_format(name, o, d, x)
+            plain = run_format(name, o, d, x, plain=True)
+            compare(name, f"mesh {case}", got, plain, "fp32", errors)
+            hold_to_oracle(name, f"mesh {case}", "fp32", got, plain,
+                           *format_oracle(name, o, d, x, got.shape[0]))
+            if cell.n_coeffs == 0 and got.count_nonzero():
+                raise AssertionError(f"{name} mesh {case}: an empty cell "
+                                     "wrote a nonzero")
+            rows_padded = cell.atoms.shape[0]
+            fn = sb.dsc_sell if name == "dsc_sell" else sb.wc_sell
+            size = (dict(n_fibers=sd.nf_local) if name == "dsc_sell"
+                    else dict(n_voxels=sd.nv_local))
+            work = fn(cell.n_coeffs, n_theta, n_rows=cell.row_nnz.size,
+                      rows_padded=rows_padded,
+                      d_bytes=d.numel() * d.element_size(), **size)
+            ms = time_ms(lambda: run_format(name, o, d, x))
+            plain_ms = time_ms(lambda: run_format(name, o, d, x, True))
+            bound_ms, bound_by = bound(work.bytes, work.flops)
+            rows.append((case, name, cell, ms, plain_ms, bound_ms, bound_by))
+            log("mesh", f"13b {name} {case}: nnz {cell.n_coeffs}, width "
+                f"{cell.width}, padding {cell.padding_overhead:.3f}, "
+                f"{cell.nbytes} bytes; {ms:.4f} ms (bound {bound_ms:.4f} ms "
+                f"by {bound_by}), plain {plain_ms:.4f} ms")
+        if case.startswith("cell"):
+            operands[case] = (od, ow)
+    return sd, sw, operands
+
+
+def spmd_collectives(out: dict, prog: str, iters: int) -> dict:
+    """collective_bytes of one rank's recorded collectives, per
+    iteration."""
+    from repro_torch.roofline.analysis import collective_bytes
+    recs = [("all-reduce", int(b), int(g)) for b, g in
+            zip(out[f"{prog}_coll_bytes"], out[f"{prog}_coll_groups"])]
+    cb = collective_bytes(recs)
+    return dict(bytes=cb["total"] / iters,
+                all_reduces=cb["counts"]["all-reduce"] / iters)
+
+
+def mesh_spmd(problem, sd, sw, operands) -> dict:
+    """13c: four gloo ranks on the one card: the 2-D and 1-D steps against
+    opt, B3/B4 per rank against the local mesh's sums, collective bytes
+    and seconds.  13d: one NCCL rank at (1, 1) against the local mesh."""
+    import shutil
+    from repro_torch.core.life import LifeConfig
+    from repro_torch.distributed import life_shard as LS
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.mesh import LocalMesh
+    phi, d = problem.phi, problem.dictionary
+    n_theta = d.shape[1]
+    R, C = MESH_SHAPE
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    shards = LS.build_life_shards(phi, n_theta, R, C)
+    blocks = LS.build_life_shards_1d(phi, R * C)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    pw = torch.rand(phi.n_fibers, generator=g, device="cuda")
+    py = torch.randn(phi.n_voxels, n_theta, generator=g, device="cuda")
+    gloo_dir = os.path.join(MESH_DIR, "gloo4")
+    sizes = spmd.write_inputs(gloo_dir, problem, shards, sell=(sd, sw),
+                              blocks_1d=blocks,
+                              probes=(pw.cpu().numpy(), py.cpu().numpy()))
+    written = sum(os.path.getsize(os.path.join(gloo_dir, f))
+                  for f in os.listdir(gloo_dir))
+    log("mesh", f"13c partitions built and {R * C} rank files written once "
+        f"in the parent: {time.perf_counter() - t0:.2f} s, {written} bytes")
+    log("mesh", "13c four ranks on one card: gloo over CUDA tensors, chosen "
+        "because NCCL refuses two ranks on one GPU ('Duplicate GPU "
+        "detected'); these are gloo-through-host numbers, not NVLink ones")
+    t0 = time.perf_counter()
+    outs = spmd.run(gloo_dir, sizes, programs=("step2d", "step1d",
+                                               "sell_ops"),
+                    iters=dict(step2d=MESH_SPMD_ITERS, step1d=MESH_1D_ITERS),
+                    backend="gloo", devices=["cuda:0"] * (R * C),
+                    deadline_s=SPMD_DEADLINE_S)
+    staged = [bool(o["staged"]) for o in outs]
+    log("mesh", f"13c {R * C} ranks ran in {time.perf_counter() - t0:.2f} s "
+        f"(start-up, loads and the three programs); gloo staged CUDA "
+        f"tensors through host tensors: {staged}")
+
+    base = LifeConfig(executor="opt", plan_cache_dir="")
+    w_opt = {n: mesh_solve(problem, dataclasses.replace(base, n_iters=n))[1]
+             .cpu().numpy() for n in (MESH_SPMD_ITERS, MESH_1D_ITERS)}
+    w2 = LS.unshard_w(shards, np.concatenate(
+        [outs[c]["step2d_w"] for c in range(C)]))
+    w1 = outs[0]["step1d_w"]
+    for label, w, ref in (("2-D", w2, w_opt[MESH_SPMD_ITERS]),
+                          ("1-D", w1, w_opt[MESH_1D_ITERS])):
+        log("mesh", f"13c {label} step vs LifeEngine(opt) on the card: max "
+            f"abs diff {np.abs(w - ref).max():.3e} (rtol "
+            f"{SPMD_TOL['rtol']}, atol {SPMD_TOL['atol']})")
+        np.testing.assert_allclose(w, ref, **SPMD_TOL)
+
+    # B3/B4 per rank, then all_reduce, against the local mesh's ordered
+    # sums of the same kernels' per-cell outputs
+    nv_l, nf_l = shards.nv_local, shards.nf_local
+    pw_pad = torch.as_tensor(LS.shard_w(shards, pw.cpu().numpy()),
+                             device="cuda")
+    py_pad = torch.as_tensor(LS.shard_b(shards, py.cpu().numpy()),
+                             device="cuda")
+    worst = 0.0
+    for r in range(R):
+        for c in range(C):
+            y_ref = sum(run_format("dsc_sell", operands[f"cell ({r},{cc})"][0],
+                                   d, pw_pad[cc * nf_l:(cc + 1) * nf_l])[:nv_l]
+                        for cc in range(C))
+            w_ref = sum(run_format("wc_sell", operands[f"cell ({rr},{c})"][1],
+                                   d, py_pad[rr * nv_l:(rr + 1) * nv_l]
+                                   .contiguous())[:nf_l]
+                        for rr in range(R))
+            out = outs[r * C + c]
+            for got, ref in ((out["sell_ops_y"], y_ref),
+                             (out["sell_ops_w"], w_ref)):
+                ref = ref.cpu().numpy()
+                rel = float(np.abs(got - ref).max()
+                            / max(np.abs(ref).max(), 1e-30))
+                worst = max(worst, rel)
+    launches = np.sum([o["sell_ops_launches"] for o in outs], axis=0)
+    log("mesh", f"13c make_sharded_sell_ops on {R * C} ranks vs the local "
+        f"mesh's ordered sums: worst relative diff {worst:.3e} (limit "
+        f"{SPMD_OPS_RTOL}); B3/B4 launches over the ranks "
+        f"{launches.tolist()} (expected [{R * C}, {R * C}])")
+    if worst > SPMD_OPS_RTOL or launches.tolist() != [R * C, R * C]:
+        raise AssertionError("mesh: the ranks' B3/B4 SpMVs are off the "
+                             "local mesh")
+    coll = {p: spmd_collectives(outs[0], p, n) for p, n in
+            (("step2d", MESH_SPMD_ITERS), ("step1d", MESH_1D_ITERS))}
+    secs = {p: max(float(o[f"{p}_seconds"]) for o in outs)
+            for p in ("step2d", "step1d")}
+    log("mesh", f"13c collective bytes moved per device and iteration "
+        f"(roofline/analysis.py:collective_bytes, ring factors): 2-D "
+        f"{coll['step2d']['bytes']:.0f} B in "
+        f"{coll['step2d']['all_reduces']:.1f} all-reduces, 1-D "
+        f"{coll['step1d']['bytes']:.0f} B in "
+        f"{coll['step1d']['all_reduces']:.1f} (1-D / 2-D "
+        f"{coll['step1d']['bytes'] / coll['step2d']['bytes']:.2f})")
+    log("mesh", f"13c seconds per iteration (slowest rank, barrier to "
+        f"barrier, gloo through host memory on one card): 2-D "
+        f"{secs['step2d'] / MESH_SPMD_ITERS:.4f} s, 1-D "
+        f"{secs['step1d'] / MESH_1D_ITERS:.4f} s")
+    if not coll["step2d"]["bytes"] < coll["step1d"]["bytes"]:
+        raise AssertionError("mesh: the 2-D step moved no fewer bytes than "
+                             "the 1-D one")
+
+    # 13d: the NCCL path one card can run, world size 1
+    t0 = time.perf_counter()
+    one = LS.build_life_shards(phi, n_theta, 1, 1)
+    nccl_dir = os.path.join(MESH_DIR, "nccl1")
+    out = spmd.run(nccl_dir, spmd.write_inputs(nccl_dir, problem, one),
+                   programs=("step2d",), iters=dict(step2d=MESH_NCCL_ITERS),
+                   backend="nccl", devices=["cuda:0"],
+                   deadline_s=SPMD_DEADLINE_S)[0]
+    mesh = LocalMesh(1, 1, "cuda")
+    st = LS.sharded_state(mesh, one, problem)
+    step = LS.make_sharded_step(mesh, one.meta)
+    w = st["w"]
+    for it in range(MESH_NCCL_ITERS):
+        w, _ = step(st["dsc"], st["wc"], st["b"], w, it)
+    w_local = w[0].cpu().numpy()
+    _, w_eng, _, _, _ = mesh_solve(problem, dataclasses.replace(
+        base, executor="shard", n_iters=MESH_NCCL_ITERS))
+    same = np.array_equal(out["step2d_w"], w_local)
+    log("mesh", f"13d one NCCL rank, make_sharded_step (1, 1) for "
+        f"{MESH_NCCL_ITERS} iterations ({time.perf_counter() - t0:.2f} s "
+        f"with its start-up): bit-identical to the local mesh's step "
+        f"{same}; LifeEngine(shard) bit-identical "
+        f"{np.array_equal(w_eng.cpu().numpy(), w_local)}")
+    if not same:
+        raise AssertionError("mesh: the NCCL rank differs from the local "
+                             "mesh")
+    return {"dsc_sell": int(launches[0]), "wc_sell": int(launches[1])}
+
+
+def mesh_service(problem) -> dict:
+    """13e: mesh jobs through LifeService: bit for bit their own engines,
+    again after a kill and resume; a (2, 2) submit refused."""
+    import shutil
+    from repro_torch.core.life import LifeConfig
+    from repro_torch.kernels import _build
+    from repro_torch.serve import LifeService
+    root = os.path.join(MESH_DIR, "serve")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = LifeConfig(n_iters=MESH_SERVE_ITERS,
+                     plan_cache_dir=os.path.join(root, "plans"))
+    jobs = (("mesh-coo", "coo", "shard"), ("mesh-sell", "sell", "shard-sell"))
+
+    def service(**kw):
+        svc = LifeService(cfg, slice_iters=MESH_SERVE_SLICE, device="cuda",
+                          **kw)
+        for jid, fmt, _ in jobs:
+            svc.submit(problem, job_id=jid, format=fmt, mesh=(1, 1))
+        return svc
+
+    t0 = time.perf_counter()
+    svc = service()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    results = svc.run()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    want = {"dsc_sell": 2 * MESH_SERVE_ITERS,
+            "wc_sell": 3 * MESH_SERVE_ITERS // 2}
+    log("mesh", f"13e two mesh=(1, 1) jobs of {MESH_SERVE_ITERS} iterations "
+        f"in slices of {MESH_SERVE_SLICE}: {time.perf_counter() - t0:.3f} s "
+        f"wall with submits and builds; launches {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"mesh: service launches {counts} != {want}")
+    for jid, fmt, ex in jobs:
+        _, w, losses, _, _ = mesh_solve(problem, dataclasses.replace(
+            cfg, executor=ex, format=fmt))
+        same = (torch.equal(results[jid][0], w)
+                and torch.equal(results[jid][1], losses))
+        log("mesh", f"13e {jid} vs LifeEngine({ex}, (1, 1)): bit-identical "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"mesh: {jid} differs from its engine")
+    ck = os.path.join(root, "ckpt")
+    dying = service(ckpt_dir=ck, checkpoint_every=1)
+    dying.step()
+    dying.step()
+    del dying
+    resumed = LifeService(cfg, ckpt_dir=ck, slice_iters=MESH_SERVE_SLICE,
+                          device="cuda")
+    adopted = resumed.resumable_jobs
+    for jid, _, _ in jobs:
+        resumed.submit(problem, job_id=jid)      # format and mesh restored
+    meta = {jid: (resumed.scheduler.job(jid).done,
+                  resumed.scheduler.job(jid).mesh) for jid, _, _ in jobs}
+    got = resumed.run()
+    same = {jid: torch.equal(got[jid][0], results[jid][0])
+            and torch.equal(got[jid][1], results[jid][1]) for jid, _, _ in jobs}
+    log("mesh", f"13e killed after 2 ticks with {adopted} checkpointed "
+        f"(done, mesh: {meta}); resumed jobs bit-identical {same}")
+    if not all(same.values()):
+        raise AssertionError("mesh: a resumed mesh job differs")
+    try:
+        svc.submit(problem, job_id="mesh-2x2", format="coo",
+                   mesh=MESH_SHAPE)
+    except ValueError as exc:
+        log("mesh", f"13e a mesh={MESH_SHAPE} submit refused: {exc}")
+        if "needs 4 devices, have 1" not in str(exc):
+            raise
+    else:
+        raise AssertionError("mesh: a (2, 2) submit was not refused")
+    return counts
+
+
+def phase_mesh(problem, errors: dict) -> dict:
+    """Phase 13: the mesh partition.  Returns B3/B4's launches on the mesh
+    path (13a's shard-sell solve, 13c's ranks, 13e's sell job)."""
+    t0 = time.perf_counter()
+
+    def timed(sub: str, fn):
+        t1 = time.perf_counter()
+        out = fn()
+        log("mesh", f"sub-phase {sub} took {time.perf_counter() - t1:.1f} s")
+        return out
+
+    launches = dict(timed("13a engines", lambda: mesh_engines(problem)))
+    sd, sw, operands = timed("13b cells", lambda: mesh_cells(problem, errors))
+    add_launches(launches, timed("13c/13d ranks", lambda: mesh_spmd(
+        problem, sd, sw, operands)))
+    add_launches(launches, timed("13e service", lambda: mesh_service(problem)))
+    log("mesh", f"phase 13 took {time.perf_counter() - t0:.1f} s; B3/B4 "
+        f"launches on the mesh path {launches}")
+    return launches
+
+
+# ----------------------------------------------------------------------------
 # 7. MoE serving at full width, on kernel B7
 # ----------------------------------------------------------------------------
 
@@ -2945,6 +3387,8 @@ def main() -> int:
     phase_slice_ten(problem, cohort)
     log("slice-ten", f"phase 12 took {time.perf_counter() - t0:.1f} s")
     del cohort
+    torch.cuda.empty_cache()
+    add_launches(launches, phase_mesh(problem, errors))
     torch.cuda.empty_cache()
     entries = phase_timing(problem, launches, errors)
     del problem, w_opt

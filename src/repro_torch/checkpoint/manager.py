@@ -18,7 +18,7 @@ bfloat16 and float8 leaves, which ``.npz`` cannot hold, are written as
 Restore returns torch CPU tensors (the reference returns numpy arrays),
 viewing those leaves back as ``torch.bfloat16`` and the like;
 :func:`place` moves a restored tree to a device.  Resharding on load under
-a mesh arrives with the mesh slice (ROADMAP A13).
+a mesh is still to be ported (ROADMAP A13).
 """
 from __future__ import annotations
 

@@ -141,8 +141,8 @@ class BatchedLifeEngine:
         if (getattr(config, "shard_rows", 1)
                 * getattr(config, "shard_cols", 1) > 1):
             raise ValueError("shard_rows x shard_cols > 1 is not ported yet: "
-                             "the batched mesh placement arrives with the "
-                             "mesh slice (ROADMAP A13)")
+                             "the cohort's mesh placement is still to come "
+                             "(ROADMAP A13)")
         p0 = self.problems[0]
         for p in self.problems[1:]:
             if (p.phi.n_voxels, p.phi.n_fibers) != (p0.phi.n_voxels,

@@ -1,10 +1,11 @@
 """Inspector layer: host-side tile planning (paper §4.1.3 + §4.2.1.2).
 
 A copy of the numpy-only parts of ``repro/core/inspector.py`` that the
-port runs: the tile planner (``TilePlan``, ``auto_tile``, ``plan_tiles``)
-and the format-selection statistics (``run_lengths``, ``sell_geometry``,
-``phi_stats``).  The port imports nothing of the reference, so it keeps its
-own.  The shard helpers arrive with the mesh slice.
+port runs: the tile planner (``TilePlan``, ``auto_tile``, ``plan_tiles``),
+the format-selection statistics (``run_lengths``, ``sell_geometry``,
+``phi_stats``) and the mesh partition's helpers (``ShardPlan``,
+``shard_boundaries``, ``pad_shards_equal``).  The port imports nothing of
+the reference, so it keeps its own.
 
 ``TilePlan`` cuts *sorted* coefficients into tiles of at most ``c_tile``
 entries such that every tile touches output rows in exactly **one**
@@ -167,3 +168,66 @@ def phi_stats(phi, *, row_tile: int = 8, slot_tile: int = 32) -> dict:
         out[f"{op}.sell_width"] = float(width)
         out[f"{op}.sell_overhead"] = slots / max(1, phi.n_coeffs) - 1.0
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """2-D mesh partition plan: equal-nnz (voxel-range x fiber-range) cells.
+
+    ``voxel_cuts``/``fiber_cuts`` are *id-space* boundaries (int64[R+1] /
+    int64[C+1]): mesh row ``r`` owns voxels ``[voxel_cuts[r],
+    voxel_cuts[r+1])`` and mesh column ``c`` owns fibers ``[fiber_cuts[c],
+    fiber_cuts[c+1])``.  Produced by
+    :func:`repro_torch.formats.shard.partition_cuts` from
+    :func:`shard_boundaries` per dimension, and serialized through the
+    persistent plan cache under a key that includes the mesh shape, the
+    backend and the device count.
+    """
+
+    R: int
+    C: int
+    voxel_cuts: np.ndarray        # int64 (R+1,)
+    fiber_cuts: np.ndarray        # int64 (C+1,)
+
+    @property
+    def nv_local(self) -> int:
+        """Common per-row voxel count (max range length; rows pad up to it)."""
+        return int(np.max(np.diff(self.voxel_cuts)))
+
+    @property
+    def nf_local(self) -> int:
+        return int(np.max(np.diff(self.fiber_cuts)))
+
+
+def shard_boundaries(sorted_ids: np.ndarray, n_shards: int) -> np.ndarray:
+    """Equal-nnz shard cuts snapped to sub-vector boundaries.
+
+    Returns int64[n_shards + 1] coefficient offsets.  Snapping direction is
+    chosen per cut to minimize the induced imbalance (paper Figure 5b, case
+    2: give the straddling sub-vector to whichever side adds less work).
+    """
+    sorted_ids = np.asarray(sorted_ids, np.int64)
+    nc = sorted_ids.size
+    cuts = [0]
+    for s in range(1, n_shards):
+        target = (nc * s) // n_shards
+        if target <= cuts[-1]:
+            cuts.append(cuts[-1])
+            continue
+        v = sorted_ids[min(target, nc - 1)]
+        lo = int(np.searchsorted(sorted_ids, v, side="left"))
+        hi = int(np.searchsorted(sorted_ids, v, side="right"))
+        # snap to whichever sub-vector boundary is closer to the target
+        snap = lo if (target - lo) <= (hi - target) else hi
+        snap = max(snap, cuts[-1])
+        cuts.append(snap)
+    cuts.append(nc)
+    return np.asarray(cuts, np.int64)
+
+
+def pad_shards_equal(cuts: np.ndarray,
+                     pad_to: int | None = None) -> Tuple[np.ndarray, int]:
+    """Per-shard (start, length) padded to a common length for stacking."""
+    lens = np.diff(cuts)
+    width = int(lens.max()) if pad_to is None else pad_to
+    return np.stack([cuts[:-1], lens], axis=1), width

@@ -2,11 +2,14 @@
 
 Torch counterpart of ``repro/core/life.py``.  Executor dispatch goes
 through :mod:`repro_torch.core.registry` (``naive``, ``opt-paper``, ``opt``,
-``kernel``, ``kernel-sell``, ``kernel-fcoo``, ``alto``, ``auto``); the
-engine binds a problem to one executor on one device, runs SBBNNLS through
-the stepped solver API, and reports pruning.  ``format`` other than
-``"coo"`` ("sell", "fcoo", "alto", or "auto", which selects one per
-dataset) goes through ``registry.create_for_format``.
+``kernel``, ``kernel-sell``, ``kernel-fcoo``, ``alto``, ``auto``, and the
+mesh executors ``shard`` / ``shard-sell``); the engine binds a problem to
+one executor rooted at one device, runs SBBNNLS through the stepped solver
+API, and reports pruning.  ``format`` other than ``"coo"`` ("sell",
+"fcoo", "alto", or "auto", which selects one per dataset) goes through
+``registry.create_for_format``.  A multi-cell mesh request
+(``shard_rows * shard_cols > 1``) with ``format="coo"`` routes to the
+format's mesh executor (``shard``), as in the reference.
 
 Tile, SpMV and format plans are memoized through the persistent
 :class:`~repro_torch.core.plan_cache.PlanCache`.  Weight compaction
@@ -17,8 +20,7 @@ solver state (and so its iteration parity).
 ``LifeConfig`` keeps the reference's field names.  ``tune="cached"`` or
 ``"full"`` resolves a :class:`~repro_torch.tune.plan.TunePlan` beneath the
 executor (``tune/tuner.py``; ``compute_dtype="auto"`` is its searched
-dtype axis).  The mesh fields accept only the values the port runs, and
-others raise ``ValueError`` naming the slice that brings them.
+dtype axis).
 
 Observability (:mod:`repro_torch.obs`), the reference's instruments: the
 ``engine.build.seconds`` histogram per build, and per stepped call the
@@ -53,11 +55,8 @@ from repro_torch.tune.tuner import validate_config as validate_tuning
 EXECUTORS = REGISTRY.names()          # public alias; registry is the truth
 
 #: the reference's executors that later port slices bring, by slice
-#: (ROADMAP.md queue A)
-LATER_EXECUTORS = {
-    "shard": "the mesh slice (ROADMAP A13)",
-    "shard-sell": "the mesh slice (ROADMAP A13)",
-}
+#: (ROADMAP.md queue A); none is left
+LATER_EXECUTORS: dict = {}
 
 #: Phi layouts ``LifeConfig.format`` accepts ("auto" selects one per dataset)
 FORMAT_CHOICES = ("coo", "sell", "alto", "fcoo", "auto")
@@ -82,7 +81,9 @@ class LifeConfig:
     # the reference's Pallas interpret switch; the port has no interpret
     # mode (a CUDA tensor runs the kernel, a CPU tensor its plain version)
     kernel_interpret: bool = True
-    shard_rows: int = 1             # mesh geometry: the mesh slice (A13)
+    # mesh geometry (R, C) of the shard executors; with R*C > 1 the
+    # format="auto" candidates and the executor mapping become mesh-aware
+    shard_rows: int = 1
     shard_cols: int = 1
     # Phi layout: "coo" (canonical; executor= picks the code version),
     # "sell" / "fcoo" / "alto" (that format's executor), or "auto" (picked
@@ -131,10 +132,6 @@ def validate_config(config: LifeConfig) -> None:
         raise ValueError(f"format must be one of {FORMAT_CHOICES}, got "
                          f"{config.format!r}")
     validate_tuning(config)
-    if config.shard_rows * config.shard_cols > 1:
-        raise ValueError("shard_rows x shard_cols > 1 is not ported yet: the "
-                         "mesh partition arrives with the mesh slice "
-                         "(ROADMAP A13)")
 
 
 class LifeEngine:
@@ -162,9 +159,15 @@ class LifeEngine:
         t0 = time.perf_counter()
         self.phi = phi
         if self.config.format == "coo":
+            name = self.config.executor
+            if self.config.shard_rows * self.config.shard_cols > 1:
+                # a multi-cell mesh request wins: route through the
+                # mesh-aware mapping (-> "shard") rather than run the
+                # configured executor on one device
+                from repro_torch.formats import select as fsel
+                name = fsel.executor_for("coo", self.config)
             self.executor: Executor = REGISTRY.create(
-                self.config.executor, phi, self.problem, self.config,
-                self.cache)
+                name, phi, self.problem, self.config, self.cache)
         else:
             # "sell" / "fcoo" / "alto" run that layout's executor; "auto"
             # selects per dataset (FormatPlan-cached)

@@ -2,9 +2,10 @@
 
 Torch counterpart of ``repro/core/plan_cache.py``.  A ``TilePlan`` (kernel
 tile geometry), an ``SpmvPlan`` (the ``auto`` executor's measured sort
-choice), a ``FormatPlan`` (the format selector's choice) or a ``TunePlan``
-(the kernel autotuner's winner) is keyed by a content hash of the index
-arrays, the geometry and the backend, and
+choice), a ``FormatPlan`` (the format selector's choice), a ``TunePlan``
+(the kernel autotuner's winner) or a ``ShardPlan`` (the mesh partition's
+cuts) is keyed by a content hash of the index arrays, the geometry and the
+backend, and
 serialized to disk, so re-constructing an engine on the same dataset
 replaces the host inspector and its measurements with one ``np.load``.
 Every key carries the backend (``cpu`` / ``cuda``): a choice measured on
@@ -16,13 +17,14 @@ Layout: ``<cache_dir>/<digest>.npz`` holding the plan arrays and a
 ``LifeConfig.plan_cache_dir`` overrides it per engine and ``""`` disables
 caching.  Entries are written atomically (temporary file + rename).
 
-A TunePlan's key also carries the device count (1 on the CPU,
-``torch.cuda.device_count()`` on the card).  The shard plan kind arrives
-with the mesh slice (ROADMAP A13).
+A TunePlan's and a ShardPlan's key also carry the device count (1 on the
+CPU, ``torch.cuda.device_count()`` on the card).  A ShardPlan's payload is
+the reference's (``geometry``, ``voxel_cuts``, ``fiber_cuts``), so either
+package's ``get_shard_plan`` parses the other's entry.
 
 :class:`CacheStats` counts every lookup; while observability is on each
 lookup also counts in ``plan_cache.lookups{kind, outcome}`` (kinds
-``tile``, ``spmv``, ``tune``, ``format``, as in the reference).
+``tile``, ``spmv``, ``tune``, ``format``, ``shard``, as in the reference).
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch import obs
-from repro_torch.core.inspector import TilePlan
+from repro_torch.core.inspector import ShardPlan, TilePlan
 from repro_torch.core.restructure import SpmvPlan
 from repro_torch.formats.base import FORMAT_VERSION as _PHI_FORMAT_VERSION
 from repro_torch.formats.base import FormatPlan
@@ -128,6 +130,23 @@ def tune_plan_key(atoms: np.ndarray, voxels: np.ndarray, fibers: np.ndarray,
              .encode())
     h.update(np.int64(list(sizes) + [n_theta, n_devices, budget]
                       + list(mesh)).tobytes())
+    for arr in (atoms, voxels, fibers):
+        h.update(np.ascontiguousarray(arr, np.int64).tobytes())
+    return h.hexdigest()
+
+
+def shard_plan_key(atoms: np.ndarray, voxels: np.ndarray, fibers: np.ndarray,
+                   *, sizes, R: int, C: int, cell_format: str, backend: str,
+                   n_devices: int) -> str:
+    """Digest for a ShardPlan: the full index content, mode sizes, the mesh
+    geometry (R x C), the per-cell layout the partition is materialized
+    in, the backend and the device count the mesh is built over.  A plan
+    written for one topology misses cleanly on another."""
+    h = hashlib.sha256()
+    h.update(b"shard-plan-v%d.%d:" % (_FORMAT_VERSION, _PHI_FORMAT_VERSION)
+             + backend.encode() + b":")
+    h.update(cell_format.encode())
+    h.update(np.int64(list(sizes) + [R, C, n_devices]).tobytes())
     for arr in (atoms, voxels, fibers):
         h.update(np.ascontiguousarray(arr, np.int64).tobytes())
     return h.hexdigest()
@@ -281,6 +300,25 @@ class PlanCache:
         if plan.order is not None:
             payload["order"] = np.asarray(plan.order, np.int64)
         self._write(key, payload)
+
+    def get_shard_plan(self, key: str) -> Optional[ShardPlan]:
+        raw = self._read(key)
+        self.stats.record(raw is not None, "shard")
+        if raw is None:
+            return None
+        try:
+            geom = raw["geometry"]
+            return ShardPlan(R=int(geom[0]), C=int(geom[1]),
+                             voxel_cuts=raw["voxel_cuts"].astype(np.int64),
+                             fiber_cuts=raw["fiber_cuts"].astype(np.int64))
+        except (KeyError, IndexError, ValueError):
+            return None
+
+    def put_shard_plan(self, key: str, plan: ShardPlan) -> None:
+        self._write(key, dict(
+            geometry=np.int64([plan.R, plan.C]),
+            voxel_cuts=np.asarray(plan.voxel_cuts, np.int64),
+            fiber_cuts=np.asarray(plan.fiber_cuts, np.int64)))
 
     def get_tune_plan(self, key: str):
         raw = self._read(key)

@@ -24,13 +24,22 @@ The ladder (paper §6.3.1/§6.4.1):
   alto         ALTO single-index sort order (formats/alto.py), one Phi copy
                serving both ops through the naive ops
   auto         runtime autotune of the sort dimension per op (paper §4.1.2)
+  shard        2-D mesh partition (distributed/life_shard.py): per-cell
+               sorted segment sums, then ``psum``, on a local mesh
+  shard-sell   the same partition over per-cell SELL tiles: kernels B3/B4
+               once per cell, then ``psum``
 
-The kernel executors run their plain versions on CPU tensors.
+The kernel executors run their plain versions on CPU tensors.  The mesh
+executors run every cell in this process
+(:class:`~repro_torch.distributed.mesh.LocalMesh`: cell ``(r, c)`` on its
+own card, or all cells on the CPU); ``register(mesh=True)`` marks them and
+:meth:`ExecutorRegistry.mesh_executor_for` finds a format's.
 
 ``create_for_format`` resolves ``LifeConfig.format`` ("coo", "sell",
 "alto", "fcoo", or "auto" through ``formats/select.py``) to the executor
-that consumes that layout and records the FormatPlan in its ``plans``.
-The mesh executors (``shard``, ``shard-sell``) arrive with the mesh slice.
+that consumes that layout and records the FormatPlan in its ``plans``; it
+refuses a format with no mesh executor under ``shard_rows * shard_cols >
+1``.
 """
 from __future__ import annotations
 
@@ -68,8 +77,8 @@ class ExecutorRegistry:
     """Name -> factory mapping with decorator registration.
 
     ``consumes`` records which Phi layout a factory runs over and ``mesh``
-    whether it is a mesh-partitioned path, as in the reference, so later
-    slices (formats, serving, the mesh) derive their pairings from it.
+    whether it is a mesh-partitioned path, as in the reference; the
+    selector, the scheduler and the tests derive their pairings from it.
     """
 
     def __init__(self):
@@ -81,6 +90,12 @@ class ExecutorRegistry:
                  mesh: bool = False
                  ) -> Callable[[ExecutorFactory], ExecutorFactory]:
         """Decorator registering an executor factory.
+
+        Args:
+            name: executor name (``LifeConfig.executor`` value).
+            consumes: registered Phi layout the factory runs over.
+            mesh: True for the mesh-partitioned path of ``consumes`` (at
+                most one per format; see :meth:`mesh_executor_for`).
 
         Raises:
             ValueError: when ``name`` is already registered.
@@ -109,6 +124,15 @@ class ExecutorRegistry:
         """All registered executors that run over ``format_name``."""
         return tuple(sorted(n for n, f in self._consumes.items()
                             if f == format_name))
+
+    def mesh_executor_for(self, format_name: str) -> Optional[str]:
+        """The mesh-partitioned executor consuming ``format_name`` (the
+        one registered with ``mesh=True``), or None when the format has no
+        sharded path (alto, fcoo)."""
+        for n in self.executors_for_format(format_name):
+            if self._mesh.get(n):
+                return n
+        return None
 
     def __contains__(self, name: str) -> bool:
         return name in self._factories
@@ -294,8 +318,20 @@ def create_for_format(phi, problem, config,
     if cache is None:
         cache = PlanCache("")
     plan = fsel.resolve_format(phi, problem, config, cache)
-    executor = REGISTRY.create(fsel.executor_for(plan.format, config), phi,
-                               problem, config, cache)
+    name = fsel.executor_for(plan.format, config)
+    cells = (getattr(config, "shard_rows", 1)
+             * getattr(config, "shard_cols", 1))
+    if cells > 1 and name != REGISTRY.mesh_executor_for(plan.format):
+        # never drop a requested partition: a format with no sharded path
+        # cannot honour shard_rows x shard_cols > 1
+        from repro_torch.formats import format_names
+        meshable = [f for f in format_names()
+                    if REGISTRY.mesh_executor_for(f)]
+        raise ValueError(
+            f"format {plan.format!r} has no mesh executor; cannot honor "
+            f"shard_rows x shard_cols = {cells} "
+            f"(mesh-capable formats: {meshable})")
+    executor = REGISTRY.create(name, phi, problem, config, cache)
     executor.plans["format"] = plan
     return executor
 
@@ -344,3 +380,100 @@ def _make_auto(phi, problem, config, cache) -> Executor:
         matvec=lambda w: dsc_fn(phi_v, d, w),
         rmatvec=lambda y: wc_fn(phi_w, d, y),
         plans=dict(dsc=dsc_plan, wc=wc_plan))
+
+
+def _layout_positions(plan, n_voxels: int, n_fibers: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Global id -> position in the range-stacked (padded) layout, for
+    fibers and voxels, computed once on the host."""
+    w_pos = np.zeros(n_fibers, np.int64)
+    for c in range(plan.C):
+        lo, hi = plan.fiber_cuts[c], plan.fiber_cuts[c + 1]
+        w_pos[lo:hi] = c * plan.nf_local + np.arange(hi - lo)
+    y_pos = np.zeros(n_voxels, np.int64)
+    for r in range(plan.R):
+        lo, hi = plan.voxel_cuts[r], plan.voxel_cuts[r + 1]
+        y_pos[lo:hi] = r * plan.nv_local + np.arange(hi - lo)
+    return w_pos, y_pos
+
+
+def _make_shard_executor(phi, problem, config, cache,
+                         cell_format: str) -> Executor:
+    """The mesh executors (``shard`` / ``shard-sell``).
+
+    Builds an (R, C) = (shard_rows, shard_cols) local mesh rooted at phi's
+    device, materializes each (voxel-range x fiber-range) cell through
+    ``formats/shard.py:ShardPhi`` over the inner ``cell_format``, and
+    wraps the per-cell SpMVs with the global <-> padded layout maps, so
+    callers see plain ``(Nf,) -> (Nv, Ntheta)`` closures.  The partition
+    plan is persistent-cache-backed under a key that carries the mesh
+    shape, the inner format, the backend and the device count.
+    """
+    from repro_torch.distributed import life_shard as LS
+    from repro_torch.distributed.mesh import LocalMesh
+    from repro_torch.formats.shard import encode_pair, partition_cuts
+
+    R = getattr(config, "shard_rows", 1)
+    C = getattr(config, "shard_cols", 1)
+    name = "shard" if cell_format == "coo" else "shard-sell"
+    mesh = LocalMesh(R, C, phi.device, name=name)
+    d = problem.dictionary
+    cd = getattr(config, "compute_dtype", "fp32")
+    plan = partition_cuts(phi, R, C, cell_format=cell_format, cache=cache)
+    row_tile = getattr(config, "row_tile", 8)
+    sp_dsc, sp_wc = encode_pair(phi, cell_format=cell_format, plan=plan,
+                                row_tile=row_tile,
+                                slot_tile=getattr(config, "slot_tile", 32))
+    meta = dict(nv_local=plan.nv_local, nf_local=plan.nf_local,
+                n_theta=d.shape[1])
+    dsc_cells = LS.cell_arrays(sp_dsc.arrays, mesh.cells)
+    wc_cells = LS.cell_arrays(sp_wc.arrays, mesh.cells)
+    if cell_format == "coo":
+        kw = dict(n_atoms=phi.n_atoms, nv_local=plan.nv_local,
+                  nf_local=plan.nf_local, dictionary=d, compute_dtype=cd)
+        dsc_cells = LS.coo_cells(mesh, dsc_cells, "dsc", **kw)
+        wc_cells = LS.coo_cells(mesh, wc_cells, "wc", **kw)
+        dsc_fn, wc_fn = LS.make_sharded_ops(mesh, meta)
+    else:
+        kw = dict(row_tile=row_tile, dictionary=d, compute_dtype=cd)
+        dsc_cells = LS.sell_cells(mesh, dsc_cells, **kw)
+        wc_cells = LS.sell_cells(mesh, wc_cells, **kw)
+        dsc_fn, wc_fn = LS.make_sharded_sell_ops(mesh, meta)
+
+    w_pos, y_pos = (torch.as_tensor(p, device=phi.device) for p in
+                    _layout_positions(plan, phi.n_voxels, phi.n_fibers))
+    nf_l, nv_l = plan.nf_local, plan.nv_local
+
+    def matvec(w: torch.Tensor) -> torch.Tensor:
+        w_padded = w.new_zeros((C * nf_l,)).index_put_((w_pos,), w)
+        y = dsc_fn(dsc_cells, {c: w_padded[c * nf_l:(c + 1) * nf_l]
+                               for c in range(C)})
+        y_padded = (y[0] if R == 1 else
+                    torch.cat([y[r].to(w.device) for r in range(R)]))
+        return y_padded[y_pos]
+
+    def rmatvec(y: torch.Tensor) -> torch.Tensor:
+        y_padded = y.new_zeros((R * nv_l, y.shape[1])).index_put_((y_pos,),
+                                                                   y)
+        w = wc_fn(wc_cells, {r: y_padded[r * nv_l:(r + 1) * nv_l]
+                             for r in range(R)})
+        w_padded = (w[0] if C == 1 else
+                    torch.cat([w[c].to(y.device) for c in range(C)]))
+        return w_padded[w_pos]
+
+    return Executor(name=name, matvec=matvec, rmatvec=rmatvec,
+                    plans=dict(mesh=mesh, partition=plan,
+                               shard_dsc=sp_dsc, shard_wc=sp_wc))
+
+
+@REGISTRY.register("shard", mesh=True)
+def _make_shard(phi, problem, config, cache) -> Executor:
+    """2-D mesh-partitioned SpMVs over inner sorted-COO cells."""
+    return _make_shard_executor(phi, problem, config, cache, "coo")
+
+
+@REGISTRY.register("shard-sell", consumes="sell", mesh=True)
+def _make_shard_sell(phi, problem, config, cache) -> Executor:
+    """2-D mesh-partitioned SpMVs over per-cell SELL tiles: kernels B3/B4
+    once per (voxel-range x fiber-range) cell."""
+    return _make_shard_executor(phi, problem, config, cache, "sell")

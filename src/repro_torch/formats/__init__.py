@@ -11,8 +11,9 @@ Importing this package registers the built-in formats:
         serves both ops (kernels B5/B6)                   — formats/fcoo.py
 
 ``formats.select`` picks one per dataset; engines reach it through
-``LifeConfig(format="auto")``.  The mesh partition (``formats/shard.py``)
-arrives with the mesh slice (ROADMAP A13).
+``LifeConfig(format="auto")``.  The mesh partition's layout
+(``formats/shard.py:ShardPhi``) is not a registered format: the ``shard``
+and ``shard-sell`` executors consume it.
 """
 from repro_torch.formats.base import (FORMATS, FORMAT_VERSION, FormatPlan,
                                       PhiFormat, canonical_triples,

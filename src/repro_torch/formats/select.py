@@ -73,15 +73,30 @@ DEFAULT_C_TILE = 256
 DEFAULT_CANDIDATES = ("coo", "sell", "alto", "fcoo")
 
 
+def _mesh_cells(config) -> int:
+    return (getattr(config, "shard_rows", 1)
+            * getattr(config, "shard_cols", 1))
+
+
 def executor_for(format_name: str, config) -> str:
-    """Registry name that runs a format: an explicitly configured executor
-    that itself consumes the format, else the format's own executor (COO
-    defers to ``config.executor``)."""
+    """Registry name that runs a format.
+
+    In order: (1) under a multi-cell mesh request (``shard_rows *
+    shard_cols > 1``) the format's mesh executor, from the registry's
+    ``mesh=`` metadata, even over an explicit single-device executor;
+    (2) an explicitly configured executor that itself consumes the format
+    (so ``executor="shard-sell", format="sell"`` runs the sharded path on
+    a 1x1 mesh); (3) the format's own executor (COO defers to
+    ``config.executor``)."""
     if format_name not in _FORMAT_EXECUTORS:
         raise ValueError(
             f"format must be one of {format_names()}, got {format_name!r}")
     from repro_torch.core.registry import REGISTRY
     requested = config.executor
+    if _mesh_cells(config) > 1:
+        sharded = REGISTRY.mesh_executor_for(format_name)
+        if sharded is not None:
+            return sharded
     if requested in REGISTRY and REGISTRY.consumes(requested) == format_name:
         return requested
     mapped = _FORMAT_EXECUTORS[format_name]
@@ -230,22 +245,19 @@ def resolve_format(phi: PhiTensor, problem, config, cache=None,
 
     ``allowed`` restricts the candidate set (the batched engine passes the
     formats that stack across subjects: SELL widths are per-subject
-    shapes).  ``mesh_aware=False`` is for callers to which the mesh
-    fields mean placement only (the batched engine); with it a mesh
-    request is not refused here.
+    shapes).  Under a multi-cell mesh request (``shard_rows * shard_cols >
+    1``) the "auto" candidates are further cut to the formats with a
+    registered mesh executor: selecting alto would drop the requested
+    partition.  ``mesh_aware=False`` keeps the full set, for callers to
+    which the mesh fields mean placement only (the batched engine).
 
     Raises:
         ValueError: an unknown format, an explicit format outside
-            ``allowed``, or (``mesh_aware``) a mesh request
-            (``shard_rows * shard_cols > 1``), whose mesh-aware candidate
-            set arrives with the mesh slice (ROADMAP A13).
+            ``allowed``, or a mesh request none of whose candidates has a
+            mesh executor.
     """
     fmt = config.format
     row_tile, slot_tile = config.row_tile, config.slot_tile
-    if mesh_aware and config.shard_rows * config.shard_cols > 1:
-        raise ValueError("shard_rows x shard_cols > 1 is not ported yet: the "
-                         "mesh partition arrives with the mesh slice "
-                         "(ROADMAP A13)")
     if fmt != "auto":
         if fmt not in _FORMAT_EXECUTORS:
             raise ValueError(
@@ -256,13 +268,24 @@ def resolve_format(phi: PhiTensor, problem, config, cache=None,
                 f"format {fmt!r} is not supported here (allowed: {allowed})")
         return FormatPlan(fmt, "explicit",
                           dict(row_tile=row_tile, slot_tile=slot_tile))
+    candidates = (tuple(allowed) if allowed is not None
+                  else DEFAULT_CANDIDATES)
+    if mesh_aware and _mesh_cells(config) > 1:
+        from repro_torch.core.registry import REGISTRY
+        mesh_ok = tuple(f for f in candidates
+                        if REGISTRY.mesh_executor_for(f) is not None)
+        if not mesh_ok:
+            raise ValueError(
+                f"no candidate format in {candidates} has a mesh executor "
+                f"(shard_rows x shard_cols = {_mesh_cells(config)})")
+        candidates = mesh_ok
     predictor = None
     if config.predict != "off" and cache is not None and cache.enabled:
         from repro_torch.learn import load_predictor
         predictor = load_predictor(cache.directory)
     return choose_format(
         phi, problem.dictionary, row_tile=row_tile, slot_tile=slot_tile,
-        allowed=tuple(allowed) if allowed is not None else DEFAULT_CANDIDATES,
+        allowed=candidates,
         sell_accept=config.sell_accept, sell_reject=config.sell_reject,
         coo_executor=executor_for("coo", config), c_tile=config.c_tile,
         cache=cache, predictor=predictor)

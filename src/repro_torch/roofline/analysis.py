@@ -9,14 +9,15 @@ sheet in place of the reference's TPU constants:
 
 The port has no compiled HLO to count bytes in.  The LiFE engines take
 their bytes from the analytic compulsory-byte formulas of
-:mod:`repro_torch.roofline.spmv_bytes` instead.  Parsing collective bytes
-out of a program (the reference's ``collective_bytes``) arrives with the
-mesh slice.
+:mod:`repro_torch.roofline.spmv_bytes` instead, and
+:func:`collective_bytes` takes the collectives a
+:mod:`~repro_torch.distributed.mesh` mesh recorded as it issued them, with
+the reference's ring factors per kind.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 #: NVIDIA H100 SXM5 data sheet at its 700 W power limit
 HW = dict(
@@ -37,6 +38,52 @@ def bound(bytes_moved: float, flops: float,
     t_bytes = bytes_moved / HW["hbm_bw"]
     t_ops = flops / rate
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+#: the collective kinds the reference counts, in its order
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+
+def collective_bytes(records: Iterable[Tuple[str, float, int]]
+                     ) -> Dict[str, Any]:
+    """Bytes each device moves, by collective kind, for collectives given
+    as ``(kind, bytes, group size)`` (a mesh's ``collectives``): the
+    reference's ring factors on the bytes of one device's operand (the
+    result, for all-gather and reduce-scatter)::
+
+      all-gather          size * (g-1)/g
+      reduce-scatter      size * (g-1)
+      all-reduce          2 * size * (g-1)/g
+      all-to-all          size * (g-1)/g
+      collective-permute  size
+
+    A group of one moves nothing and is not counted.  Returns the
+    reference's dict: one entry per kind, ``total`` and ``counts``.
+    """
+    out: Dict[str, Any] = {k: 0.0 for k in COLLECTIVE_KINDS}
+    counts = {k: 0 for k in COLLECTIVE_KINDS}
+    for kind, size, g in records:
+        if kind not in out:
+            raise ValueError(f"collective kind must be one of "
+                             f"{COLLECTIVE_KINDS}, got {kind!r}")
+        if g <= 1:
+            continue
+        if kind == "all-gather":
+            moved = size * (g - 1) / g
+        elif kind == "reduce-scatter":
+            moved = size * (g - 1)
+        elif kind == "all-reduce":
+            moved = 2 * size * (g - 1) / g
+        elif kind == "all-to-all":
+            moved = size * (g - 1) / g
+        else:  # collective-permute
+            moved = size
+        out[kind] += moved
+        counts[kind] += 1
+    out["total"] = sum(out[k] for k in COLLECTIVE_KINDS)
+    out["counts"] = counts
+    return out
 
 
 @dataclasses.dataclass

@@ -21,7 +21,7 @@ Jobs asking for a stackable format (``BATCHABLE_FORMATS``: coo, alto, or
 "auto", which resolves inside the cohort engine) share one
 :class:`~repro_torch.core.batched.BatchedLifeEngine`.  SELL and F-COO
 layouts are per-subject shapes that do not stack, so ``format="sell"`` and
-``format="fcoo"`` jobs get solo buckets running a
+``format="fcoo"`` jobs, and mesh jobs, get solo buckets running a
 :class:`~repro_torch.core.life.LifeEngine` (kernels B3/B4 and B5/B6 on
 the card) behind the same stepped interface.
 
@@ -47,8 +47,20 @@ bucket served least, then the earliest arrival.
 A slice that raises never propagates: the bucket is quarantined and each
 member retried alone, so one bad tenant fails alone.
 
-Mesh slices (``Job.mesh``) arrive with the mesh slice of the port (ROADMAP
-A13); submitting one raises ``ValueError``.
+Mesh slices
+-----------
+A job may request a mesh slice (``Job.mesh = (R, C)``): its solve runs on
+its format's mesh executor, found from the registry's ``mesh=`` /
+``consumes=`` metadata (``shard`` for coo, ``shard-sell`` for sell), on a
+local mesh rooted at the scheduler's device.  Mesh jobs name their cell
+format: ``format="auto"`` would make the topology depend on a selection
+intake never ran, so it is refused at submit, as are alto and fcoo (no
+mesh executor), a non-positive shape and more cells than the device admits
+(:func:`repro_torch.distributed.mesh.max_cells`: the visible cards, or
+eight cells sharing the CPU).  Mesh jobs get solo buckets keyed by their
+topology, and the bucket's engine config carries ``shard_rows`` /
+``shard_cols``, so plan-cache keys (mesh shape, backend, device count) hit
+on re-buckets of the same topology.
 """
 from __future__ import annotations
 
@@ -66,9 +78,11 @@ from repro_torch.bridge import to_numpy
 from repro_torch.core.batched import BatchedLifeEngine
 from repro_torch.core.life import LifeConfig, LifeEngine
 from repro_torch.core.plan_cache import PlanCache
+from repro_torch.core.registry import REGISTRY
 from repro_torch.core.sbbnnls import SbbnnlsState, sbbnnls_init
 from repro_torch.data.dmri import LifeProblem
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.mesh import max_cells
 
 #: formats whose operands stack across subjects: eligible for shared
 #: micro-batch buckets ("auto" restricts itself to the stackable subset
@@ -76,6 +90,13 @@ from repro_torch.device import DeviceLike, resolve_device
 BATCHABLE_FORMATS = ("auto", "coo", "alto")
 
 _SOLO_FORMATS = ("sell", "fcoo")
+
+
+def _is_solo(fmt: str, mesh: Optional[Tuple[int, int]]) -> bool:
+    """Solo-bucket predicate: SELL and F-COO operands do not stack, and a
+    mesh slice is a per-job placement; either way the job never shares an
+    engine.  One definition for the bucket key and the bucket."""
+    return fmt in _SOLO_FORMATS or mesh is not None
 
 #: statuses a job never leaves
 TERMINAL_STATUSES = ("done", "failed", "cancelled")
@@ -135,7 +156,7 @@ class Job:
     priority: int = 0                     # higher runs sooner (tie-break)
     deadline: Optional[float] = None      # absolute time.monotonic() seconds
     format: str = "auto"
-    # (R, C) device-mesh slice: the mesh slice of the port (ROADMAP A13)
+    # (R, C) mesh slice request; None = single-device engines
     mesh: Optional[Tuple[int, int]] = None
     # tuning knobs (None = inherit the scheduler config at submit); both
     # are part of the batch-compatibility class
@@ -183,12 +204,14 @@ class _Bucket:
     """Jobs sharing one batch-compatibility class and their engine."""
 
     def __init__(self, key: Tuple, fmt: str, arrival: int,
-                 tune: str = "off", compute_dtype: str = "fp32"):
+                 tune: str = "off", compute_dtype: str = "fp32",
+                 mesh: Optional[Tuple[int, int]] = None):
         self.key = key
         self.format = fmt
         self.tune = tune
         self.compute_dtype = compute_dtype
-        self.solo = fmt in _SOLO_FORMATS
+        self.mesh = mesh
+        self.solo = _is_solo(fmt, mesh)
         self.jobs: List[Job] = []
         self.iters_served = 0             # virtual time for fairness
         self.arrival = arrival
@@ -203,13 +226,22 @@ class _Bucket:
         return (deadline, -priority, self.iters_served, self.arrival)
 
     # -- engine construction (memoized on the member set) ------------------
+    def _config(self, base: LifeConfig) -> LifeConfig:
+        cfg = dataclasses.replace(base, format=self.format, tune=self.tune,
+                                  compute_dtype=self.compute_dtype)
+        if self.mesh is not None:
+            R, C = self.mesh
+            # submit checked that the format has a mesh executor
+            cfg = dataclasses.replace(
+                cfg, shard_rows=R, shard_cols=C,
+                executor=REGISTRY.mesh_executor_for(self.format))
+        return cfg
+
     def engine(self, base: LifeConfig, cache: PlanCache,
                device: torch.device):
         sig = tuple(j.job_id for j in self.jobs)
         if self._engine is None or self._engine_sig != sig:
-            cfg = dataclasses.replace(base, format=self.format,
-                                      tune=self.tune,
-                                      compute_dtype=self.compute_dtype)
+            cfg = self._config(base)
             if self.solo:
                 self._engine = LifeEngine(self.jobs[0].problem, cfg, cache,
                                           device=device)
@@ -342,9 +374,23 @@ class Scheduler:
         from repro_torch.tune.tuner import validate_config
         validate_config(job)
         if job.mesh is not None:
-            raise ValueError(
-                f"mesh slice {tuple(job.mesh)} requested: mesh jobs are not "
-                f"ported yet, they arrive with the mesh slice (ROADMAP A13)")
+            R, C = job.mesh
+            if R < 1 or C < 1:
+                raise ValueError(f"mesh shape must be positive, "
+                                 f"got {job.mesh}")
+            have = max_cells(self.device)
+            if R * C > have:
+                raise ValueError(
+                    f"mesh slice ({R}, {C}) needs {R * C} devices, "
+                    f"have {have}")
+            if REGISTRY.mesh_executor_for(job.format) is None:
+                meshable = tuple(
+                    f for f in BATCHABLE_FORMATS + _SOLO_FORMATS
+                    if REGISTRY.mesh_executor_for(f))
+                raise ValueError(
+                    f"format {job.format!r} has no mesh executor; mesh "
+                    f"jobs must name an explicit cell format from "
+                    f"{meshable}")
         if job.w0 is not None:
             w0 = (to_numpy(job.w0) if isinstance(job.w0, torch.Tensor)
                   else np.asarray(job.w0))
@@ -374,7 +420,7 @@ class Scheduler:
         return (phi.n_voxels, phi.n_fibers,
                 int(job.problem.dictionary.shape[1]), job.dict_digest,
                 job.format, job.mesh, job.tune, job.compute_dtype,
-                job.job_id if job.format in _SOLO_FORMATS else "")
+                job.job_id if _is_solo(job.format, job.mesh) else "")
 
     def _admit(self) -> None:
         """Move queued jobs into buckets: arrivals join their bucket's next
@@ -385,7 +431,8 @@ class Scheduler:
                 self._buckets[key] = _Bucket(key, job.format,
                                              next(self._arrivals),
                                              tune=job.tune,
-                                             compute_dtype=job.compute_dtype)
+                                             compute_dtype=job.compute_dtype,
+                                             mesh=job.mesh)
             self._buckets[key].jobs.append(job)
             job.status = "running"
         self._queue.clear()
@@ -463,7 +510,8 @@ class Scheduler:
             for job in jobs:
                 probe = _Bucket(bucket.key, bucket.format, bucket.arrival,
                                 tune=bucket.tune,
-                                compute_dtype=bucket.compute_dtype)
+                                compute_dtype=bucket.compute_dtype,
+                                mesh=bucket.mesh)
                 probe.jobs = [job]
                 try:
                     terminal.extend(probe.run_slice(
@@ -478,7 +526,8 @@ class Scheduler:
         if survivors:
             fresh = _Bucket(bucket.key, bucket.format, next(self._arrivals),
                             tune=bucket.tune,
-                            compute_dtype=bucket.compute_dtype)
+                            compute_dtype=bucket.compute_dtype,
+                            mesh=bucket.mesh)
             fresh.iters_served = bucket.iters_served   # fairness carries over
             fresh.jobs = survivors
             self._buckets[bucket.key] = fresh

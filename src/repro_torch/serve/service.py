@@ -106,7 +106,8 @@ class LifeService:
         ``w0`` (numpy or tensor, shape ``(n_fibers,)``, finite,
         nonnegative) warm-starts a fresh job; on a resume the restored
         state is the warm start, so ``w0`` beside one is rejected.
-        ``deadline`` is seconds from now.
+        ``deadline`` is seconds from now.  ``mesh=(R, C)`` runs the solve
+        on its format's mesh executor over an ``R x C`` local mesh.
 
         If ``job_id`` names a checkpointed solve, the restored state is
         re-attached once the resubmitted data's digest matches the
@@ -119,8 +120,8 @@ class LifeService:
 
         Raises:
             ValueError: a rejected resume, or anything the scheduler's
-                intake rejects (an unknown format, a mesh slice, a bad
-                ``w0``).
+                intake rejects (an unknown format, a mesh slice it cannot
+                place, a bad ``w0``).
         """
         if job_id is None:
             taken = ({j.job_id for j in self.scheduler.jobs()}

@@ -8,6 +8,8 @@ layout parameters the Hopper kernels take at run time:
   kernel       ``c_tile`` and ``row_tile`` of the COO tiles B1 and B2 walk
   kernel-sell  ``row_tile`` and ``slot_tile`` of the SELL layout of B3/B4
   kernel-fcoo  ``c_tile`` of the F-COO chunks of B5 and B6
+  shard-sell   ``row_tile`` and ``slot_tile`` of every mesh cell's SELL
+               layout (B3/B4 once per cell)
 
 Block shapes and register budgets are compile-time constants of the
 kernels and are not searched.  The reference also searches ``seg_tile``
@@ -32,6 +34,7 @@ TUNABLE_TILES: Dict[str, Tuple[str, ...]] = {
     "kernel": ("c_tile", "row_tile"),
     "kernel-sell": ("row_tile", "slot_tile"),
     "kernel-fcoo": ("c_tile",),
+    "shard-sell": ("row_tile", "slot_tile"),
 }
 
 #: per-axis candidate values, the reference's (the current config value

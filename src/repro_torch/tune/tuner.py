@@ -16,8 +16,10 @@ whenever the engine config asks for tuning (``LifeConfig.tune != "off"``):
 Each candidate is measured as a bound executor, built by the same factory
 the engine uses, at a cost of ``2 x DSC + 1.5 x WC``: the per-iteration
 op mix of SBBNNLS.  On the card the candidates run the CUDA kernels
-(B1/B2 for ``kernel``, B3/B4 for ``kernel-sell``, B5/B6 for
-``kernel-fcoo``); a candidate that fails to build or launch raises.  On
+(B1/B2 for ``kernel``, B3/B4 for ``kernel-sell`` and, once per mesh
+cell, for ``shard-sell``, B5/B6 for ``kernel-fcoo``); a candidate that
+fails to build or launch raises.  A mesh executor's candidates are built
+on the config's ``(shard_rows, shard_cols)``, which the key carries.  On
 CPU tensors they run their plain versions, under a ``cpu`` key that the
 card never replays.
 

@@ -1,9 +1,10 @@
 """Port vs reference: the executor registry, the plan cache and LifeEngine.
 
 Every registered executor (naive, opt, opt-paper, kernel, kernel-sell,
-kernel-fcoo, alto, auto) against the dense oracle and the reference's
-engine on ``tiny_problem``; the compaction rebuild; the config values of
-later slices; the device policy.
+kernel-fcoo, alto, auto, and the mesh executors shard and shard-sell at
+(1, 1)) against the dense oracle and the reference's engine on
+``tiny_problem``; the compaction rebuild; the config values the engine
+refuses; the device policy.
 """
 import dataclasses
 
@@ -45,15 +46,20 @@ def _port(p):
 
 
 def test_registry_holds_the_slice():
-    assert EXECUTORS == PORTED == ("alto", "auto", "kernel", "kernel-fcoo",
-                                   "kernel-sell", "naive", "opt", "opt-paper")
+    assert EXECUTORS == PORTED == JREGISTRY.names() == (
+        "alto", "auto", "kernel", "kernel-fcoo", "kernel-sell", "naive",
+        "opt", "opt-paper", "shard", "shard-sell")
     assert REGISTRY.executors_for_format("coo") == (
-        "auto", "kernel", "naive", "opt", "opt-paper")
-    assert REGISTRY.executors_for_format("sell") == ("kernel-sell",)
+        "auto", "kernel", "naive", "opt", "opt-paper", "shard")
+    assert REGISTRY.executors_for_format("sell") == ("kernel-sell",
+                                                     "shard-sell")
     assert REGISTRY.executors_for_format("fcoo") == ("kernel-fcoo",)
     assert REGISTRY.executors_for_format("alto") == ("alto",)
     assert {n: REGISTRY.consumes(n) for n in PORTED} == {
         n: JREGISTRY.consumes(n) for n in PORTED}
+    for fmt in ("coo", "sell", "alto", "fcoo"):
+        assert (REGISTRY.mesh_executor_for(fmt)
+                == JREGISTRY.mesh_executor_for(fmt))
     with pytest.raises(ValueError, match="already registered"):
         REGISTRY.register("opt")(lambda *a: None)
     with pytest.raises(ValueError, match="must be one of"):
@@ -144,15 +150,16 @@ def test_format_paths_match_reference_engine_with_compaction(executor, fmt,
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (dict(executor="shard-sell"), "mesh slice"),
-    (dict(executor="shard"), "mesh slice"),
+    (dict(executor="shard-sell", shard_rows=0), "positive"),
+    (dict(executor="shard", shard_rows=3, shard_cols=3),
+     "needs 9 devices, have 8"),
     (dict(executor="nope"), "must be one of"),
-    (dict(format="sell", shard_rows=2), "mesh slice"),
+    (dict(format="alto", shard_rows=2), "no mesh executor"),
     (dict(format="csr"), "format must be one of"),
     (dict(tune="always"), "tune must be one of"),
     (dict(compute_dtype="auto"), "searched axis"),
     (dict(compute_dtype="fp16"), "compute_dtype"),
-    (dict(shard_rows=2), "mesh slice"),
+    (dict(shard_rows=9), "needs 9 devices"),
 ])
 def test_unsupported_config_values_raise(overrides, match, tiny_problem):
     with pytest.raises(ValueError, match=match):

@@ -383,9 +383,17 @@ def test_selection_explicit_format_and_executor_match_reference(
                 fmt, dataclasses.replace(jcfg, executor=executor))
     with pytest.raises(ValueError, match="format must be one of"):
         fsel.executor_for("csr", cfg)
-    with pytest.raises(ValueError, match="mesh slice"):
-        fsel.resolve_format(_port(p).phi, _port(p),
-                            dataclasses.replace(cfg, shard_cols=2))
+    # under a multi-cell mesh: the explicit format stands, and the mesh
+    # rule maps it to its mesh executor where it has one
+    mcfg = dataclasses.replace(cfg, shard_cols=2)
+    mjcfg = dataclasses.replace(jcfg, shard_cols=2)
+    got = fsel.resolve_format(_port(p).phi, _port(p), mcfg)
+    want = jselect.resolve_format(p.phi, p, mjcfg)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for executor in ("opt", "kernel", "kernel-sell", "alto", "shard-sell"):
+        assert fsel.executor_for(fmt, dataclasses.replace(
+            mcfg, executor=executor)) == jselect.executor_for(
+                fmt, dataclasses.replace(mjcfg, executor=executor))
 
 
 def test_engine_auto_format_matches_reference_reason(tiny_problem):

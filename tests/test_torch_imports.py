@@ -78,10 +78,21 @@ SLICE_TEN = ("learn/features.py", "learn/model.py", "learn/harvest.py",
              "science/__init__.py")
 
 
-@pytest.mark.parametrize("module", SLICE_TEN)
+#: the mesh slice (ROADMAP A13)
+SLICE_ELEVEN = ("core/inspector.py", "core/plan_cache.py",
+                "formats/shard.py", "distributed/__init__.py",
+                "distributed/mesh.py", "distributed/life_shard.py",
+                "distributed/spmd.py", "core/registry.py", "core/life.py",
+                "tune/space.py", "serve/scheduler.py", "serve/service.py",
+                "roofline/analysis.py")
+
+
+@pytest.mark.parametrize("module", SLICE_TEN + tuple(
+    m for m in SLICE_ELEVEN if m not in SLICE_TEN))
 def test_slice_ten_modules_exist_and_import_alone(module):
-    """Each module of the slice is in the port and imports in a fresh
-    interpreter that has neither jax nor the reference importable."""
+    """Each module of the slices ten and eleven is in the port and imports
+    in a fresh interpreter that has neither jax nor the reference
+    importable."""
     path = ROOT / "src" / "repro_torch" / module
     assert path in FILES
     name = "repro_torch." + module[:-3].replace("/", ".").removesuffix(

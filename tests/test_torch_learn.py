@@ -1,7 +1,7 @@
 """Port vs reference: learned zero-measurement selection (``repro_torch.learn``).
 
 The reference's tests/test_learn.py case by case on the port over the CPU
-(its mesh case dropped: the mesh arrives with ROADMAP A13): the feature
+(with its mesh case, since the mesh slice, ROADMAP A13): the feature
 schema, the numpy models, harvesting through ``PlanCache.iter_plans``, the
 predicted cold start with zero measurements, background refinement that
 overwrites predicted plans in place, and the frontend's idle-tick drain.
@@ -412,8 +412,10 @@ def test_predicted_tune_plan_zero_measurements(tmp_path, problem,
 
 
 def test_predicted_format_respects_allowed(tmp_path, problem):
-    """Predicted plans always name a format from the caller's allowed
-    set, even when the model's favourite class is excluded from it."""
+    """Predicted plans always name a format from the caller's allowed or
+    mesh-capable set, even when the model's favourite class is excluded
+    from it."""
+    from repro_torch.core.registry import REGISTRY
     cache, predictor = _trained_cache(tmp_path / "train")
     assert predictor is not None
     d = problem.dictionary
@@ -421,6 +423,13 @@ def test_predicted_format_respects_allowed(tmp_path, problem):
         plan = fsel.choose_format(problem.phi, d, allowed=allowed,
                                   predictor=predictor)
         assert plan.format in allowed
+    # a multi-cell mesh restricts "auto" to mesh-capable formats before
+    # the predictor sees the candidate set
+    cfg = LifeConfig(format="auto", shard_rows=2, shard_cols=1,
+                     plan_cache_dir=cache.directory, tune="off")
+    plan = fsel.resolve_format(problem.phi, problem, cfg,
+                               cache=PlanCache(cache.directory))
+    assert REGISTRY.mesh_executor_for(plan.format) is not None
 
 
 def test_selection_determinism_across_rebuilds(tmp_path, problem):

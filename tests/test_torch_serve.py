@@ -7,8 +7,8 @@ slicing, quarantine of a poisoned tenant, kill-and-resume bit for bit,
 the counter algebra over random traces.  Then the two services side by
 side on the same submissions: bucket keys and completion order equal,
 weights within rtol 2e-4 / atol 2e-5, and a checkpoint directory written
-by either resumed by the other.  Mesh jobs raise ``ValueError`` naming
-ROADMAP A13.
+by either resumed by the other.  Mesh jobs (solo buckets keyed by their
+topology, intake refusals, kill-and-resume) are in test_torch_mesh.py.
 """
 import dataclasses
 import os
@@ -203,10 +203,16 @@ def test_rejects_compaction_config():
 
 @pytest.mark.parametrize("mesh", [(1, 1), (2, 2)])
 def test_mesh_jobs_name_the_mesh_slice(mesh, problem):
-    svc = _service()
-    with pytest.raises(ValueError, match="A13"):
-        svc.submit(problem, n_iters=4, format="coo", mesh=mesh)
-    assert not svc.scheduler.active()
+    """A mesh job's solo bucket is keyed by its mesh slice, and its engine
+    runs the format's mesh executor over that slice."""
+    svc = _service(slice_iters=2)
+    jid = svc.submit(problem, n_iters=4, format="coo", mesh=mesh)
+    svc.step()
+    (key, bucket), = svc.scheduler._buckets.items()
+    assert key[5] == mesh and key[-1] == jid and bucket.solo
+    executor = bucket._engine.executor
+    assert executor.name == "shard" and executor.plans["mesh"].shape == mesh
+    assert svc.run()[jid][1].shape == (4,)
 
 
 def test_no_card_and_no_device_raises():
@@ -423,7 +429,8 @@ def test_checkpoint_roundtrip_includes_loss_history(problem, tmp_path):
 
 def test_failed_resume_submit_keeps_state_recoverable(problem, tmp_path):
     """A restored job the scheduler refuses (its checkpoint names a mesh
-    slice) stays re-adoptable, and later checkpoints carry it along."""
+    slice this host cannot place) stays re-adoptable, and later
+    checkpoints carry it along."""
     ck = str(tmp_path / "svc")
     svc = _service(_cfg(n_iters=24), ckpt_dir=ck, checkpoint_every=1,
                    slice_iters=5)
@@ -431,14 +438,14 @@ def test_failed_resume_submit_keeps_state_recoverable(problem, tmp_path):
     svc.step()
     del svc
     step, flat, manifest = CK.restore(ck)
-    manifest["jobs"]["tenant"]["mesh"] = [1, 1]     # a meshed tenant
+    manifest["jobs"]["tenant"]["mesh"] = [3, 3]     # 9 cells, 8 admitted
     tree = {"tenant": {k.split("/", 1)[1]: v for k, v in flat.items()}}
     CK.save(ck, step, tree, meta={"jobs": manifest["jobs"]})
 
     svc2 = _service(_cfg(n_iters=24), ckpt_dir=ck, checkpoint_every=1,
                     slice_iters=5)
     assert svc2.resumable_jobs == ("tenant",)
-    with pytest.raises(ValueError, match="A13"):
+    with pytest.raises(ValueError, match="devices"):
         svc2.submit(problem, job_id="tenant")
     assert svc2.resumable_jobs == ("tenant",)       # state not consumed
     svc2.submit(problem, job_id="other", n_iters=8, format="coo")

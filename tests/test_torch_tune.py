@@ -110,7 +110,7 @@ def test_plan_apply_and_describe_match_reference(params, dtype, reason):
 @pytest.mark.parametrize("budget", [None, 2, 4, 6, 12])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16", "auto"])
 @pytest.mark.parametrize("executor", ["kernel", "kernel-sell", "opt",
-                                      "naive", "auto"])
+                                      "naive", "auto", "shard-sell"])
 def test_search_space_is_the_references(executor, dtype, budget):
     cfg = dataclasses.replace(CFG, compute_dtype=dtype, c_tile=200)
     jcfg = dataclasses.replace(JCFG, compute_dtype=dtype, c_tile=200)
@@ -213,6 +213,7 @@ def test_measure_candidates_labels_are_the_references():
 
 @pytest.mark.parametrize("executor,fmt,extra", [
     ("opt", "sell", {}),
+    ("shard-sell", "sell", dict(shard_rows=2, shard_cols=2)),
     ("opt", "fcoo", dict(c_tile=64)),
     ("kernel", "coo", dict(c_tile=64)),
 ])
