@@ -172,6 +172,31 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                torch.profiler breakdown of the prefill and of one decode
                step; B7 timed at both shapes beside torch.bmm, and with
                every tile on one expert (that expert's W from L2).
+  14. train  — (after 7) 14a B7's autograd Function (forward on B7, dx
+               on B7 over a contiguous W^T, dW one torch.bmm) against
+               autograd through the plain version at the training gate
+               and down shapes (4 x 512 tokens, top-2 of 16 experts:
+               capacity 320, t_tile 64) and a ragged layout, fp32 and
+               bf16, a second backward bit-identical; the forward, dx,
+               W^T copy and dW bmm timed.  14d (run next, before any
+               profiler) reduced phi3.5-moe (fp32, B7's SIMT path) and
+               reduced qwen1.5-4b through repro_torch.launch.train: 8
+               steps with a checkpoint at step 4, a second main resumed
+               from it, steps 5-8's losses bit for bit (1e-6 relative
+               only where the profiler shows a kernel that may add with
+               atomics).  14b phi3.5-moe at full width cut to 2 of 32
+               layers, bf16, remat on, 6 steps of 4 x 512 tokens through
+               the trainer's main: exactly 9 B7 launches per MoE layer
+               per step, the loss finite and falling, step time, tokens/s,
+               peak memory, a profiled step (B7 forward, dx, W^T copies,
+               dW bmm by CUDA events; attention, MoE layers, optimizer
+               and backward by record_function range; host gaps); the
+               loss and grad_norm on the plain expert path from the same
+               parameters and batch within 2e-2 relative.  14c the
+               trainer's default architecture at full size
+               (qwen1.5-4b, 40 layers, 8 x 128 tokens, every flag at the
+               CLI's default but --steps 3): loss finite, parameters
+               moved, step time, tokens/s, peak memory.
 
 Then it prints one JSON line describing the kernels, the card's name and
 power limit as nvidia-smi gives them, and, last, the result line.
@@ -2957,6 +2982,13 @@ GMM_TOL = {"fp32": dict(rtol=1e-4, atol=1e-4),
            "bf16": dict(rtol=2e-2, atol=2e-2)}
 
 
+def note_b7_err(errors: dict, case: str, err: float) -> None:
+    """B7's largest error against its plain version over every case, and
+    each case's own (the kernels line carries both)."""
+    errors.setdefault("moe_gmm_cases", {})[case] = err
+    errors["moe_gmm"] = max(errors.get("moe_gmm", 0.0), err)
+
+
 def gmm_case(m: int, k: int, n: int, t_tile: int, ids, seed: int, *,
              zero_tiles: int = 0, n_experts: int = 0):
     """x (m, k) and W (E, k, n) in float32 on the card, made from ``seed``,
@@ -2992,7 +3024,7 @@ def check_gmm(case: str, ids, x32, w32, t_tile: int, errors: dict,
             f"{GMM_TOL[dtype]['atol']}); elements that differ at all "
             f"{float((diff > 0).float().mean()):.3e}")
         torch.testing.assert_close(got, want, **GMM_TOL[dtype])
-        errors["moe_gmm"] = max(errors.get("moe_gmm", 0.0), float(diff.max()))
+        note_b7_err(errors, f"{case} {dtype}", float(diff.max()))
         if not torch.equal(got, moe_gmm(ids, x, w, t_tile=t_tile, f_tile=8)):
             raise AssertionError(f"B7 {case} {dtype}: a second launch differs")
         if zero_rows and got[:zero_rows].count_nonzero():
@@ -3351,6 +3383,470 @@ def phase_lm(errors: dict) -> dict:
     return phase_lm_timing(cfg, launches, errors)
 
 
+# ----------------------------------------------------------------------------
+# 14. training: B7's gradient, MoE and dense training at full width, resume
+# ----------------------------------------------------------------------------
+
+#: phi3.5-moe trained at full width, cut to this many of its 32 layers: at
+#: 2 layers its state (bf16 weights and gradients, float32 moments) is
+#: ~34 GB, at 4 layers ~66 GB before activations
+TRAIN_LAYERS = 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6
+#: 14b's learning rate: at the CLI's default 3e-3 (set for the reduced
+#: configs' weights) the full-width model's loss rose from 10.42 to 17.52
+#: in four steps (gradient norm 58): Adam's first steps move every weight
+#: by ~lr, 10-20% of these init scales (0.0138 for the experts, 0.0074
+#: for the head)
+TRAIN_LR = 3e-4
+#: the plain expert path's loss and grad_norm against B7's, relative (bf16
+#: products summed in other orders)
+TRAIN_REL_TOL = 2e-2
+#: a resumed run's losses against the uninterrupted run's where a kernel
+#: that may add with atomics ran (relative); bit for bit otherwise
+RESUME_ATOMIC_RTOL = 1e-6
+#: kernel names of PyTorch ops that may add with atomics on the card
+ATOMIC_HINTS = ("scatter", "index_add", "indexing_backward",
+                "embedding_backward", "put_", "atomic")
+TRAIN_DIR = os.path.join(ROOT, "build", "train")
+
+
+def train_shapes(cfg) -> dict:
+    """B7's two training shapes: the gate (and up) product and the down
+    product of a batch of TRAIN_BATCH x TRAIN_SEQ tokens (capacity from the
+    reference's formula)."""
+    from repro_torch.models.moe import capacity_of, t_tile_of
+    cap = capacity_of(TRAIN_BATCH * TRAIN_SEQ, cfg.top_k, cfg.n_experts,
+                      cfg.capacity_factor)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    return {name: dict(n_exp=e, capacity=cap, t_tile=t_tile_of(cap), k=k,
+                       n=n)
+            for name, k, n in (("gate", d, f), ("down", f, d))}
+
+
+def check_gmm_grad(case: str, s: dict, seed: int, errors: dict) -> None:
+    """B7's autograd Function against autograd through its plain version
+    in fp32 and bf16: the output, dx and dW within the contract, a second
+    backward bit-identical."""
+    from repro_torch.kernels.moe_gmm import grouped_matmul, segment_tiles
+    from repro_torch.kernels.ref import moe_gmm_ref
+    e, cap, t_tile, k, n = (s[x] for x in ("n_exp", "capacity", "t_tile",
+                                           "k", "n"))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x32 = torch.randn(e * cap, k, generator=g, device="cuda")
+    w32 = torch.randn(e, k, n, generator=g, device="cuda") * (
+        2 / (k + n)) ** 0.5
+    d32 = torch.randn(e * cap, n, generator=g, device="cuda")
+    ids = segment_tiles(e, cap, t_tile, "cuda")
+
+    def kernel(x, w, dout):
+        x, w = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = grouped_matmul(x, w, capacity=cap, t_tile=t_tile)
+        return (out.detach(), *torch.autograd.grad(out, (x, w), dout))
+
+    def plain(x, w, dout):
+        x, w = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = moe_gmm_ref(x.view(-1, t_tile, k), w, ids).view(-1, n)
+        return (out.detach(), *torch.autograd.grad(out, (x, w), dout))
+
+    for dtype in ("fp32", "bf16"):
+        x, w, dout = ((x32, w32, d32) if dtype == "fp32" else
+                      (x32.bfloat16(), w32.bfloat16(), d32.bfloat16()))
+        tol = FP32_TOL if dtype == "fp32" else bf16_tol()
+        got, want = kernel(x, w, dout), plain(x, w, dout)
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b in zip(("out", "dx", "dW"), got, want):
+            torch.testing.assert_close(a, b, **tol, msg=lambda m: (
+                f"B7 grad {case} {dtype} {name}: {m}"))
+            errs.append(float((a.float() - b.float()).abs().max()))
+        again = kernel(x, w, dout)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"B7 grad {case} {dtype}: a second backward "
+                                 "differs")
+        # B7's own outputs are the forward and dx; dW is a torch.bmm, kept
+        # apart with its largest magnitude (bf16's spacing grows with it)
+        note_b7_err(errors, f"grad {case} {dtype} out", errs[0])
+        note_b7_err(errors, f"grad {case} {dtype} dx", errs[1])
+        dw_max = float(want[2].float().abs().max())
+        errors.setdefault("dw_bmm", {})[f"{case} {dtype}"] = dict(
+            max_abs_err=errs[2], max_abs=dw_max)
+        log("train", f"14a B7 with a gradient, {case} {dtype} ({e} experts x "
+            f"capacity {cap}, t_tile {t_tile}, {k} -> {n}): max abs err out "
+            f"{errs[0]:.3e}, dx {errs[1]:.3e}; the dW bmm {errs[2]:.3e} "
+            f"(largest |dW| {dw_max:.3e}) (rtol {tol['rtol']}, atol "
+            f"{tol['atol']}); a second backward bit-identical")
+        del got, want, again
+    torch.cuda.empty_cache()
+
+
+def time_gmm_grad(case: str, s: dict, seed: int) -> dict:
+    """CUDA-event times of the four launches of one bf16 product's forward
+    and backward: B7, B7 on W^T (dx), the W^T copy, the dW bmm."""
+    from repro_torch.kernels import moe_gmm as GM
+    e, cap, t_tile, k, n = (s[x] for x in ("n_exp", "capacity", "t_tile",
+                                           "k", "n"))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(e * cap, k, generator=g, device="cuda").bfloat16()
+    w = (torch.randn(e, k, n, generator=g, device="cuda")
+         * (2 / (k + n)) ** 0.5).bfloat16()
+    dout = torch.randn(e * cap, n, generator=g, device="cuda").bfloat16()
+    ids = GM.segment_tiles(e, cap, t_tile, "cuda")
+    wt = GM.transposed_weights(w)
+    row = {"fwd": time_ms(lambda: GM.moe_gmm(ids, x, w, t_tile=t_tile)),
+           "dx": time_ms(lambda: GM.moe_gmm(ids, dout, wt, t_tile=t_tile)),
+           "wt_copy": time_ms(lambda: GM.transposed_weights(w)),
+           "dw_bmm": time_ms(lambda: GM.weight_grad(x, dout, e, cap))}
+    log("train", f"14a times, {case} bf16 ({e * cap} x {k} -> {n}, CUDA "
+        f"events over {TIMED_LAUNCHES} launches): forward {row['fwd']:.4f} "
+        f"ms, dx on B7 {row['dx']:.4f} ms, W^T copy ({w.numel() * 2 / 1e6:.1f}"
+        f" MB) {row['wt_copy']:.4f} ms, dW bmm {row['dw_bmm']:.4f} ms")
+    del x, w, dout, wt
+    torch.cuda.empty_cache()
+    return row
+
+
+class TrainProfile:
+    """Within the block, every B7 launch, W^T copy and dW bmm is bracketed
+    by CUDA events (B7 split into forward, recomputation included, and dx
+    by whether GroupedMatmul.backward is running), and the attention
+    sub-layers, the MoE layers and the optimizer run in record_function
+    ranges."""
+
+    TAGS = ("B7 forward", "B7 dx", "W^T copy", "dW bmm")
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from repro_torch.kernels import moe_gmm as GM
+        from repro_torch.launch import steps as ST
+        from repro_torch.models import layers as L
+        from repro_torch.models import moe as MOE
+        self.events = {t: [] for t in self.TAGS}
+        self.in_backward = False
+        self.saved = [(GM, "moe_gmm", GM.moe_gmm),
+                      (GM, "transposed_weights", GM.transposed_weights),
+                      (GM, "weight_grad", GM.weight_grad),
+                      (L, "attention_train", L.attention_train),
+                      (MOE, "moe_ffn", MOE.moe_ffn),
+                      (ST, "apply_updates", ST.apply_updates)]
+        backward = GM.GroupedMatmul.backward
+
+        def timed(tag, f):
+            def wrapped(*a, **kw):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                out = f(*a, **kw)
+                t1.record()
+                name = ("B7 dx" if self.in_backward else "B7 forward"
+                        ) if tag == "B7" else tag
+                self.events[name].append((t0, t1))
+                return out
+            return wrapped
+
+        def ranged(name, f):
+            def wrapped(*a, **kw):
+                with record_function(name):
+                    return f(*a, **kw)
+            return wrapped
+
+        def marked_backward(ctx, dout):
+            self.in_backward = True
+            try:
+                return backward(ctx, dout)
+            finally:
+                self.in_backward = False
+
+        self.backward = backward
+        GM.moe_gmm = timed("B7", GM.moe_gmm)
+        GM.transposed_weights = timed("W^T copy", GM.transposed_weights)
+        GM.weight_grad = timed("dW bmm", GM.weight_grad)
+        L.attention_train = ranged("train.attention", L.attention_train)
+        MOE.moe_ffn = ranged("train.moe", MOE.moe_ffn)
+        ST.apply_updates = ranged("train.optimizer", ST.apply_updates)
+        GM.GroupedMatmul.backward = staticmethod(marked_backward)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import moe_gmm as GM
+        for mod, attr, f in self.saved:
+            setattr(mod, attr, f)
+        GM.GroupedMatmul.backward = staticmethod(self.backward)
+        return False
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {t: (sum(a.elapsed_time(b) for a, b in ev), len(ev))
+                for t, ev in self.events.items()}
+
+
+def profile_train_step(label: str, fn) -> dict:
+    """One training step under torch.profiler and TrainProfile: device busy
+    against wall time, B7's four parts (CUDA events), the ranges' device
+    time and the kernels that may add with atomics."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with TrainProfile() as tp, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    parts = tp.ms()
+    kernels, ranges, backward = [], {}, 0.0
+    on_card = torch.autograd.DeviceType.CUDA
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        total = getattr(evt, "device_time_total", None)
+        if total is None:
+            total = getattr(evt, "cuda_time_total", 0.0)
+        if evt.key.startswith(("train.", "autograd::engine::")):
+            # a host range sums its ops' kernels; its card-side annotation
+            # (a span, gaps included) is no kernel
+            if evt.device_type == on_card:
+                continue
+            if evt.key.startswith("train."):
+                ranges[evt.key] = total / 1e3
+            else:
+                backward += total / 1e3
+        elif evt.device_type == on_card and us > 0:
+            kernels.append((us / 1e3, evt.count, evt.key[:70]))
+    atomic = sorted({k[2] for k in kernels
+                     if any(h in k[2].lower() for h in ATOMIC_HINTS)})
+    out = {"wall_ms": wall_ms, "parts": parts, "ranges": ranges,
+           "atomic": atomic}
+    if not kernels:
+        log("train", f"{label}: profiler saw no device time: breakdown not "
+            "measured")
+        return out
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    out["busy_ms"] = busy
+    b7 = "; ".join(f"{t} {ms:.3f} ms ({n} launches)"
+                   for t, (ms, n) in parts.items())
+    log("train", f"{label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({busy / wall_ms:.1%}; host gaps {wall_ms - busy:.3f} ms) "
+        f"(torch.profiler, one step); by CUDA events: {b7}; by "
+        f"record_function range (device time of the PyTorch ops inside; "
+        f"B7 launches through ctypes and counts in none): attention "
+        f"{ranges.get('train.attention', 0.0):.3f} ms (forward and "
+        f"recomputation), MoE layers' dispatch, router and combine "
+        f"{ranges.get('train.moe', 0.0):.3f} ms (forward and "
+        f"recomputation), optimizer {ranges.get('train.optimizer', 0.0):.3f}"
+        f" ms; backward nodes {backward:.3f} ms (recomputation inside them "
+        f"counts in both)")
+    for ms, calls, name in kernels[:10]:
+        log("train", f"  {ms:.4f} ms  {ms / busy:6.1%}  {calls:4d} calls  "
+            f"{name}")
+    log("train", f"{label}: kernels that may add with atomics: "
+        f"{atomic if atomic else 'none'}")
+    return out
+
+
+def loss_and_grad_norm(cfg, params, batch) -> tuple:
+    """The loss and the gradient's global norm at ``params`` (no update)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import global_norm
+    leaves = params.reference_leaves()
+    flat = [p for leaf in leaves.values() for p in leaf.members]
+    total, m = T.loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(total, flat)
+    return float(m["loss"].detach()), float(global_norm({"all": grads}))
+
+
+def phase_train_moe() -> dict:
+    """14b: phi3.5-moe at full width, TRAIN_LAYERS layers, bf16, remat on,
+    TRAIN_STEPS steps through the trainer's main; launches, losses, step
+    times, peak memory; a profiled step; B7 against the plain expert
+    path's loss and grad_norm from the same parameters and batch."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import synth_batch_for
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    n_param = cfg.param_count()
+    log("train", f"14b {LM_ARCH} at {TRAIN_LAYERS} of 32 layers (remat "
+        f"{cfg.remat}, {cfg.dtype}): {n_param / 1e9:.3f} B parameters, state "
+        f"reckoned {n_param * 12 / 1e9:.1f} GB (2 bf16 weight + 2 bf16 grad "
+        f"+ 8 float32 moments a parameter)")
+    argv = ["--arch", LM_ARCH, "--layers", str(TRAIN_LAYERS), "--steps",
+            str(TRAIN_STEPS), "--global-batch", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+            "--log-every", "1"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    run = train.main(argv)
+    counts = dict(_build.LAUNCHES)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    want = {"moe_gmm": 9 * n_moe * TRAIN_STEPS}
+    losses = run.losses
+    steady = sorted(run.step_ms[2:6])
+    med = (steady[1] + steady[2]) / 2
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log("train", f"14b {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens in {wall:.1f} s (init included): launches {counts} "
+        f"(expected {want}: 3 forward + 3 recomputed + 3 dx per MoE layer "
+        f"per step); losses {[round(x, 4) for x in losses]}; step ms (CUDA "
+        f"events) {[round(x, 3) for x in run.step_ms]}; median of steps 3-6 "
+        f"{med:.3f} ms, {tokens / med * 1e3:.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.1f} GB)")
+    if counts != want:
+        raise AssertionError(f"14b launch counts {counts} != {want}")
+    if not np.isfinite(losses).all() or not (
+            np.mean(losses[-3:]) < np.mean(losses[:3])):
+        raise AssertionError(f"14b losses not finite and falling: {losses}")
+
+    data = run.data
+    batch = synth_batch_for(cfg, data, TRAIN_STEPS, device="cuda")
+    step_fn = ST.make_train_step(run.cfg, run.opt)
+    state = {"params": run.params, "opt": run.opt_state}
+
+    def one_step():
+        state["params"], state["opt"], _ = step_fn(state["params"],
+                                                   state["opt"], batch)
+
+    prof = profile_train_step("14b profiled step", one_step)
+    params = state["params"]
+    del state, run
+    torch.cuda.empty_cache()
+    b7 = loss_and_grad_norm(cfg, params, batch)
+    params.use_plain_experts(True)
+    _build.reset_launches()
+    plain = loss_and_grad_norm(cfg, params, batch)
+    params.use_plain_experts(False)
+    if dict(_build.LAUNCHES):
+        raise AssertionError(f"the plain expert path launched "
+                             f"{dict(_build.LAUNCHES)}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(b7, plain)]
+    log("train", f"14b B7 against the plain expert path from the same "
+        f"parameters and batch: loss {b7[0]:.6f} / {plain[0]:.6f} (relative "
+        f"{rel[0]:.3e}), grad_norm {b7[1]:.6f} / {plain[1]:.6f} (relative "
+        f"{rel[1]:.3e}; limit {TRAIN_REL_TOL})")
+    if max(rel) > TRAIN_REL_TOL:
+        raise AssertionError(f"14b B7 and the plain path differ: {rel}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=counts["moe_gmm"], step_ms=med,
+                tokens_per_s=tokens / med * 1e3, peak_gib=peak / 2**30,
+                losses=losses, profile={k: v for k, v in prof.items()
+                                        if k != "parts"},
+                b7_parts_ms={k: v[0] for k, v in prof["parts"].items()})
+
+
+def phase_train_dense() -> dict:
+    """14c: the trainer's default architecture at full size, every flag at
+    the CLI's default but the step count."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+    cfg = get_config("qwen1.5-4b")
+    n_param = cfg.param_count()
+    log("train", f"14c qwen1.5-4b, {cfg.n_layers} layers: {n_param / 1e9:.3f}"
+        f" B parameters, state reckoned {n_param * 12 / 1e9:.1f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.main(["--arch", "qwen1.5-4b", "--steps", "3"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = run.losses
+    moved = bool((run.params.final_norm.scale != 1).any())
+    tokens = run.data.global_batch * run.data.seq_len
+    med = float(np.median(run.step_ms[1:]))
+    log("train", f"14c 3 steps of {run.data.global_batch} x "
+        f"{run.data.seq_len} tokens in {wall:.1f} s (init included): losses "
+        f"{[round(x, 4) for x in losses]}; step ms (CUDA events) "
+        f"{[round(x, 3) for x in run.step_ms]}; median of steps 2-3 "
+        f"{med:.3f} ms, {tokens / med * 1e3:.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.1f} GB); final_norm moved: "
+        f"{moved}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and moved):
+        raise AssertionError(f"14c: losses {losses}, parameters moved "
+                             f"{moved}")
+    del run
+    torch.cuda.empty_cache()
+    return dict(step_ms=med, tokens_per_s=tokens / med * 1e3,
+                peak_gib=peak / 2**30, losses=losses)
+
+
+def phase_train_resume() -> None:
+    """14d: reduced configs on the card, 8 steps with a checkpoint at step
+    4; a second main resumed from it gives steps 5-8's losses."""
+    import shutil
+    from repro_torch.data.tokens import synth_batch_for
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train
+    for arch in (LM_ARCH, "qwen1.5-4b"):
+        name = arch.replace(".", "_")
+        full, part = (os.path.join(TRAIN_DIR, f"{name}-{x}")
+                      for x in ("full", "resumed"))
+        for d in (full, part):
+            shutil.rmtree(d, ignore_errors=True)
+        flags = ["--arch", arch, "--reduced", "--steps", "8",
+                 "--ckpt-every", "4", "--log-every", "100"]
+        a = train.main(flags + ["--ckpt-dir", full])
+        os.makedirs(part)
+        shutil.copytree(os.path.join(full, "step_0000000004"),
+                        os.path.join(part, "step_0000000004"))
+        b = train.main(flags + ["--ckpt-dir", part])
+        want, got = a.losses[4:], b.losses
+        batch = synth_batch_for(a.cfg, a.data, 8, device="cuda")
+        step_fn = ST.make_train_step(a.cfg, a.opt)
+        prof = profile_train_step(f"14d {arch} reduced", lambda: step_fn(
+            a.params, a.opt_state, batch))
+        same = got == want
+        worst = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+        log("train", f"14d {arch} reduced ({a.cfg.dtype}): resumed at step "
+            f"{b.start}; steps 5-8 losses {got} against the uninterrupted "
+            f"{want}: bit for bit {same}, worst relative {worst:.3e}; "
+            f"kernels that may add with atomics: {prof['atomic'] or 'none'}")
+        if b.start != 4 or len(got) != 4:
+            raise AssertionError(f"14d {arch}: resumed at {b.start}")
+        if not same and not (prof["atomic"] and worst <= RESUME_ATOMIC_RTOL):
+            raise AssertionError(f"14d {arch}: the resumed run differs by "
+                                 f"{worst:.3e} relative")
+        del a, b
+    torch.cuda.empty_cache()
+
+
+def check_train_grads(cfg, errors: dict) -> None:
+    """14a: B7's gradient at the two training shapes and a ragged one."""
+    for i, (case, s) in enumerate(train_shapes(cfg).items()):
+        check_gmm_grad(case, s, seed=40 + i, errors=errors)
+    # rows in tiles of 24 (not the kernel's 64-row blocks), 72-row
+    # segments, and dx 96 columns wide (one partial column block); widths
+    # above 128 must be multiples of 128 (the reference's f_tile rule)
+    check_gmm_grad("ragged", dict(n_exp=3, capacity=72, t_tile=24, k=96,
+                                  n=640), seed=42, errors=errors)
+
+
+def phase_train(errors: dict) -> dict:
+    from repro_torch.configs.base import get_config
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    check_train_grads(cfg, errors)
+    times = {case: time_gmm_grad(case, s, seed=50 + i)
+             for i, (case, s) in enumerate(train_shapes(cfg).items())}
+    # the resume first: its runs are held bit for bit, before any profiler
+    # has run in this process
+    t1 = time.perf_counter()
+    phase_train_resume()
+    t2 = time.perf_counter()
+    moe = phase_train_moe()
+    t3 = time.perf_counter()
+    dense = phase_train_dense()
+    t4 = time.perf_counter()
+    log("train", f"phase 14 took {t4 - t0:.1f} s: 14a {t1 - t0:.1f} s, 14d "
+        f"{t2 - t1:.1f} s, 14b {t3 - t2:.1f} s, 14c {t4 - t3:.1f} s")
+    return dict(launches=moe["launches"], shapes=times, moe=moe,
+                dense=dense)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3394,6 +3890,13 @@ def main() -> int:
     del problem, w_opt
     torch.cuda.empty_cache()
     entries.append(phase_lm(errors))
+    trained = phase_train(errors)
+    b7 = entries[-1]
+    b7.update(serve_launches=b7["launches"], train_launches=trained["launches"],
+              launches=b7["launches"] + trained["launches"],
+              max_abs_err=errors["moe_gmm"],
+              case_errs=errors["moe_gmm_cases"], dw_bmm=errors["dw_bmm"],
+              train={k: trained[k] for k in ("shapes", "moe", "dense")})
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -4,14 +4,16 @@ reference).
 The layout mirrors ``repro``: ``core/`` holds the STD data types, the plain
 SpMV executors, the inspector, the SBBNNLS solver, the executor registry,
 the plan cache and the single-subject and cohort engines; ``data/`` the
-synthetic connectome generator; ``formats/`` the Phi layouts and their
-selection; ``tune/`` the kernel autotuner; ``checkpoint/`` solver-state
-checkpoints; ``obs/`` metrics and span tracing, wired into the engines,
-the plan cache, the tuner and the service; ``roofline/`` the H100's
+synthetic connectome generator and token stream; ``formats/`` the Phi
+layouts and their selection; ``tune/`` the kernel autotuner;
+``checkpoint/`` solver-state and training-state checkpoints; ``obs/``
+metrics and span tracing, wired into the engines, the plan cache, the
+tuner and the service; ``roofline/`` the H100's
 roofline terms and the SpMVs' compulsory bytes; ``serve/`` the
 multi-tenant solve service; ``kernels/`` the hand-written CUDA kernels for
 Hopper (``kernels/csrc``) with their wrappers and plain PyTorch versions;
-``configs/``, ``models/`` and ``launch/`` the MoE serving side-workload.
+``configs/``, ``models/``, ``optim/``, ``data/tokens.py`` and ``launch/``
+the LM side-workload: serving and training the dense and MoE families.
 ``bridge`` carries problems, weights and states across from the reference
 as numpy arrays.
 

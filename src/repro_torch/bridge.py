@@ -7,7 +7,10 @@ cross both ways (:func:`state_from_reference`, :func:`state_to_reference`),
 single-subject and stacked.  A test that
 holds the two packages against each other builds its problem once, with
 the reference, and hands the same arrays to both; the LM side's
-parameters cross the same way (:func:`lm_params_from_reference`).
+parameters and optimizer states cross the same way, both ways
+(:func:`lm_params_from_reference`, :func:`lm_params_to_reference`,
+:func:`opt_state_from_reference`, :func:`opt_state_to_reference`), in the
+reference's stacked tree.
 """
 from __future__ import annotations
 
@@ -97,40 +100,106 @@ def _tensor_of(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _lookup(tree, path: str):
+    """The node of a nested reference tree at ``path`` (``a/b``, ``#i`` a
+    list index)."""
+    node = tree
+    for key in path.split("/"):
+        node = node[int(key[1:])] if key.startswith("#") else node[key]
+    return node
+
+
+def _nest(flat: dict) -> dict:
+    """A flat ``{path: x}`` as the reference's nested tree: dicts, and a
+    list where the keys are ``#i``."""
+    out: dict = {}
+    for path, x in flat.items():
+        node, keys = out, path.split("/")
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = x
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.startswith("#") for k in node):
+            return [lists(node[f"#{i}"]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(out)
+
+
 def lm_params_from_reference(params, cfg, *, device: DeviceLike = None):
-    """The port's model (:class:`repro_torch.models.transformer.MoETransformer`)
+    """The port's model (:class:`repro_torch.models.transformer.Transformer`)
     holding the reference's LM parameters.
 
     ``params`` is the reference's parameter pytree with numpy leaves
     (``jax.tree.map(np.asarray, params)``): dictionaries keyed as the
-    port's modules are, the MoE layers stacked along a leading axis under
-    ``"layers"``, the dense prefix a list under ``"prefix"``.
+    port's modules are, the stacked layers along a leading axis under
+    ``"layers"``, an MoE model's dense prefix a list under ``"prefix"``.
 
     Raises:
         ValueError: a parameter is missing or has another shape or dtype.
     """
-    from repro_torch.models.transformer import MoETransformer
-    model = MoETransformer(cfg, resolve_device(device))
-    for name, param in model.named_parameters():
-        parts = name.split(".")
+    from repro_torch.models.transformer import Transformer
+    model = Transformer(cfg, resolve_device(device))
+    for path, leaf in model.reference_leaves().items():
         try:
-            if parts[0] in ("layers", "prefix"):
-                node, index = params[parts[0]], int(parts[1])
-                if parts[0] == "prefix":
-                    node = node[index]
-                for key in parts[2:]:
-                    node = node[key]
-                if parts[0] == "layers":
-                    node = np.asarray(node)[index]
-            else:
-                node = params
-                for key in parts:
-                    node = node[key]
+            node = _tensor_of(_lookup(params, path))
         except (KeyError, IndexError) as e:
-            raise ValueError(f"the reference has no parameter {name}") from e
-        t = _tensor_of(node)
-        if t.shape != param.shape or t.dtype != param.dtype:
-            raise ValueError(f"{name}: reference {tuple(t.shape)} {t.dtype}, "
-                             f"port {tuple(param.shape)} {param.dtype}")
-        param.data.copy_(t)
+            raise ValueError(f"the reference has no parameter {path}") from e
+        if tuple(node.shape) != leaf.shape or node.dtype != leaf.members[0].dtype:
+            raise ValueError(f"{path}: reference {tuple(node.shape)} "
+                             f"{node.dtype}, port {leaf.shape} "
+                             f"{leaf.members[0].dtype}")
+        with torch.no_grad():
+            for i, m in enumerate(leaf.members):
+                m.copy_(node[i] if leaf.stacked else node)
     return model
+
+
+def lm_params_to_reference(model) -> dict:
+    """The model's parameters as the reference's nested tree of numpy
+    arrays (stacked layers stacked; bf16 widened to float32)."""
+    from repro_torch.launch.steps import state_tree
+    return _nest({k: to_numpy(v) for k, v in
+                  state_tree(model, {})["params"].items()})
+
+
+def opt_state_from_reference(opt_state, model, opt_cfg) -> dict:
+    """The port's optimizer state (``optim/adamw.py``) for ``model`` from
+    the reference's ``opt_state`` with numpy leaves: ``mu``, ``nu`` and
+    ``step`` (AdamW) or ``fac`` and ``step`` (Adafactor), on the model's
+    device.
+
+    Raises:
+        ValueError: an entry is missing or has another shape.
+    """
+    from repro_torch.optim.adamw import init_opt_state
+    state = init_opt_state(opt_cfg, model.reference_leaves())
+
+    def fill(dst, src, path):
+        if isinstance(dst, dict):
+            for k in dst:
+                fill(dst[k], _lookup(src, k), f"{path}/{k}")
+            return
+        t = _tensor_of(src)
+        if tuple(t.shape) != tuple(dst.shape):
+            raise ValueError(f"{path}: reference {tuple(t.shape)}, port "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(t)
+
+    try:
+        fill(state, opt_state, "opt")
+    except (KeyError, IndexError) as e:
+        raise ValueError(f"the reference's state has no entry {e}") from e
+    return state
+
+
+def opt_state_to_reference(opt_state) -> dict:
+    """The port's optimizer state as the reference's nested tree of numpy
+    arrays (``step`` int32, 0-d)."""
+    def conv(x):
+        if isinstance(x, dict):
+            return _nest({k: conv(v) for k, v in x.items()})
+        return to_numpy(x)
+    return conv(opt_state)

@@ -1,1 +1,2 @@
-"""Synthetic dMRI / tractography problems."""
+"""Synthetic dMRI / tractography problems and the synthetic token
+stream."""

@@ -20,6 +20,17 @@ The wrapper launches the kernel on CUDA tensors (counted in
 :data:`repro_torch.kernels._build.LAUNCHES` under ``"moe_gmm"``), runs the
 plain version (:func:`repro_torch.kernels.ref.moe_gmm_ref`) on CPU
 tensors, and raises on anything else.
+
+:class:`GroupedMatmul` differentiates it for the training path, on the
+expert FFN's segment layout (each of the E experts owns ``capacity``
+consecutive rows of ``x``, cut into tiles of ``t_tile`` rows).  The Pallas
+kernel has no backward kernel; the reference differentiates its expert
+einsums.  Here the forward is B7, the input gradient ``dx = dout @ W[e]^T``
+is B7 again on a contiguous ``(E, N, K)`` transpose of ``W`` (B7 reads W
+N-major, so the transpose is a copy), and the weight gradient
+``dW[e] = x_e^T @ dout_e`` is one ``torch.bmm`` over the ``(E, capacity,
+.)`` views: a plain large product, which the reference too leaves to its
+compiler.
 """
 from __future__ import annotations
 
@@ -36,6 +47,68 @@ DEFAULT_F_TILE = 128
 
 _SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ENTRY = {torch.float32: "moe_gmm_f32", torch.bfloat16: "moe_gmm_bf16"}
+
+
+def segment_tiles(n_experts: int, capacity: int, t_tile: int,
+                  device) -> torch.Tensor:
+    """``expert_of_tile`` of the segment layout: expert ``e`` owns tiles
+    ``[e * capacity / t_tile, (e + 1) * capacity / t_tile)``."""
+    return torch.arange(n_experts, dtype=torch.int32,
+                        device=device).repeat_interleave(capacity // t_tile)
+
+
+class GroupedMatmul(torch.autograd.Function):
+    """``out[e * capacity + c] = x[e * capacity + c] @ W[e]`` on B7, with
+    its gradient (module docstring).  Use :func:`grouped_matmul`."""
+
+    @staticmethod
+    def forward(ctx, x, w, capacity: int, t_tile: int):
+        n_exp = w.shape[0]
+        if x.shape[0] != n_exp * capacity or capacity % t_tile:
+            raise ValueError(
+                f"GroupedMatmul takes the segment layout only: {n_exp} "
+                f"experts of {capacity} rows in tiles of {t_tile} (x has "
+                f"{x.shape[0]} rows)")
+        ids = segment_tiles(n_exp, capacity, t_tile, x.device)
+        ctx.save_for_backward(x, w, ids)
+        ctx.capacity, ctx.t_tile = capacity, t_tile
+        return moe_gmm(ids, x, w, t_tile=t_tile)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w, ids = ctx.saved_tensors
+        dout = dout.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = moe_gmm(ids, dout, transposed_weights(w), t_tile=ctx.t_tile)
+        if ctx.needs_input_grad[1]:
+            dw = weight_grad(x, dout, w.shape[0], ctx.capacity)
+        return dx, dw, None, None
+
+
+def transposed_weights(w: torch.Tensor) -> torch.Tensor:
+    """``W`` as a contiguous ``(E, N, K)`` copy: B7's operand for the input
+    gradient (B7 reads its weights N-major)."""
+    return w.transpose(1, 2).contiguous()
+
+
+def weight_grad(x: torch.Tensor, dout: torch.Tensor, n_experts: int,
+                capacity: int) -> torch.Tensor:
+    """``dW[e] = x_e^T @ dout_e`` over the segment layout's ``(E, capacity,
+    .)`` views: one ``torch.bmm``."""
+    return torch.bmm(x.view(n_experts, capacity, x.shape[1]).transpose(1, 2),
+                     dout.view(n_experts, capacity, dout.shape[1]))
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, capacity: int,
+                   t_tile: int) -> torch.Tensor:
+    """B7 on the segment layout with a gradient (:class:`GroupedMatmul`).
+
+    Raises:
+        ValueError: ``x``'s rows are not ``E * capacity``, or ``capacity``
+            is not a multiple of ``t_tile``; and :func:`moe_gmm`'s errors.
+    """
+    return GroupedMatmul.apply(x, w, capacity, t_tile)
 
 
 def moe_gmm(expert_of_tile: torch.Tensor, x_p: torch.Tensor,

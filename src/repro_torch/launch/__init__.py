@@ -1,2 +1,2 @@
-"""Launchers of the LM side-workload: the step builders and the serving
-driver."""
+"""Launchers of the LM side-workload: the step functions, the serving
+CLI and the trainer."""

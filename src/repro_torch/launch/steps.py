@@ -1,15 +1,55 @@
-"""Serve-step builders (torch counterpart of ``repro/launch/steps.py``).
+"""Train, eval and serve step functions (torch counterpart of
+``repro/launch/steps.py``).
 
-``make_prefill(cfg)`` returns the prefill and ``make_serve_step(cfg)`` the
-one-token decode step, both ``(params, batch) -> (logits, cache)``.  The
-train and eval steps wait for the training slice (ROADMAP A15).
+``make_train_step(cfg, opt)`` returns the fused step
+``(params, opt_state, batch) -> (params, opt_state, metrics)``: the loss
+and its gradient (autograd over :func:`repro_torch.models.transformer.loss_fn`)
+and the optimizer update, which runs in place (``optim/adamw.py``).
+``make_eval_step(cfg)`` returns the loss's metrics without a gradient,
+``make_prefill(cfg)`` the prefill and ``make_serve_step(cfg)`` the
+one-token decode step.
+
+A training state crosses to checkpoints (and to the reference) as the
+reference's tree: :func:`state_tree` stacks every layer-stacked parameter
+on the host under the reference's path (``params/layers/attn/wq``), the
+optimizer state is already kept in that shape, and :func:`load_state`
+copies such a tree back into a model and its optimizer state.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Dict, Tuple
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as T
+from repro_torch.optim.adamw import OptConfig, apply_updates, init_opt_state
+
+
+def make_train_step(cfg: ArchConfig, opt: OptConfig) -> Callable:
+    def train_step(params: T.Transformer, opt_state: Dict, batch: Dict):
+        leaves = params.reference_leaves()
+        flat = [p for leaf in leaves.values() for p in leaf.members]
+        total, metrics = T.loss_fn(cfg, params, batch)
+        grads = torch.autograd.grad(total, flat, allow_unused=True)
+        grads = iter(torch.zeros_like(p) if g is None else g
+                     for p, g in zip(flat, grads))
+        by_leaf = {k: [next(grads) for _ in leaf.members]
+                   for k, leaf in leaves.items()}
+        _, opt_state, opt_metrics = apply_updates(opt, leaves, by_leaf,
+                                                  opt_state)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return params, opt_state, {**metrics, **opt_metrics,
+                                   "total_loss": total.detach()}
+    return train_step
+
+
+def make_eval_step(cfg: ArchConfig) -> Callable:
+    @torch.no_grad()
+    def eval_step(params: T.Transformer, batch: Dict) -> Dict:
+        _, metrics = T.loss_fn(cfg, params, batch)
+        return metrics
+    return eval_step
 
 
 def make_prefill(cfg: ArchConfig) -> Callable:
@@ -22,3 +62,83 @@ def make_serve_step(cfg: ArchConfig) -> Callable:
     def serve_step(params, batch):
         return T.decode_step(cfg, params, batch)
     return serve_step
+
+
+def init_all(cfg: ArchConfig, opt: OptConfig, generator: torch.Generator,
+             device=None) -> Tuple[T.Transformer, Dict]:
+    """A model with random weights from ``generator`` and its zero
+    optimizer state, on ``device`` (the generator's by default)."""
+    params = T.init_params(cfg, generator, device)
+    return params, init_opt_state(opt, params.reference_leaves())
+
+
+def abstract_state(cfg: ArchConfig, opt: OptConfig) -> Tuple[T.Transformer,
+                                                              Dict]:
+    """(params, opt_state) on the ``meta`` device: shapes and dtypes, no
+    allocation."""
+    params = T.Transformer(cfg, "meta")
+    return params, init_opt_state(opt, params.reference_leaves())
+
+
+def _host(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def state_tree(params: T.Transformer, opt_state: Dict) -> Dict:
+    """``{"params", "opt"}`` as CPU tensors in the reference's tree: each
+    parameter under its reference path, stacked layers stacked (on the
+    host), and the optimizer state as it is kept."""
+    flat = {}
+    for path, leaf in params.reference_leaves().items():
+        ts = [m.detach().cpu() for m in leaf.members]
+        flat[path] = torch.stack(ts) if leaf.stacked else ts[0]
+    return {"params": flat, "opt": _host(opt_state)}
+
+
+def state_template(params: T.Transformer, opt_state: Dict) -> Dict:
+    """:func:`state_tree`'s shapes as ``meta`` tensors, the template
+    ``checkpoint.manager.unflatten_like`` rebuilds a restored tree on."""
+    def meta(t):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+    def tree(x):
+        return {k: tree(v) for k, v in x.items()} if isinstance(
+            x, dict) else meta(x)
+
+    leaves = params.reference_leaves()
+    return {"params": {k: torch.empty(v.shape, dtype=v.members[0].dtype,
+                                      device="meta")
+                       for k, v in leaves.items()},
+            "opt": tree(opt_state)}
+
+
+@torch.no_grad()
+def load_state(params: T.Transformer, opt_state: Dict, tree: Dict) -> None:
+    """Copy a :func:`state_tree`-shaped ``tree`` (any device) into
+    ``params`` and ``opt_state`` in place.
+
+    Raises:
+        KeyError: the tree lacks a parameter or state entry.
+        ValueError: an entry has another shape.
+    """
+    for path, leaf in params.reference_leaves().items():
+        src = tree["params"][path]
+        if tuple(src.shape) != leaf.shape:
+            raise ValueError(f"params/{path}: {tuple(src.shape)} != "
+                             f"{leaf.shape}")
+        for i, m in enumerate(leaf.members):
+            m.copy_(src[i] if leaf.stacked else src)
+
+    def copy(dst, src, path):
+        if isinstance(dst, dict):
+            for k in dst:
+                copy(dst[k], src[k], f"{path}/{k}")
+        elif tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{path}: {tuple(src.shape)} != "
+                             f"{tuple(dst.shape)}")
+        else:
+            dst.copy_(src)
+
+    copy(opt_state, tree["opt"], "opt")

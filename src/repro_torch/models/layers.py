@@ -3,10 +3,12 @@
 Modules hold the parameters in the reference's layout (``x @ w`` with ``w``
 of shape ``(d_in, d_out)``; their constructors take the place of the
 reference's ``init_*`` functions), plain functions do the math with the
-reference's casts.  Attention supports GQA/MQA, optional QKV bias, RoPE, a
-dense causal path for prompts of up to 1024 tokens and a KV-cache decode
-path.  The blockwise (flash) path for longer prompts, M-RoPE, sinusoidal
-and learned positions wait for a later slice (ROADMAP A15) and raise.
+reference's casts.  Parameters take gradients; the serving paths run under
+``torch.no_grad``.  Attention supports GQA/MQA, optional QKV bias, RoPE, a
+dense causal path for sequences of up to 1024 tokens (training and
+prefill) and a KV-cache decode path.  Learned positions are a table added
+to the embeddings (``models/transformer.py``).  The blockwise (flash) path
+for longer sequences (ROADMAP A15.2) and M-RoPE (A15.5) raise.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ BLOCK_THRESHOLD = 1024
 # ----------------------------------------------------------------------------
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 def dense_init(g: torch.Generator, d_in: int, d_out: int, dtype,
@@ -147,7 +149,7 @@ def _project_qkv(p: Attention, spec: AttnSpec, x: torch.Tensor,
         q = apply_rope(q, pos2d, spec.rope_theta)
         k = apply_rope(k, pos2d, spec.rope_theta)
     elif spec.rope == "mrope":
-        raise ValueError("M-RoPE is not ported yet (ROADMAP A15)")
+        raise ValueError("M-RoPE is not ported yet (ROADMAP A15.5)")
     return q, k, v
 
 
@@ -176,10 +178,17 @@ def _self_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     S = q.shape[1]
     if S > BLOCK_THRESHOLD:
-        raise ValueError(f"a prompt of {S} tokens needs the flash path "
+        raise ValueError(f"a sequence of {S} tokens needs the flash path "
                          f"(S > {BLOCK_THRESHOLD}), not ported yet "
-                         "(ROADMAP A15)")
+                         "(ROADMAP A15.2)")
     return dense_attention(q, k, v, causal=True)
+
+
+def attention_train(p: Attention, spec: AttnSpec, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention over the whole sequence (the prefill's output
+    without its cache), differentiable."""
+    return attention_prefill(p, spec, x, positions)[0]
 
 
 def attention_prefill(p: Attention, spec: AttnSpec, x: torch.Tensor,

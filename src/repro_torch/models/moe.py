@@ -5,8 +5,11 @@ The router gives each token ``top_k`` experts; the (token, k) slots are
 sorted by expert id, so each expert's tokens form a contiguous segment of
 ``capacity`` rows (tokens over capacity are dropped, empty slots are zero
 rows), and the expert FFN runs as three grouped products over those
-segments on kernel B7 (:func:`repro_torch.kernels.moe_gmm.moe_gmm`), whose
-token tiles never cross an expert boundary.  Results are gathered back per
+segments on kernel B7 (:func:`repro_torch.kernels.moe_gmm.grouped_matmul`,
+differentiable: B7 forward and for the input gradient), whose token tiles
+never cross an expert boundary.  Every op here is out of place, so the
+layer trains under autograd and recomputes identically under
+``torch.utils.checkpoint`` (stable sorts, gathers, no atomics forward).  Results are gathered back per
 k and summed with the renormalised gate values.
 
 One dispatch group (G = 1): the reference's grouped dispatch over a mesh's
@@ -21,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.kernels.moe_gmm import grouped_matmul, segment_tiles
 from repro_torch.kernels.ref import moe_gmm_ref
 from repro_torch.models import layers as L
 
@@ -97,20 +100,18 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def expert_ffn(p: MoE, xe: torch.Tensor, capacity: int) -> torch.Tensor:
     """SwiGLU of every expert over its ``capacity`` rows of ``xe``
-    ``(E * capacity, d)``: three grouped products on B7 (or its plain
-    version when ``p.plain``)."""
+    ``(E * capacity, d)``: three grouped products on B7 (or, when
+    ``p.plain``, its plain version, differentiated by autograd)."""
     n_experts = p.wi_gate.shape[0]
     t_tile = t_tile_of(capacity)
-    expert_of_tile = torch.arange(
-        n_experts, dtype=torch.int32, device=xe.device).repeat_interleave(
-            capacity // t_tile)
 
     def gmm(a, w):
         if p.plain:
             n_tiles = a.shape[0] // t_tile
+            ids = segment_tiles(n_experts, capacity, t_tile, a.device)
             return moe_gmm_ref(a.view(n_tiles, t_tile, a.shape[1]), w,
-                               expert_of_tile).view(a.shape[0], w.shape[2])
-        return moe_gmm(expert_of_tile, a, w, t_tile=t_tile)
+                               ids).view(a.shape[0], w.shape[2])
+        return grouped_matmul(a, w, capacity=capacity, t_tile=t_tile)
 
     h = gmm(xe, p.wi_gate)
     u = gmm(xe, p.wi_up)

@@ -1,0 +1,203 @@
+"""Optimizers: AdamW and Adafactor (torch counterpart of
+``repro/optim/adamw.py``), with the reference's arithmetic: float32
+moments, the learning rate and bias corrections in float32, clipped
+gradients cast back to the gradient's dtype.
+
+**Reference leaves.**  The reference's unit is a leaf of its parameter
+tree, and its layers are *stacked*: ``params["layers"]["attn"]["wq"]`` has
+a leading axis of L layers.  Three of its rules read that stacked shape:
+weight decay applies to leaves of two or more dimensions (so a stacked
+norm scale ``(L, d)`` decays, ``final_norm``'s ``(d,)`` does not),
+Adafactor factors every leaf of two or more dimensions (for a stacked
+vector ``vc`` averages across the layers), and Adafactor's RMS update clip
+is taken over the whole stacked leaf.  The port holds one parameter per
+layer, so the optimizer works on the model's description of that tree
+(:class:`repro_torch.models.leaves.Leaf` groups, from
+``reference_leaves()``): the members the reference stacks, and whether it
+stacks them.  Every shape rule reads the group's stacked shape; the state
+is kept per group in that stacked shape, keyed by the reference's path
+(``layers/attn/wq``), so checkpoints carry the reference's keys.
+
+The update runs in place on the parameters and the state (the reference
+returns new trees): at full width a copy of either would not fit beside
+the other.  A leaf of three or more dimensions and at least
+:data:`_CHUNK_THRESHOLD` elements is updated slice by slice over its
+leading axis, as the reference's ``_maybe_chunked`` does: the slices'
+temporaries are a layer's size, and Adafactor's statistics are then taken
+per slice, as there.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from repro_torch.models.leaves import Leaf, Leaves
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    kind: str = "adamw"            # adamw | adafactor
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    decay_steps: int = 10_000
+    min_lr_frac: float = 0.1
+
+
+_CHUNK_THRESHOLD = 1 << 30     # elements; ~2 GB bf16 / 4 GB f32
+
+
+def _chunked(leaf: Leaf) -> bool:
+    return len(leaf.shape) >= 3 and leaf.numel >= _CHUNK_THRESHOLD
+
+
+def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup + cosine decay to ``min_lr_frac``, in float32 on
+    ``step``'s device."""
+    s = step.to(torch.float32)
+    warm = torch.clamp(s / max(cfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp((s - cfg.warmup_steps)
+                    / max(cfg.decay_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (
+        1 + torch.cos(math.pi * t))
+    return cfg.lr * warm * cos
+
+
+def _zeros(shape, like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.float32, device=like.device)
+
+
+def init_opt_state(cfg: OptConfig, leaves: Leaves) -> Dict:
+    """Zero state in each leaf's stacked shape, on its members' device:
+    ``{"mu", "nu", "step"}`` (AdamW) or ``{"fac", "step"}`` (Adafactor:
+    ``{"v"}`` for a 1-D leaf, else row and column statistics ``vr``
+    ``shape[:-1]`` and ``vc`` ``shape[:-2] + shape[-1:]``)."""
+    dev = next(iter(leaves.values())).members[0].device
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    if cfg.kind == "adamw":
+        return {"mu": {k: _zeros(v.shape, v.members[0])
+                       for k, v in leaves.items()},
+                "nu": {k: _zeros(v.shape, v.members[0])
+                       for k, v in leaves.items()},
+                "step": step}
+    if cfg.kind == "adafactor":
+        def facs(leaf: Leaf):
+            s, m = leaf.shape, leaf.members[0]
+            if len(s) < 2:
+                return {"v": _zeros(s, m)}
+            return {"vr": _zeros(s[:-1], m), "vc": _zeros(s[:-2] + s[-1:], m)}
+        return {"fac": {k: facs(v) for k, v in leaves.items()}, "step": step}
+    raise ValueError(cfg.kind)
+
+
+def global_norm(grads: Dict[str, Sequence[torch.Tensor]]) -> torch.Tensor:
+    """The float32 2-norm over every tensor, leaves in the reference's
+    order (sorted paths)."""
+    total = None
+    for k in sorted(grads):
+        sq = sum(torch.sum(torch.square(g.float())) for g in grads[k])
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Dict[str, Sequence[torch.Tensor]],
+                        max_norm: float) -> torch.Tensor:
+    """Scale every gradient in place by ``min(1, max_norm / norm)`` (in
+    float32, cast back to its dtype); returns the norm before clipping."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    for gs in grads.values():
+        for g in gs:
+            g.copy_((g.float() * scale).to(g.dtype))
+    return norm
+
+
+def _units(leaf: Leaf, grads: Sequence[torch.Tensor], state: Dict):
+    """(parameters, gradients, state views) for each unit the update takes
+    whole: the slices over the leading axis of a chunked leaf (a stacked
+    leaf's members, an unstacked one's rows), else the whole leaf."""
+    if not _chunked(leaf):
+        return [(leaf.members, list(grads), state)]
+    ms, gs = ((leaf.members, grads) if leaf.stacked
+              else (list(leaf.members[0]), list(grads[0])))
+    return [([m], [g], {k: s[i] for k, s in state.items()})
+            for i, (m, g) in enumerate(zip(ms, gs))]
+
+
+def _stack(leaf_stacked: bool, ts: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.stack(list(ts)) if leaf_stacked else ts[0]
+
+
+@torch.no_grad()
+def apply_updates(cfg: OptConfig, leaves: Leaves,
+                  grads: Dict[str, Sequence[torch.Tensor]], state: Dict
+                  ) -> Tuple[Leaves, Dict, Dict[str, torch.Tensor]]:
+    """One optimizer step over ``leaves`` with ``grads`` (the same paths,
+    one gradient per member).  Clips the gradients, then updates the
+    parameters and ``state`` in place; returns them with the metrics
+    ``grad_norm`` (before clipping) and ``lr``."""
+    gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    state["step"] += 1
+    step = state["step"]
+    lr = schedule(cfg, step)
+    if cfg.kind == "adamw":
+        s32 = step.to(torch.float32)
+        bc1 = 1 - torch.pow(torch.tensor(cfg.b1, device=s32.device), s32)
+        bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=s32.device), s32)
+        for path, leaf in leaves.items():
+            decay = len(leaf.shape) >= 2
+            stacked = leaf.stacked and not _chunked(leaf)
+            moments = {"mu": state["mu"][path], "nu": state["nu"][path]}
+            for members, gs, st in _units(leaf, grads[path], moments):
+                for i, (p, g) in enumerate(zip(members, gs)):
+                    mu = st["mu"][i] if stacked else st["mu"]
+                    nu = st["nu"][i] if stacked else st["nu"]
+                    g32 = g.float()
+                    mu.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
+                    nu.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g32))
+                    d = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
+                    p32 = p.float()
+                    if decay:
+                        d = d + cfg.weight_decay * p32
+                    p.copy_((p32 - lr * d).to(p.dtype))
+        return leaves, state, {"grad_norm": gnorm, "lr": lr}
+    if cfg.kind != "adafactor":
+        raise ValueError(cfg.kind)
+
+    # -- adafactor (beta1 = 0, factored second moment) ------------------------
+    d2 = 1e-30
+    for path, leaf in leaves.items():
+        stacked = leaf.stacked and not _chunked(leaf)
+        for members, gs, fac in _units(leaf, grads[path], state["fac"][path]):
+            g32 = _stack(stacked, [g.float() for g in gs])
+            g2 = torch.square(g32) + d2
+            if g32.dim() < 2:
+                v = cfg.b2 * fac["v"] + (1 - cfg.b2) * g2
+                d = g32 * torch.rsqrt(v + cfg.eps)
+                fac["v"].copy_(v)
+            else:
+                vr = cfg.b2 * fac["vr"] + (1 - cfg.b2) * g2.mean(dim=-1)
+                vc = cfg.b2 * fac["vc"] + (1 - cfg.b2) * g2.mean(dim=-2)
+                rfac = vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=d2)
+                d = g32 * torch.rsqrt(rfac[..., None] * vc[..., None, :]
+                                      + cfg.eps)
+                fac["vr"].copy_(vr)
+                fac["vc"].copy_(vc)
+            # update clipping (Adafactor's RMS rule), over the whole unit
+            rms = torch.sqrt(torch.mean(torch.square(d)) + d2)
+            d = d / torch.clamp(rms, min=1.0)
+            p32 = _stack(stacked, [p.float() for p in members])
+            if d.dim() >= 2:
+                d = d + cfg.weight_decay * p32
+            new = p32 - lr * d
+            for i, p in enumerate(members):
+                p.copy_((new[i] if stacked else new).to(p.dtype))
+    return leaves, state, {"grad_norm": gnorm, "lr": lr}

@@ -64,7 +64,11 @@ def test_port_files_exist():
                  "src/repro_torch/roofline/spmv_bytes.py",
                  "src/repro_torch/serve/scheduler.py",
                  "src/repro_torch/serve/service.py",
-                 "src/repro_torch/serve/__init__.py", "chip_smoke.py"):
+                 "src/repro_torch/serve/__init__.py",
+                 "src/repro_torch/models/leaves.py",
+                 "src/repro_torch/optim/adamw.py",
+                 "src/repro_torch/data/tokens.py",
+                 "src/repro_torch/launch/train.py", "chip_smoke.py"):
         assert want in names
 
 
@@ -87,27 +91,54 @@ SLICE_ELEVEN = ("core/inspector.py", "core/plan_cache.py",
                 "roofline/analysis.py")
 
 
+#: a fresh interpreter's prelude that makes jax and the reference
+#: unimportable
+BLOCK = ("import sys\n"
+         "class Block:\n"
+         "    def find_spec(self, name, path=None, target=None):\n"
+         "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+         "            raise ImportError('blocked: ' + name)\n"
+         "sys.meta_path.insert(0, Block())\n")
+
+
+def _run_blocked(code: str) -> None:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+#: the training slice (ROADMAP A15.1)
+SLICE_TWELVE = ("models/leaves.py", "optim/adamw.py", "data/tokens.py",
+                "launch/train.py")
+#: the configurations the training slice adds
+NEW_CONFIGS = ("qwen1.5-4b", "deepseek-7b", "stablelm-12b", "granite-34b",
+               "kimi-k2-1t-a32b")
+
+
 @pytest.mark.parametrize("module", SLICE_TEN + tuple(
-    m for m in SLICE_ELEVEN if m not in SLICE_TEN))
+    m for m in SLICE_ELEVEN if m not in SLICE_TEN) + SLICE_TWELVE)
 def test_slice_ten_modules_exist_and_import_alone(module):
-    """Each module of the slices ten and eleven is in the port and imports
-    in a fresh interpreter that has neither jax nor the reference
+    """Each module of the slices ten, eleven and twelve is in the port and
+    imports in a fresh interpreter that has neither jax nor the reference
     importable."""
     path = ROOT / "src" / "repro_torch" / module
     assert path in FILES
     name = "repro_torch." + module[:-3].replace("/", ".").removesuffix(
         ".__init__")
-    code = ("import sys\n"
-            "class Block:\n"
-            "    def find_spec(self, name, path=None, target=None):\n"
-            "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
-            "            raise ImportError('blocked: ' + name)\n"
-            "sys.meta_path.insert(0, Block())\n"
-            f"import {name}\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-c", code], env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr[-2000:]
+    _run_blocked(BLOCK + f"import {name}\n")
+
+
+def test_new_configs_import_alone():
+    """The training slice's configurations register through get_config in
+    a fresh interpreter without jax or the reference."""
+    for name in NEW_CONFIGS:
+        path = ROOT / "src" / "repro_torch" / "configs" / (
+            name.replace("-", "_").replace(".", "_") + ".py")
+        assert path in FILES, path
+    _run_blocked(BLOCK + "from repro_torch.configs.base import get_config\n"
+                 + "".join(f"assert get_config({n!r}).name == {n!r}\n"
+                           for n in NEW_CONFIGS))
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)

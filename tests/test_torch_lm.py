@@ -67,13 +67,13 @@ def test_configs_equal_reference_field_for_field():
 
 def test_unported_architectures_raise():
     with pytest.raises(ValueError, match="ROADMAP A15"):
-        base.get_config("stablelm-12b")
+        base.get_config("mamba2-2.7b")
     with pytest.raises(ValueError, match="unknown architecture"):
         base.get_config("gpt-9")
-    dense = base.reduced(dataclasses.replace(base.get_config(ARCH),
-                                             family="dense"))
+    ssm = base.reduced(dataclasses.replace(base.get_config(ARCH),
+                                           family="ssm"))
     with pytest.raises(ValueError, match="ROADMAP A15"):
-        T.init_params(dense, torch.Generator().manual_seed(0), "cpu")
+        T.init_params(ssm, torch.Generator().manual_seed(0), "cpu")
 
 
 # ----------------------------------------------------------------------------
