@@ -197,9 +197,39 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                (qwen1.5-4b, 40 layers, 8 x 128 tokens, every flag at the
                CLI's default but --steps 3): loss finite, parameters
                moved, step time, tokens/s, peak memory.
+  15. long   — (after 14) sequences past 1,024 tokens; no kernel of the
+               repo on this path, no library attention.  15a
+               flash_attention at qwen1.5-4b's attention (20 heads, hd
+               128, batch 1, 4,096 tokens, chunk 512) in fp32 and bf16:
+               output and dq, dk, dv against autograd through
+               dense_attention (fp32 rtol 1e-4 / atol 1e-5, bf16 2e-2 +
+               2e-2 |x|), a second backward bit-identical, forward and
+               forward + backward times beside scaled_dot_product_attention
+               (a yardstick only) and the host's time to issue a forward;
+               peak memory of both at 8,192 tokens.  15b qwen1.5-4b at
+               full size (bf16): a 4,096-token prefill on flash against
+               the same prefill with dense attention (2e-2 + 2e-2 |x|),
+               then a 32,768-token prompt and 16 tokens through
+               launch.serve.generate.  15c ssd_chunked at a mamba2-2.7b
+               layer's geometry against a float64 recurrence on the card;
+               mamba2-2.7b at full size: a 4,096-token prefill and 8
+               decode steps against forward_train over 4,608 tokens,
+               measured in bf16 and held within 2e-2 + 2e-2 |x| on a
+               float32 copy of the same weights (in bf16 the decode step
+               rounds where the chunked scan does not, in the reference
+               as here), then 32,768 + 16 tokens.  15d zamba2-1.2b the
+               same, the 32,768-token prompt with long_500k's cache
+               budget of 524,288 positions.  15e mamba2-2.7b and
+               zamba2-1.2b trained at full size (bf16, remat, 1 x 4,096
+               tokens, 4 steps, --lr 3e-4) through the trainer's main:
+               losses finite and falling, zamba2's flash calls counted;
+               then reduced mamba2 and zamba2 (5 layers) resumed from a
+               step-4 checkpoint, steps 5-8 bit for bit.  Prints
+               {"long": ...} before the kernels line.
 
-Then it prints one JSON line describing the kernels, the card's name and
-power limit as nvidia-smi gives them, and, last, the result line.
+Then it prints phase 15's JSON line, one JSON line describing the kernels,
+the card's name and power limit as nvidia-smi gives them, and, last, the
+result line.
 """
 from __future__ import annotations
 
@@ -3774,21 +3804,23 @@ def phase_train_dense() -> dict:
                 peak_gib=peak / 2**30, losses=losses)
 
 
-def phase_train_resume() -> None:
-    """14d: reduced configs on the card, 8 steps with a checkpoint at step
-    4; a second main resumed from it gives steps 5-8's losses."""
+def phase_train_resume(runs=((LM_ARCH, []), ("qwen1.5-4b", [])),
+                       label: str = "14d") -> None:
+    """14d (and 15e): reduced configs on the card, 8 steps with a
+    checkpoint at step 4; a second main resumed from it gives steps 5-8's
+    losses.  ``runs``: (arch, extra trainer flags)."""
     import shutil
     from repro_torch.data.tokens import synth_batch_for
     from repro_torch.launch import steps as ST
     from repro_torch.launch import train
-    for arch in (LM_ARCH, "qwen1.5-4b"):
+    for arch, extra in runs:
         name = arch.replace(".", "_")
         full, part = (os.path.join(TRAIN_DIR, f"{name}-{x}")
                       for x in ("full", "resumed"))
         for d in (full, part):
             shutil.rmtree(d, ignore_errors=True)
         flags = ["--arch", arch, "--reduced", "--steps", "8",
-                 "--ckpt-every", "4", "--log-every", "100"]
+                 "--ckpt-every", "4", "--log-every", "100", *extra]
         a = train.main(flags + ["--ckpt-dir", full])
         os.makedirs(part)
         shutil.copytree(os.path.join(full, "step_0000000004"),
@@ -3797,19 +3829,20 @@ def phase_train_resume() -> None:
         want, got = a.losses[4:], b.losses
         batch = synth_batch_for(a.cfg, a.data, 8, device="cuda")
         step_fn = ST.make_train_step(a.cfg, a.opt)
-        prof = profile_train_step(f"14d {arch} reduced", lambda: step_fn(
+        prof = profile_train_step(f"{label} {arch} reduced", lambda: step_fn(
             a.params, a.opt_state, batch))
         same = got == want
         worst = max(abs(x - y) / abs(y) for x, y in zip(got, want))
-        log("train", f"14d {arch} reduced ({a.cfg.dtype}): resumed at step "
+        log("train", f"{label} {arch} reduced ({a.cfg.dtype}, "
+            f"{a.cfg.n_layers} layers): resumed at step "
             f"{b.start}; steps 5-8 losses {got} against the uninterrupted "
             f"{want}: bit for bit {same}, worst relative {worst:.3e}; "
             f"kernels that may add with atomics: {prof['atomic'] or 'none'}")
         if b.start != 4 or len(got) != 4:
-            raise AssertionError(f"14d {arch}: resumed at {b.start}")
+            raise AssertionError(f"{label} {arch}: resumed at {b.start}")
         if not same and not (prof["atomic"] and worst <= RESUME_ATOMIC_RTOL):
-            raise AssertionError(f"14d {arch}: the resumed run differs by "
-                                 f"{worst:.3e} relative")
+            raise AssertionError(f"{label} {arch}: the resumed run differs "
+                                 f"by {worst:.3e} relative")
         del a, b
     torch.cuda.empty_cache()
 
@@ -3845,6 +3878,466 @@ def phase_train(errors: dict) -> dict:
         f"{t2 - t1:.1f} s, 14b {t3 - t2:.1f} s, 14c {t4 - t3:.1f} s")
     return dict(launches=moe["launches"], shapes=times, moe=moe,
                 dense=dense)
+
+
+# ----------------------------------------------------------------------------
+# 15. long sequences: flash attention, the SSM and the hybrid
+# ----------------------------------------------------------------------------
+
+#: the long phase's bf16 check: |got - want| <= 2e-2 + 2e-2 |want|
+LONG_TOL = dict(rtol=2e-2, atol=2e-2)
+#: flash against autograd through dense attention in fp32
+FLASH_FP32_TOL = dict(rtol=1e-4, atol=1e-5)
+#: qwen1.5-4b's attention geometry at train_4k's length
+FLASH_GEOM = dict(B=1, S=4096, H=20, hd=128, chunk=512)
+#: the length at which flash's and dense's peak memories are compared
+FLASH_MEM_S = 8192
+#: prefill_32k's length (its batch of 32 is a pod's; here batch 1), the
+#: tokens generated after it, and long_500k's context (the cache budget)
+LONG_PROMPT, LONG_GEN, LONG_S_MAX = 32_768, 16, 524_288
+#: the prefill + decode check: a prompt of LONG_CHECK tokens, LONG_STEPS
+#: decode steps, held to forward_train over LONG_CHECK + 512 tokens (a
+#: multiple of 512, so flash runs in chunks of 512 there too)
+LONG_CHECK, LONG_STEPS = 4096, 8
+#: 15e: full-size training, batch 1 x LONG_TRAIN_SEQ tokens
+LONG_TRAIN_SEQ, LONG_TRAIN_STEPS = 4096, 4
+#: the ssm/hybrid reduced resumes: (arch, extra trainer flags)
+LONG_RESUMES = (("mamba2-2.7b", []), ("zamba2-1.2b", ["--layers", "5"]))
+
+
+def within(got, want, tol: dict) -> tuple:
+    """(whether got is finite and |got - want| <= atol + rtol |want|
+    everywhere, max |got - want|, max |got - want| / (atol + rtol |want|)),
+    in float32."""
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    ratio = float((err / (tol["atol"] + tol["rtol"] * b.abs())).max())
+    return bool(torch.isfinite(a).all()) and ratio <= 1.0, float(
+        err.max()), ratio
+
+
+def attention_flops(S: int, H: int, hd: int, backward: bool) -> float:
+    """Causal attention's matrix-product FLOPs: QK^T and PV over the lower
+    triangle (S^2 / 2 pairs, 2 hd FLOPs each), and in the backward the
+    recomputed QK^T and four more products."""
+    fwd = 2 * 2 * (S * S / 2) * hd * H
+    return fwd * (1 + 5 / 2) if backward else fwd
+
+
+def flash_check(dtype, g, errors: dict) -> dict:
+    """15a at FLASH_GEOM in one dtype: output and gradients against
+    autograd through dense_attention, a second backward bit-identical,
+    CUDA-event times beside SDPA's on the same tensors."""
+    import torch.nn.functional as F
+    from repro_torch.models.flash import flash_attention
+    from repro_torch.models.layers import dense_attention
+    B, S, H, hd, chunk = (FLASH_GEOM[k] for k in ("B", "S", "H", "hd",
+                                                  "chunk"))
+    name = "fp32" if dtype == torch.float32 else "bf16"
+    q, k, v, dout = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                     for shape in ((B, S, H, 1, hd), (B, S, H, hd),
+                                   (B, S, H, hd), (B, S, H, 1, hd)))
+    tol = FLASH_FP32_TOL if dtype == torch.float32 else LONG_TOL
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ts)
+        return (out.detach(), *torch.autograd.grad(out, ts, dout))
+
+    def dense(a, b, c):
+        return dense_attention(a.reshape(B, S, H, hd), b, c).reshape(
+            B, S, H, 1, hd)
+
+    got = grads(lambda a, b, c: flash_attention(a, b, c, chunk))
+    want = grads(dense)
+    errs = {}
+    for label, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        ok, err, _ = within(a, b, tol)
+        errs[label] = err
+        if not ok:
+            raise AssertionError(f"15a flash {name} {label}: max abs err "
+                                 f"{err:.3e} against dense beyond {tol}")
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*ts, chunk)
+    first = torch.autograd.grad(out, ts, dout, retain_graph=True)
+    second = torch.autograd.grad(out, ts, dout)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"15a flash {name}: a second backward differs")
+    del got, want, first, second, out, ts
+    torch.cuda.empty_cache()
+
+    # times: the forward alone, forward + backward, beside SDPA on the same
+    # tensors in its (B, H, S, hd) layout; and the host's time to issue one
+    # forward (the pair loop's launches), against its device time
+    qs, ks, vs, ds = (t.reshape(B, S, H, hd).transpose(1, 2)
+                      for t in (q, k, v, dout))
+
+    def fwd_bwd(fn, d, *args):
+        args = [a.detach().requires_grad_() for a in args]
+        torch.autograd.grad(fn(*args), args, d)
+
+    with torch.no_grad():
+        row = {"fwd_ms": time_ms(lambda: flash_attention(q, k, v, chunk)),
+               "sdpa_fwd_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   qs, ks, vs, is_causal=True))}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flash_attention(q, k, v, chunk)
+        row["fwd_host_ms"] = host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    row["fwd_bwd_ms"] = time_ms(lambda: fwd_bwd(
+        lambda a, b, c: flash_attention(a, b, c, chunk), dout, q, k, v))
+    row["sdpa_fwd_bwd_ms"] = time_ms(lambda: fwd_bwd(
+        lambda a, b, c: F.scaled_dot_product_attention(a, b, c,
+                                                       is_causal=True),
+        ds, qs, ks, vs))
+    peak = 989e12 if dtype == torch.bfloat16 else 67e12
+    row["bound_fwd_ms"] = bound(4 * B * S * H * hd * q.element_size(),
+                                attention_flops(S, H, hd, False), peak)[0]
+    row["bound_fwd_bwd_ms"] = bound(8 * B * S * H * hd * q.element_size(),
+                                    attention_flops(S, H, hd, True), peak)[0]
+    row["max_abs_err"] = errs
+    errors.setdefault("flash", {})[name] = errs
+    log("long", f"15a flash {name} at B {B}, S {S}, H {H} (KV {H}), hd {hd},"
+        f" chunk {chunk}: max abs err against autograd through dense "
+        f"{', '.join(f'{k} {e:.3e}' for k, e in errs.items())} (rtol "
+        f"{tol['rtol']}, atol {tol['atol']}); a second backward "
+        f"bit-identical; forward {row['fwd_ms']:.3f} ms (host issue "
+        f"{host_ms:.3f} ms), forward + backward {row['fwd_bwd_ms']:.3f} ms;"
+        f" SDPA (is_causal) {row['sdpa_fwd_ms']:.3f} / "
+        f"{row['sdpa_fwd_bwd_ms']:.3f} ms; bound {row['bound_fwd_ms']:.4f} /"
+        f" {row['bound_fwd_bwd_ms']:.4f} ms (CUDA events over "
+        f"{TIMED_LAUNCHES} runs)")
+    return row
+
+
+def flash_memory(g) -> dict:
+    """15a at FLASH_MEM_S, bf16: peak memory above the inputs of flash's and
+    dense's forward + backward."""
+    from repro_torch.models.flash import flash_attention
+    from repro_torch.models.layers import dense_attention
+    B, H, hd, chunk = (FLASH_GEOM[k] for k in ("B", "H", "hd", "chunk"))
+    S = FLASH_MEM_S
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+               for shape in ((B, S, H, 1, hd), (B, S, H, hd), (B, S, H, hd)))
+    out = {}
+    for label, fn in (
+            ("flash", lambda a, b, c: flash_attention(a, b, c, chunk)),
+            ("dense", lambda a, b, c: dense_attention(
+                a.reshape(B, S, H, hd), b, c))):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        o = fn(*ts)
+        torch.autograd.grad(o.float().square().sum(), ts)
+        torch.cuda.synchronize()
+        out[label] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del o, ts
+    torch.cuda.empty_cache()
+    log("long", f"15a peak memory above the inputs at S {S} (bf16, forward +"
+        f" backward): flash {out['flash']:.3f} GiB, dense "
+        f"{out['dense']:.3f} GiB (dense's float32 scores alone "
+        f"{B * H * S * S * 4 / 1e9:.1f} GB)")
+    return out
+
+
+def phase_long_flash(errors: dict) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(60)
+    rows = {("fp32" if dt == torch.float32 else "bf16"): flash_check(
+        dt, g, errors) for dt in (torch.float32, torch.bfloat16)}
+    rows["peak_gib_s8192"] = flash_memory(g)
+    return rows
+
+
+def seeded_tokens(vocab: int, n: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, vocab, (1, n)), dtype=torch.int32,
+                           device="cuda")
+
+
+def long_model(arch: str):
+    """``arch`` at full size, bf16, seeded random weights on the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    log("long", f"{arch}: {cfg.n_layers} layers, {cfg.param_count() / 1e9:.3f}"
+        f" B parameters ({cfg.dtype}), on the card")
+    return cfg, params
+
+
+def check_decode_against_train(label: str, cfg, params, seed: int,
+                               hold: bool) -> dict:
+    """A LONG_CHECK-token prefill and LONG_STEPS decode steps (the tokens
+    that follow in the sequence), each step's logits against
+    forward_train's at its position over LONG_CHECK + 512 tokens: within
+    LONG_TOL where ``hold`` (the float32 model), else measured (bf16: the
+    decode step rounds to bf16 where the chunked scan does not, in the
+    reference as here, so the two drift apart with depth)."""
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.models import transformer as T
+    dtype = str(next(params.parameters()).dtype).split(".")[1]
+    tokens = seeded_tokens(cfg.vocab_size, LONG_CHECK + 512, seed)
+    logits, cache = T.prefill(cfg, params, {"tokens": tokens[:, :LONG_CHECK]})
+    state = {k: v.numel() * v.element_size() for k, v in cache.items()}
+    steps = [logits[:, -1]]
+    cache = pad_cache(cache, LONG_CHECK + LONG_STEPS)
+    for i in range(LONG_STEPS):
+        pos = LONG_CHECK + i
+        logits, cache = T.decode_step(cfg, params, dict(
+            tokens=tokens[:, pos:pos + 1], cache=cache, cache_index=pos))
+        cache.pop("index")
+        steps.append(logits[:, -1])
+    del cache
+    with torch.no_grad():
+        full, _ = T.forward_train(cfg, params, {"tokens": tokens})
+    errs, ratios = [], []
+    for i, got in enumerate(steps):
+        ok, err, ratio = within(got, full[:, LONG_CHECK - 1 + i], LONG_TOL)
+        errs.append(err)
+        ratios.append(ratio)
+        if hold and not ok:
+            raise AssertionError(f"{label} {dtype}: position "
+                                 f"{LONG_CHECK - 1 + i}'s logits differ from "
+                                 f"forward_train's by {err:.3e} (beyond "
+                                 f"{LONG_TOL})")
+    std = float(full[:, LONG_CHECK - 1:].float().std())
+    del full
+    torch.cuda.empty_cache()
+    log("long", f"{label} {dtype}: prefill of {LONG_CHECK} tokens and "
+        f"{LONG_STEPS} decode steps against forward_train over "
+        f"{LONG_CHECK + 512}: max abs err per position "
+        f"{[f'{e:.2e}' for e in errs]}, worst share of the limit 2e-2 + "
+        f"2e-2 |x| {max(ratios):.3f} ({'held' if hold else 'measured'}; "
+        f"the logits' std {std:.3f}); cache bytes after the prefill {state}")
+    return dict(max_abs_err=max(errs), worst_share=max(ratios),
+                state_bytes=state)
+
+
+def long_generate(label: str, cfg, params, seed: int, s_max=None) -> dict:
+    """A LONG_PROMPT-token prompt at batch 1 and LONG_GEN tokens through
+    launch.serve.generate: prefill seconds, decode ms a step, tokens/s and
+    peak memory."""
+    from repro_torch.launch.serve import generate
+    prompt = seeded_tokens(cfg.vocab_size, LONG_PROMPT, seed)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tokens, logits, seconds = generate(cfg, params, prompt, LONG_GEN,
+                                       s_max=s_max)
+    peak = torch.cuda.max_memory_allocated()
+    if tokens.shape != (1, LONG_GEN) or not all(
+            bool(torch.isfinite(x).all()) for x in logits):
+        raise AssertionError(f"{label}: generate gave {tuple(tokens.shape)} "
+                             "tokens or non-finite logits")
+    steps = LONG_GEN - 1
+    row = dict(prefill_s=seconds["prefill"],
+               decode_ms=seconds["decode"] / steps * 1e3,
+               tokens_per_s=steps / seconds["decode"],
+               prefill_tokens_per_s=LONG_PROMPT / seconds["prefill"],
+               peak_gib=peak / 2**30,
+               s_max=s_max or LONG_PROMPT + LONG_GEN)
+    log("long", f"{label} prompt {LONG_PROMPT} + {LONG_GEN} tokens (batch 1, "
+        f"S_max {row['s_max']}): prefill {row['prefill_s']:.3f} s "
+        f"({row['prefill_tokens_per_s']:.0f} tokens/s), decode "
+        f"{row['decode_ms']:.3f} ms a step ({row['tokens_per_s']:.2f} "
+        f"tokens/s), peak memory {row['peak_gib']:.2f} GiB "
+        f"({peak / 1e9:.1f} GB) (host clock, each ending in a "
+        f"synchronisation)")
+    return row
+
+
+def phase_long_dense() -> dict:
+    """15b: qwen1.5-4b at full size: a LONG_CHECK-token prefill on flash
+    against the same prefill on dense attention, then prefill_32k's length
+    at batch 1 and LONG_GEN tokens."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg, params = long_model("qwen1.5-4b")
+    tokens = seeded_tokens(cfg.vocab_size, LONG_CHECK, 61)
+    flash, _ = T.prefill(cfg, params, {"tokens": tokens})
+    self_attention = L._self_attention
+    L._self_attention = lambda q, k, v: L.dense_attention(q, k, v,
+                                                          causal=True)
+    try:
+        dense, _ = T.prefill(cfg, params, {"tokens": tokens})
+    finally:
+        L._self_attention = self_attention
+    ok, err, share = within(flash, dense, LONG_TOL)
+    log("long", f"15b qwen1.5-4b prefill of {LONG_CHECK} tokens, flash "
+        f"against dense attention: last logits max abs err {err:.3e}, "
+        f"worst share of the limit 2e-2 + 2e-2 |x| {share:.3f}")
+    if not ok:
+        raise AssertionError(f"15b flash and dense prefills differ by {err}")
+    del flash, dense
+    torch.cuda.empty_cache()
+    kv = 2 * cfg.n_layers * (LONG_PROMPT + LONG_GEN) * cfg.n_kv_heads \
+        * cfg.resolved_head_dim * 2
+    log("long", f"15b KV cache at {LONG_PROMPT + LONG_GEN} positions: "
+        f"{kv / 1e9:.1f} GB")
+    row = long_generate("15b qwen1.5-4b", cfg, params, 62)
+    row.update(flash_vs_dense_err=err, flash_vs_dense_share=share,
+               kv_bytes=kv)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_long_ssm(errors: dict) -> dict:
+    """15c: ssd_chunked at one mamba2-2.7b layer's geometry against a
+    float64 recurrence on the card; mamba2-2.7b at full size: prefill +
+    decode against forward_train, then prefill_32k's length."""
+    from repro_torch.models.mamba2 import ssd_chunked
+    B, S, H, P, N, G, chunk = 1, 1024, 80, 64, 128, 1, 128
+    g = torch.Generator(device="cuda").manual_seed(63)
+    x = torch.randn((B, S, H, P), generator=g, device="cuda")
+    dt = torch.rand((B, S, H), generator=g, device="cuda") * 0.8 + 0.1
+    a = -(torch.rand((H,), generator=g, device="cuda") * 1.5 + 0.5)
+    b = torch.randn((B, S, G, N), generator=g, device="cuda")
+    c = torch.randn((B, S, G, N), generator=g, device="cuda")
+    y, h = ssd_chunked(x, dt, a, b, c, chunk)
+    h64 = torch.zeros((B, H, P, N), dtype=torch.float64, device="cuda")
+    y64 = torch.empty((B, S, H, P), dtype=torch.float64, device="cuda")
+    x6, dt6, a6 = x.double(), dt.double(), a.double()
+    bh = b.double().repeat_interleave(H // G, dim=2)
+    ch = c.double().repeat_interleave(H // G, dim=2)
+    for t in range(S):
+        decay = torch.exp(dt6[:, t] * a6[None, :])
+        h64 = h64 * decay[..., None, None] + (
+            dt6[:, t][..., None] * x6[:, t])[..., None] * bh[:, t][:, :, None]
+        y64[:, t] = torch.einsum("bhpn,bhn->bhp", h64, ch[:, t])
+    tol = dict(rtol=3e-4, atol=3e-4)
+    errs = {}
+    for label, got, want in (("y", y, y64), ("state", h, h64)):
+        ok, errs[label], _ = within(got.double(), want, tol)
+        if not ok:
+            raise AssertionError(f"15c ssd_chunked {label}: max abs err "
+                                 f"{errs[label]:.3e} beyond {tol}")
+    errors["ssd"] = errs
+    log("long", f"15c ssd_chunked at mamba2-2.7b's layer geometry (H {H}, P "
+        f"{P}, N {N}, G {G}, chunk {chunk}, S {S}, fp32) against a float64 "
+        f"sequential recurrence on the card: max abs err y "
+        f"{errs['y']:.3e} (largest |y| {float(y64.abs().max()):.2f}), state "
+        f"{errs['state']:.3e} (rtol {tol['rtol']}, atol {tol['atol']})")
+    del x, dt, b, c, y, h, h64, y64, x6, dt6, bh, ch
+    torch.cuda.empty_cache()
+    cfg, params = long_model("mamba2-2.7b")
+    bf16 = check_decode_against_train("15c mamba2-2.7b", cfg, params, 64,
+                                      hold=False)
+    row = long_generate("15c mamba2-2.7b", cfg, params, 65)
+    fp32 = check_decode_against_train("15c mamba2-2.7b", cfg, params.float(),
+                                      64, hold=True)
+    row.update(decode_check_bf16=bf16, decode_check_fp32=fp32, ssd_err=errs)
+    log("long", f"15c decode state: SSM {bf16['state_bytes']['ssm'] / 1e6:.1f}"
+        f" MB + conv {bf16['state_bytes']['conv'] / 1e6:.2f} MB at any "
+        f"context length")
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_long_hybrid() -> dict:
+    """15d: zamba2-1.2b at full size: prefill + decode against
+    forward_train, then prefill_32k's length with long_500k's cache
+    budget."""
+    cfg, params = long_model("zamba2-1.2b")
+    n_super, tail = divmod(cfg.n_layers, cfg.attn_every)
+    log("long", f"15d zamba2-1.2b: {n_super} shared-block applications, a "
+        f"tail of {tail}")
+    bf16 = check_decode_against_train("15d zamba2-1.2b", cfg, params, 66,
+                                      hold=False)
+    kv = 2 * n_super * LONG_S_MAX * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    log("long", f"15d KV cache at S_max {LONG_S_MAX}: {kv / 1e9:.1f} GB, read "
+        "whole by every decode step (attention_decode masks over S_max)")
+    row = long_generate("15d zamba2-1.2b", cfg, params, 67,
+                        s_max=LONG_S_MAX)
+    fp32 = check_decode_against_train("15d zamba2-1.2b", cfg, params.float(),
+                                      66, hold=True)
+    row.update(decode_check_bf16=bf16, decode_check_fp32=fp32, kv_bytes=kv)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_long_train() -> dict:
+    """15e: mamba2-2.7b and zamba2-1.2b at full size through the trainer's
+    main (bf16, remat on, batch 1 x LONG_TRAIN_SEQ); then the reduced
+    resumes."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import layers as L
+    out = {}
+    for arch in ("mamba2-2.7b", "zamba2-1.2b"):
+        cfg = get_config(arch)
+        n_param = cfg.param_count()
+        calls = []
+        flash = L.flash_attention
+        L.flash_attention = lambda *a: (calls.append(a[-1]), flash(*a))[1]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            run = train.main(["--arch", arch, "--steps",
+                              str(LONG_TRAIN_STEPS), "--global-batch", "1",
+                              "--seq-len", str(LONG_TRAIN_SEQ), "--lr",
+                              str(TRAIN_LR), "--log-every", "1"])
+        finally:
+            L.flash_attention = flash
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = run.losses
+        med = float(np.median(run.step_ms[1:]))
+        # flash forward per step: the forward and its recomputation
+        want_calls = (2 * (cfg.n_layers // cfg.attn_every) * LONG_TRAIN_STEPS
+                      if cfg.family == "hybrid"
+                      and LONG_TRAIN_SEQ > L.BLOCK_THRESHOLD else 0)
+        log("long", f"15e {arch} ({cfg.n_layers} layers, "
+            f"{n_param / 1e9:.3f} B parameters, state reckoned "
+            f"{n_param * 12 / 1e9:.1f} GB at 12 B a parameter), "
+            f"{LONG_TRAIN_STEPS} steps of 1 x {LONG_TRAIN_SEQ} tokens in "
+            f"{wall:.1f} s (init included): losses "
+            f"{[round(x, 4) for x in losses]}; step ms (CUDA events) "
+            f"{[round(x, 3) for x in run.step_ms]}; median of steps 2-"
+            f"{LONG_TRAIN_STEPS} {med:.3f} ms, "
+            f"{LONG_TRAIN_SEQ / med * 1e3:.1f} tokens/s; peak memory "
+            f"{peak / 2**30:.2f} GiB ({peak / 1e9:.1f} GB); flash calls "
+            f"{len(calls)} (expected {want_calls}: forward and remat "
+            f"recomputation of each shared-block application; chunk "
+            f"{sorted(set(calls))})")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"15e {arch}: losses {losses}")
+        if len(calls) != want_calls:
+            raise AssertionError(f"15e {arch}: {len(calls)} flash calls, "
+                                 f"expected {want_calls}")
+        out[arch] = dict(step_ms=med, tokens_per_s=LONG_TRAIN_SEQ / med * 1e3,
+                         peak_gib=peak / 2**30,
+                         state_gb=n_param * 12 / 1e9, losses=losses)
+        del run
+        torch.cuda.empty_cache()
+    phase_train_resume(LONG_RESUMES, "15e")
+    return out
+
+
+def phase_long(errors: dict) -> dict:
+    t = [time.perf_counter()]
+    out = {"flash": phase_long_flash(errors)}
+    t.append(time.perf_counter())
+    out["dense"] = phase_long_dense()
+    t.append(time.perf_counter())
+    out["ssm"] = phase_long_ssm(errors)
+    t.append(time.perf_counter())
+    out["hybrid"] = phase_long_hybrid()
+    t.append(time.perf_counter())
+    out["train"] = phase_long_train()
+    t.append(time.perf_counter())
+    secs = [b - a for a, b in zip(t, t[1:])]
+    out["seconds"] = dict(zip("abcde", secs))
+    log("long", f"phase 15 took {t[-1] - t[0]:.1f} s: "
+        + ", ".join(f"15{k} {v:.1f} s" for k, v in out["seconds"].items()))
+    return out
 
 
 def main() -> int:
@@ -3897,7 +4390,9 @@ def main() -> int:
               max_abs_err=errors["moe_gmm"],
               case_errs=errors["moe_gmm_cases"], dw_bmm=errors["dw_bmm"],
               train={k: trained[k] for k in ("shapes", "moe", "dense")})
+    long = phase_long(errors)
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"long": long}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

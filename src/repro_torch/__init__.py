@@ -13,7 +13,8 @@ roofline terms and the SpMVs' compulsory bytes; ``serve/`` the
 multi-tenant solve service; ``kernels/`` the hand-written CUDA kernels for
 Hopper (``kernels/csrc``) with their wrappers and plain PyTorch versions;
 ``configs/``, ``models/``, ``optim/``, ``data/tokens.py`` and ``launch/``
-the LM side-workload: serving and training the dense and MoE families.
+the LM side-workload: serving and training the dense, MoE, ssm and
+hybrid families, at any sequence length.
 ``bridge`` carries problems, weights and states across from the reference
 as numpy arrays.
 

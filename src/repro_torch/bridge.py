@@ -135,7 +135,10 @@ def lm_params_from_reference(params, cfg, *, device: DeviceLike = None):
     ``params`` is the reference's parameter pytree with numpy leaves
     (``jax.tree.map(np.asarray, params)``): dictionaries keyed as the
     port's modules are, the stacked layers along a leading axis under
-    ``"layers"``, an MoE model's dense prefix a list under ``"prefix"``.
+    ``"layers"`` (the hybrid's Mamba layers along two, ``(n_super,
+    attn_every)``, its remainder under ``"tail"`` and its shared block
+    under ``"shared"``), an MoE model's dense prefix a list under
+    ``"prefix"``.
 
     Raises:
         ValueError: a parameter is missing or has another shape or dtype.
@@ -152,8 +155,8 @@ def lm_params_from_reference(params, cfg, *, device: DeviceLike = None):
                              f"{node.dtype}, port {leaf.shape} "
                              f"{leaf.members[0].dtype}")
         with torch.no_grad():
-            for i, m in enumerate(leaf.members):
-                m.copy_(node[i] if leaf.stacked else node)
+            for m, x in zip(leaf.members, leaf.unstack(node)):
+                m.copy_(x)
     return model
 
 

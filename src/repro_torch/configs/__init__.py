@@ -1,2 +1,3 @@
 """Architecture configurations of the LM side-workload (the port runs the
-dense and MoE families; see :data:`repro_torch.configs.base.PORTED`)."""
+dense, MoE, ssm and hybrid families; see
+:data:`repro_torch.configs.base.PORTED`)."""

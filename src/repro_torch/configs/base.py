@@ -21,11 +21,13 @@ ARCH_IDS = (
     "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b", "mamba2-2.7b",
     "life-stn96",
 )
-#: the architectures whose configuration the port ships: the dense and MoE
-#: families (kimi-k2 registers only: its 1 T parameters fit no single
-#: card); the ssm, hybrid, audio and vlm families wait for ROADMAP A15
+#: the architectures whose configuration the port ships: the dense, MoE,
+#: ssm and hybrid families (kimi-k2 registers only: its 1 T parameters fit
+#: no single card); the audio and vlm families and life-stn96 wait for
+#: ROADMAP A15
 PORTED = ("phi3.5-moe-42b-a6.6b", "qwen1.5-4b", "deepseek-7b",
-          "stablelm-12b", "granite-34b", "kimi-k2-1t-a32b")
+          "stablelm-12b", "granite-34b", "kimi-k2-1t-a32b", "mamba2-2.7b",
+          "zamba2-1.2b")
 
 
 @dataclasses.dataclass(frozen=True)

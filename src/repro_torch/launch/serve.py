@@ -25,7 +25,8 @@ from repro_torch.models import transformer as T
 
 def pad_cache(cache: Dict[str, torch.Tensor], s_max: int) -> Dict:
     """The prefill's ``k``/``v`` of shape (L, B, S, KV, hd), zero-padded
-    along S to ``s_max`` positions."""
+    along S to ``s_max`` positions; an ssm or hybrid cache's ``ssm`` and
+    ``conv`` states are left as they are."""
     for kn in ("k", "v"):
         if kn in cache:
             kv = cache[kn]
@@ -36,12 +37,16 @@ def pad_cache(cache: Dict[str, torch.Tensor], s_max: int) -> Dict:
 
 def generate(cfg, params, prompts: torch.Tensor, n_gen: int, *,
              forced: Optional[torch.Tensor] = None,
+             s_max: Optional[int] = None,
              ) -> Tuple[torch.Tensor, List[torch.Tensor], Dict[str, float]]:
     """Greedy generation of ``n_gen`` tokens after ``prompts`` (B, P):
     one prefill, then ``n_gen - 1`` decode steps.
 
     ``forced`` (B, n_gen): feed these tokens to the next step instead of
     the chosen ones (teacher forcing, to hold two runs step by step).
+    ``s_max``: the KV cache's positions (the static budget every decode
+    step attends over, as the reference's decode masks over it; at least
+    ``P + n_gen``, the default).
     Returns (the argmax tokens (B, n_gen) int32, each step's last-position
     logits (B, V), and the seconds of the prefill and of all decode steps,
     each ending in a device synchronisation)."""
@@ -58,7 +63,7 @@ def generate(cfg, params, prompts: torch.Tensor, n_gen: int, *,
     sync()
     t0 = time.perf_counter()
     logits, cache = prefill_step(params, {"tokens": prompts})
-    cache = pad_cache(cache, prompt_len + n_gen)
+    cache = pad_cache(cache, max(prompt_len + n_gen, s_max or 0))
     tok, feed = pick(logits, 0)
     sync()
     seconds = {"prefill": time.perf_counter() - t0}

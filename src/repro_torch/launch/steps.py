@@ -11,7 +11,8 @@ one-token decode step.
 
 A training state crosses to checkpoints (and to the reference) as the
 reference's tree: :func:`state_tree` stacks every layer-stacked parameter
-on the host under the reference's path (``params/layers/attn/wq``), the
+on the host under the reference's path (``params/layers/attn/wq``; the
+hybrid's Mamba layers as ``(n_super, attn_every, ...)``), the
 optimizer state is already kept in that shape, and :func:`load_state`
 copies such a tree back into a model and its optimizer state.
 """
@@ -92,8 +93,7 @@ def state_tree(params: T.Transformer, opt_state: Dict) -> Dict:
     host), and the optimizer state as it is kept."""
     flat = {}
     for path, leaf in params.reference_leaves().items():
-        ts = [m.detach().cpu() for m in leaf.members]
-        flat[path] = torch.stack(ts) if leaf.stacked else ts[0]
+        flat[path] = leaf.stack([m.detach().cpu() for m in leaf.members])
     return {"params": flat, "opt": _host(opt_state)}
 
 
@@ -128,8 +128,8 @@ def load_state(params: T.Transformer, opt_state: Dict, tree: Dict) -> None:
         if tuple(src.shape) != leaf.shape:
             raise ValueError(f"params/{path}: {tuple(src.shape)} != "
                              f"{leaf.shape}")
-        for i, m in enumerate(leaf.members):
-            m.copy_(src[i] if leaf.stacked else src)
+        for m, x in zip(leaf.members, leaf.unstack(src)):
+            m.copy_(x)
 
     def copy(dst, src, path):
         if isinstance(dst, dict):

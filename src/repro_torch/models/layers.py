@@ -5,10 +5,12 @@ of shape ``(d_in, d_out)``; their constructors take the place of the
 reference's ``init_*`` functions), plain functions do the math with the
 reference's casts.  Parameters take gradients; the serving paths run under
 ``torch.no_grad``.  Attention supports GQA/MQA, optional QKV bias, RoPE, a
-dense causal path for sequences of up to 1024 tokens (training and
-prefill) and a KV-cache decode path.  Learned positions are a table added
-to the embeddings (``models/transformer.py``).  The blockwise (flash) path
-for longer sequences (ROADMAP A15.2) and M-RoPE (A15.5) raise.
+dense causal path for sequences of up to :data:`BLOCK_THRESHOLD` tokens,
+flash attention (``models/flash.py``, KV heads repeated to H) beyond it,
+in training and prefill alike, the reference's blockwise pair-list
+attention (:func:`blockwise_attention`, which nothing calls) and a
+KV-cache decode path.  Learned positions are a table added to the
+embeddings (``models/transformer.py``).  M-RoPE (ROADMAP A15.5) raises.
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-#: prompts longer than this take the reference's flash path (``_self_attention``)
+from repro_torch.models.flash import flash_attention, forward_pairs
+
+#: sequences longer than this take the flash path (``_self_attention``)
 BLOCK_THRESHOLD = 1024
 
 
@@ -174,14 +178,47 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, hd)
 
 
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, q_chunk: int = 512,
+                        kv_chunk: int = 512) -> torch.Tensor:
+    """Causal flash-style attention over the triangular ``(i, j <= i)``
+    chunk-pair list, differentiated by autograd through its loop (the
+    reference's; the model takes :func:`flash_attention`, whose backward
+    recomputes instead).
+
+    q: (B,S,H,hd), k/v: (B,S,KV,hd); ``S`` a multiple of both chunks, which
+    must be equal."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    assert S % q_chunk == 0 and S % kv_chunk == 0
+    assert q_chunk == kv_chunk, "triangular pairing assumes equal chunks"
+    out, _ = forward_pairs(q.reshape(B, S, KV, H // KV, hd), k, v, q_chunk)
+    return out.reshape(B, S, H, hd)
+
+
 def _self_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
-    S = q.shape[1]
-    if S > BLOCK_THRESHOLD:
-        raise ValueError(f"a sequence of {S} tokens needs the flash path "
-                         f"(S > {BLOCK_THRESHOLD}), not ported yet "
-                         "(ROADMAP A15.2)")
-    return dense_attention(q, k, v, causal=True)
+    """Causal self-attention: dense up to :data:`BLOCK_THRESHOLD` tokens,
+    else flash attention with the KV heads repeated to H (G = 1; their
+    gradients sum back over the repeat) in chunks of 512, or of the
+    largest power of two that divides S."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if S <= BLOCK_THRESHOLD:
+        return dense_attention(q, k, v, causal=True)
+    if KV != H:
+        k = torch.repeat_interleave(k, H // KV, dim=2)
+        v = torch.repeat_interleave(v, H // KV, dim=2)
+    chunk = 512 if S % 512 == 0 else _chunk_of(S)
+    out = flash_attention(q[:, :, :, None, :], k, v, chunk)
+    return out.reshape(B, S, H, hd)
+
+
+def _chunk_of(s: int) -> int:
+    for c in (512, 256, 128, 64, 32, 16, 8, 4, 2, 1):
+        if s % c == 0:
+            return c
+    return 1
 
 
 def attention_train(p: Attention, spec: AttnSpec, x: torch.Tensor,

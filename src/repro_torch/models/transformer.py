@@ -1,21 +1,30 @@
 """Model composition: init, the training forward and loss, prefill and
-decode for the dense and MoE families (torch counterpart of
+decode for the dense, MoE, ssm and hybrid families (torch counterpart of
 ``repro/models/transformer.py``).
 
 The reference scans a stacked layer pytree with ``jax.lax.scan``; here the
 layers are an ``nn.ModuleList`` walked by a Python loop, and
 :meth:`Transformer.reference_leaves` names which of their parameters the
-reference stacks (the optimizer's and the checkpoints' unit).  An MoE
-model's ``first_k_dense`` prefix layers (a dense SwiGLU MLP in place of
-the MoE) come first, as in the reference.  With ``cfg.remat`` each of the
-stacked layers runs under ``torch.utils.checkpoint`` in training (the
-reference's ``jax.checkpoint`` of its scan body): its activations are
-recomputed in the backward pass, routing included, identically.  The KV
-cache keeps the reference's layout: ``k`` and ``v`` of shape
-``(L, B, S_max, KV, hd)``.
+reference stacks and in what leading shape (the optimizer's and the
+checkpoints' unit).  An MoE model's ``first_k_dense`` prefix layers (a
+dense SwiGLU MLP in place of the MoE) come first, as in the reference.
+The ssm family is a stack of Mamba2 blocks (``ln1`` + ``mamba``).  The
+Zamba2 hybrid runs "super-layers" of ``attn_every`` Mamba2 blocks followed
+by one application of a shared attention+MLP block (one weight set, its
+own KV cache per application), then the ``n_layers % attn_every``
+remainder blocks (``tail``); the reference stacks its Mamba layers as
+``(n_super, attn_every, ...)``.  With ``cfg.remat`` each stacked layer
+(ssm: each Mamba block; hybrid: each whole super-layer, the tail not)
+runs under ``torch.utils.checkpoint`` in training (the reference's
+``jax.checkpoint`` of its scan body): its activations are recomputed in
+the backward pass, routing included, identically.  The KV cache keeps the
+reference's layout, ``k`` and ``v`` of shape ``(L, B, S_max, KV, hd)``
+(the hybrid: one per shared-block application); the ssm and hybrid caches
+add ``ssm`` ``(L, B, H, P, N)`` float32 and ``conv`` ``(L, B, d_conv - 1,
+C)``.
 
-The ssm and hybrid families (ROADMAP A15.4), the audio and vlm stubs and
-sinusoidal and M-RoPE positions (A15.5) raise.
+The audio and vlm stubs and sinusoidal and M-RoPE positions (ROADMAP
+A15.5) raise.
 """
 from __future__ import annotations
 
@@ -28,12 +37,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models.leaves import Leaf, Leaves
 
 AUX_LOSS_WEIGHT = 0.01
 #: the families this module builds
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def attn_spec(cfg: ArchConfig) -> L.AttnSpec:
@@ -61,6 +71,19 @@ class Block(nn.Module):
             self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp, dt, device, g)
 
 
+class MambaBlock(nn.Module):
+    """``ln1`` and ``mamba`` (a :class:`repro_torch.models.mamba2.Mamba2`)."""
+
+    def __init__(self, cfg: ArchConfig, device, g: torch.Generator = None):
+        super().__init__()
+        dt = cfg.torch_dtype
+        self.ln1 = L.Norm(cfg.norm, cfg.d_model, dt, device)
+        self.mamba = M2.Mamba2(
+            cfg.d_model, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+            expand=cfg.ssm_expand, d_conv=cfg.ssm_conv,
+            n_groups=cfg.ssm_groups, dtype=dt, device=device, g=g)
+
+
 def _table(g, shape, dt, device) -> nn.Parameter:
     """An embedding table: normal draws times 0.02 (empty without ``g``)."""
     if g is None:
@@ -71,16 +94,18 @@ def _table(g, shape, dt, device) -> nn.Parameter:
 class Transformer(nn.Module):
     """``embed (V, d)``, ``lm_head (d, V)`` unless the embeddings are tied,
     ``pos_embed (max_seq_len, d)`` with learned positions, ``final_norm``,
-    the MoE family's ``prefix`` dense blocks, and the stacked ``layers``
-    (MoE blocks for the moe family, dense ones for the dense family)."""
+    the MoE family's ``prefix`` dense blocks, and the stacked ``layers``:
+    MoE blocks for the moe family, dense ones for the dense family, Mamba
+    blocks for the ssm family and the hybrid's ``n_super * attn_every``
+    (row-major), which adds its ``tail`` Mamba blocks and the ``shared``
+    attention+MLP block."""
 
     def __init__(self, cfg: ArchConfig, device, g: torch.Generator = None):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise ValueError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP "
-                f"{'A15.4' if cfg.family in ('ssm', 'hybrid') else 'A15.5'});"
-                f" the port runs the {' and '.join(FAMILIES)} families")
+                f"family {cfg.family!r} is not ported yet (ROADMAP A15.5);"
+                f" the port runs the {', '.join(FAMILIES)} families")
         if cfg.rope not in ("rope", "learned"):
             raise ValueError(f"{cfg.rope} positions are not ported yet "
                              "(ROADMAP A15.5)")
@@ -99,12 +124,28 @@ class Transformer(nn.Module):
         kd = cfg.first_k_dense if moe else 0
         self.prefix = nn.ModuleList(
             Block(cfg, moe_layer=False, device=device, g=g) for _ in range(kd))
-        self.layers = nn.ModuleList(
-            Block(cfg, moe_layer=moe, device=device, g=g)
-            for _ in range(cfg.n_layers - kd))
+        if cfg.family == "ssm":
+            self.layers = nn.ModuleList(MambaBlock(cfg, device, g)
+                                        for _ in range(cfg.n_layers))
+            self.lead = {"layers": (cfg.n_layers,)}
+        elif cfg.family == "hybrid":
+            n_super, tail = divmod(cfg.n_layers, cfg.attn_every)
+            self.layers = nn.ModuleList(
+                MambaBlock(cfg, device, g)
+                for _ in range(n_super * cfg.attn_every))
+            self.tail = nn.ModuleList(MambaBlock(cfg, device, g)
+                                      for _ in range(tail))
+            self.shared = Block(cfg, moe_layer=False, device=device, g=g)
+            self.lead = {"layers": (n_super, cfg.attn_every), "tail": (tail,)}
+        else:
+            self.layers = nn.ModuleList(
+                Block(cfg, moe_layer=moe, device=device, g=g)
+                for _ in range(cfg.n_layers - kd))
+            self.lead = {"layers": (cfg.n_layers - kd,)}
 
     def blocks(self):
-        """Every block in order: the dense prefix, then the stacked layers."""
+        """Every attention block in order (dense and moe families): the
+        dense prefix, then the stacked layers."""
         return [*self.prefix, *self.layers]
 
     def use_plain_experts(self, plain: bool) -> None:
@@ -116,20 +157,25 @@ class Transformer(nn.Module):
 
     def reference_leaves(self) -> Leaves:
         """The reference's parameter tree as :class:`Leaf` groups keyed by
-        its path: ``layers/<name>`` stacks that parameter of every stacked
-        layer, ``prefix/#<i>/<name>`` is one prefix block's, the rest are
-        top-level (``embed``, ``final_norm/scale``, ...)."""
+        its path: ``layers/<name>`` (and the hybrid's ``tail/<name>``)
+        stacks that parameter of every stacked layer in the reference's
+        leading shape, ``prefix/#<i>/<name>`` is one prefix block's, the
+        rest are single tensors (``embed``, ``final_norm/scale``, the
+        hybrid's ``shared/...``)."""
+        stacks: Dict[str, list] = {}
         out: Leaves = {}
         for name, p in self.named_parameters():
             parts = name.split(".")
-            if parts[0] == "layers":
-                path = "/".join(["layers", *parts[2:]])
-                out.setdefault(path, Leaf([], stacked=True)).members.append(p)
+            if parts[0] in self.lead:
+                stacks.setdefault("/".join([parts[0], *parts[2:]]),
+                                  []).append(p)
             elif parts[0] == "prefix":
                 out["/".join(["prefix", "#" + parts[1], *parts[2:]])] = Leaf(
-                    [p], stacked=False)
+                    [p], lead=())
             else:
-                out["/".join(parts)] = Leaf([p], stacked=False)
+                out["/".join(parts)] = Leaf([p], lead=())
+        for path, members in stacks.items():
+            out[path] = Leaf(members, lead=self.lead[path.split("/")[0]])
         return dict(sorted(out.items()))
 
 
@@ -211,21 +257,56 @@ def _attn_block_decode(cfg: ArchConfig, blk: Block, x: torch.Tensor,
     return x + _ffn(cfg, blk, h)[0], kv_new
 
 
+def _mamba_kwargs(cfg: ArchConfig) -> Dict:
+    return dict(d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+                expand=cfg.ssm_expand, n_groups=cfg.ssm_groups)
+
+
+def _mamba_train(cfg: ArchConfig, blk: MambaBlock,
+                 x: torch.Tensor) -> torch.Tensor:
+    h = L.apply_norm(cfg.norm, blk.ln1, x)
+    return x + M2.mamba2_forward(blk.mamba, h, **_mamba_kwargs(cfg))
+
+
+def _remat(cfg: ArchConfig, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` with ``cfg.remat``."""
+    if cfg.remat:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _super_train(cfg: ArchConfig, p: Transformer, g: int, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """The hybrid's super-layer ``g``: its ``attn_every`` Mamba blocks,
+    then the shared block."""
+    per = cfg.attn_every
+    for blk in p.layers[g * per:(g + 1) * per]:
+        x = _mamba_train(cfg, blk, x)
+    return _attn_block_train(cfg, p.shared, x, positions)[0]
+
+
 def forward_train(cfg: ArchConfig, p: Transformer,
                   batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V), the summed MoE aux loss).  With
-    ``cfg.remat`` each stacked layer is recomputed in the backward pass."""
+    """Returns (logits (B, S, V), the summed MoE aux loss, 0 outside the
+    moe family).  With ``cfg.remat`` each stacked layer (the hybrid: each
+    super-layer) is recomputed in the backward pass."""
     x, positions = embed_inputs(cfg, p, batch)
-    for blk in p.prefix:
-        x, _ = _attn_block_train(cfg, blk, x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk in p.layers:
-        if cfg.remat:
-            x, a = checkpoint(_attn_block_train, cfg, blk, x, positions,
-                              use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, a = _attn_block_train(cfg, blk, x, positions)
-        aux = aux + a
+    if cfg.family == "ssm":
+        for blk in p.layers:
+            x = _remat(cfg, _mamba_train, cfg, blk, x)
+    elif cfg.family == "hybrid":
+        for g in range(p.lead["layers"][0]):
+            x = _remat(cfg, _super_train, cfg, p, g, x, positions)
+        for blk in p.tail:
+            x = _mamba_train(cfg, blk, x)
+    else:
+        for blk in p.prefix:
+            x, _ = _attn_block_train(cfg, blk, x, positions)
+        for blk in p.layers:
+            x, a = _remat(cfg, _attn_block_train, cfg, blk, x, positions)
+            aux = aux + a
     return logits_fn(cfg, p, x), aux
 
 
@@ -245,12 +326,38 @@ def loss_fn(cfg: ArchConfig, p: Transformer, batch: Dict
     return total, {"loss": loss, "aux": aux}
 
 
+def _mamba_prefill(cfg: ArchConfig, blk: MambaBlock, x: torch.Tensor,
+                   states: list) -> torch.Tensor:
+    h = L.apply_norm(cfg.norm, blk.ln1, x)
+    y, ssm, conv = M2.mamba2_prefill(blk.mamba, h, **_mamba_kwargs(cfg))
+    states.append((ssm, conv))
+    return x + y
+
+
 @torch.no_grad()
 def prefill(cfg: ArchConfig, p: Transformer,
             batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (last-position logits (B, 1, V), cache {"k", "v"} of shape
-    (L, B, S, KV, hd))."""
+    """Returns (last-position logits (B, 1, V), the cache): ``k``/``v`` of
+    shape (L, B, S, KV, hd) (the hybrid: one per shared-block
+    application), and for the ssm and hybrid families ``ssm`` (L, B, H, P,
+    N) float32 and ``conv`` (L, B, d_conv - 1, C)."""
     x, positions = embed_inputs(cfg, p, batch)
+    if cfg.family in ("ssm", "hybrid"):
+        states, ks, vs = [], [], []
+        hybrid, per = cfg.family == "hybrid", cfg.attn_every
+        for i, blk in enumerate(p.layers):
+            x = _mamba_prefill(cfg, blk, x, states)
+            if hybrid and i % per == per - 1:
+                x, (k, v) = _attn_block_prefill(cfg, p.shared, x, positions)
+                ks.append(k)
+                vs.append(v)
+        for blk in getattr(p, "tail", ()):
+            x = _mamba_prefill(cfg, blk, x, states)
+        cache = {"ssm": torch.stack([s for s, _ in states]),
+                 "conv": torch.stack([c for _, c in states])}
+        if ks:
+            cache.update(k=torch.stack(ks), v=torch.stack(vs))
+        return logits_fn(cfg, p, x[:, -1:, :]), cache
     ks, vs = [], []
     for blk in p.blocks():
         x, (k, v) = _attn_block_prefill(cfg, blk, x, positions)
@@ -260,16 +367,40 @@ def prefill(cfg: ArchConfig, p: Transformer,
     return logits_fn(cfg, p, x[:, -1:, :]), cache
 
 
+def _mamba_decode(cfg: ArchConfig, blk: MambaBlock, x: torch.Tensor,
+                  ssm: torch.Tensor, conv: torch.Tensor) -> torch.Tensor:
+    """One Mamba block's decode step; writes its new states into ``ssm``
+    and ``conv`` in place."""
+    h = L.apply_norm(cfg.norm, blk.ln1, x)
+    y, s2, c2 = M2.mamba2_decode(blk.mamba, h, ssm, conv,
+                                 **_mamba_kwargs(cfg))
+    ssm.copy_(s2)
+    conv.copy_(c2)
+    return x + y
+
+
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, p: Transformer,
                 batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token serve step.  batch: tokens (B, 1), cache {"k", "v"} of
-    shape (L, B, S_max, KV, hd), cache_index (tokens already cached).
-    Writes the new keys and values into the cache in place and returns
-    (logits (B, 1, V), the cache with "index" = cache_index + 1)."""
+    """One-token serve step.  batch: tokens (B, 1), cache (as
+    :func:`prefill` gives it, ``k``/``v`` padded to S_max), cache_index
+    (tokens already cached).  Writes the new keys, values and states into
+    the cache in place and returns (logits (B, 1, V), the cache with
+    "index" = cache_index + 1)."""
     cache = batch["cache"]
     idx = int(batch["cache_index"])
     x, positions = embed_inputs(cfg, p, batch, offset=idx)
+    if cfg.family in ("ssm", "hybrid"):
+        ssm, conv = cache["ssm"], cache["conv"]
+        hybrid, per = cfg.family == "hybrid", cfg.attn_every
+        blocks = [*p.layers, *getattr(p, "tail", ())]
+        for i, blk in enumerate(blocks):
+            x = _mamba_decode(cfg, blk, x, ssm[i], conv[i])
+            if hybrid and i < len(p.layers) and i % per == per - 1:
+                g = i // per
+                x, _ = _attn_block_decode(cfg, p.shared, x, positions,
+                                          (cache["k"][g], cache["v"][g]), idx)
+        return logits_fn(cfg, p, x), {**cache, "index": idx + 1}
     k, v = cache["k"], cache["v"]
     for i, blk in enumerate(p.blocks()):
         x, _ = _attn_block_decode(cfg, blk, x, positions, (k[i], v[i]), idx)

@@ -5,7 +5,8 @@ gradients cast back to the gradient's dtype.
 
 **Reference leaves.**  The reference's unit is a leaf of its parameter
 tree, and its layers are *stacked*: ``params["layers"]["attn"]["wq"]`` has
-a leading axis of L layers.  Three of its rules read that stacked shape:
+a leading axis of L layers (the hybrid's Mamba layers two, ``(n_super,
+attn_every)``).  Three of its rules read that stacked shape:
 weight decay applies to leaves of two or more dimensions (so a stacked
 norm scale ``(L, d)`` decays, ``final_norm``'s ``(d,)`` does not),
 Adafactor factors every leaf of two or more dimensions (for a stacked
@@ -13,8 +14,8 @@ vector ``vc`` averages across the layers), and Adafactor's RMS update clip
 is taken over the whole stacked leaf.  The port holds one parameter per
 layer, so the optimizer works on the model's description of that tree
 (:class:`repro_torch.models.leaves.Leaf` groups, from
-``reference_leaves()``): the members the reference stacks, and whether it
-stacks them.  Every shape rule reads the group's stacked shape; the state
+``reference_leaves()``): the members the reference stacks and the leading
+shape it stacks them in.  Every shape rule reads the group's stacked shape; the state
 is kept per group in that stacked shape, keyed by the reference's path
 (``layers/attn/wq``), so checkpoints carry the reference's keys.
 
@@ -121,19 +122,20 @@ def clip_by_global_norm(grads: Dict[str, Sequence[torch.Tensor]],
 
 
 def _units(leaf: Leaf, grads: Sequence[torch.Tensor], state: Dict):
-    """(parameters, gradients, state views) for each unit the update takes
-    whole: the slices over the leading axis of a chunked leaf (a stacked
-    leaf's members, an unstacked one's rows), else the whole leaf."""
+    """(a :class:`Leaf`, its gradients, its state views) for each unit the
+    update takes whole: the slices over the leading axis of a chunked leaf
+    (a stacked leaf's groups of members, an unstacked one's rows), else
+    the whole leaf."""
     if not _chunked(leaf):
-        return [(leaf.members, list(grads), state)]
-    ms, gs = ((leaf.members, grads) if leaf.stacked
-              else (list(leaf.members[0]), list(grads[0])))
-    return [([m], [g], {k: s[i] for k, s in state.items()})
-            for i, (m, g) in enumerate(zip(ms, gs))]
-
-
-def _stack(leaf_stacked: bool, ts: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.stack(list(ts)) if leaf_stacked else ts[0]
+        return [(leaf, list(grads), state)]
+    if not leaf.lead:
+        return [(Leaf([m], lead=()), [g], {k: s[i] for k, s in state.items()})
+                for i, (m, g) in enumerate(zip(leaf.members[0], grads[0]))]
+    per = len(leaf.members) // leaf.lead[0]
+    return [(Leaf(leaf.members[i * per:(i + 1) * per], lead=leaf.lead[1:]),
+             list(grads[i * per:(i + 1) * per]),
+             {k: s[i] for k, s in state.items()})
+            for i in range(leaf.lead[0])]
 
 
 @torch.no_grad()
@@ -154,12 +156,11 @@ def apply_updates(cfg: OptConfig, leaves: Leaves,
         bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=s32.device), s32)
         for path, leaf in leaves.items():
             decay = len(leaf.shape) >= 2
-            stacked = leaf.stacked and not _chunked(leaf)
             moments = {"mu": state["mu"][path], "nu": state["nu"][path]}
-            for members, gs, st in _units(leaf, grads[path], moments):
-                for i, (p, g) in enumerate(zip(members, gs)):
-                    mu = st["mu"][i] if stacked else st["mu"]
-                    nu = st["nu"][i] if stacked else st["nu"]
+            for unit, gs, st in _units(leaf, grads[path], moments):
+                for p, g, mu, nu in zip(unit.members, gs,
+                                        unit.unstack(st["mu"]),
+                                        unit.unstack(st["nu"])):
                     g32 = g.float()
                     mu.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
                     nu.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g32))
@@ -175,9 +176,8 @@ def apply_updates(cfg: OptConfig, leaves: Leaves,
     # -- adafactor (beta1 = 0, factored second moment) ------------------------
     d2 = 1e-30
     for path, leaf in leaves.items():
-        stacked = leaf.stacked and not _chunked(leaf)
-        for members, gs, fac in _units(leaf, grads[path], state["fac"][path]):
-            g32 = _stack(stacked, [g.float() for g in gs])
+        for unit, gs, fac in _units(leaf, grads[path], state["fac"][path]):
+            g32 = unit.stack([g.float() for g in gs])
             g2 = torch.square(g32) + d2
             if g32.dim() < 2:
                 v = cfg.b2 * fac["v"] + (1 - cfg.b2) * g2
@@ -194,10 +194,10 @@ def apply_updates(cfg: OptConfig, leaves: Leaves,
             # update clipping (Adafactor's RMS rule), over the whole unit
             rms = torch.sqrt(torch.mean(torch.square(d)) + d2)
             d = d / torch.clamp(rms, min=1.0)
-            p32 = _stack(stacked, [p.float() for p in members])
+            p32 = unit.stack([p.float() for p in unit.members])
             if d.dim() >= 2:
                 d = d + cfg.weight_decay * p32
             new = p32 - lr * d
-            for i, p in enumerate(members):
-                p.copy_((new[i] if stacked else new).to(p.dtype))
+            for p, q in zip(unit.members, unit.unstack(new)):
+                p.copy_(q.to(p.dtype))
     return leaves, state, {"grad_norm": gnorm, "lr": lr}

@@ -68,7 +68,11 @@ def test_port_files_exist():
                  "src/repro_torch/models/leaves.py",
                  "src/repro_torch/optim/adamw.py",
                  "src/repro_torch/data/tokens.py",
-                 "src/repro_torch/launch/train.py", "chip_smoke.py"):
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/models/flash.py",
+                 "src/repro_torch/models/mamba2.py",
+                 "src/repro_torch/configs/mamba2_2_7b.py",
+                 "src/repro_torch/configs/zamba2_1_2b.py", "chip_smoke.py"):
         assert want in names
 
 
@@ -111,15 +115,19 @@ def _run_blocked(code: str) -> None:
 #: the training slice (ROADMAP A15.1)
 SLICE_TWELVE = ("models/leaves.py", "optim/adamw.py", "data/tokens.py",
                 "launch/train.py")
-#: the configurations the training slice adds
+#: the long-sequence slice (ROADMAP A15.2, A15.4)
+SLICE_THIRTEEN = ("models/flash.py", "models/mamba2.py", "models/layers.py",
+                  "models/transformer.py")
+#: the configurations the training and long-sequence slices add
 NEW_CONFIGS = ("qwen1.5-4b", "deepseek-7b", "stablelm-12b", "granite-34b",
-               "kimi-k2-1t-a32b")
+               "kimi-k2-1t-a32b", "mamba2-2.7b", "zamba2-1.2b")
 
 
 @pytest.mark.parametrize("module", SLICE_TEN + tuple(
-    m for m in SLICE_ELEVEN if m not in SLICE_TEN) + SLICE_TWELVE)
+    m for m in SLICE_ELEVEN if m not in SLICE_TEN) + SLICE_TWELVE
+    + SLICE_THIRTEEN)
 def test_slice_ten_modules_exist_and_import_alone(module):
-    """Each module of the slices ten, eleven and twelve is in the port and
+    """Each module of the slices ten to thirteen is in the port and
     imports in a fresh interpreter that has neither jax nor the reference
     importable."""
     path = ROOT / "src" / "repro_torch" / module
@@ -130,8 +138,9 @@ def test_slice_ten_modules_exist_and_import_alone(module):
 
 
 def test_new_configs_import_alone():
-    """The training slice's configurations register through get_config in
-    a fresh interpreter without jax or the reference."""
+    """The training and long-sequence slices' configurations register
+    through get_config in a fresh interpreter without jax or the
+    reference."""
     for name in NEW_CONFIGS:
         path = ROOT / "src" / "repro_torch" / "configs" / (
             name.replace("-", "_").replace(".", "_") + ".py")

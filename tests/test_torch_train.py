@@ -95,8 +95,7 @@ def _grad_tree(model, total):
     flat = [p for leaf in leaves.values() for p in leaf.members]
     grads = iter(torch.autograd.grad(total, flat))
     return bridge._nest({
-        k: np.stack([to_numpy(next(grads)) for _ in leaf.members])
-        if leaf.stacked else to_numpy(next(grads))
+        k: to_numpy(leaf.stack([next(grads) for _ in leaf.members]))
         for k, leaf in leaves.items()})
 
 
@@ -324,7 +323,8 @@ def _reference_step(jcfg, jopt):
 def test_port_checkpoint_continues_in_the_reference(tmp_path, arch, kind):
     """The port trains 2 steps and checkpoints; the reference restores the
     files onto its eval_shape tree (keys and stacked shapes) and takes the
-    third step to the port's loss within 1e-5."""
+    third step to the port's loss within 1e-5 (the ssm and hybrid
+    families': tests/lm_family_cases.py)."""
     jcfg, cfg = _configs(arch)
     jopt, opt = JA.OptConfig(kind=kind, **OPT), A.OptConfig(kind=kind, **OPT)
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(2))
@@ -375,7 +375,17 @@ def test_reference_checkpoint_continues_in_the_port(tmp_path, arch, kind):
 
 
 def test_optimizer_state_crosses_the_bridge_both_ways():
-    jcfg, cfg = _configs(MOE, first_k_dense=1)
+    """Both optimizers' states, and the parameters, for phi3.5-moe with a
+    dense prefix and for the ssm and hybrid families (Adafactor's vr/vc
+    on the hybrid's two-axis leaves)."""
+    # the hybrid at 5 layers: its Mamba leaves stacked (2, 2, ...), a tail
+    for jcfg, cfg in (_configs(MOE, first_k_dense=1),
+                      _configs("mamba2-2.7b", n_layers=5),
+                      _configs("zamba2-1.2b", n_layers=5)):
+        _bridge_both_ways(jcfg, cfg)
+
+
+def _bridge_both_ways(jcfg, cfg):
     for kind in ("adamw", "adafactor"):
         jopt, opt = JA.OptConfig(kind=kind), A.OptConfig(kind=kind)
         jparams = JT.init_params(jcfg, jax.random.PRNGKey(1))
@@ -393,6 +403,10 @@ def test_optimizer_state_crosses_the_bridge_both_ways():
             _np_tree(jparams))
         _assert_tree_close(params, _np_tree(jparams), dict(rtol=0, atol=0),
                            "params")
+        if kind == "adafactor" and cfg.family == "hybrid":
+            fac = state["fac"]["layers/mamba/wz"]
+            assert fac["vr"].shape == (2, 2, cfg.d_model)
+            assert fac["vc"].shape == (2, 2, cfg.d_inner)
     with pytest.raises(ValueError, match="no entry"):
         bridge.opt_state_from_reference({"step": 0}, model, opt)
 
