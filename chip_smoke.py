@@ -3272,6 +3272,7 @@ def phase_lm_serve(cfg) -> int:
         raise AssertionError("serve output is not finite tokens of the "
                              "expected shape")
     log("lm", f"generated tokens (first row): {tokens[0].tolist()}")
+    LM_SERVED["tokens"] = tokens.cpu()
 
     # the same forwards again, teacher-forced with the B7 run's tokens: on
     # B7 with each MoE layer's expert FFN also run by the plain version on
@@ -3715,7 +3716,7 @@ def phase_train_moe() -> dict:
     peak = torch.cuda.max_memory_allocated()
     n_moe = cfg.n_layers - cfg.first_k_dense
     want = {"moe_gmm": 9 * n_moe * TRAIN_STEPS}
-    losses = run.losses
+    losses, run_metrics = run.losses, run.metrics
     steady = sorted(run.step_ms[2:6])
     med = (steady[1] + steady[2]) / 2
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -3764,8 +3765,9 @@ def phase_train_moe() -> dict:
     torch.cuda.empty_cache()
     return dict(launches=counts["moe_gmm"], step_ms=med,
                 tokens_per_s=tokens / med * 1e3, peak_gib=peak / 2**30,
-                losses=losses, profile={k: v for k, v in prof.items()
-                                        if k != "parts"},
+                losses=losses,
+                grad_norms=[m["grad_norm"] for m in run_metrics],
+                profile={k: v for k, v in prof.items() if k != "parts"},
                 b7_parts_ms={k: v[0] for k, v in prof["parts"].items()})
 
 
@@ -4340,10 +4342,515 @@ def phase_long(errors: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# 16. the LM and the cohort on a (data, model) mesh
+# ----------------------------------------------------------------------------
+
+MESH_LM_DIR = os.path.join(ROOT, "build", "mesh-lm")
+#: 16a and 16b train phi3.5-moe at full width at 14b's depth, batch and
+#: learning rate: at 2 layers each of 16b's four ranks holds 8 of the 16
+#: experts (bf16 weights and gradients), a quarter of the float32 moments
+#: (ZeRO-1) and the dense weights whole while it computes, reckoned below
+MESH_LM_STEPS = 3
+#: 16a's largest relative gap per step to 14b's losses and gradient norms:
+#: the mesh's attention takes the expanded-KV branch and 14b's the grouped
+#: one (the H100 measured 1.649e-4 and 7.779e-3; about 5x each)
+MESH_NCCL_REL_TOL = dict(losses=1e-3, grad_norms=4e-2)
+#: 16b's largest relative gap per step to the single process of the same
+#: G: two data ranks' bf16 gradients are summed once more in bf16 than
+#: one process's (the H100 measured 3.959e-4 and 1.694e-3; about 5x each;
+#: one process at G = 1 is 8.9e-3 off in the losses)
+MESH_LM_REL_TOL = dict(losses=2e-3, grad_norms=1e-2)
+#: 16b's final weights against the single process's, per leaf, as
+#: ||w_mesh - w_single|| / ||w_single - w_init||: bf16 weights move about
+#: one unit in the last place a step, so rounding leaves 0.055-0.154 on
+#: the H100; about 2x that, below the 0.76-0.96 of a run without the
+#: gradient's sum over data (the CPU rehearsal)
+MESH_LM_UPDATE_TOL = 0.3
+#: the leaves 16b gathers on rank 0 after its last step (the norms'
+#: scales, 1.0 in bf16, do not move at this learning rate)
+MESH_LM_LEAVES = ("embed", "layers/attn/wq", "layers/moe/router",
+                  "layers/moe/wi_gate")
+#: the cohort on a mesh against the unplaced cohort (the reference's
+#: tolerance, tests/test_distributed.py)
+MESH_COHORT_TOL = dict(rtol=1e-4, atol=1e-5)
+MESH_RANK_DEADLINE_S = 600.0
+#: phase 7's served tokens and logits, which 16e is held to
+LM_SERVED: dict = {}
+
+
+def mesh_lm_argv(steps: int, extra=()) -> list:
+    return ["--arch", LM_ARCH, "--layers", str(TRAIN_LAYERS), "--steps",
+            str(steps), "--global-batch", str(TRAIN_BATCH), "--seq-len",
+            str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--log-every", "1",
+            *extra]
+
+
+def mesh_restart_argv(steps: int, model_axis: int, ckpt: str) -> list:
+    return ["--arch", LM_ARCH, "--reduced", "--steps", str(steps),
+            "--seq-len", "64", "--global-batch", "8", "--lr", "1e-3",
+            "--log-every", "1", "--model-axis", str(model_axis),
+            "--device", "cuda:0", "--backend", "gloo", "--ckpt-dir", ckpt]
+
+
+def b7_per_step(cfg) -> int:
+    """B7 launches of one training step: 3 forward + 3 recomputed + 3 dx
+    per MoE layer (14b's count)."""
+    return 9 * (cfg.n_layers - cfg.first_k_dense)
+
+
+def rel_diffs(got, want) -> list:
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def step_gaps(got: dict, want: dict) -> dict:
+    """The largest relative gap per step of two runs' losses and gradient
+    norms (``losses`` / ``grad_norms`` lists, compared over ``got``'s
+    steps)."""
+    return {k: max(rel_diffs(got[k], want[k])) for k in ("losses",
+                                                           "grad_norms")}
+
+
+def phase_mesh_nccl(trained: dict, cfg) -> dict:
+    """16a: the trainer with --model-axis 1 on a (1, 1) mesh of one NCCL
+    rank, held to 14b's unsharded run of the same seed (its losses and
+    gradient norms per step)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import spmd
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{spmd.free_port()}", world_size=1, rank=0)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _build.reset_launches()
+        run = train.main(mesh_lm_argv(MESH_LM_STEPS, ["--model-axis", "1"]))
+        counts = dict(_build.LAUNCHES)
+        wall = time.perf_counter() - t0
+        mesh = run.params.mesh_state.mesh
+        live = (mesh.live, mesh.backend, dict(mesh.shape))
+    finally:
+        dist.destroy_process_group()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"moe_gmm": b7_per_step(cfg) * MESH_LM_STEPS}
+    got = dict(losses=run.losses,
+               grad_norms=[m["grad_norm"] for m in run.metrics])
+    gaps = step_gaps(got, trained)
+    log("mesh-lm", f"16a {LM_ARCH} at {TRAIN_LAYERS} layers through "
+        f"launch/train.py --model-axis 1 on a (1, 1) mesh of one NCCL rank "
+        f"(live, backend, shape {live}): {MESH_LM_STEPS} steps in {wall:.1f} "
+        f"s (init included), launches {counts} (expected {want}); losses "
+        f"{[round(x, 4) for x in run.losses]} against 14b's "
+        f"{[round(x, 4) for x in trained['losses'][:MESH_LM_STEPS]]}, "
+        f"gradient norms {[round(x, 4) for x in got['grad_norms']]} against "
+        f"{[round(x, 4) for x in trained['grad_norms'][:MESH_LM_STEPS]]}; "
+        f"largest relative gaps {gaps} (limit {MESH_NCCL_REL_TOL}); step ms "
+        f"(CUDA events) "
+        f"{[round(x, 3) for x in run.step_ms]}; peak memory "
+        f"{peak / 2**30:.2f} GiB; collectives recorded "
+        f"{len(mesh.collectives)} (groups of one move nothing)")
+    if live != (True, "nccl", {"data": 1, "model": 1}):
+        raise AssertionError(f"16a ran on {live}")
+    if counts != want:
+        raise AssertionError(f"16a launch counts {counts} != {want}")
+    if not np.isfinite(run.losses).all() or any(
+            gaps[k] > MESH_NCCL_REL_TOL[k] for k in gaps):
+        raise AssertionError(f"16a {got} against 14b's {trained}")
+    out = dict(launches=counts["moe_gmm"], losses=run.losses,
+               step_ms=run.step_ms, peak_gib=peak / 2**30, gaps=gaps)
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def picked_leaves(model) -> dict:
+    """MESH_LM_LEAVES of a whole (unplaced) model, float32 on the host."""
+    leaves = model.reference_leaves()
+    return {k: leaves[k].stack([m.detach().float().cpu()
+                                for m in leaves[k].members])
+            for k in MESH_LM_LEAVES}
+
+
+def phase_mesh_single(cfg) -> dict:
+    """16b's counterpart: one process under a shape-only (2, 2) mesh (the
+    mesh run's dispatch groups, G = 2, and attention branch); keeps its
+    final MESH_LM_LEAVES and the same leaves at initialisation (the
+    trainer's seed)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as HM
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    run = train.main(mesh_lm_argv(MESH_LM_STEPS),
+                     mesh=HM.ShapeMesh((2, 2), ("data", "model")))
+    counts = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"moe_gmm": b7_per_step(cfg) * MESH_LM_STEPS}
+    log("mesh-lm", f"16b one process under a shape-only (2, 2) mesh: "
+        f"launches {counts} (expected {want}); losses "
+        f"{[round(x, 4) for x in run.losses]}; step ms "
+        f"{[round(x, 3) for x in run.step_ms]}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    if counts != want:
+        raise AssertionError(f"16b single launch counts {counts} != {want}")
+    out = dict(launches=counts["moe_gmm"], losses=run.losses,
+               grad_norms=[m["grad_norm"] for m in run.metrics],
+               step_ms=run.step_ms, peak_gib=peak / 2**30,
+               leaves=picked_leaves(run.params))
+    del run
+    torch.cuda.empty_cache()
+    init = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    out["init"] = picked_leaves(init)
+    del init
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank_b7(params, cfg) -> dict:
+    """B7 on this rank's own experts (EP) at the training step's segment
+    shape, against its plain version; held to GMM_TOL's bf16 contract."""
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.ref import moe_gmm_ref
+    from repro_torch.models.moe import capacity_of, t_tile_of
+    w = params.layers[0].moe.wi_gate.detach()
+    e = w.shape[0]
+    cap = capacity_of(TRAIN_BATCH // 2 * TRAIN_SEQ, cfg.top_k,
+                      cfg.n_experts, cfg.capacity_factor)
+    t_tile = t_tile_of(cap)
+    ids = torch.as_tensor(np.repeat(np.arange(e), cap // t_tile),
+                          dtype=torch.int32, device=w.device)
+    g = torch.Generator(device=w.device).manual_seed(70)
+    x = torch.randn(e * cap, w.shape[1], generator=g, device=w.device
+                    ).bfloat16()
+    got = moe_gmm(ids, x, w, t_tile=t_tile)
+    want = moe_gmm_ref(x.view(-1, t_tile, w.shape[1]), w, ids).view(
+        e * cap, -1)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    torch.testing.assert_close(got, want, **GMM_TOL["bf16"])
+    return dict(experts=e, capacity=cap, t_tile=t_tile, max_abs_err=err)
+
+
+def mesh_rank_cohort(job: dict, dev: torch.device) -> None:
+    """16d on this rank: phase 9's cohort (saved by the parent) on the
+    process group's (2, 2) ProcessGroupMesh; rank 0 writes the weights,
+    losses, seconds and collectives."""
+    import torch.distributed as dist
+    from repro_torch.core.batched import BatchedLifeEngine
+    from repro_torch.core.life import LifeConfig
+    problems = torch.load(job["cohort"], map_location=dev, weights_only=False)
+    cfg = LifeConfig(executor="opt", n_iters=COHORT_ITERS, shard_rows=2,
+                     shard_cols=2, plan_cache_dir="")
+    eng = BatchedLifeEngine(problems, cfg, device=dev)
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    w, losses = eng.run()
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    seconds = time.perf_counter() - t0
+    mesh = eng.mesh
+    if dist.get_rank() == 0:
+        np.savez(job["out"], W=w.cpu().numpy(), losses=losses.cpu().numpy(),
+                 seconds=np.asarray(seconds),
+                 coll_bytes=np.asarray([b for _, b, _ in mesh.collectives],
+                                       np.int64),
+                 coll_groups=np.asarray([g for _, _, g in mesh.collectives],
+                                        np.int64),
+                 staged=np.asarray(mesh.staged),
+                 sharded=np.asarray([eng.subjects_sharded,
+                                     eng.slots_sharded]))
+    del eng, problems
+    torch.cuda.empty_cache()
+
+
+def mesh_rank(jobs_path: str) -> int:
+    """One gloo rank on cuda:0 of phase 16's spawn: joins the group the
+    environment names, runs the job list in turn, writes a JSON per
+    training job."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import spmd
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.roofline.analysis import collective_bytes
+    dev = torch.device("cuda:0")
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    spmd.join_process_group("gloo", dev)
+    rank = dist.get_rank()
+    try:
+        for job in jobs:
+            if job["kind"] == "copy":
+                if rank == 0:
+                    shutil.copytree(job["src"], job["dst"])
+                dist.barrier()
+                continue
+            if job["kind"] == "cohort":
+                mesh_rank_cohort(job, dev)
+                continue
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _build.reset_launches()
+            run = train.main(job["argv"])
+            counts = dict(_build.LAUNCHES)
+            mesh = run.params.mesh_state.mesh
+            cb = collective_bytes(mesh.collectives)
+            out = dict(launches=counts, losses=run.losses,
+                       grad_norms=[m["grad_norm"] for m in run.metrics],
+                       step_ms=run.step_ms, staged=mesh.staged,
+                       peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                       coll_bytes_per_step=cb["total"] / max(
+                           1, len(run.step_ms)),
+                       coll_counts=cb["counts"], coords=mesh.coords)
+            if job["kind"] == "train-full":
+                cfg = dataclasses.replace(get_config(LM_ARCH),
+                                          n_layers=TRAIN_LAYERS)
+                out["b7"] = mesh_rank_b7(run.params, cfg)
+                lm = run.params.mesh_state
+                leaves = {k: lm.gather_leaf(k).float()
+                          for k in MESH_LM_LEAVES}
+                if rank == 0:
+                    torch.save(leaves, f"{job['out']}-leaves.pt")
+                del lm, leaves
+            with open(f"{job['out']}-rank{rank}.json", "w") as f:
+                json.dump(out, f)
+            del run, mesh
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh_ranks(cfg, single: dict, cohort_path: str) -> dict:
+    """16b, 16c and 16d's rank side: one spawn of four gloo ranks on
+    cuda:0 (chip_smoke.py --mesh-rank), then the checks."""
+    import shutil
+    from repro_torch.checkpoint import manager as CK
+    from repro_torch.distributed import spmd
+    d = MESH_LM_DIR
+    full = os.path.join(d, "16b")
+    a, b = os.path.join(d, "ckpt-2x2"), os.path.join(d, "ckpt-1x4")
+    restart = os.path.join(d, "16c")
+    gloo_out = os.path.join(d, "16d-gloo.npz")
+    for path in (a, b):
+        shutil.rmtree(path, ignore_errors=True)
+    jobs = [
+        dict(kind="train-full", out=full, argv=mesh_lm_argv(
+            MESH_LM_STEPS, ["--model-axis", "2", "--device", "cuda:0",
+                            "--backend", "gloo"])),
+        dict(kind="train", out=restart + "-2x2",
+             argv=mesh_restart_argv(3, 2, a)),
+        dict(kind="copy", src=a, dst=b),
+        dict(kind="train", out=restart + "-resave",
+             argv=mesh_restart_argv(3, 4, b)),
+        dict(kind="train", out=restart + "-more",
+             argv=mesh_restart_argv(5, 4, b)),
+        dict(kind="cohort", cohort=cohort_path, out=gloo_out),
+    ]
+    jobs_path = os.path.join(d, "jobs.json")
+    with open(jobs_path, "w") as f:
+        json.dump(jobs, f)
+    t0 = time.perf_counter()
+    logs = spmd.launch([os.path.join(ROOT, "chip_smoke.py"), "--mesh-rank",
+                        jobs_path], 4, os.path.join(d, "ranks"),
+                       deadline_s=MESH_RANK_DEADLINE_S,
+                       env={"PYTORCH_CUDA_ALLOC_CONF":
+                            "expandable_segments:True"})
+    wall = time.perf_counter() - t0
+    staged = [k for k, text in enumerate(logs) if "staging" in text]
+    log("mesh-lm", f"four gloo ranks on cuda:0 ran 16b, 16c and 16d in "
+        f"{wall:.1f} s (process starts included); ranks that staged their "
+        f"collectives through host memory: {staged}")
+
+    # 16b
+    ranks = []
+    for k in range(4):
+        with open(f"{full}-rank{k}.json") as f:
+            ranks.append(json.load(f))
+    losses = ranks[0]["losses"]
+    gaps = step_gaps(ranks[0], single)
+    leaves = torch.load(f"{full}-leaves.pt")
+    updates = {}
+    for k, w in leaves.items():
+        step = single["leaves"][k] - single["init"][k]
+        updates[k] = (float((w - single["leaves"][k]).norm() / step.norm()),
+                      float((w - single["leaves"][k]).abs().max()))
+    want = {"moe_gmm": b7_per_step(cfg) * MESH_LM_STEPS}
+    for k, r in enumerate(ranks):
+        log("mesh-lm", f"16b rank {k} cell {r['coords']}: B7 launches "
+            f"{r['launches']} (expected {want}) over its {r['b7']['experts']}"
+            f" experts; B7 against its plain version on the rank's experts "
+            f"({r['b7']['experts']} x {r['b7']['capacity']} rows, t_tile "
+            f"{r['b7']['t_tile']}, bf16): max abs err "
+            f"{r['b7']['max_abs_err']:.3e} (rtol {GMM_TOL['bf16']['rtol']}, "
+            f"atol {GMM_TOL['bf16']['atol']}); step ms (CUDA events) "
+            f"{[round(x, 1) for x in r['step_ms']]}; bytes moved per device "
+            f"per step {r['coll_bytes_per_step'] / 1e9:.3f} GB "
+            f"({r['coll_counts']}; gloo, staged through host memory: "
+            f"{r['staged']}); peak memory {r['peak_gib']:.2f} GiB")
+    log("mesh-lm", f"16b (2, 2) of four gloo ranks (EP: 8 experts a rank; "
+        f"ZeRO-1 over data; G = 2): losses {[round(x, 4) for x in losses]} "
+        f"against the single process's {[round(x, 4) for x in single['losses']]}"
+        f", gradient norms {[round(x, 4) for x in ranks[0]['grad_norms']]} "
+        f"against {[round(x, 4) for x in single['grad_norms']]}; largest "
+        f"relative gaps {gaps} (limit {MESH_LM_REL_TOL}); final weights "
+        f"gathered on rank 0 against the single process's, per leaf "
+        f"(||w_mesh - w_single|| / ||w_single - w_init||, max abs diff): "
+        f"{updates} (limit {MESH_LM_UPDATE_TOL} on the first); these are "
+        f"gloo-through-host numbers on one card, not NVLink ones")
+    for k, r in enumerate(ranks):
+        if r["launches"] != want:
+            raise AssertionError(f"16b rank {k} launches {r['launches']}")
+        if r["b7"]["experts"] != cfg.n_experts // 2:
+            raise AssertionError(f"16b rank {k} holds {r['b7']['experts']} "
+                                 "experts")
+    if not np.isfinite(losses).all() or any(
+            gaps[k] > MESH_LM_REL_TOL[k] for k in gaps):
+        raise AssertionError(f"16b {gaps} against the single process")
+    if max(u for u, _ in updates.values()) > MESH_LM_UPDATE_TOL:
+        raise AssertionError(f"16b final weights {updates}")
+
+    # 16c
+    first = CK.restore(a, 3)[1]
+    again = CK.restore(b, 3)[1]
+    same = sorted(first) == sorted(again) and all(
+        torch.equal(first[k], again[k]) for k in first)
+    with open(restart + "-2x2-rank0.json") as f:
+        before = json.load(f)["losses"]
+    with open(restart + "-more-rank0.json") as f:
+        more = json.load(f)["losses"]
+    log("mesh-lm", f"16c elastic restart ({LM_ARCH} reduced in width, a "
+        f"cut: a full-width state of 2 layers is ~29 GB of whole tensors to "
+        f"write): saved under (2, 2) after losses "
+        f"{[round(x, 4) for x in before]}, restored and placed under (1, 4) "
+        f"and saved again: {len(first)} arrays bit for bit the same: {same}; "
+        f"two more steps under (1, 4): losses {[round(x, 4) for x in more]}")
+    if not same:
+        raise AssertionError("16c: the reshard changed the state")
+    if len(more) != 2 or not np.isfinite(more).all() or not (
+            more[-1] < before[0]):
+        raise AssertionError(f"16c losses {more} after {before}")
+
+    # 16d's gloo side
+    with np.load(gloo_out) as z:
+        gloo = {k: z[k] for k in z.files}
+    return dict(losses=losses, gaps=gaps, updates=updates, ranks=ranks,
+                gloo=gloo, wall_s=wall,
+                launches=sum(r["launches"]["moe_gmm"] for r in ranks))
+
+
+def phase_mesh_cohort(cohort_path: str, gloo: dict) -> dict:
+    """16d: the four-subject cohort from phase 9 on a (2, 2)
+    ProcessGroupMesh of four gloo ranks and on a (1, 1) LocalMesh, against
+    the unplaced cohort."""
+    from repro_torch.core.batched import BatchedLifeEngine
+    from repro_torch.core.life import LifeConfig
+    from repro_torch.distributed.mesh import LocalMesh
+    from repro_torch.roofline.analysis import collective_bytes
+    cohort = torch.load(cohort_path, map_location="cuda", weights_only=False)
+    cfg = LifeConfig(executor="opt", n_iters=COHORT_ITERS, plan_cache_dir="")
+    W0, L0 = BatchedLifeEngine(cohort, cfg, device="cuda").run()
+    t0 = time.perf_counter()
+    local = BatchedLifeEngine(cohort, cfg, device="cuda",
+                              mesh=LocalMesh(1, 1, "cuda"))
+    W1, L1 = local.run()
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t0
+    W0, L0, W1, L1 = (x.cpu().numpy() for x in (W0, L0, W1, L1))
+    recs = list(zip(["all-reduce"] * len(gloo["coll_bytes"]),
+                    gloo["coll_bytes"].tolist(), gloo["coll_groups"].tolist()))
+    cb = collective_bytes(recs)
+    errs = {}
+    for name, (W, L) in (("gloo (2, 2)", (gloo["W"], gloo["losses"])),
+                         ("local (1, 1)", (W1, L1))):
+        errs[name] = (float(np.abs(W - W0).max()),
+                      float(np.abs((L - L0) / L0).max()))
+    log("mesh-lm", f"16d cohort of {len(cohort)} subjects, {COHORT_ITERS} "
+        f"iterations (opt): against the unplaced cohort, max |W diff| and "
+        f"relative loss diff {errs} (rtol {MESH_COHORT_TOL['rtol']}, atol "
+        f"{MESH_COHORT_TOL['atol']}); the gloo solve {float(gloo['seconds']):.3f}"
+        f" s, {cb['total'] / COHORT_ITERS / 1e6:.3f} MB moved per device per "
+        f"iteration in {cb['counts']['all-reduce']} all-reduces (staged "
+        f"through host memory: {bool(gloo['staged'])}; subjects, slots "
+        f"sharded: {gloo['sharded'].tolist()}); the (1, 1) local "
+        f"mesh's build and solve {local_s:.3f} s")
+    for name, (W, L) in (("gloo", (gloo["W"], gloo["losses"])),
+                         ("local", (W1, L1))):
+        np.testing.assert_allclose(W, W0, err_msg=f"16d {name}",
+                                   **MESH_COHORT_TOL)
+        np.testing.assert_allclose(L, L0, rtol=MESH_COHORT_TOL["rtol"],
+                                   err_msg=f"16d {name}")
+    del cohort, local
+    torch.cuda.empty_cache()
+    return dict(errs=errs, gloo_s=float(gloo["seconds"]),
+                bytes_per_iter=cb["total"] / COHORT_ITERS)
+
+
+def phase_mesh_serve(cfg) -> dict:
+    """16e: launch/serve.py --model-axis 1 at phase 7's depth, batch,
+    prompts and seed: the same tokens."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    argv = ["--arch", LM_ARCH, "--layers", str(LM_LAYERS), "--batch",
+            str(LM_BATCH), "--prompt-len", str(LM_PROMPT), "--gen",
+            str(LM_GEN), "--model-axis", "1"]
+    _build.reset_launches()
+    tokens = serve.main(argv).cpu()
+    counts = dict(_build.LAUNCHES)
+    want = {"moe_gmm": 3 * LM_LAYERS * LM_GEN}
+    same = torch.equal(tokens, LM_SERVED["tokens"])
+    log("mesh-lm", f"16e launch/serve.py --model-axis 1 (a (1, 1) mesh: "
+        f"the prefill's attention on the expanded-KV branch): launches "
+        f"{counts} (expected {want}); tokens equal phase 7's: {same}")
+    if counts != want:
+        raise AssertionError(f"16e launch counts {counts} != {want}")
+    if not same:
+        rows, steps = torch.nonzero(tokens != LM_SERVED["tokens"],
+                                    as_tuple=True)
+        raise AssertionError(f"16e tokens differ from phase 7's at (row, "
+                             f"step) {list(zip(rows.tolist(), steps.tolist()))}")
+    torch.cuda.empty_cache()
+    return dict(launches=counts["moe_gmm"])
+
+
+def phase_mesh_lm(trained: dict, cohort_path: str) -> dict:
+    from repro_torch.configs.base import get_config
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    os.makedirs(MESH_LM_DIR, exist_ok=True)
+    t = [time.perf_counter()]
+    nccl = phase_mesh_nccl(trained, cfg)
+    t.append(time.perf_counter())
+    single = phase_mesh_single(cfg)
+    ranks = phase_mesh_ranks(cfg, single, cohort_path)
+    t.append(time.perf_counter())
+    cohort = phase_mesh_cohort(cohort_path, ranks.pop("gloo"))
+    t.append(time.perf_counter())
+    served = phase_mesh_serve(cfg)
+    t.append(time.perf_counter())
+    secs = [b - a for a, b in zip(t, t[1:])]
+    log("mesh-lm", f"phase 16 took {t[-1] - t[0]:.1f} s: 16a {secs[0]:.1f} "
+        f"s, 16b-16c with 16d's ranks {secs[1]:.1f} s, 16d {secs[2]:.1f} s, "
+        f"16e {secs[3]:.1f} s")
+    return dict(nccl=nccl, ranks=ranks, cohort=cohort, served=served,
+                launches=(nccl["launches"] + single["launches"]
+                          + ranks["launches"] + served["launches"]),
+                seconds=secs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(sys.argv[2])
     sys.path.insert(0, os.path.join(ROOT, "src"))
     t_start = time.perf_counter()
     card = phase_device()
@@ -4375,6 +4882,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_slice_ten(problem, cohort)
     log("slice-ten", f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    os.makedirs(MESH_LM_DIR, exist_ok=True)
+    cohort_path = os.path.join(MESH_LM_DIR, "cohort.pt")
+    torch.save([p.to("cpu") for p in cohort], cohort_path)
     del cohort
     torch.cuda.empty_cache()
     add_launches(launches, phase_mesh(problem, errors))
@@ -4391,8 +4901,16 @@ def main() -> int:
               case_errs=errors["moe_gmm_cases"], dw_bmm=errors["dw_bmm"],
               train={k: trained[k] for k in ("shapes", "moe", "dense")})
     long = phase_long(errors)
+    mesh_lm = phase_mesh_lm(trained["moe"], cohort_path)
+    mesh_errs = [r["b7"]["max_abs_err"] for r in mesh_lm["ranks"]["ranks"]]
+    b7.update(mesh_launches=mesh_lm["launches"],
+              launches=b7["launches"] + mesh_lm["launches"],
+              max_abs_err=max(b7["max_abs_err"], *mesh_errs),
+              mesh_rank_errs=mesh_errs)
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"long": long}))
+    print(json.dumps({"mesh_lm": {k: v for k, v in mesh_lm.items()
+                                  if k != "ranks"}}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,10 @@ bfloat16 and float8 leaves, which ``.npz`` cannot hold, are written as
 
 Restore returns torch CPU tensors (the reference returns numpy arrays),
 viewing those leaves back as ``torch.bfloat16`` and the like;
-:func:`place` moves a restored tree to a device.  Resharding on load under
-a mesh is still to be ported (ROADMAP A13).
+:func:`place` moves a restored tree to a device, or reshards it under a
+mesh: each rank takes its blocks of the whole tensors.  A sharded state
+is saved whole (``distributed/lm_shard.py`` gathers it), so files cross
+between mesh shapes and between the packages.
 """
 from __future__ import annotations
 
@@ -166,9 +168,11 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: Optional[int] = None
+def restore(ckpt_dir: str, step: Optional[int] = None, *, part=None
             ) -> Tuple[int, Dict[str, torch.Tensor], Dict[str, Any]]:
-    """Returns (step, flat CPU tensors keyed by path, manifest)."""
+    """Returns (step, flat CPU tensors keyed by path, manifest).
+    ``part(key, tensor) -> tensor`` keeps only part of each array as it
+    is read (a mesh rank's block: one whole array is held at a time)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -178,7 +182,11 @@ def restore(ckpt_dir: str, step: Optional[int] = None
         manifest = json.load(f)
     dtypes = manifest.get("dtypes", {})
     with np.load(os.path.join(d, "arrays.npz")) as z:
-        flat = {k: _to_tensor(z[k], dtypes.get(k, "")) for k in z.files}
+        flat = {}
+        for k in z.files:
+            flat[k] = _to_tensor(z[k], dtypes.get(k, ""))
+            if part is not None:
+                flat[k] = part(k, flat[k])
     return step, flat, manifest
 
 
@@ -267,15 +275,44 @@ def unflatten_like(template: Any, flat: Dict[str, torch.Tensor]) -> Any:
     return _rebuild(template, flat, ())
 
 
-def place(tree: Any, device) -> Any:
-    """``tree`` with every tensor leaf moved to ``device`` (host scalars
-    and numpy leaves stay on the host)."""
+def place(tree: Any, shardings) -> Any:
+    """``tree`` placed on a device or under a mesh (the reshard-on-load
+    path of an elastic restart).
+
+    ``shardings`` is a device (every tensor leaf moves there), or a tree
+    of the same structure whose leaves are
+    :class:`~repro_torch.distributed.sharding.MeshSharding` (from
+    ``logical_to_shardings``): each tensor leaf becomes this rank's block
+    under its spec, on the mesh's device.  A whole tree written under one
+    mesh shape thus places under any other.  Host scalars and numpy
+    leaves stay on the host.
+
+    Raises:
+        ValueError: a sharded dim does not divide over its mesh axes.
+    """
+    if isinstance(shardings, (str, torch.device)):
+        return _to_device(tree, shardings)
     if isinstance(tree, dict):
-        return {k: place(v, device) for k, v in tree.items()}
+        return {k: place(v, shardings[k]) for k, v in tree.items()}
     if _is_namedtuple(tree):
-        return type(tree)(*(place(x, device) for x in tree))
+        return type(tree)(*(place(x, s) for x, s in zip(tree, shardings)))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(place(x, device) for x in tree)
+        return type(tree)(place(x, s) for x, s in zip(tree, shardings))
+    if isinstance(tree, torch.Tensor):
+        from repro_torch.distributed.sharding import local_shard
+        mesh = shardings.mesh
+        return local_shard(tree, shardings.spec, mesh).to(
+            mesh.device, copy=True).contiguous()
+    return tree
+
+
+def _to_device(tree: Any, device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_to_device(x, device) for x in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(x, device) for x in tree)
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return tree

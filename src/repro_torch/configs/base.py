@@ -4,8 +4,9 @@ of ``repro/configs/base.py``).
 Every architecture the port runs ships as ``repro_torch/configs/<id>.py``
 exporting CONFIG (the exact published geometry, the reference's field for
 field) and registering itself.  ``reduced()`` derives the reference's
-CPU-smoke-testable variant of the same family.  The reference's dry-run
-input specs are not ported: nothing here allocates placeholders.
+CPU-smoke-testable variant of the same family.  :data:`SHAPES` names the
+reference's input shapes (the sharding rules read them); its dry-run input
+specs are not ported: nothing here allocates placeholders.
 """
 from __future__ import annotations
 
@@ -14,6 +15,14 @@ import importlib
 from typing import Any, Dict, Tuple
 
 import torch
+
+SHAPES = {
+    # name: (seq_len, global_batch, step kind)
+    "train_4k": (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k": (32_768, 128, "decode"),
+    "long_500k": (524_288, 1, "decode"),
+}
 
 ARCH_IDS = (
     "deepseek-7b", "stablelm-12b", "qwen1.5-4b", "granite-34b",
@@ -76,6 +85,10 @@ class ArchConfig:
         return self.head_dim or (self.d_model // max(1, self.n_heads))
 
     @property
+    def sub_quadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
@@ -86,6 +99,13 @@ class ArchConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
+    def supports(self, shape: str) -> bool:
+        """Which of the input shapes this arch runs (long_500k needs
+        sub-quadratic attention)."""
+        if shape == "long_500k":
+            return self.sub_quadratic
+        return True
 
     def param_count(self) -> int:
         """Analytic parameter count (drives MODEL_FLOPS in the roofline)."""

@@ -29,6 +29,21 @@ refused, as the reference refuses its Pallas executors; ``format="alto"``
 orders each subject's coefficients by ALTO and runs the scatter ops.
 Batching composes with the plan cache: the ``auto`` path measures once on
 the first subject and applies the choice cohort-wide.
+
+Mesh placement: with ``shard_rows * shard_cols > 1`` the cohort is laid
+out over the ``(data, model)`` mesh the sharded executors use: subjects
+over ``data`` and each subject's padded coefficient slots over ``model``.
+The reference places its stacked ``(S, Nc_max)`` operands so and lets
+GSPMD partition the vmapped solve; here mesh row ``r`` solves its
+subjects, and cell ``(r, c)`` holds the ``c``-th contiguous slot range of
+each of them, whose partial SpMV results are summed over ``model`` with
+the mesh's ``psum``.  The mesh is a
+:class:`~repro_torch.distributed.mesh.ProcessGroupMesh` when this process
+is one of ``R * C`` ranks (each rank its cell, the rows' weights summed
+over ``data`` at the end), else a
+:class:`~repro_torch.distributed.mesh.LocalMesh` (every cell here).  An
+axis that does not divide its mesh axis stays replicated.  Results equal
+the unplaced solve's up to the order of the partial sums.
 """
 from __future__ import annotations
 
@@ -99,6 +114,26 @@ def _stack_phis(phis: Sequence[PhiTensor]) -> PhiTensor:
         n_voxels=len(phis) * nv, n_fibers=len(phis) * nf)
 
 
+def _slots(phi: PhiTensor, a: int, b: int) -> PhiTensor:
+    """Slots ``[a, b)`` of a (padded) Phi: a sorted stream's slice stays
+    sorted."""
+    return dataclasses.replace(phi, atoms=phi.atoms[a:b],
+                               voxels=phi.voxels[a:b],
+                               fibers=phi.fibers[a:b],
+                               values=phi.values[a:b])
+
+
+def _ops(phi_dsc: PhiTensor, phi_wc: PhiTensor, dsc_fn, wc_fn,
+         d: torch.Tensor, s: int):
+    """The cohort's matvec ``(s, Nf) -> (s, Nv, Ntheta)`` and rmatvec over
+    an offset stream of ``s`` subjects."""
+    nv, nf = phi_dsc.n_voxels // s, phi_dsc.n_fibers // s
+    dsc_op = _bind(dsc_fn, phi_dsc, d)
+    wc_op = _bind(wc_fn, phi_wc, d)
+    return (lambda w: dsc_op(w.reshape(s * nf)).reshape(s, nv, -1),
+            lambda y: wc_op(y.reshape(s * nv, -1)).reshape(s, nf))
+
+
 def _bind(fn, phi: PhiTensor, d: torch.Tensor):
     """``x -> fn(phi, d, x)``, with the run lengths of a segment sum
     computed once here (inspector work) rather than every call."""
@@ -117,11 +152,17 @@ class BatchedLifeEngine:
     All subjects must share the dictionary and the (Nv, Nf) geometry;
     coefficient counts may differ (padded to the cohort max).  ``device``
     defaults to the CUDA card (:func:`repro_torch.device.resolve_device`).
+    ``mesh``: place the cohort on this mesh (a ``LocalMesh`` or
+    ``ProcessGroupMesh``, even of one cell) instead of the one
+    ``shard_rows`` x ``shard_cols`` asks for.  On a mesh each process
+    prepares only the subjects its rows solve and holds its cells' slots;
+    the whole stacked operands ``phi_dsc`` / ``phi_wc`` exist only
+    unplaced.
     """
 
     def __init__(self, problems: Sequence[LifeProblem], config,
                  cache: Optional[PlanCache] = None, *,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         if not problems:
             raise ValueError("need at least one subject")
         self.device = resolve_device(device)
@@ -138,11 +179,6 @@ class BatchedLifeEngine:
             raise ValueError(
                 "weight compaction is per-subject (changes Nc mid-run) and "
                 "is not supported by the batched engine; use LifeEngine")
-        if (getattr(config, "shard_rows", 1)
-                * getattr(config, "shard_cols", 1) > 1):
-            raise ValueError("shard_rows x shard_cols > 1 is not ported yet: "
-                             "the cohort's mesh placement is still to come "
-                             "(ROADMAP A13)")
         p0 = self.problems[0]
         for p in self.problems[1:]:
             if (p.phi.n_voxels, p.phi.n_fibers) != (p0.phi.n_voxels,
@@ -154,7 +190,33 @@ class BatchedLifeEngine:
         self.dictionary = p0.dictionary
         self.n_subjects = len(self.problems)
         self.inspector_seconds = 0.0
+        self.mesh = self._make_mesh() if mesh is None else mesh
         self._build()
+
+    def _make_mesh(self):
+        """The ``(data, model)`` mesh when the config asks for more than
+        one cell: the process group's
+        :class:`~repro_torch.distributed.mesh.ProcessGroupMesh` when this
+        process is one of ``R * C`` ranks, else a
+        :class:`~repro_torch.distributed.mesh.LocalMesh`.
+
+        Raises:
+            ValueError: a local mesh of more cells than the device admits.
+        """
+        R = getattr(self.config, "shard_rows", 1)
+        C = getattr(self.config, "shard_cols", 1)
+        if R * C <= 1:
+            return None
+        import torch.distributed as dist
+        from repro_torch.distributed import mesh as DM
+        if (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() == R * C):
+            return DM.ProcessGroupMesh(R, C, device=self.device)
+        have = DM.max_cells(self.device)
+        if R * C > have:
+            raise ValueError(f"batched mesh needs {R * C} devices, "
+                             f"have {have}")
+        return DM.LocalMesh(R, C, self.device, name="batched mesh")
 
     # -- inspector ----------------------------------------------------------
     def _resolve_recipe(self):
@@ -215,30 +277,133 @@ class BatchedLifeEngine:
             keep_sorted = (fn, dim) in _SEGMENT_SORTED
             return _pad_sorted(sorted_phi, nc_max, dim, keep_sorted)
 
-        phis = [p.phi for p in self.problems]
+        # on a mesh, only the subjects this process's rows solve are
+        # prepared, and no whole stacked Phi is built
+        held = (range(self.n_subjects) if self.mesh is None
+                else self._held_subjects())
+        phis = {s: self.problems[s].phi for s in held}
         if self._alto_order:
             # one ALTO-linearized order per subject serves both ops
             from repro_torch.formats.alto import AltoPhi
-            phis = [AltoPhi.encode(phi).sort()[0].decode() for phi in phis]
+            phis = {s: AltoPhi.encode(phi).sort()[0].decode()
+                    for s, phi in phis.items()}
 
-        self.phi_dsc = _stack_phis([prep(phi, dsc_dim, dsc_fn)
-                                    for phi in phis])
-        self.phi_wc = _stack_phis([prep(phi, wc_dim, wc_fn) for phi in phis])
+        dsc_parts = {s: prep(phi, dsc_dim, dsc_fn) for s, phi in phis.items()}
+        wc_parts = {s: prep(phi, wc_dim, wc_fn) for s, phi in phis.items()}
         self.b = torch.stack([p.b for p in self.problems])
         d = self.dictionary
         if self._compute_dtype == "bf16":
             # bf16 storage of the static operands (Phi values and the
             # shared dictionary); w, Y and b stay fp32, so every product
             # promotes to fp32 before the reductions
-            self.phi_dsc = self.phi_dsc.astype(torch.bfloat16)
-            self.phi_wc = self.phi_wc.astype(torch.bfloat16)
+            dsc_parts = {s: p.astype(torch.bfloat16)
+                         for s, p in dsc_parts.items()}
+            wc_parts = {s: p.astype(torch.bfloat16)
+                        for s, p in wc_parts.items()}
             d = d.to(torch.bfloat16)
-        s, nv, nf = self.n_subjects, phis[0].n_voxels, phis[0].n_fibers
-        dsc_op = _bind(dsc_fn, self.phi_dsc, d)
-        wc_op = _bind(wc_fn, self.phi_wc, d)
-        self._matvec = lambda w: dsc_op(w.reshape(s * nf)).reshape(s, nv, -1)
-        self._rmatvec = lambda y: wc_op(y.reshape(s * nv, -1)).reshape(s, nf)
+        if self.mesh is not None:
+            self._place_on_mesh(dsc_parts, wc_parts, dsc_fn, wc_fn, d)
+        else:
+            self.phi_dsc = _stack_phis(list(dsc_parts.values()))
+            self.phi_wc = _stack_phis(list(wc_parts.values()))
+            self._matvec, self._rmatvec = _ops(self.phi_dsc, self.phi_wc,
+                                               dsc_fn, wc_fn, d,
+                                               self.n_subjects)
         self.inspector_seconds += time.perf_counter() - t0
+
+    def _held_subjects(self) -> Sequence[int]:
+        """The subjects the mesh rows of this process's cells solve: a row's
+        block when the subjects divide over ``data``, else all."""
+        S, R = self.n_subjects, self.mesh.shape[0]
+        if S % R:
+            return range(S)
+        rows = sorted({r for r, _ in self.mesh.cells})
+        n = S // R
+        return [s for r in rows for s in range(r * n, (r + 1) * n)]
+
+    def _place_on_mesh(self, dsc_parts, wc_parts, dsc_fn, wc_fn, d) -> None:
+        """Subjects over ``data``, the stacked Phi slots over ``model``: mesh
+        row ``r`` solves its block of subjects, and its cell ``(r, c)``
+        holds the ``c``-th contiguous slot range of each of them, so each
+        SpMV's partial ``y`` / ``w`` is reduced with ``psum`` over
+        ``model``.  An axis that does not divide its mesh axis stays
+        replicated (every row solves every subject; every cell holds every
+        slot, and no psum runs)."""
+        mesh, S = self.mesh, self.n_subjects
+        R, C = mesh.shape
+        nc = self.nc_padded
+        self.subjects_sharded = S % R == 0
+        self.slots_sharded = nc % C == 0
+        s_rows = S // R if self.subjects_sharded else S
+        n_slots = nc // C if self.slots_sharded else nc
+
+        def cell_phi(parts, r, c):
+            lo = r * s_rows if self.subjects_sharded else 0
+            a = c * n_slots if self.slots_sharded else 0
+            return _stack_phis([_slots(parts[s], a, a + n_slots)
+                                for s in range(lo, lo + s_rows)])
+
+        self._cells = {}
+        for r, c in mesh.cells:
+            dev = mesh.device_of(r, c)
+            self._cells[(r, c)] = _ops(
+                cell_phi(dsc_parts, r, c).to(dev),
+                cell_phi(wc_parts, r, c).to(dev), dsc_fn, wc_fn, d.to(dev),
+                s_rows)
+        self._s_rows = s_rows
+
+    def _row_ops(self, r: int, cells):
+        """Row ``r``'s matvec and rmatvec over its subjects' block: the
+        partial products of its ``cells`` (those this process holds)
+        summed over ``model``."""
+        mesh = self.mesh
+
+        def reduce(parts):
+            if not self.slots_sharded:
+                return parts[cells[0]]
+            return mesh.psum(parts, "model")[r]
+
+        def matvec(w):
+            return reduce({rc: self._cells[rc][0](w.to(
+                mesh.device_of(*rc))) for rc in cells})
+
+        def rmatvec(y):
+            return reduce({rc: self._cells[rc][1](y.to(
+                mesh.device_of(*rc))) for rc in cells})
+        return matvec, rmatvec
+
+    def _mesh_steps(self, states: SbbnnlsState, k: int
+                    ) -> Tuple[SbbnnlsState, torch.Tensor]:
+        """:func:`batched_steps` of each mesh row this process holds on its
+        subjects; the rows' results assembled into the cohort's (over
+        ``data`` between processes)."""
+        mesh, S, n = self.mesh, self.n_subjects, self._s_rows
+        rows = sorted({r for r, _ in mesh.cells})
+        if not self.subjects_sharded:
+            rows = rows[:1]
+        w = torch.zeros_like(states.w)
+        loss = torch.zeros_like(states.loss)
+        losses = states.w.new_zeros((S, k))
+        for r in rows:
+            lo = r * n if self.subjects_sharded else 0
+            cells = [rc for rc in mesh.cells if rc[0] == r]
+            mv, rmv = self._row_ops(r, cells)
+            dev = mesh.device_of(*cells[0])
+            part = SbbnnlsState(w=states.w[lo:lo + n].to(dev),
+                                it=states.it[lo:lo + n],
+                                loss=states.loss[lo:lo + n].to(dev))
+            new, ls = batched_steps(mv, rmv, self.b[lo:lo + n].to(dev),
+                                    part, k)
+            w[lo:lo + n] = new.w.to(w.device)
+            loss[lo:lo + n] = new.loss.to(loss.device)
+            losses[lo:lo + n] = ls.to(losses.device)
+        if self.subjects_sharded and len(rows) < mesh.shape[0]:
+            rc = mesh.cells[0]
+            w = mesh.psum({rc: w}, "data")[rc[1]]
+            loss = mesh.psum({rc: loss}, "data")[rc[1]]
+            losses = mesh.psum({rc: losses}, "data")[rc[1]]
+        return SbbnnlsState(w=w, it=np.asarray(states.it) + k,
+                            loss=loss), losses
 
     @property
     def resolved_compute_dtype(self) -> str:
@@ -268,19 +433,22 @@ class BatchedLifeEngine:
         observability is on, the ``engine.step`` span and histogram time
         the call between two fences of the card."""
         if not obs.SWITCH.on:
-            return batched_steps(self._matvec, self._rmatvec, self.b,
-                                 states, k)
+            return self._steps(states, k)
         with obs.span("engine.step", {"executor": self.config.executor,
                                       "batched": self.n_subjects, "k": k}):
             fence(self.device)
             t0 = time.perf_counter()
-            new, losses = batched_steps(self._matvec, self._rmatvec, self.b,
-                                        states, k)
+            new, losses = self._steps(states, k)
             fence(self.device)
             obs.histogram("engine.step.seconds",
                           executor=self.config.executor).observe(
                 time.perf_counter() - t0)
         return new, losses
+
+    def _steps(self, states: SbbnnlsState, k: int):
+        if self.mesh is not None:
+            return self._mesh_steps(states, k)
+        return batched_steps(self._matvec, self._rmatvec, self.b, states, k)
 
     def run(self, n_iters: Optional[int] = None,
             w0: Optional[torch.Tensor] = None

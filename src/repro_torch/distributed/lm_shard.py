@@ -1,0 +1,445 @@
+"""The LM on a live ``(data, model)`` mesh: its parameters and optimizer
+state placed by the sharding rules, its forward on gathered weights, and
+the ZeRO-1 update (the LM half of the reference's ``repro/distributed``,
+which GSPMD partitions from the same rules).
+
+PyTorch has no GSPMD, so the port holds plain local tensors and runs the
+collectives the reference's compiler would place:
+
+  * **parameters** are held as this rank's block under ``param_specs``,
+    each cut as soon as its layer is drawn (``launch.steps.init_placed``),
+    so no rank holds the whole model;
+  * **the forward** (:meth:`ShardedLM.call`) runs the mesh-agnostic model
+    code on each parameter in its compute layout
+    (:func:`~repro_torch.distributed.sharding.compute_spec`): whole,
+    gathered over the axes it is sharded on, except the routed experts,
+    which stay sharded over ``model`` (EP).  The gather's backward sums
+    the gradient over the batch axes (the data-parallel reduction) and
+    cuts this rank's block, so gradients come out in the parameters'
+    placements;
+  * **the batch** is split over the batch axes (each data rank its rows;
+    :meth:`ShardedLM.shard_batch`), and every ``model`` rank of a data
+    row holds the same rows;
+  * **ZeRO-1** (:meth:`ShardedLM.apply_updates`): each moment is held as
+    this rank's region under ``opt_state_specs`` (for a stacked leaf the
+    batch axes usually take the layer dim, so a data rank owns whole
+    layers' moments).  Per parameter, the rank gathers the gradient and
+    weight, updates its moments' region and the weight's region, and the
+    regions are summed over the mesh into the new weight (each element
+    written by one rank, zeros elsewhere), of which each rank keeps its
+    block.
+
+:meth:`ShardedLM.state_tree` gathers a state into the reference's tree of
+whole tensors (what checkpoints hold); a restore reads each array and
+keeps only this rank's part (:meth:`ShardedLM.cut`), whatever mesh shape
+wrote it (the elastic restart), and :meth:`ShardedLM.load_state` copies
+the parts in.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import P
+
+
+class _GatherParam(torch.autograd.Function):
+    """A parameter block gathered over ``axes`` (into its compute
+    layout); the backward sums the gradient over the batch axes and cuts
+    this rank's block again."""
+
+    @staticmethod
+    def forward(ctx, local, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return SH.gather_shard(local, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        g = mesh.all_reduce(g.clone(memory_format=torch.contiguous_format),
+                            SH.batch_axes(mesh))
+        return SH.local_shard(g, ctx.spec, mesh).contiguous(), None, None
+
+
+class _Bound(nn.Module):
+    """``fn(model, *args)`` as a module call, so ``functional_call`` can
+    swap the model's parameters for their gathered forms."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn, *args):
+        return fn(self.model, *args)
+
+
+def _without(spec: P, keep: P) -> P:
+    """The axes of ``spec`` that ``keep`` does not hold, per dim."""
+    return P(*((tuple(a for a in SH._axes_of(e)
+                      if a not in SH._axes_of(keep[i] if i < len(keep)
+                                              else None)) or None)
+               for i, e in enumerate(spec)))
+
+
+def member_specs(cfg, mesh, model: nn.Module) -> Dict[str, Tuple[str, P]]:
+    """Each parameter's reference path and spec (the stack dims left out)
+    by its name in ``model`` (whole shapes: a model on the ``meta`` device
+    will do)."""
+    leaves = model.reference_leaves()
+    specs = SH.param_specs(cfg, mesh, leaves)
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {names[id(p)]: (path, P(*specs[path][len(leaf.lead):]))
+            for path, leaf in leaves.items() for p in leaf.members}
+
+
+class ShardedLM:
+    """A ``Transformer`` whose parameters are replaced by their blocks on
+    ``mesh`` (a live :class:`~repro_torch.launch.mesh.HostMesh`).
+
+    ``model`` was drawn already cut (``Transformer``'s ``place`` with
+    :func:`member_specs`; ``launch.steps.init_placed``), and ``meta``, the
+    same model on the ``meta`` device, gives the whole shapes.
+
+    Raises:
+        ValueError: a parameter dim does not divide by its axes (the
+            rules only shard divisible dims), or a parameter is not its
+            block's shape.
+    """
+
+    def __init__(self, cfg, mesh, model: nn.Module, meta: nn.Module):
+        self.cfg, self.mesh, self.model = cfg, mesh, model
+        self._bound = _Bound(model)
+        leaves = meta.reference_leaves()
+        self.full_shapes = {k: leaf.shape for k, leaf in leaves.items()}
+        self.leads = {k: leaf.lead for k, leaf in leaves.items()}
+        self.specs = SH.param_specs(cfg, mesh, leaves)
+        specs = member_specs(cfg, mesh, meta)
+        # parameter name -> the axes it is gathered over to compute
+        self.gathers: Dict[str, P] = {
+            n: _without(spec, SH.compute_spec(path, spec))
+            for n, (path, spec) in specs.items()}
+        shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
+        for name, p in model.named_parameters():
+            block = tuple(b.stop - b.start for b in SH.shard_bounds(
+                shapes[name], specs[name][1], mesh, mesh.coords))
+            if tuple(p.shape) != block:
+                raise ValueError(f"{name}: placed as {tuple(p.shape)}, its "
+                                 f"block is {block}")
+        self.flat = [p for leaf in model.reference_leaves().values()
+                     for p in leaf.members]
+
+    # -- forward ---------------------------------------------------------
+    def call(self, fn: Callable, *args):
+        """``fn(model, *args)`` with every parameter in its compute
+        layout."""
+        full = {}
+        for name, p in self.model.named_parameters():
+            gather = self.gathers[name]
+            full["model." + name] = (_GatherParam.apply(p, gather, self.mesh)
+                                     if any(e is not None for e in gather)
+                                     or torch.is_grad_enabled() else p)
+        return torch.func.functional_call(self._bound, full, (fn, *args))
+
+    def shard_batch(self, batch: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a whole batch (dim 0 over the batch axes).
+
+        Raises:
+            ValueError: the batch does not divide over the batch axes.
+        """
+        axes = SH.batch_axes(self.mesh)
+        n = SH.axis_size(self.mesh, axes)
+        out = {}
+        for k, v in batch.items():
+            if not isinstance(v, torch.Tensor) or v.dim() == 0:
+                out[k] = v
+                continue
+            if v.shape[0] % n:
+                raise ValueError(f"batch {k!r} of {v.shape[0]} rows does "
+                                 f"not divide over {n} data ranks")
+            out[k] = SH.local_shard(v, P(axes), self.mesh)
+        return out
+
+    # -- optimizer state -------------------------------------------------
+    def opt_shapes(self) -> Dict:
+        """The whole AdamW state's shapes, in its tree."""
+        return {"mu": dict(self.full_shapes), "nu": dict(self.full_shapes),
+                "step": ()}
+
+    def opt_specs(self) -> Dict:
+        """``opt_state_specs`` of the whole AdamW state."""
+        return SH.opt_state_specs(self.cfg, self.mesh, self.opt_shapes())
+
+    def init_opt_state(self, opt) -> Dict:
+        """Zero AdamW state held as this rank's regions (ZeRO-1).
+
+        Raises:
+            ValueError: an optimizer other than AdamW (Adafactor's
+                factored statistics span a parameter's rows and columns;
+                ROADMAP A16.1).
+        """
+        if opt.kind != "adamw":
+            raise ValueError(f"{opt.kind} on a multi-rank mesh is not "
+                             "ported (ROADMAP A16.1); use adamw")
+        dev = self.mesh.device
+        specs = self.opt_specs()
+
+        def zeros(shape, spec):
+            b = SH.shard_bounds(shape, spec, self.mesh, self.mesh.coords)
+            return torch.zeros([s.stop - s.start for s in b],
+                               dtype=torch.float32, device=dev)
+
+        return {"mu": {k: zeros(s, specs["mu"][k])
+                       for k, s in self.full_shapes.items()},
+                "nu": {k: zeros(s, specs["nu"][k])
+                       for k, s in self.full_shapes.items()},
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def _owner_axes(self, spec: P) -> Tuple[str, ...]:
+        """Mesh axes ``spec`` does not shard over: ranks that differ only
+        along them hold the same region, and the one at coordinate 0
+        writes it."""
+        used = SH.sharded_axes(spec, self.mesh)
+        return tuple(a for a in self.mesh.axis_names if a not in used)
+
+    def grad_norm(self, grads: Dict[str, List[torch.Tensor]]) -> torch.Tensor:
+        """The float32 2-norm of the whole gradient from the blocks: each
+        leaf's squares summed over the ranks holding distinct blocks."""
+        dev = self.mesh.device
+        buckets: Dict[Tuple[str, ...], torch.Tensor] = {}
+        for path in sorted(grads):
+            spec = self.specs[path]
+            axes = SH.sharded_axes(spec, self.mesh)
+            sq = sum(torch.sum(torch.square(g.float())) for g in grads[path])
+            buckets[axes] = buckets.get(axes, torch.zeros(
+                (), dtype=torch.float32, device=dev)) + sq
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for axes in sorted(buckets):
+            total = total + self.mesh.all_reduce(buckets[axes], axes)
+        return torch.sqrt(total)
+
+    def _all_coords(self):
+        coords = [{}]
+        for a in self.mesh.axis_names:
+            coords = [dict(c, **{a: i}) for c in coords
+                      for i in range(self.mesh.shape[a])]
+        return coords
+
+    def _aligned(self, full: Tuple[int, ...], k: int, spec: P,
+                 ospec: P) -> bool:
+        """Whether every rank's moment region of a member lies inside its
+        own block of the parameter (then the update needs no gather)."""
+        mshape = full[k:]
+        for c in self._all_coords():
+            region = SH.shard_bounds(full, ospec, self.mesh, c)[k:]
+            block = SH.shard_bounds(mshape, spec, self.mesh, c)
+            if not all(b.start <= r.start and r.stop <= b.stop
+                       for r, b in zip(region, block)):
+                return False
+        return True
+
+    @torch.no_grad()
+    def apply_updates(self, opt, grads: Dict[str, List[torch.Tensor]],
+                      state: Dict, update: Callable) -> torch.Tensor:
+        """ZeRO-1 step: clips ``grads`` (blocks, per path) by the global
+        norm, then per parameter runs ``update(p32, g32, mu, nu, decay) ->
+        new p32`` on this rank's moment region and rebuilds the weight from
+        every rank's region.  Where each rank's region lies in its own
+        block of the weight (the experts: both shard the experts over
+        ``model``) the gradient and weight are cut locally and the new
+        block is summed over the ranks that hold the same block; else the
+        whole gradient and weight are gathered and the new weight summed
+        over the mesh.  Returns the norm before clipping."""
+        gnorm = self.grad_norm(grads)
+        scale = torch.clamp(opt.grad_clip / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        for gs in grads.values():
+            for g in gs:
+                g.copy_((g.float() * scale).to(g.dtype))
+        mesh = self.mesh
+        leaves = self.model.reference_leaves()
+        ospecs = self.opt_specs()["mu"]
+        for path, leaf in leaves.items():
+            k = len(leaf.lead)
+            full = self.full_shapes[path]
+            spec = P(*self.specs[path][k:])
+            ospec = ospecs[path]
+            bounds = SH.shard_bounds(full, ospec, mesh, mesh.coords)
+            region = bounds[k:]
+            writer = all(mesh.coords[a] == 0 for a in self._owner_axes(ospec))
+            decay = len(full) >= 2
+            aligned = self._aligned(full, k, spec, ospec)
+            if aligned:
+                block = SH.shard_bounds(full[k:], spec, mesh, mesh.coords)
+                rel = tuple(slice(r.start - b.start, r.stop - b.start)
+                            for r, b in zip(region, block))
+                replicas = tuple(a for a in mesh.axis_names
+                                 if a not in SH.sharded_axes(spec, mesh))
+            mu_l, nu_l = state["mu"][path], state["nu"][path]
+            for i, (p, g) in enumerate(zip(leaf.members, grads[path])):
+                idx = _unravel(i, leaf.lead)
+                owns = all(b.start <= j < b.stop
+                           for j, b in zip(idx, bounds))
+                loc = tuple(j - b.start for j, b in zip(idx, bounds))
+                if aligned:
+                    new = torch.zeros_like(p)
+                    if owns:
+                        _update_region(update, p[rel], g[rel], mu_l[loc],
+                                       nu_l[loc], decay,
+                                       new[rel] if writer else None)
+                    mesh.all_reduce(new, replicas)
+                    p.copy_(new)
+                    continue
+                g_full = SH.gather_shard(g, spec, mesh)
+                p_full = SH.gather_shard(p.detach(), spec, mesh)
+                new = torch.zeros_like(p_full)
+                if owns:
+                    _update_region(update, p_full[region], g_full[region],
+                                   mu_l[loc], nu_l[loc], decay,
+                                   new[region] if writer else None)
+                mesh.all_reduce(new, mesh.axis_names)
+                p.copy_(SH.local_shard(new, spec, mesh))
+        return gnorm
+
+    # -- whole trees -------------------------------------------------------
+    @torch.no_grad()
+    def gather_leaf(self, path: str, leaf=None) -> torch.Tensor:
+        """The reference leaf ``path`` as one whole CPU tensor, gathered
+        from every rank's blocks (a collective: every rank calls it)."""
+        if leaf is None:
+            leaf = self.model.reference_leaves()[path]
+        spec = P(*self.specs[path][len(leaf.lead):])
+        whole = [SH.gather_shard(m.detach(), spec, self.mesh).cpu()
+                 for m in leaf.members]
+        return (torch.stack(whole).reshape(self.full_shapes[path])
+                if leaf.lead else whole[0])
+
+    @torch.no_grad()
+    def state_tree(self, opt_state: Dict) -> Dict:
+        """``{"params", "opt"}`` as whole CPU tensors in the reference's
+        tree (``launch.steps.state_tree``'s), gathered from every rank's
+        blocks and regions (a collective: every rank calls it)."""
+        mesh = self.mesh
+        params = {path: self.gather_leaf(path, leaf) for path, leaf in
+                  self.model.reference_leaves().items()}
+        ospecs = self.opt_specs()
+
+        def walk(x, s):
+            if isinstance(x, dict):
+                return {k: walk(x[k], s[k]) for k in x}
+            return SH.gather_shard(x, s, mesh).cpu()
+
+        return {"params": params, "opt": walk(opt_state, ospecs)}
+
+    def cut(self, key: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the checkpoint array ``key``
+        (``params/<path>``, ``opt/mu/<path>``, ``opt/nu/<path>`` or
+        ``opt/step``): a stacked parameter's blocks, stacked, or a
+        moment's region.  A restore keeps only it
+        (``checkpoint.manager.restore``'s ``part``), so no rank holds a
+        whole state."""
+        head, _, rest = key.partition("/")
+        if head == "params":
+            k = len(self.leads[rest])
+            spec = P(*((None,) * k + tuple(self.specs[rest][k:])))
+        else:
+            kind, _, path = rest.partition("/")
+            spec = self.opt_specs()[kind]
+            spec = spec[path] if path else spec
+        return SH.local_shard(whole, spec, self.mesh).clone()
+
+    def part_template(self, opt_state: Dict) -> Dict:
+        """The state tree of :meth:`cut`'s parts as ``meta`` tensors (what
+        ``checkpoint.manager.unflatten_like`` rebuilds a restore on)."""
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        def tree(x):
+            return ({k: tree(v) for k, v in x.items()}
+                    if isinstance(x, dict) else meta(x.shape, x.dtype))
+
+        params = {}
+        for path, leaf in self.model.reference_leaves().items():
+            m = leaf.members[0]
+            params[path] = meta(tuple(leaf.lead) + tuple(m.shape), m.dtype)
+        return {"params": params, "opt": tree(opt_state)}
+
+    @torch.no_grad()
+    def load_state(self, tree: Dict, opt_state: Dict) -> None:
+        """Copy a tree of this rank's parts (:meth:`part_template`'s, on
+        any device) into the parameters' blocks and the moments' regions.
+
+        Raises:
+            KeyError: the tree lacks an entry.
+            ValueError: an entry has another shape.
+        """
+        for path, leaf in self.model.reference_leaves().items():
+            src = tree["params"][path]
+            part = tuple(leaf.lead) + tuple(leaf.members[0].shape)
+            if tuple(src.shape) != part:
+                raise ValueError(f"params/{path}: {tuple(src.shape)} is not "
+                                 f"this rank's {part}")
+            for m, x in zip(leaf.members, list(src.reshape(
+                    (-1,) + src.shape[len(leaf.lead):]))):
+                m.copy_(x)
+
+        def copy(dst, src, path):
+            if isinstance(dst, dict):
+                for k in dst:
+                    copy(dst[k], src[k], f"{path}/{k}")
+                return
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{path}: {tuple(src.shape)} is not this "
+                                 f"rank's {tuple(dst.shape)}")
+            dst.copy_(src)
+
+        copy(opt_state, tree["opt"], "opt")
+
+
+#: elements the update takes at a time (its float32 temporaries)
+_UPDATE_CHUNK = 1 << 24
+
+
+def _update_region(update: Callable, p: torch.Tensor, g: torch.Tensor,
+                   mu: torch.Tensor, nu: torch.Tensor, decay: bool,
+                   out: Optional[torch.Tensor]) -> None:
+    """``update`` over a region in slices of its first dim (so its float32
+    temporaries stay near :data:`_UPDATE_CHUNK` elements), the new weight
+    written into ``out`` unless it is None (the moments update anyway)."""
+    if p.dim() == 0:
+        new = update(p.float(), g.float(), mu, nu, decay)
+        if out is not None:
+            out.copy_(new.to(out.dtype))
+        return
+    step = max(1, _UPDATE_CHUNK // max(1, p[0].numel()))
+    for s in range(0, p.shape[0], step):
+        sl = slice(s, s + step)
+        new = update(p[sl].float(), g[sl].float(), mu[sl], nu[sl], decay)
+        if out is not None:
+            out[sl] = new.to(out.dtype)
+
+
+def _unravel(i: int, lead: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Member ``i``'s index in a leaf stacked as ``lead`` (row-major)."""
+    out = []
+    for n in reversed(lead):
+        i, r = divmod(i, n)
+        out.append(r)
+    return tuple(reversed(out))
+
+
+def shard(cfg, mesh, model: nn.Module, meta: nn.Module) -> ShardedLM:
+    """The :class:`ShardedLM` of ``model``, drawn already cut on ``mesh``
+    (``meta``: the same model on the ``meta`` device), which the model
+    remembers (:func:`sharded`)."""
+    lm = ShardedLM(cfg, mesh, model, meta)
+    model.mesh_state = lm
+    return lm
+
+
+def sharded(model: nn.Module) -> Optional[ShardedLM]:
+    """The :class:`ShardedLM` a model was placed with, else None."""
+    return getattr(model, "mesh_state", None)

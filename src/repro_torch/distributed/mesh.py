@@ -130,10 +130,12 @@ class LocalMesh(_Mesh):
              axis: Axis) -> Dict:
         """Ordered sums of the parts, each on the device of its first
         cell: over ``model`` in column order, over ``data`` in row order,
-        over both in cell order."""
-        self._record(parts[self.cells[0]], axis)
+        over both in cell order.  ``parts`` may hold some of the cells
+        (one mesh row's, say): the sums are over those given."""
+        given = [rc for rc in self.cells if rc in parts]
+        self._record(parts[given[0]], axis)
         out: Dict = {}
-        for rc in self.cells:                 # row-major: the fixed order
+        for rc in given:                      # row-major: the fixed order
             k = self._key(rc, axis)
             out[k] = (out[k] + parts[rc].to(out[k].device) if k in out
                       else parts[rc])
@@ -148,7 +150,9 @@ class ProcessGroupMesh(_Mesh):
 
     Under gloo a CUDA tensor is reduced in place.  If this build's gloo
     refuses CUDA tensors, the mesh stages each one through a host tensor
-    from then on, says so on stderr, and sets ``staged``.
+    from then on, says so on stderr, and sets ``staged``.  The LM's mesh
+    (``launch/mesh.py``) runs its collectives through :meth:`all_reduce`
+    and :meth:`all_gather`.
     """
 
     def __init__(self, R: int, C: int, *, device):
@@ -184,25 +188,59 @@ class ProcessGroupMesh(_Mesh):
         self.group_size(axis)
         x = parts[(self.r, self.c)]
         self._record(x, axis)
-        group = (self._rows[self.r] if axis == "model" else
-                 self._cols[self.c] if axis == "data" else None)
-        self._all_reduce(x, group)
+        self.all_reduce(x, axis)
         return {self._key((self.r, self.c), axis): x}
 
-    def _all_reduce(self, x: torch.Tensor, group) -> None:
-        if self.staged:
+    def group_of(self, axis: Axis):
+        """The process group of this rank's row (``model``), column
+        (``data``) or the world (both axes: None)."""
+        self.group_size(axis)
+        return (self._rows[self.r] if axis == "model" else
+                self._cols[self.c] if axis == "data" else None)
+
+    def all_reduce(self, x: torch.Tensor, axis: Axis) -> None:
+        """Sum ``x`` in place over this rank's row (``model``), column
+        (``data``) or the world (both), staged once gloo has refused a
+        CUDA tensor."""
+        group = self.group_of(axis)
+
+        def staged():
             h = x.cpu()
             self._dist.all_reduce(h, group=group)
             x.copy_(h)
-            return
-        try:
-            self._dist.all_reduce(x, group=group)
-        except RuntimeError as exc:
-            if not (x.is_cuda and self.backend == "gloo"):
-                raise
-            print(f"[mesh] rank {self.rank}: gloo refused a CUDA tensor "
-                  f"({exc}); staging every all_reduce through host memory "
-                  "from now on", file=sys.stderr, flush=True)
-            self.staged = True
-            self._all_reduce(x, group)
+        self._try(x, "all_reduce",
+                  lambda: self._dist.all_reduce(x, group=group), staged)
 
+    def all_gather(self, x: torch.Tensor, axis: Axis, dim: int
+                   ) -> torch.Tensor:
+        """Every rank's ``x`` along ``axis`` (in coordinate order),
+        concatenated along ``dim``, staged as :meth:`all_reduce` is."""
+        x = x.contiguous()
+        group = self.group_of(axis)
+        n = self.group_size(axis)
+
+        def on_device():
+            parts = [torch.empty_like(x) for _ in range(n)]
+            self._dist.all_gather(parts, x, group=group)
+            return torch.cat(parts, dim=dim)
+
+        def staged():
+            parts = [torch.empty_like(x, device="cpu") for _ in range(n)]
+            self._dist.all_gather(parts, x.cpu(), group=group)
+            return torch.cat(parts, dim=dim).to(x.device)
+        return self._try(x, "all_gather", on_device, staged)
+
+    def _try(self, x: torch.Tensor, what: str, on_device, staged):
+        """``on_device()``; once gloo has refused a CUDA tensor,
+        ``staged()`` (through host memory) from then on."""
+        if not self.staged:
+            try:
+                return on_device()
+            except RuntimeError as exc:
+                if not (x.is_cuda and self.backend == "gloo"):
+                    raise
+                print(f"[mesh] rank {self.rank}: gloo refused a CUDA tensor "
+                      f"in {what} ({exc}); staging every collective through "
+                      "host memory from now on", file=sys.stderr, flush=True)
+                self.staged = True
+        return staged()

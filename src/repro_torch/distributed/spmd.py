@@ -27,6 +27,10 @@ failed, so a hung rank fails the caller instead of stalling it.
 Backends: gloo on the CPU, and gloo over CUDA tensors for several ranks
 on one card (NCCL refuses two ranks on one GPU); NCCL with one rank per
 card.
+
+:func:`launch` starts any entry point that way (the LM trainer, the
+cohort's CLI) with ``torchrun``'s environment, which
+:func:`join_process_group` reads.
 """
 from __future__ import annotations
 
@@ -171,6 +175,82 @@ def run(directory: str, sizes: dict, *, programs: Sequence[str],
         with np.load(os.path.join(directory, f"out{k}.npz")) as z:
             out.append({name: z[name] for name in z.files})
     return out
+
+
+def launch(argv: Sequence[str], world: int, directory: str, *,
+           deadline_s: float, env: Optional[Dict[str, str]] = None
+           ) -> List[str]:
+    """Start ``world`` ranks of ``python <argv>`` (each a fresh
+    interpreter, as ``torchrun`` starts them: ``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR=localhost`` and a free ``MASTER_PORT``
+    in the environment, so :func:`join_process_group` finds the group)
+    and wait for all of them against one deadline; returns each rank's
+    output (``<directory>/rank<k>.log``, stdout and stderr), rank order.
+
+    Raises:
+        TimeoutError: a rank was still running at ``deadline_s`` (every
+            rank is then killed).
+        RuntimeError: a rank exited non-zero (its log's tail is in the
+            message).
+    """
+    os.makedirs(directory, exist_ok=True)
+    port = free_port()
+    base = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [_SRC] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]), MASTER_ADDR="localhost",
+        MASTER_PORT=str(port), WORLD_SIZE=str(world), **(env or {}))
+    procs, logs, paths = [], [], []
+    try:
+        for k in range(world):
+            paths.append(os.path.join(directory, f"rank{k}.log"))
+            log = open(paths[-1], "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, *argv], stdout=log, stderr=subprocess.STDOUT,
+                env=dict(base, RANK=str(k), LOCAL_RANK=str(k))))
+        end = time.monotonic() + deadline_s
+        for p in procs:
+            p.wait(timeout=max(0.0, end - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise TimeoutError(f"{world} ranks of {list(argv)} still running "
+                           f"after {deadline_s:.0f} s; killed ({directory})")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    texts = []
+    for path in paths:
+        with open(path) as f:
+            texts.append(f.read())
+    failed = [k for k, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("SPMD ranks failed:\n" + "\n".join(
+            f"rank {k} (exit {procs[k].returncode}):\n{texts[k][-3000:]}"
+            for k in failed))
+    return texts
+
+
+def join_process_group(backend: Optional[str], device: torch.device,
+                       timeout_s: float = 300.0) -> bool:
+    """Join the process group the environment describes (``WORLD_SIZE``,
+    ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``, as :func:`launch` and
+    ``torchrun`` set them) unless one is joined already or the
+    environment names none.  ``backend`` defaults to nccl on a CUDA
+    device and gloo on the CPU; several ranks on one card need gloo
+    (NCCL refuses two ranks on one GPU).  Returns whether it joined (the
+    caller then destroys the group)."""
+    import torch.distributed as dist
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return False
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    dist.init_process_group(backend, init_method="env://",
+                            timeout=timedelta(seconds=timeout_s))
+    return True
 
 
 # ----------------------------------------------------------------------------

@@ -6,11 +6,19 @@
       --gen 16 --device cpu
 
 Without ``--device`` it runs on the CUDA card and raises without one.
-The reference's ``--model-axis`` waits for the mesh port (ROADMAP A13).
+``--model-axis M`` builds and activates the reference's host mesh
+``(world // M, M)`` (``launch/mesh.py``); in a process group (``torchrun``
+or :func:`repro_torch.distributed.spmd.launch`) the model is placed by the
+sharding rules, each data rank generates for its rows of the batch, and
+rank 0 prints the whole batch's tokens.  Without ``--model-axis`` (and
+outside a group) no mesh is active, where the reference activates a
+``(1, 1)`` one.  Beyond the reference's flags, ``--device``,
+``--backend`` and ``--layers`` (a depth cut) as the trainer's.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -19,7 +27,10 @@ import torch
 
 from repro_torch.configs.base import get_config, reduced as reduce_cfg
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import make_prefill, make_serve_step
+from repro_torch.distributed import hints, lm_shard, spmd
+from repro_torch.launch import mesh as HM
+from repro_torch.launch.steps import (init_placed, make_prefill,
+                                     make_serve_step)
 from repro_torch.models import transformer as T
 
 
@@ -81,28 +92,67 @@ def generate(cfg, params, prompts: torch.Tensor, n_gen: int, *,
     return torch.cat(tokens, dim=1), step_logits, seconds
 
 
-def main(argv=None) -> None:
+def main(argv=None, *, mesh=None) -> torch.Tensor:
+    """Serve one batch; returns the generated tokens (B, gen), the whole
+    batch's on every rank.  ``mesh``: activate this mesh instead of
+    building one from ``--model-axis``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="phi3.5-moe-42b-a6.6b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--model-axis", type=int, default=None,
+                    help="the mesh's model axis (default: no mesh on one "
+                         "process, 1 in a process group)")
     ap.add_argument("--device", default=None,
                     help="cpu, cuda, ... (default: the CUDA card)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep this many layers (a depth cut, for a model "
+                         "whose weights do not fit the card; 0: all)")
+    ap.add_argument("--backend", default=None,
+                    help="the process group's backend when the environment "
+                         "names a group (default: nccl on the card, gloo on "
+                         "the CPU)")
     args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    joined = spmd.join_process_group(args.backend, dev)
+    try:
+        return _serve(args, dev, mesh)
+    finally:
+        hints.deactivate()
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
+
+def _serve(args, dev: torch.device, mesh) -> torch.Tensor:
+    if mesh is None and (args.model_axis is not None
+                         or HM.world_size() > 1):
+        mesh = HM.make_host_mesh(args.model_axis or 1, dev)
+    if mesh is not None:
+        hints.activate(mesh)
+    live = mesh if getattr(mesh, "live", False) else None
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
-    dev = resolve_device(args.device)
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                           dev)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = (T.init_params(cfg, g, dev) if live is None
+              else init_placed(cfg, live, g, dev))
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
         dtype=torch.int32, device=dev)
+    if live is not None:
+        prompts = lm_shard.sharded(params).shard_batch(
+            {"tokens": prompts})["tokens"]
     gen, _, seconds = generate(cfg, params, prompts, args.gen)
+    if live is not None:
+        gen = live.all_gather(gen, "data", 0)
+        if live.rank:
+            return gen
 
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     tput = args.batch * (args.gen - 1) / max(seconds["decode"], 1e-9)
@@ -111,6 +161,7 @@ def main(argv=None) -> None:
           f"{seconds['prefill'] * 1e3:.1f}ms")
     print(f"decode: {seconds['decode'] * 1e3:.1f}ms total, {tput:.1f} tok/s")
     print("generated tokens (first row):", gen[0].tolist())
+    return gen
 
 
 if __name__ == "__main__":

@@ -22,13 +22,25 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.checkpoint import manager as CK
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import lm_shard
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import transformer as T
-from repro_torch.optim.adamw import OptConfig, apply_updates, init_opt_state
+from repro_torch.optim.adamw import (OptConfig, apply_updates,
+                                     apply_updates_zero1, init_opt_state)
 
 
 def make_train_step(cfg: ArchConfig, opt: OptConfig) -> Callable:
+    """The fused step.  A model placed on a live mesh
+    (:func:`repro_torch.distributed.lm_shard.shard`) steps on this rank's
+    rows of the whole ``batch`` with gradients in the parameters'
+    placements and the ZeRO-1 update; its metrics are the whole batch's
+    (summed over the batch axes)."""
     def train_step(params: T.Transformer, opt_state: Dict, batch: Dict):
+        sharded = lm_shard.sharded(params)
+        if sharded is not None:
+            return _mesh_train_step(cfg, opt, sharded, opt_state, batch)
         leaves = params.reference_leaves()
         flat = [p for leaf in leaves.values() for p in leaf.members]
         total, metrics = T.loss_fn(cfg, params, batch)
@@ -45,6 +57,31 @@ def make_train_step(cfg: ArchConfig, opt: OptConfig) -> Callable:
     return train_step
 
 
+def _mesh_train_step(cfg: ArchConfig, opt: OptConfig, sharded, opt_state,
+                     batch: Dict):
+    params = sharded.model
+
+    def loss_and_grads(p, b):
+        # the backward runs while the model holds its gathered weights:
+        # remat recomputes its layers from them
+        total, metrics = T.loss_fn(cfg, p, b)
+        return total, metrics, torch.autograd.grad(total, sharded.flat,
+                                                   allow_unused=True)
+
+    total, metrics, grads = sharded.call(loss_and_grads,
+                                         sharded.shard_batch(batch))
+    grads = iter(torch.zeros_like(p) if g is None else g
+                 for p, g in zip(sharded.flat, grads))
+    by_leaf = {k: [next(grads) for _ in leaf.members]
+               for k, leaf in params.reference_leaves().items()}
+    opt_state, opt_metrics = apply_updates_zero1(opt, sharded, by_leaf,
+                                                 opt_state)
+    axes = SH.batch_axes(sharded.mesh)
+    metrics = {k: sharded.mesh.all_reduce(v.detach().clone(), axes)
+               for k, v in {**metrics, "total_loss": total}.items()}
+    return params, opt_state, {**metrics, **opt_metrics}
+
+
 def make_eval_step(cfg: ArchConfig) -> Callable:
     @torch.no_grad()
     def eval_step(params: T.Transformer, batch: Dict) -> Dict:
@@ -53,16 +90,24 @@ def make_eval_step(cfg: ArchConfig) -> Callable:
     return eval_step
 
 
+def _on_mesh(fn: Callable) -> Callable:
+    """``fn(params, batch)``, on a model placed on a live mesh through its
+    gathered weights (the batch is this rank's rows)."""
+    def step(params, batch):
+        sharded = lm_shard.sharded(params)
+        if sharded is None:
+            return fn(params, batch)
+        with torch.no_grad():
+            return sharded.call(fn, batch)
+    return step
+
+
 def make_prefill(cfg: ArchConfig) -> Callable:
-    def prefill_step(params, batch):
-        return T.prefill(cfg, params, batch)
-    return prefill_step
+    return _on_mesh(lambda params, batch: T.prefill(cfg, params, batch))
 
 
 def make_serve_step(cfg: ArchConfig) -> Callable:
-    def serve_step(params, batch):
-        return T.decode_step(cfg, params, batch)
-    return serve_step
+    return _on_mesh(lambda params, batch: T.decode_step(cfg, params, batch))
 
 
 def init_all(cfg: ArchConfig, opt: OptConfig, generator: torch.Generator,
@@ -71,6 +116,20 @@ def init_all(cfg: ArchConfig, opt: OptConfig, generator: torch.Generator,
     optimizer state, on ``device`` (the generator's by default)."""
     params = T.init_params(cfg, generator, device)
     return params, init_opt_state(opt, params.reference_leaves())
+
+
+def init_placed(cfg: ArchConfig, mesh, generator: torch.Generator,
+                device) -> T.Transformer:
+    """:func:`repro_torch.models.transformer.init_params`'s model on a live
+    ``mesh``, each parameter cut to this rank's block as soon as its table
+    or layer is drawn (the rank never holds the whole model; the weights
+    are an unplaced model's blocks)."""
+    meta = T.Transformer(cfg, "meta")
+    specs = lm_shard.member_specs(cfg, mesh, meta)
+    params = T.init_params(cfg, generator, device, place=lambda n, t: (
+        SH.local_shard(t, specs[n][1], mesh).clone()))
+    lm_shard.shard(cfg, mesh, params, meta)
+    return params
 
 
 def abstract_state(cfg: ArchConfig, opt: OptConfig) -> Tuple[T.Transformer,
@@ -90,16 +149,37 @@ def _host(tree: Any) -> Any:
 def state_tree(params: T.Transformer, opt_state: Dict) -> Dict:
     """``{"params", "opt"}`` as CPU tensors in the reference's tree: each
     parameter under its reference path, stacked layers stacked (on the
-    host), and the optimizer state as it is kept."""
+    host), and the optimizer state as it is kept.  A model placed on a
+    live mesh gathers whole tensors (every rank must call it)."""
+    sharded = lm_shard.sharded(params)
+    if sharded is not None:
+        return sharded.state_tree(opt_state)
     flat = {}
     for path, leaf in params.reference_leaves().items():
         flat[path] = leaf.stack([m.detach().cpu() for m in leaf.members])
     return {"params": flat, "opt": _host(opt_state)}
 
 
+def restore_state(ckpt_dir: str, params: T.Transformer,
+                  opt_state: Dict) -> int:
+    """Load the latest checkpoint under ``ckpt_dir`` into ``params`` and
+    ``opt_state`` in place; returns its step.  A model placed on a live
+    mesh reads only its parts of each array
+    (:meth:`~repro_torch.distributed.lm_shard.ShardedLM.cut`), whatever
+    mesh shape wrote them."""
+    sharded = lm_shard.sharded(params)
+    start, flat, _ = CK.restore(
+        ckpt_dir, part=None if sharded is None else sharded.cut)
+    load_state(params, opt_state,
+               CK.unflatten_like(state_template(params, opt_state), flat))
+    return start
+
+
 def state_template(params: T.Transformer, opt_state: Dict) -> Dict:
     """:func:`state_tree`'s shapes as ``meta`` tensors, the template
-    ``checkpoint.manager.unflatten_like`` rebuilds a restored tree on."""
+    ``checkpoint.manager.unflatten_like`` rebuilds a restored tree on (a
+    model placed on a live mesh: its parts' shapes,
+    :meth:`~repro_torch.distributed.lm_shard.ShardedLM.part_template`)."""
     def meta(t):
         return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
@@ -108,6 +188,9 @@ def state_template(params: T.Transformer, opt_state: Dict) -> Dict:
             x, dict) else meta(x)
 
     leaves = params.reference_leaves()
+    sharded = lm_shard.sharded(params)
+    if sharded is not None:
+        return sharded.part_template(opt_state)
     return {"params": {k: torch.empty(v.shape, dtype=v.members[0].dtype,
                                       device="meta")
                        for k, v in leaves.items()},
@@ -116,13 +199,18 @@ def state_template(params: T.Transformer, opt_state: Dict) -> Dict:
 
 @torch.no_grad()
 def load_state(params: T.Transformer, opt_state: Dict, tree: Dict) -> None:
-    """Copy a :func:`state_tree`-shaped ``tree`` (any device) into
-    ``params`` and ``opt_state`` in place.
+    """Copy a :func:`state_template`-shaped ``tree`` (any device; for an
+    unplaced model, :func:`state_tree`'s shape) into ``params`` and
+    ``opt_state`` in place.
 
     Raises:
         KeyError: the tree lacks a parameter or state entry.
         ValueError: an entry has another shape.
     """
+    sharded = lm_shard.sharded(params)
+    if sharded is not None:
+        sharded.load_state(tree, opt_state)
+        return
     for path, leaf in params.reference_leaves().items():
         src = tree["params"][path]
         if tuple(src.shape) != leaf.shape:

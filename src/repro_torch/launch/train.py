@@ -7,9 +7,22 @@ Fault tolerance as in the reference: atomic checkpoints every
 latest checkpoint, the data cursor being the step, so a restart replays
 the exact batch order; a straggler watchdog that reports a step slower
 than 3x the running median.  Step times come from CUDA events on the card
-(the host clock on the CPU).  One card is a (1, 1) mesh; ``--model-axis``
-above 1 waits for the LM mesh (ROADMAP A13).  Beyond the reference's
-flags, ``--device`` picks the device and ``--layers`` cuts the depth.
+(the host clock on the CPU).
+
+``--model-axis M`` builds the reference's host mesh, ``(world // M, M)``
+over the process group (``launch/mesh.py``), and activates it for the
+model's hints.  One process is a ``(1, 1)`` mesh; several are started by
+``torchrun`` or :func:`repro_torch.distributed.spmd.launch`, which put the
+group in the environment, and then the model and its optimizer state are
+placed by the sharding rules (``distributed/lm_shard.py``: data
+parallelism over ``data``, the experts over ``model``, ZeRO-1), each rank
+steps on its rows of the batch, rank 0 prints and writes checkpoints of
+whole tensors, and a restart under another mesh shape reshards them.
+Without ``--model-axis`` (and outside a group) no mesh is active: the
+reference activates a ``(1, 1)`` mesh even then, which moves attention to
+its mesh branch.  Beyond the reference's flags, ``--device`` picks the
+device, ``--backend`` the group's backend and ``--layers`` cuts the
+depth; :func:`main` returns the run's metrics (:class:`TrainRun`).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \
       --steps 50 --reduced --ckpt-dir /tmp/ck --device cpu
@@ -20,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 from typing import Dict, List
 
@@ -31,6 +45,8 @@ from repro_torch.configs.base import ArchConfig, get_config
 from repro_torch.configs.base import reduced as reduce_cfg
 from repro_torch.data.tokens import DataConfig, synth_batch_for
 from repro_torch.device import resolve_device
+from repro_torch.distributed import hints, lm_shard, spmd
+from repro_torch.launch import mesh as HM
 from repro_torch.launch import steps as ST
 from repro_torch.optim.adamw import OptConfig
 
@@ -68,13 +84,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=20)
-    ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--model-axis", type=int, default=None,
+                    help="the mesh's model axis (default: no mesh on one "
+                         "process, 1 in a process group)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="cpu, cuda, ... (default: the CUDA card)")
     ap.add_argument("--layers", type=int, default=0,
                     help="keep this many layers (a depth cut, for a model "
                          "whose state does not fit the card; 0: all)")
+    ap.add_argument("--backend", default=None,
+                    help="the process group's backend when the environment "
+                         "names a group (default: nccl on the card, gloo on "
+                         "the CPU; several ranks on one card need gloo)")
     return ap.parse_args(argv)
 
 
@@ -101,17 +123,39 @@ class _StepClock:
         return (time.perf_counter() - self.t0) * 1e3
 
 
-def _save(ckpt_dir: str, step: int, cfg: ArchConfig, params, opt_state):
-    CK.save(ckpt_dir, step, ST.state_tree(params, opt_state),
-            meta={"arch": cfg.name})
+def _save(ckpt_dir: str, step: int, cfg: ArchConfig, params, opt_state,
+          mesh) -> None:
+    """Rank 0 writes whole tensors (every rank gathers them)."""
+    tree = ST.state_tree(params, opt_state)
+    if mesh is None or mesh.rank == 0:
+        CK.save(ckpt_dir, step, tree, meta={"arch": cfg.name})
+    if mesh is not None:
+        mesh.barrier()
 
 
-def main(argv=None) -> TrainRun:
+def main(argv=None, *, mesh=None) -> TrainRun:
+    """Run the trainer.  ``mesh``: activate this mesh instead of building
+    one from ``--model-axis`` (a shape-only mesh gives one process the
+    dispatch groups and attention branch of a mesh run)."""
     args = parse_args(argv)
-    if args.model_axis > 1:
-        raise ValueError(f"--model-axis {args.model_axis}: the LM mesh "
-                         "(sharding, hints, launch/mesh.py) is not ported "
-                         "yet (ROADMAP A13); one card is a (1, 1) mesh")
+    dev = resolve_device(args.device)
+    joined = spmd.join_process_group(args.backend, dev)
+    try:
+        return _main(args, dev, mesh)
+    finally:
+        hints.deactivate()
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _main(args, dev: torch.device, mesh) -> TrainRun:
+    if mesh is None and (args.model_axis is not None
+                         or HM.world_size() > 1):
+        mesh = HM.make_host_mesh(args.model_axis or 1, dev)
+    if mesh is not None:
+        hints.activate(mesh)
+    live = mesh if getattr(mesh, "live", False) else None
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(reduce_cfg(cfg), remat=False)
@@ -121,16 +165,18 @@ def main(argv=None) -> TrainRun:
                     decay_steps=args.steps)
     data = DataConfig(seed=0, seq_len=args.seq_len,
                       global_batch=args.global_batch)
-    dev = resolve_device(args.device)
-
-    params, opt_state = ST.init_all(
-        cfg, opt, torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if live is None:
+        params, opt_state = ST.init_all(cfg, opt, gen, dev)
+    else:
+        params = ST.init_placed(cfg, live, gen, dev)
+        opt_state = lm_shard.sharded(params).init_opt_state(opt)
+    say = (functools.partial(print, flush=True)
+           if live is None or live.rank == 0 else lambda *a: None)
     start = 0
     if args.ckpt_dir and CK.latest_step(args.ckpt_dir) is not None:
-        start, flat, _ = CK.restore(args.ckpt_dir)
-        tree = CK.unflatten_like(ST.state_template(params, opt_state), flat)
-        ST.load_state(params, opt_state, tree)
-        print(f"resumed from step {start}")
+        start = ST.restore_state(args.ckpt_dir, params, opt_state)
+        say(f"resumed from step {start}")
 
     step_fn = ST.make_train_step(cfg, opt)
     clock = _StepClock(dev)
@@ -145,17 +191,17 @@ def main(argv=None) -> TrainRun:
         durations.append(ms)
         med = float(np.median(durations[-WATCHDOG_WINDOW:]))
         if ms > WATCHDOG_FACTOR * med and len(durations) > 5:
-            print(f"[watchdog] step {step} straggled: {ms / 1e3:.2f}s "
-                  f"vs median {med / 1e3:.2f}s")
+            say(f"[watchdog] step {step} straggled: {ms / 1e3:.2f}s "
+                f"vs median {med / 1e3:.2f}s")
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {metrics[-1]['loss']:.4f} "
-                  f"gnorm {metrics[-1]['grad_norm']:.3f} "
-                  f"lr {metrics[-1]['lr']:.2e} {ms:.0f}ms", flush=True)
+            say(f"step {step:5d} loss {metrics[-1]['loss']:.4f} "
+                f"gnorm {metrics[-1]['grad_norm']:.3f} "
+                f"lr {metrics[-1]['lr']:.2e} {ms:.0f}ms")
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            _save(args.ckpt_dir, step + 1, cfg, params, opt_state)
+            _save(args.ckpt_dir, step + 1, cfg, params, opt_state, live)
     if args.ckpt_dir:
-        _save(args.ckpt_dir, args.steps, cfg, params, opt_state)
-    print("done")
+        _save(args.ckpt_dir, args.steps, cfg, params, opt_state, live)
+    say("done")
     return TrainRun(cfg=cfg, opt=opt, data=data, params=params,
                     opt_state=opt_state, start=start, metrics=metrics,
                     step_ms=durations)

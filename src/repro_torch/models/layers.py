@@ -7,7 +7,8 @@ reference's casts.  Parameters take gradients; the serving paths run under
 ``torch.no_grad``.  Attention supports GQA/MQA, optional QKV bias, RoPE, a
 dense causal path for sequences of up to :data:`BLOCK_THRESHOLD` tokens,
 flash attention (``models/flash.py``, KV heads repeated to H) beyond it,
-in training and prefill alike, the reference's blockwise pair-list
+in training and prefill alike (under an active mesh, the reference's mesh
+branch: KV heads repeated to H at every length, heads over ``model``), the reference's blockwise pair-list
 attention (:func:`blockwise_attention`, which nothing calls) and a
 KV-cache decode path.  Learned positions are a table added to the
 embeddings (``models/transformer.py``).  M-RoPE (ROADMAP A15.5) raises.
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import hints
 from repro_torch.models.flash import flash_attention, forward_pairs
 
 #: sequences longer than this take the flash path (``_self_attention``)
@@ -199,19 +201,29 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _self_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Causal self-attention: dense up to :data:`BLOCK_THRESHOLD` tokens,
-    else flash attention with the KV heads repeated to H (G = 1; their
-    gradients sum back over the repeat) in chunks of 512, or of the
-    largest power of two that divides S."""
+    else flash attention in chunks of 512, or of the largest power of two
+    that divides S.  Under an active mesh (and on the flash path) the KV
+    heads are first repeated to H (G = 1; their gradients sum back over
+    the repeat), as the reference's mesh branch does; on a live mesh each
+    ``model`` rank then runs its share of the heads
+    (:func:`repro_torch.distributed.hints.over_model`)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
-    if S <= BLOCK_THRESHOLD:
+    if S <= BLOCK_THRESHOLD and not hints.active():
         return dense_attention(q, k, v, causal=True)
     if KV != H:
         k = torch.repeat_interleave(k, H // KV, dim=2)
         v = torch.repeat_interleave(v, H // KV, dim=2)
-    chunk = 512 if S % 512 == 0 else _chunk_of(S)
-    out = flash_attention(q[:, :, :, None, :], k, v, chunk)
-    return out.reshape(B, S, H, hd)
+    q, k, v = hints.attn_heads(q), hints.attn_heads(k), hints.attn_heads(v)
+
+    def core(q, k, v):
+        if S <= BLOCK_THRESHOLD:
+            return dense_attention(q, k, v, causal=True)
+        chunk = 512 if S % 512 == 0 else _chunk_of(S)
+        out = flash_attention(q[:, :, :, None, :], k, v, chunk)
+        return out.reshape(B, S, q.shape[2], hd)
+
+    return hints.attn_heads(hints.over_model(core, q, k, v, dim=2))
 
 
 def _chunk_of(s: int) -> int:

@@ -12,9 +12,14 @@ layer trains under autograd and recomputes identically under
 ``torch.utils.checkpoint`` (stable sorts, gathers, no atomics forward).  Results are gathered back per
 k and summed with the renormalised gate values.
 
-One dispatch group (G = 1): the reference's grouped dispatch over a mesh's
-batch axes waits for the mesh port (ROADMAP A13), and off-mesh the
-reference takes G = 1 too, so the math here is the reference's.
+Grouped dispatch as the reference's: G groups (the batch mesh axes'
+size under an active mesh, else 1), each sorted and truncated on its own;
+every group's rows of one expert lie together, so B7 runs once over all
+groups.  On a live mesh the experts shard over ``model`` (EP): the
+dispatched rows are whole on every ``model`` rank (the MoE's input is
+whole over ``model``), each rank runs B7 over its own experts' segments
+and the outputs are gathered over ``model`` for the combine
+(:func:`repro_torch.distributed.hints.over_model`).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import hints
 from repro_torch.kernels.moe_gmm import grouped_matmul, segment_tiles
 from repro_torch.kernels.ref import moe_gmm_ref
 from repro_torch.models import layers as L
@@ -79,16 +85,36 @@ def t_tile_of(capacity: int) -> int:
 
 def moe_ffn(p: MoE, x: torch.Tensor, *, top_k: int,
             capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out, aux_loss)."""
+    """x: (B, S, d) -> (out, aux_loss).
+
+    GShard-style grouped dispatch, as the reference's: the tokens split
+    into G dispatch groups (G = |batch mesh axes| under an active mesh, 1
+    off-mesh or when G does not divide the tokens), each sorted by expert
+    on its own with its own capacity.  On a live mesh each data rank
+    holds its shard's rows, which are its groups; ``aux`` is then its
+    share of the mean over all groups, so the ranks' sum is the
+    reference's.  The math is the reference's for every G; for G > 1 the
+    capacity truncation differs from G = 1's (per group, not global)."""
     B, S, d = x.shape
     n_tokens = B * S
     n_experts = p.router.shape[1]
-    capacity = capacity_of(n_tokens, top_k, n_experts, capacity_factor)
-    xt = x.reshape(n_tokens, d)
-    out, aux = _dispatch(p, xt, top_k, capacity, n_experts)
+    shards = hints.batch_shards()
+    groups = hints.axis_size(hints.batch_axes()) if hints.active() else 1
+    if (n_tokens * shards) % groups:
+        groups = 1
+    if groups % shards:
+        raise ValueError(f"{groups} dispatch groups do not split over "
+                         f"{shards} batch shards")
+    local = groups // shards
+    tg = n_tokens // local
+    xg = hints.constrain(x.reshape(local, tg, d), hints.batch_axes(), None,
+                         None)
+    capacity = capacity_of(tg, top_k, n_experts, capacity_factor)
+    out, aux = _dispatch(p, xg, top_k, capacity, n_experts)
+    out = out.reshape(n_tokens, d)
     if hasattr(p, "shared"):
-        out = out + L.mlp(p.shared, xt)
-    return out.reshape(B, S, d), aux
+        out = out + L.mlp(p.shared, xg.reshape(n_tokens, d))
+    return out.reshape(B, S, d), n_experts * aux.sum() / groups
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -118,56 +144,73 @@ def expert_ffn(p: MoE, xe: torch.Tensor, capacity: int) -> torch.Tensor:
     return gmm(F.silu(h) * u, p.wo)
 
 
-def _dispatch(p: MoE, xt: torch.Tensor, top_k: int, capacity: int,
+def _dispatch(p: MoE, xg: torch.Tensor, top_k: int, capacity: int,
               n_experts: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's ``_dispatch_group`` for one group.  xt: (T, d)."""
-    T, d = xt.shape
-    dev = xt.device
-    logits = xt.float() @ p.router
+    """The reference's ``_dispatch_group``, vectorised over groups.
+    xg: (G, T, d) -> (out (G, T, d), each group's sum of ``me * counts``
+    (G,))."""
+    G, T, d = xg.shape
+    dev = xg.device
+    logits = xg.float() @ p.router                            # (G, T, E)
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_ids = _top_k(probs, top_k)              # (T, k)
+    gate_vals, expert_ids = _top_k(probs, top_k)              # (G, T, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
 
     # load-balancing aux loss (Switch-style); counted by comparison, not
     # bincount, which waits for the device to size its output
     experts = torch.arange(n_experts, device=dev)
-    me = probs.mean(dim=0)                                    # (E,)
-    counts = (expert_ids[..., None] == experts).sum(dim=(0, 1)).float() \
+    me = probs.mean(dim=1)                                    # (G, E)
+    counts = (expert_ids[..., None] == experts).sum(dim=(1, 2)).float() \
         / (T * top_k)
-    aux = n_experts * torch.sum(me * counts)
+    aux = torch.sum(me * counts, dim=-1)                      # (G,)
 
-    # restructuring: sort the (token, k) slots by expert id
+    # restructuring: sort each group's (token, k) slots by expert id
     tk = T * top_k
-    flat_expert = expert_ids.reshape(tk)
-    flat_gate = gate_vals.reshape(tk).to(xt.dtype)
-    order = torch.argsort(flat_expert, stable=True)
-    sorted_expert = flat_expert[order]
-    inv_order = torch.argsort(order, stable=True)             # slot -> rank
-    first = torch.searchsorted(sorted_expert, experts, right=False)
-    cap_pos = inv_order - first[flat_expert]
+    gi = torch.arange(G, device=dev)[:, None]
+    flat_expert = expert_ids.reshape(G, tk)
+    flat_gate = gate_vals.reshape(G, tk).to(xg.dtype)
+    order = torch.argsort(flat_expert, dim=1, stable=True)
+    sorted_expert = flat_expert[gi, order]
+    inv_order = torch.argsort(order, dim=1, stable=True)      # slot -> rank
+    first = torch.searchsorted(sorted_expert,
+                               experts.expand(G, n_experts).contiguous(),
+                               right=False)                   # (G, E)
+    cap_pos = inv_order - first[gi, flat_expert]
     keep = cap_pos < capacity
     slot_id = torch.clamp(flat_expert * capacity + cap_pos, 0,
                           n_experts * capacity - 1)
 
     # dispatch: which token fills expert slot (e, c)?  a pure gather
-    idx_sorted = first[:, None] + torch.arange(capacity, device=dev)[None, :]
-    idx_c = torch.clamp(idx_sorted, 0, tk - 1).reshape(-1)    # (E*cap,)
-    e_at = sorted_expert[idx_c]
-    valid = ((idx_sorted.reshape(-1) < tk)
+    idx_sorted = (first[:, :, None]
+                  + torch.arange(capacity, device=dev)[None, None, :])
+    idx_c = torch.clamp(idx_sorted, 0, tk - 1).reshape(G, -1)  # (G, E*cap)
+    e_at = sorted_expert[gi, idx_c]
+    valid = ((idx_sorted.reshape(G, -1) < tk)
              & (e_at == experts.repeat_interleave(capacity)))
-    tok_at = order[idx_c] // top_k
-    xe = torch.where(valid[:, None], xt[tok_at], 0)
+    tok_at = order[gi, idx_c] // top_k
+    xe = torch.where(valid[..., None], xg[gi, tok_at], 0)
+    xe = hints.constrain(xe.reshape(G, n_experts, capacity, d),
+                         hints.batch_axes(), "model", None, None)
 
-    ye = expert_ffn(p, xe.contiguous(), capacity)             # (E*cap, d)
+    # each expert's rows of every group, contiguous, through B7; experts
+    # over `model` on a live mesh (EP: each rank runs its own)
+    seg = G * capacity
+    xs = xe.transpose(0, 1).reshape(n_experts, seg, d)
+    ys = hints.over_model(
+        lambda xl: expert_ffn(p, xl.reshape(-1, d), seg).view(xl.shape),
+        xs, dim=0)
+    ye = ys.view(n_experts, G, capacity, d).transpose(0, 1)
+    ye = hints.constrain(ye, hints.batch_axes(), "model", None, None)
 
     # combine: per-k gather + accumulate
-    slot_tk = slot_id.reshape(T, top_k)
-    keep_tk = keep.reshape(T, top_k)
-    gate_tk = flat_gate.reshape(T, top_k)
-    out = torch.zeros((T, d), dtype=xt.dtype, device=dev)
+    ye = ye.reshape(G, n_experts * capacity, d)
+    slot_tk = slot_id.reshape(G, T, top_k)
+    keep_tk = keep.reshape(G, T, top_k)
+    gate_tk = flat_gate.reshape(G, T, top_k)
+    out = torch.zeros((G, T, d), dtype=xg.dtype, device=dev)
     for j in range(top_k):
-        rows = ye[slot_tk[:, j]]
-        out = out + torch.where(keep_tk[:, j, None],
-                                rows * gate_tk[:, j, None], 0)
+        rows = ye[gi, slot_tk[:, :, j]]
+        out = out + torch.where(keep_tk[:, :, j, None],
+                                rows * gate_tk[:, :, j, None], 0)
     return out, aux

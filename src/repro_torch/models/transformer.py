@@ -23,6 +23,10 @@ reference's layout, ``k`` and ``v`` of shape ``(L, B, S_max, KV, hd)``
 add ``ssm`` ``(L, B, H, P, N)`` float32 and ``conv`` ``(L, B, d_conv - 1,
 C)``.
 
+Under an active mesh the reference's sharding hints are called at its
+call sites (``distributed/hints.py``): the layer-entry ``gathered`` and
+the ``residual`` between layers.
+
 The audio and vlm stubs and sinusoidal and M-RoPE positions (ROADMAP
 A15.5) raise.
 """
@@ -36,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import hints
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -98,10 +103,27 @@ class Transformer(nn.Module):
     MoE blocks for the moe family, dense ones for the dense family, Mamba
     blocks for the ssm family and the hybrid's ``n_super * attn_every``
     (row-major), which adds its ``tail`` Mamba blocks and the ``shared``
-    attention+MLP block."""
+    attention+MLP block.
 
-    def __init__(self, cfg: ArchConfig, device, g: torch.Generator = None):
+    ``place(name, tensor) -> tensor``, when given, replaces each
+    parameter's data as soon as the table or block holding it is drawn
+    (a rank of a mesh keeps its block, and never holds the whole model);
+    the draws are those of an unplaced model."""
+
+    def __init__(self, cfg: ArchConfig, device, g: torch.Generator = None,
+                 place=None):
         super().__init__()
+        placed = set()
+
+        def settle():
+            if place is None:
+                return
+            with torch.no_grad():
+                for name, p in self.named_parameters():
+                    if name not in placed:
+                        p.data = place(name, p.data)
+                        placed.add(name)
+
         if cfg.family not in FAMILIES:
             raise ValueError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP A15.5);"
@@ -120,28 +142,33 @@ class Transformer(nn.Module):
         if cfg.rope == "learned":
             self.pos_embed = _table(g, (cfg.max_seq_len, cfg.d_model), dt,
                                     device)
+        settle()
+
+        def stack(attr: str, make, n: int) -> None:
+            setattr(self, attr, nn.ModuleList())
+            for _ in range(n):
+                getattr(self, attr).append(make())
+                settle()
+
         moe = cfg.family == "moe"
         kd = cfg.first_k_dense if moe else 0
-        self.prefix = nn.ModuleList(
-            Block(cfg, moe_layer=False, device=device, g=g) for _ in range(kd))
+        stack("prefix", lambda: Block(cfg, moe_layer=False, device=device,
+                                      g=g), kd)
         if cfg.family == "ssm":
-            self.layers = nn.ModuleList(MambaBlock(cfg, device, g)
-                                        for _ in range(cfg.n_layers))
+            stack("layers", lambda: MambaBlock(cfg, device, g), cfg.n_layers)
             self.lead = {"layers": (cfg.n_layers,)}
         elif cfg.family == "hybrid":
             n_super, tail = divmod(cfg.n_layers, cfg.attn_every)
-            self.layers = nn.ModuleList(
-                MambaBlock(cfg, device, g)
-                for _ in range(n_super * cfg.attn_every))
-            self.tail = nn.ModuleList(MambaBlock(cfg, device, g)
-                                      for _ in range(tail))
+            stack("layers", lambda: MambaBlock(cfg, device, g),
+                  n_super * cfg.attn_every)
+            stack("tail", lambda: MambaBlock(cfg, device, g), tail)
             self.shared = Block(cfg, moe_layer=False, device=device, g=g)
             self.lead = {"layers": (n_super, cfg.attn_every), "tail": (tail,)}
         else:
-            self.layers = nn.ModuleList(
-                Block(cfg, moe_layer=moe, device=device, g=g)
-                for _ in range(cfg.n_layers - kd))
+            stack("layers", lambda: Block(cfg, moe_layer=moe, device=device,
+                                          g=g), cfg.n_layers - kd)
             self.lead = {"layers": (cfg.n_layers - kd,)}
+        settle()
 
     def blocks(self):
         """Every attention block in order (dense and moe families): the
@@ -180,13 +207,15 @@ class Transformer(nn.Module):
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device=None) -> Transformer:
+                device=None, place=None) -> Transformer:
     """A model of ``cfg`` with random weights drawn from ``generator`` on
-    ``device`` (the generator's device by default).  The draws differ from
-    the reference's ``jax.random`` ones by construction; tests carry the
-    reference's weights across (:func:`repro_torch.bridge.lm_params_from_reference`)."""
+    ``device`` (the generator's device by default), each parameter passed
+    through ``place`` as it is drawn (:class:`Transformer`).  The draws
+    differ from the reference's ``jax.random`` ones by construction; tests
+    carry the reference's weights across
+    (:func:`repro_torch.bridge.lm_params_from_reference`)."""
     device = generator.device if device is None else torch.device(device)
-    return Transformer(cfg, device, generator)
+    return Transformer(cfg, device, generator, place)
 
 
 # ----------------------------------------------------------------------------
@@ -231,15 +260,17 @@ def _ffn(cfg: ArchConfig, blk: Block,
 def _attn_block_train(cfg: ArchConfig, blk: Block, x: torch.Tensor,
                       positions: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    x = hints.gathered(x)
     h = L.apply_norm(cfg.norm, blk.ln1, x)
     x = x + L.attention_train(blk.attn, attn_spec(cfg), h, positions)
     h = L.apply_norm(cfg.norm, blk.ln2, x)
     out, aux = _ffn(cfg, blk, h)
-    return x + out, aux
+    return hints.residual(x + out), aux
 
 
 def _attn_block_prefill(cfg: ArchConfig, blk: Block, x: torch.Tensor,
                         positions: torch.Tensor):
+    x = hints.gathered(x)
     h = L.apply_norm(cfg.norm, blk.ln1, x)
     out, kv = L.attention_prefill(blk.attn, attn_spec(cfg), h, positions)
     x = x + out
@@ -264,6 +295,7 @@ def _mamba_kwargs(cfg: ArchConfig) -> Dict:
 
 def _mamba_train(cfg: ArchConfig, blk: MambaBlock,
                  x: torch.Tensor) -> torch.Tensor:
+    x = hints.gathered(x)
     h = L.apply_norm(cfg.norm, blk.ln1, x)
     return x + M2.mamba2_forward(blk.mamba, h, **_mamba_kwargs(cfg))
 
@@ -281,6 +313,7 @@ def _super_train(cfg: ArchConfig, p: Transformer, g: int, x: torch.Tensor,
     """The hybrid's super-layer ``g``: its ``attn_every`` Mamba blocks,
     then the shared block."""
     per = cfg.attn_every
+    x = hints.residual(x)
     for blk in p.layers[g * per:(g + 1) * per]:
         x = _mamba_train(cfg, blk, x)
     return _attn_block_train(cfg, p.shared, x, positions)[0]
@@ -295,7 +328,7 @@ def forward_train(cfg: ArchConfig, p: Transformer,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         for blk in p.layers:
-            x = _remat(cfg, _mamba_train, cfg, blk, x)
+            x = _remat(cfg, _mamba_train, cfg, blk, hints.residual(x))
     elif cfg.family == "hybrid":
         for g in range(p.lead["layers"][0]):
             x = _remat(cfg, _super_train, cfg, p, g, x, positions)
@@ -305,7 +338,8 @@ def forward_train(cfg: ArchConfig, p: Transformer,
         for blk in p.prefix:
             x, _ = _attn_block_train(cfg, blk, x, positions)
         for blk in p.layers:
-            x, a = _remat(cfg, _attn_block_train, cfg, blk, x, positions)
+            x, a = _remat(cfg, _attn_block_train, cfg, blk,
+                          hints.residual(x), positions)
             aux = aux + a
     return logits_fn(cfg, p, x), aux
 
@@ -314,20 +348,24 @@ def loss_fn(cfg: ArchConfig, p: Transformer, batch: Dict
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (``loss + AUX_LOSS_WEIGHT * aux``, {"loss", "aux"}): the
     mean next-token cross-entropy over labels >= 0, from float32
-    log-probabilities."""
+    log-probabilities.  On a live mesh each rank holds its data shard's
+    rows and divides by the count over every shard, so the ranks' losses
+    (and gradients) sum to the whole batch's."""
     logits, aux = forward_train(cfg, p, batch)
     labels = batch["labels"]
     ls = F.log_softmax(logits.float(), dim=-1)
     mask = labels >= 0
     safe = torch.clamp(labels, min=0).long()
     nll = -torch.gather(ls, -1, safe[..., None])[..., 0]
-    loss = torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1)
+    count = hints.batch_total(mask.sum())
+    loss = torch.sum(nll * mask) / torch.clamp(count, min=1)
     total = loss + AUX_LOSS_WEIGHT * aux
     return total, {"loss": loss, "aux": aux}
 
 
 def _mamba_prefill(cfg: ArchConfig, blk: MambaBlock, x: torch.Tensor,
                    states: list) -> torch.Tensor:
+    x = hints.gathered(hints.residual(x))
     h = L.apply_norm(cfg.norm, blk.ln1, x)
     y, ssm, conv = M2.mamba2_prefill(blk.mamba, h, **_mamba_kwargs(cfg))
     states.append((ssm, conv))
@@ -359,7 +397,9 @@ def prefill(cfg: ArchConfig, p: Transformer,
             cache.update(k=torch.stack(ks), v=torch.stack(vs))
         return logits_fn(cfg, p, x[:, -1:, :]), cache
     ks, vs = [], []
-    for blk in p.blocks():
+    for i, blk in enumerate(p.blocks()):
+        if i >= len(p.prefix):
+            x = hints.residual(x)
         x, (k, v) = _attn_block_prefill(cfg, blk, x, positions)
         ks.append(k)
         vs.append(v)

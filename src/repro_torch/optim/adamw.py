@@ -26,6 +26,10 @@ the other.  A leaf of three or more dimensions and at least
 leading axis, as the reference's ``_maybe_chunked`` does: the slices'
 temporaries are a layer's size, and Adafactor's statistics are then taken
 per slice, as there.
+
+On a live mesh :func:`apply_updates_zero1` runs the same AdamW arithmetic
+as ZeRO-1: each rank updates its region of the moments under
+``opt_state_specs`` (``distributed/lm_shard.py``).
 """
 from __future__ import annotations
 
@@ -138,6 +142,53 @@ def _units(leaf: Leaf, grads: Sequence[torch.Tensor], state: Dict):
             for i in range(leaf.lead[0])]
 
 
+def _adamw(cfg: OptConfig, p32: torch.Tensor, g32: torch.Tensor,
+           mu: torch.Tensor, nu: torch.Tensor, bc1, bc2, lr,
+           decay: bool) -> torch.Tensor:
+    """AdamW on one tensor: updates ``mu`` and ``nu`` in place, returns the
+    new float32 weight."""
+    mu.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
+    nu.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g32))
+    d = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
+    if decay:
+        d = d + cfg.weight_decay * p32
+    return p32 - lr * d
+
+
+def _bias_corrections(cfg: OptConfig, step: torch.Tensor):
+    s32 = step.to(torch.float32)
+    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, device=s32.device), s32)
+    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=s32.device), s32)
+    return bc1, bc2
+
+
+@torch.no_grad()
+def apply_updates_zero1(cfg: OptConfig, sharded,
+                        grads: Dict[str, Sequence[torch.Tensor]], state: Dict
+                        ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+    """One AdamW step on a live mesh (ZeRO-1,
+    :meth:`repro_torch.distributed.lm_shard.ShardedLM.apply_updates`):
+    ``grads`` are the parameters' blocks (summed over the batch axes),
+    ``state`` holds each rank's moment regions (``opt_state_specs``).  The
+    arithmetic is :func:`apply_updates`'s.
+
+    Raises:
+        ValueError: an optimizer other than AdamW.
+    """
+    if cfg.kind != "adamw":
+        raise ValueError(f"{cfg.kind} on a multi-rank mesh is not ported "
+                         "(ROADMAP A16.1); use adamw")
+    state["step"] += 1
+    lr = schedule(cfg, state["step"])
+    bc1, bc2 = _bias_corrections(cfg, state["step"])
+
+    def update(p32, g32, mu, nu, decay):
+        return _adamw(cfg, p32, g32, mu, nu, bc1, bc2, lr, decay)
+
+    gnorm = sharded.apply_updates(cfg, grads, state, update)
+    return state, {"grad_norm": gnorm, "lr": lr}
+
+
 @torch.no_grad()
 def apply_updates(cfg: OptConfig, leaves: Leaves,
                   grads: Dict[str, Sequence[torch.Tensor]], state: Dict
@@ -151,9 +202,7 @@ def apply_updates(cfg: OptConfig, leaves: Leaves,
     step = state["step"]
     lr = schedule(cfg, step)
     if cfg.kind == "adamw":
-        s32 = step.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(cfg.b1, device=s32.device), s32)
-        bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=s32.device), s32)
+        bc1, bc2 = _bias_corrections(cfg, step)
         for path, leaf in leaves.items():
             decay = len(leaf.shape) >= 2
             moments = {"mu": state["mu"][path], "nu": state["nu"][path]}
@@ -161,14 +210,9 @@ def apply_updates(cfg: OptConfig, leaves: Leaves,
                 for p, g, mu, nu in zip(unit.members, gs,
                                         unit.unstack(st["mu"]),
                                         unit.unstack(st["nu"])):
-                    g32 = g.float()
-                    mu.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
-                    nu.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g32))
-                    d = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
-                    p32 = p.float()
-                    if decay:
-                        d = d + cfg.weight_decay * p32
-                    p.copy_((p32 - lr * d).to(p.dtype))
+                    new = _adamw(cfg, p.float(), g.float(), mu, nu, bc1,
+                                 bc2, lr, decay)
+                    p.copy_(new.to(p.dtype))
         return leaves, state, {"grad_norm": gnorm, "lr": lr}
     if cfg.kind != "adafactor":
         raise ValueError(cfg.kind)

@@ -205,8 +205,9 @@ def test_rejections(cohort):
         BatchedLifeEngine([], _cfg(), device="cpu")
     with pytest.raises(ValueError, match="compaction"):
         BatchedLifeEngine(cohort, _cfg(compact_every=4), device="cpu")
-    with pytest.raises(ValueError, match="A13"):
-        BatchedLifeEngine(cohort, _cfg(shard_rows=2), device="cpu")
+    with pytest.raises(ValueError, match="batched mesh needs 9 devices"):
+        BatchedLifeEngine(cohort, _cfg(shard_rows=3, shard_cols=3),
+                          device="cpu")
     small = synth_cohort(1, base_seed=99, n_fibers=32, n_theta=16,
                          n_atoms=24, grid=(10, 10, 10), device="cpu")
     with pytest.raises(ValueError, match="geometry"):
@@ -292,3 +293,162 @@ def test_tuned_batched_engine_resolves_the_dtype(cohort, tmp_path):
                                            plan_cache_dir=str(tmp_path)),
                               device="cpu")
     assert again.tune_plan == eng.tune_plan
+
+
+# ----------------------------------------------------------------------------
+# mesh placement: subjects over `data`, Phi slots over `model`
+# ----------------------------------------------------------------------------
+
+#: the reference's tolerance for a placed cohort (tests/test_batched.py)
+MESH_TOL = dict(rtol=1e-4, atol=1e-5)
+MESH_ITERS = 10
+PLACED = ((2, 2), (4, 2))
+
+REFERENCE_PLACED = """
+import dataclasses, sys
+import numpy as np
+from repro.core.batched import BatchedLifeEngine
+from repro.core.life import LifeConfig
+from repro.data.dmri import synth_cohort
+cohort = synth_cohort(4, base_seed=10, n_fibers=64, n_theta=16, n_atoms=24,
+                      grid=(10, 10, 10))
+base = LifeConfig(executor="opt", n_iters=%d, plan_cache_dir="")
+out = {}
+for R, C in %r:
+    eng = BatchedLifeEngine(cohort, dataclasses.replace(
+        base, shard_rows=R, shard_cols=C))
+    assert eng.mesh is not None
+    W, L = eng.run()
+    out[f"W{R}{C}"], out[f"L{R}{C}"] = np.asarray(W), np.asarray(L)
+np.savez(sys.argv[1], **out)
+""" % (MESH_ITERS, PLACED)
+
+
+#: one gloo rank of a placed solve: the cohort from its seeds, the engine
+#: on the process group's (R, C) mesh; rank 0 writes the result
+RANK_PLACED = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.core.batched import BatchedLifeEngine
+from repro_torch.core.life import LifeConfig
+from repro_torch.data.dmri import synth_cohort
+from repro_torch.distributed import spmd
+torch.set_num_threads(1)
+R, C, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+spmd.join_process_group("gloo", torch.device("cpu"))
+cohort = synth_cohort(4, base_seed=10, device="cpu", **%r)
+eng = BatchedLifeEngine(cohort, LifeConfig(
+    executor="opt", n_iters=%d, plan_cache_dir="", shard_rows=R,
+    shard_cols=C), device="cpu")
+W, L = eng.run()
+if dist.get_rank() == 0:
+    np.savez(out, W=W.numpy(), losses=L.numpy(), staged=eng.mesh.staged,
+             coll_groups=[g for _, _, g in eng.mesh.collectives])
+dist.destroy_process_group()
+""" % (SMALL, MESH_ITERS)
+
+
+@pytest.fixture(scope="module")
+def cohort4():
+    return synth_cohort(4, base_seed=10, device="cpu", **SMALL)
+
+
+@pytest.fixture(scope="module")
+def placed_runs(cohort4, tmp_path_factory):
+    """The unplaced solve; the placed ones on a local mesh, on gloo ranks
+    (:data:`RANK_PLACED` under ``spmd.launch``) and in the reference on 8
+    host devices (a subprocess, overlapping the spawns)."""
+    import os
+    import subprocess
+    import sys
+    from repro_torch.distributed import spmd
+    root = tmp_path_factory.mktemp("placed")
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    ref_out = str(root / "reference.npz")
+    ref = subprocess.Popen([sys.executable, "-c", REFERENCE_PLACED, ref_out],
+                           env=env, stderr=subprocess.PIPE, text=True)
+    cfg = _cfg(executor="opt", n_iters=MESH_ITERS)
+    out = {"unplaced": BatchedLifeEngine(cohort4, cfg, device="cpu").run()}
+    for R, C in PLACED:
+        eng = BatchedLifeEngine(cohort4, dataclasses.replace(
+            cfg, shard_rows=R, shard_cols=C), device="cpu")
+        out["local", R, C] = eng.run() + (eng,)
+        dst = str(root / f"gloo{R}{C}.npz")
+        spmd.launch(["-c", RANK_PLACED, str(R), str(C), dst], R * C,
+                    str(root / f"ranks{R}{C}"), deadline_s=240.0,
+                    env={"OMP_NUM_THREADS": "1"})
+        with np.load(dst) as z:
+            out["gloo", R, C] = {k: z[k] for k in z.files}
+    _, err = ref.communicate(timeout=600)
+    assert ref.returncode == 0, err[-3000:]
+    with np.load(ref_out) as z:
+        out["reference"] = {k: z[k] for k in z.files}
+    return out
+
+
+def _placed(placed_runs, kind, R, C):
+    got = placed_runs[kind, R, C]
+    if kind == "local":
+        return to_numpy(got[0]), to_numpy(got[1])
+    return got["W"], got["losses"]
+
+
+@pytest.mark.parametrize("kind", ["local", "gloo"])
+@pytest.mark.parametrize("R,C", PLACED)
+def test_placed_cohort_matches_unplaced(placed_runs, kind, R, C):
+    W0, L0 = (to_numpy(x) for x in placed_runs["unplaced"])
+    W1, L1 = _placed(placed_runs, kind, R, C)
+    np.testing.assert_allclose(W1, W0, **MESH_TOL)
+    np.testing.assert_allclose(L1, L0, rtol=MESH_TOL["rtol"])
+
+
+@pytest.mark.parametrize("kind", ["local", "gloo"])
+@pytest.mark.parametrize("R,C", PLACED)
+def test_placed_cohort_matches_the_references_placed_run(placed_runs, kind,
+                                                         R, C):
+    W1, L1 = _placed(placed_runs, kind, R, C)
+    ref = placed_runs["reference"]
+    np.testing.assert_allclose(W1, ref[f"W{R}{C}"], **MESH_TOL)
+    np.testing.assert_allclose(L1, ref[f"L{R}{C}"], rtol=MESH_TOL["rtol"])
+
+
+@pytest.mark.parametrize("R,C", PLACED)
+def test_placement_layout(placed_runs, cohort4, R, C):
+    """Row r holds subjects [r S/R, (r+1) S/R), cell (r, c) the c-th of C
+    contiguous slot ranges of each; the gloo ranks' psums ran over groups
+    of C (model) and R (data)."""
+    eng = placed_runs["local", R, C][2]
+    assert eng.mesh.shape == (R, C)
+    assert eng.subjects_sharded and eng.slots_sharded
+    # a placed engine builds no whole stacked operands
+    assert not hasattr(eng, "phi_dsc") and not hasattr(eng, "phi_wc")
+    n_rows, n_slots = 4 // R, eng.nc_padded // C
+    nv = cohort4[0].phi.n_voxels
+    for (r, c), (mv, _) in eng._cells.items():
+        w = torch.zeros((n_rows, cohort4[0].phi.n_fibers))
+        assert mv(w).shape == (n_rows, nv, 16)
+    groups = set(placed_runs["gloo", R, C]["coll_groups"].tolist())
+    assert groups == {C, R}
+    assert not bool(placed_runs["gloo", R, C]["staged"])
+
+
+def test_an_axis_that_does_not_divide_stays_replicated(cohort4):
+    cfg = _cfg(executor="opt", n_iters=6)
+    W0, L0 = BatchedLifeEngine(cohort4, cfg, device="cpu").run()
+    eng = BatchedLifeEngine(cohort4, dataclasses.replace(
+        cfg, shard_rows=3, shard_cols=1), device="cpu")
+    assert not eng.subjects_sharded
+    W1, L1 = eng.run()
+    # every row solves every subject on whole slots: the unplaced math
+    assert torch.equal(W1, W0) and torch.equal(L1, L0)
+    C = next(c for c in range(2, 9) if eng.nc_padded % c)
+    eng = BatchedLifeEngine(cohort4, dataclasses.replace(
+        cfg, shard_rows=1, shard_cols=C), device="cpu")
+    assert not eng.slots_sharded
+    W2, _ = eng.run()
+    assert torch.equal(W2, W0)

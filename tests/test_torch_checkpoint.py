@@ -163,6 +163,52 @@ def test_place_moves_tensors_only(tmp_path, rng):
     assert moved["s"][0].it is state.it
 
 
+def test_place_under_a_mesh_reshards_bit_for_bit(tmp_path, rng):
+    """A whole tree placed under (2, 2) shardings: each cell gets the block
+    of its coordinates; the blocks put back together are the tree bit for
+    bit, saved they read back so in the reference's restore and
+    unflatten_like, and the reference's save of them places so again."""
+    import jax
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as HM
+    tree = {"wq": torch.tensor(rng.normal(size=(2, 8, 12)),
+                               dtype=torch.float32),
+            "experts": torch.tensor(rng.normal(size=(4, 6, 2)),
+                                    dtype=torch.bfloat16),
+            "scale": torch.ones(6, dtype=torch.bfloat16)}
+    specs = {"wq": SH.P(None, None, "model"),
+             "experts": SH.P("model", "data", None), "scale": SH.P(None)}
+    whole = {k: torch.zeros_like(v) for k, v in tree.items()}
+    for r in range(2):
+        for c in range(2):
+            cell = HM.ShapeMesh((2, 2), ("data", "model"))
+            cell.coords, cell.device = {"data": r, "model": c}, "cpu"
+            placed = CK.place(tree, SH.logical_to_shardings(cell, specs))
+            for k, v in placed.items():
+                b = SH.shard_bounds(tree[k].shape, specs[k], cell,
+                                    cell.coords)
+                assert np.array_equal(_bits(v), _bits(tree[k][b])), k
+                whole[k][b] = v
+    for k in tree:
+        assert np.array_equal(_bits(whole[k]), _bits(tree[k])), k
+    CK.save(str(tmp_path / "port"), 1, whole)
+    _, flat, _ = JCK.restore(str(tmp_path / "port"))
+    template = jax.eval_shape(lambda: {
+        "wq": jnp.zeros((2, 8, 12)), "experts": jnp.zeros((4, 6, 2),
+                                                          jnp.bfloat16),
+        "scale": jnp.zeros(6, jnp.bfloat16)})
+    got = JCK.unflatten_like(template, flat)
+    for k in tree:
+        assert np.array_equal(_bits(got[k]), _bits(tree[k])), k
+    JCK.save(str(tmp_path / "ref"), 1, got)
+    _, back, _ = CK.restore(str(tmp_path / "ref"))
+    cell = HM.ShapeMesh((2, 2), ("data", "model"))
+    cell.coords, cell.device = {"data": 1, "model": 1}, "cpu"
+    placed = CK.place(back, SH.logical_to_shardings(cell, specs))
+    assert np.array_equal(_bits(placed["experts"]),
+                          _bits(tree["experts"][2:, 3:]))
+
+
 # ----------------------------------------------------------------------------
 # across the packages, bit for bit, both ways
 # ----------------------------------------------------------------------------

@@ -118,6 +118,12 @@ SLICE_TWELVE = ("models/leaves.py", "optim/adamw.py", "data/tokens.py",
 #: the long-sequence slice (ROADMAP A15.2, A15.4)
 SLICE_THIRTEEN = ("models/flash.py", "models/mamba2.py", "models/layers.py",
                   "models/transformer.py")
+#: the rest of the mesh: the LM on a (data, model) mesh, the cohort's
+#: placement, resharding on load (ROADMAP A13)
+SLICE_FOURTEEN = ("launch/mesh.py", "distributed/sharding.py",
+                  "distributed/hints.py", "distributed/lm_shard.py",
+                  "launch/steps.py", "launch/serve.py", "core/batched.py",
+                  "checkpoint/manager.py", "models/moe.py")
 #: the configurations the training and long-sequence slices add
 NEW_CONFIGS = ("qwen1.5-4b", "deepseek-7b", "stablelm-12b", "granite-34b",
                "kimi-k2-1t-a32b", "mamba2-2.7b", "zamba2-1.2b")
@@ -125,9 +131,9 @@ NEW_CONFIGS = ("qwen1.5-4b", "deepseek-7b", "stablelm-12b", "granite-34b",
 
 @pytest.mark.parametrize("module", SLICE_TEN + tuple(
     m for m in SLICE_ELEVEN if m not in SLICE_TEN) + SLICE_TWELVE
-    + SLICE_THIRTEEN)
+    + SLICE_THIRTEEN + SLICE_FOURTEEN)
 def test_slice_ten_modules_exist_and_import_alone(module):
-    """Each module of the slices ten to thirteen is in the port and
+    """Each module of the slices ten to fourteen is in the port and
     imports in a fresh interpreter that has neither jax nor the reference
     importable."""
     path = ROOT / "src" / "repro_torch" / module
