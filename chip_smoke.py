@@ -226,10 +226,34 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                then reduced mamba2 and zamba2 (5 layers) resumed from a
                step-4 checkpoint, steps 5-8 bit for bit.  Prints
                {"long": ...} before the kernels line.
+  16. mesh-lm — (after 15) the LM and the cohort on a (data, model) mesh:
+               the trainer on one NCCL rank, four gloo ranks on the one
+               card at (2, 2) against one process under a shape-only
+               mesh, the elastic restart, the cohort's placement, serving
+               through --model-axis 1.  Prints {"mesh_lm": ...}.
+  17. modal  — (after 16) the audio and vlm families at full width, bf16;
+               no kernel of the repo on this path.  17a musicgen-large
+               (48 layers): a prefill of 4 x 2,048 frame embeddings
+               (flash past 1,024 positions) and 16 teacher-forced decode
+               steps (the next frames fed in) through launch.steps'
+               make_prefill / make_serve_step; 3 training steps at full
+               depth (AdamW, remat, 4 x 1,024 frames, --lr 3e-4) through
+               the trainer's main.  17b qwen2-vl-7b (28 layers): M-RoPE's
+               rotated q and k on the card within 1e-5 of a float64 host
+               rotation by the same float32 angles; a prefill of 2 x
+               (1,024 image patches on a 32 x 32 grid at t = 0 + 1,024
+               tokens), 16 greedy decode steps with the positions
+               continued; 3 training steps with the layers cut to what
+               the card holds.  In each family a float32 model at full
+               width and 4 layers: a prefill past 1,024 positions and 8
+               decode steps within 2e-2 + 2e-2 |x| of forward_train's
+               logits at the same positions.  Losses finite and falling;
+               prefill seconds, decode ms a step, tokens/s, step ms and
+               peak memory.  Prints {"modal": ...}.
 
-Then it prints phase 15's JSON line, one JSON line describing the kernels,
-the card's name and power limit as nvidia-smi gives them, and, last, the
-result line.
+Then it prints phases 15-17's JSON lines, one JSON line describing the
+kernels, the card's name and power limit as nvidia-smi gives them, and,
+last, the result line.
 """
 from __future__ import annotations
 
@@ -4845,6 +4869,329 @@ def phase_mesh_lm(trained: dict, cohort_path: str) -> dict:
                 seconds=secs)
 
 
+# ----------------------------------------------------------------------------
+# 17. the audio and vlm families
+# ----------------------------------------------------------------------------
+
+#: 17a: batch x prefill frames (past BLOCK_THRESHOLD: flash runs) and the
+#: teacher-forced decode steps after them
+MODAL_AUDIO = dict(B=4, P=2048, steps=16)
+#: 17b: batch, the image's grid side (grid^2 patches at t = 0), the text
+#: tokens after it and the greedy decode steps
+MODAL_VLM = dict(B=2, grid=32, text=1024, steps=16)
+MODAL_TRAIN_STEPS = 3
+#: training batches: (global batch, sequence); the vlm's image takes
+#: min(vision_tokens, seq // 2) = 1,024 positions of its 2,048
+MODAL_TRAIN = {"musicgen-large": (4, 1024), "qwen2-vl-7b": (2, 2048)}
+#: GiB the vlm's depth cut leaves free beyond 12 B a parameter of state
+#: (the float32 logits and their gradient at 2 x 2,048 x 152,064, the
+#: optimizer's float32 temporaries of a 545 M-parameter embedding)
+MODAL_RESERVE_GIB = 24
+#: the float32 check: layers, prefill positions, decode steps, batch;
+#: forward_train over MODAL_CHECK_P + 512 positions (flash, chunk 512)
+MODAL_CHECK = dict(layers=4, P=1536, steps=8, B=2)
+MROPE_TOL = 1e-5
+
+
+def vlm_positions(B: int, grid: int, n_text: int) -> torch.Tensor:
+    """Qwen2-VL's (3, B, grid^2 + n_text) positions on the card: the image
+    patches at t = 0, h their row and w their column of the grid; the
+    text after them from grid on, the same on all three axes."""
+    vt = grid * grid
+    pos = torch.empty((3, B, vt + n_text), dtype=torch.int32, device="cuda")
+    i = torch.arange(vt, dtype=torch.int32, device="cuda")
+    pos[0, :, :vt] = 0
+    pos[1, :, :vt] = i // grid
+    pos[2, :, :vt] = i % grid
+    pos[:, :, vt:] = grid + torch.arange(n_text, dtype=torch.int32,
+                                         device="cuda")
+    return pos
+
+
+def modal_inputs(cfg, B: int, n: int, seed: int, grid: int = 0) -> dict:
+    """A whole sequence of ``n`` positions for ``cfg`` drawn on the card:
+    audio ``frame_embeds`` (B, n, d); vlm ``grid^2`` ``image_embeds`` and
+    ``n - grid^2`` ``tokens`` on :func:`vlm_positions`."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.family == "audio":
+        return {"frame_embeds": torch.randn(
+            (B, n, cfg.d_model), generator=g, device="cuda").to(
+                cfg.torch_dtype)}
+    vt = grid * grid
+    return {"image_embeds": torch.randn(
+                (B, vt, cfg.d_model), generator=g, device="cuda").to(
+                    cfg.torch_dtype),
+            "tokens": torch.randint(0, cfg.vocab_size, (B, n - vt),
+                                    generator=g, device="cuda",
+                                    dtype=torch.int32),
+            "positions": vlm_positions(B, grid, n - vt)}
+
+
+def modal_prefix(cfg, seq: dict, P: int) -> dict:
+    """The first ``P`` positions of a :func:`modal_inputs` sequence."""
+    if cfg.family == "audio":
+        return {"frame_embeds": seq["frame_embeds"][:, :P]}
+    vt = seq["image_embeds"].shape[1]
+    return {"image_embeds": seq["image_embeds"],
+            "tokens": seq["tokens"][:, :P - vt],
+            "positions": seq["positions"][:, :, :P]}
+
+
+def modal_step(cfg, seq: dict, pos: int, logits=None) -> dict:
+    """The decode step's inputs at position ``pos``: the sequence's own
+    frame or token there (teacher-forced), or, given the last logits
+    (B, V), the vlm's greedy token; a vlm step carries its positions."""
+    if cfg.family == "audio":
+        return {"frame_embeds": seq["frame_embeds"][:, pos:pos + 1]}
+    vt = seq["image_embeds"].shape[1]
+    tok = (seq["tokens"][:, pos - vt:pos - vt + 1] if logits is None else
+           torch.argmax(logits, dim=-1).to(torch.int32)[:, None])
+    B = tok.shape[0]
+    text0 = int(seq["positions"][0, 0, vt]) - vt
+    return {"tokens": tok, "positions": torch.full(
+        (3, B, 1), text0 + pos, dtype=torch.int32, device="cuda")}
+
+
+def modal_decode(cfg, params, seq: dict, P: int, n_steps: int,
+                 greedy: bool) -> dict:
+    """A prefill of ``P`` positions through launch.steps.make_prefill, then
+    ``n_steps`` make_serve_step calls (teacher-forced, or greedy for the
+    vlm): the last logits of each, seconds by the host clock (each ending
+    in a synchronisation) and the flash calls of the prefill."""
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    from repro_torch.models import layers as L
+    prefill, serve = make_prefill(cfg), make_serve_step(cfg)
+    calls = []
+    flash = L.flash_attention
+    L.flash_attention = lambda *a: (calls.append(a[-1]), flash(*a))[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        logits, cache = prefill(params, modal_prefix(cfg, seq, P))
+    finally:
+        L.flash_attention = flash
+    cache = pad_cache(cache, P + n_steps)
+    torch.cuda.synchronize()
+    seconds = {"prefill": time.perf_counter() - t0}
+    steps = [logits[:, -1]]
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        inputs = modal_step(cfg, seq, P + i, steps[-1] if greedy else None)
+        logits, cache = serve(params, dict(inputs, cache=cache,
+                                           cache_index=P + i))
+        cache.pop("index")
+        steps.append(logits[:, -1])
+    torch.cuda.synchronize()
+    seconds["decode"] = time.perf_counter() - t0
+    return dict(steps=steps, seconds=seconds, flash_calls=len(calls),
+                cache_bytes=sum(v.numel() * v.element_size()
+                                for v in cache.values()))
+
+
+def modal_check(label: str, cfg) -> dict:
+    """A float32 model of ``cfg`` at full width and MODAL_CHECK's layers
+    (seeded random weights): a prefill of MODAL_CHECK["P"] positions and
+    MODAL_CHECK["steps"] teacher-forced decode steps, each step's logits
+    within LONG_TOL of forward_train's at its position over P + 512."""
+    from repro_torch.models import transformer as T
+    c = dataclasses.replace(cfg, n_layers=MODAL_CHECK["layers"],
+                            dtype="float32")
+    params = T.init_params(c, torch.Generator(device="cuda").manual_seed(71),
+                           "cuda")
+    B, P, n = MODAL_CHECK["B"], MODAL_CHECK["P"], MODAL_CHECK["steps"]
+    seq = modal_inputs(c, B, P + 512, 72, grid=MODAL_VLM["grid"])
+    run = modal_decode(c, params, seq, P, n, greedy=False)
+    with torch.no_grad():
+        full, _ = T.forward_train(c, params, seq)
+    errs, ratios = [], []
+    for i, got in enumerate(run["steps"]):
+        ok, err, ratio = within(got, full[:, P - 1 + i], LONG_TOL)
+        errs.append(err)
+        ratios.append(ratio)
+        if not ok:
+            raise AssertionError(f"{label} float32: position {P - 1 + i}'s "
+                                 f"logits differ from forward_train's by "
+                                 f"{err:.3e} (beyond {LONG_TOL})")
+    log("modal", f"{label} float32 at {c.n_layers} layers, full width: "
+        f"prefill of {B} x {P} positions ({run['flash_calls']} flash calls)"
+        f" and {n} teacher-forced decode steps against forward_train over "
+        f"{P + 512}: max abs err per position {[f'{e:.2e}' for e in errs]}"
+        f", worst share of the limit 2e-2 + 2e-2 |x| {max(ratios):.3f}")
+    del params, full, run
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(errs), worst_share=max(ratios))
+
+
+def mrope_check(cfg) -> dict:
+    """apply_mrope on the card at qwen2-vl's q and k shapes (float32, grid
+    positions) against the same rotation on the host in float64: the
+    float32 angles (the card's frequencies times the positions, one
+    rounding, as on the card), their cosines and sines and the rotation in
+    float64; the section of each frequency slot from the config's
+    sections written out here."""
+    from repro_torch.models import layers as L
+    hd, theta, sections = (cfg.resolved_head_dim, cfg.rope_theta,
+                           cfg.mrope_sections)
+    B, grid, n_text = 2, MODAL_VLM["grid"], 64
+    pos = vlm_positions(B, grid, n_text)
+    sec = np.concatenate([np.full(s, i) for i, s in enumerate(sections)])
+    sec = np.pad(sec, (0, max(0, hd // 2 - len(sec))))[:hd // 2]
+    freqs = L.rope_freqs(hd, theta, device="cuda").cpu().numpy()
+    pos_np = pos.cpu().numpy().astype(np.float32)
+    angles = (pos_np.transpose(1, 2, 0)[..., sec] * freqs).astype(np.float64)
+    cos, sin = np.cos(angles)[:, :, None, :], np.sin(angles)[:, :, None, :]
+    g = torch.Generator(device="cuda").manual_seed(73)
+    errs = {}
+    for name, H in (("q", cfg.n_heads), ("k", cfg.n_kv_heads)):
+        x = torch.randn((B, pos.shape[2], H, hd), generator=g, device="cuda")
+        got = L.apply_mrope(x, pos, theta, sections).cpu().double().numpy()
+        x1, x2 = np.split(x.cpu().double().numpy(), 2, axis=-1)
+        want = np.concatenate([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+        errs[name] = float(np.abs(got - want).max())
+    log("modal", f"17b M-RoPE (sections {sections}, theta {theta:g}, hd "
+        f"{hd}) on {B} x ({grid}x{grid} patches + {n_text} tokens): max abs "
+        f"err against float64 on the host q {errs['q']:.3e}, k "
+        f"{errs['k']:.3e} (limit {MROPE_TOL:g}); slots per axis "
+        f"{np.bincount(sec, minlength=3).tolist()}")
+    if max(errs.values()) > MROPE_TOL:
+        raise AssertionError(f"17b M-RoPE off by {errs}")
+    return errs
+
+
+def modal_train(label: str, cfg, extra=()) -> dict:
+    """MODAL_TRAIN_STEPS steps through the trainer's main (bf16, remat,
+    --lr TRAIN_LR as 14b and 15e: at the CLI's 3e-3 musicgen's loss rose,
+    8.139 -> 8.154 -> 8.671): losses finite and falling, step ms,
+    tokens/s, peak memory."""
+    from repro_torch.launch import train
+    batch, seq = MODAL_TRAIN[cfg.name]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.main(["--arch", cfg.name, "--steps", str(MODAL_TRAIN_STEPS),
+                      "--global-batch", str(batch), "--seq-len", str(seq),
+                      "--lr", str(TRAIN_LR), "--log-every", "1", *extra])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = run.losses
+    med = float(np.median(run.step_ms[1:]))
+    n_param, layers = run.cfg.param_count(), run.cfg.n_layers
+    log("modal", f"{label} training, {layers} layers, "
+        f"{n_param / 1e9:.3f} B parameters (state reckoned "
+        f"{n_param * 12 / 1e9:.1f} GB at 12 B a parameter), "
+        f"{MODAL_TRAIN_STEPS} steps of {batch} x {seq} in {wall:.1f} s (init "
+        f"included): losses {[round(x, 4) for x in losses]}; step ms (CUDA "
+        f"events) {[round(x, 3) for x in run.step_ms]}; median of steps 2-"
+        f"{MODAL_TRAIN_STEPS} {med:.3f} ms, {batch * seq / med * 1e3:.1f} "
+        f"tokens/s; peak memory {peak / 2**30:.2f} GiB")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: losses {losses}")
+    del run
+    torch.cuda.empty_cache()
+    return dict(layers=layers, step_ms=med,
+                tokens_per_s=batch * seq / med * 1e3, peak_gib=peak / 2**30,
+                losses=losses, state_gb=n_param * 12 / 1e9)
+
+
+def modal_serve(label: str, cfg, params, seq: dict, P: int, n_steps: int,
+                greedy: bool) -> dict:
+    """17a/17b's serving run at full size: prefill and decode times, peak
+    memory, finite logits, flash on every layer of the prefill."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = modal_decode(cfg, params, seq, P, n_steps, greedy)
+    peak = torch.cuda.max_memory_allocated()
+    B = run["steps"][0].shape[0]
+    if not all(bool(torch.isfinite(x).all()) for x in run["steps"]):
+        raise AssertionError(f"{label}: non-finite logits")
+    if run["flash_calls"] != cfg.n_layers:
+        raise AssertionError(f"{label}: {run['flash_calls']} flash calls in "
+                             f"the prefill, expected {cfg.n_layers}")
+    sec = run["seconds"]
+    row = dict(prefill_s=sec["prefill"], prefill_tokens_per_s=B * P /
+               sec["prefill"], decode_ms=sec["decode"] / n_steps * 1e3,
+               tokens_per_s=B * n_steps / sec["decode"],
+               peak_gib=peak / 2**30, cache_bytes=run["cache_bytes"])
+    log("modal", f"{label} prefill of {B} x {P} positions: "
+        f"{row['prefill_s']:.3f} s ({row['prefill_tokens_per_s']:.0f} "
+        f"positions/s; flash on all {run['flash_calls']} layers), "
+        f"{n_steps} {'greedy' if greedy else 'teacher-forced'} decode steps:"
+        f" {row['decode_ms']:.3f} ms a step ({row['tokens_per_s']:.1f} "
+        f"tokens/s over the batch); cache {run['cache_bytes'] / 1e9:.2f} GB;"
+        f" peak memory {row['peak_gib']:.2f} GiB (host clock, each ending "
+        f"in a synchronisation)")
+    return row
+
+
+def phase_modal_audio() -> dict:
+    """17a: musicgen-large at full size."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("musicgen-large")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    log("modal", f"17a musicgen-large: {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_codebooks} codebooks x {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters ({cfg.dtype})")
+    a = MODAL_AUDIO
+    seq = modal_inputs(cfg, a["B"], a["P"] + a["steps"], 74)
+    row = modal_serve("17a musicgen-large", cfg, params, seq, a["P"],
+                      a["steps"], greedy=False)
+    del params, seq
+    torch.cuda.empty_cache()
+    row["train"] = modal_train("17a musicgen-large", cfg)
+    row["check"] = modal_check("17a musicgen-large", cfg)
+    return row
+
+
+def phase_modal_vlm() -> dict:
+    """17b: qwen2-vl-7b at full size, its training cut to the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("qwen2-vl-7b")
+    row = {"mrope_err": mrope_check(cfg)}
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    log("modal", f"17b qwen2-vl-7b: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters ({cfg.dtype}), "
+        f"M-RoPE sections {cfg.mrope_sections}")
+    v = MODAL_VLM
+    P = v["grid"] ** 2 + v["text"]
+    seq = modal_inputs(cfg, v["B"], P, 75, grid=v["grid"])
+    row.update(modal_serve("17b qwen2-vl-7b", cfg, params, seq, P,
+                           v["steps"], greedy=True))
+    del params, seq
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    base = dataclasses.replace(cfg, n_layers=0).param_count()
+    per = dataclasses.replace(cfg, n_layers=1).param_count() - base
+    layers = min(cfg.n_layers, int(
+        ((free - MODAL_RESERVE_GIB * 2**30) / 12 - base) // per))
+    log("modal", f"17b training cut to {layers} of {cfg.n_layers} layers: "
+        f"{free / 2**30:.1f} GiB free, {MODAL_RESERVE_GIB} GiB held back, "
+        f"12 B a parameter ({base / 1e9:.3f} B outside the layers, "
+        f"{per / 1e6:.1f} M a layer; all 28 would be "
+        f"{cfg.param_count() * 12 / 1e9:.1f} GB)")
+    row["train"] = modal_train("17b qwen2-vl-7b", cfg,
+                               ["--layers", str(layers)])
+    row["check"] = modal_check("17b qwen2-vl-7b", cfg)
+    return row
+
+
+def phase_modal() -> dict:
+    t = [time.perf_counter()]
+    out = {"audio": phase_modal_audio()}
+    t.append(time.perf_counter())
+    out["vlm"] = phase_modal_vlm()
+    t.append(time.perf_counter())
+    out["seconds"] = dict(a=t[1] - t[0], b=t[2] - t[1])
+    log("modal", f"phase 17 took {t[-1] - t[0]:.1f} s: 17a "
+        f"{out['seconds']['a']:.1f} s, 17b {out['seconds']['b']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4907,10 +5254,12 @@ def main() -> int:
               launches=b7["launches"] + mesh_lm["launches"],
               max_abs_err=max(b7["max_abs_err"], *mesh_errs),
               mesh_rank_errs=mesh_errs)
+    modal = phase_modal()
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"long": long}))
     print(json.dumps({"mesh_lm": {k: v for k, v in mesh_lm.items()
                                   if k != "ranks"}}))
+    print(json.dumps({"modal": modal}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

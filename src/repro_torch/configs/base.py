@@ -1,18 +1,18 @@
-"""Architecture config schema, registry and ``reduced()`` (torch counterpart
-of ``repro/configs/base.py``).
+"""Architecture config schema, registry, shape suite and ``reduced()``
+(torch counterpart of ``repro/configs/base.py``).
 
-Every architecture the port runs ships as ``repro_torch/configs/<id>.py``
-exporting CONFIG (the exact published geometry, the reference's field for
-field) and registering itself.  ``reduced()`` derives the reference's
-CPU-smoke-testable variant of the same family.  :data:`SHAPES` names the
-reference's input shapes (the sharding rules read them); its dry-run input
-specs are not ported: nothing here allocates placeholders.
+Every architecture ships as ``repro_torch/configs/<id>.py`` exporting
+CONFIG (the exact published geometry, the reference's field for field)
+and registering itself.  ``reduced()`` derives the reference's
+CPU-smoke-testable variant of the same family.  :func:`input_specs`
+gives the dry run's batch of a :data:`SHAPES` entry as tensors on the
+``meta`` device: shapes and dtypes, no allocation.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -30,13 +30,13 @@ ARCH_IDS = (
     "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b", "mamba2-2.7b",
     "life-stn96",
 )
-#: the architectures whose configuration the port ships: the dense, MoE,
-#: ssm and hybrid families (kimi-k2 registers only: its 1 T parameters fit
-#: no single card); the audio and vlm families and life-stn96 wait for
-#: ROADMAP A15
+#: the LM architectures the port's model runs: every one but life-stn96
+#: (the LiFE workload, which only the dry run reads); the dense, MoE,
+#: ssm, hybrid, audio and vlm families (kimi-k2's 1 T parameters fit no
+#: single card)
 PORTED = ("phi3.5-moe-42b-a6.6b", "qwen1.5-4b", "deepseek-7b",
           "stablelm-12b", "granite-34b", "kimi-k2-1t-a32b", "mamba2-2.7b",
-          "zamba2-1.2b")
+          "zamba2-1.2b", "musicgen-large", "qwen2-vl-7b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,14 +170,10 @@ def get_config(name: str) -> ArchConfig:
     """The registered configuration ``name``.
 
     Raises:
-        ValueError: ``name`` is no architecture of the repository, or one
-            whose family the port does not run yet (ROADMAP A15).
+        ValueError: ``name`` is no architecture of the repository.
     """
     if name not in ARCH_IDS:
         raise ValueError(f"unknown architecture {name!r}; known: {ARCH_IDS}")
-    if name not in PORTED:
-        raise ValueError(f"{name!r} is not ported yet (ROADMAP A15); the "
-                         f"port runs {PORTED}")
     if name not in _REGISTRY:
         importlib.import_module(
             "repro_torch.configs." + name.replace("-", "_").replace(".", "_"))
@@ -213,3 +209,88 @@ def reduced(cfg: ArchConfig, *, n_layers: int = 2, d_model: int = 64,
     if cfg.vision_tokens:
         kw.update(vision_tokens=16)
     return dataclasses.replace(cfg, **kw)
+
+
+# ----------------------------------------------------------------------------
+# Input specs (``meta`` tensors; no allocation)
+# ----------------------------------------------------------------------------
+
+def meta_spec(shape, dtype) -> torch.Tensor:
+    """A stand-in of ``shape`` and ``dtype`` on the ``meta`` device."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: str,
+                overrides: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
+    """Batch specs for ``shape`` (see :data:`SHAPES`) as ``meta`` tensors.
+    For decode shapes this is the serve step's batch (one new token and a
+    KV/SSM cache of seq_len)."""
+    seq, batch, kind = SHAPES[shape]
+    if overrides:
+        seq = overrides.get("seq_len", seq)
+        batch = overrides.get("global_batch", batch)
+    f, i32, dt = meta_spec, torch.int32, cfg.torch_dtype
+    if kind == "train":
+        return _train_batch(cfg, batch, seq, f, i32, dt)
+    if kind == "prefill":
+        return _prefill_batch(cfg, batch, seq, f, i32, dt)
+    return _decode_batch(cfg, batch, seq, f, i32, dt)
+
+
+def _train_batch(cfg, batch, seq, f, i32, dt):
+    if cfg.family == "audio":
+        return dict(frame_embeds=f((batch, seq, cfg.d_model), dt),
+                    codes=f((batch, seq, cfg.n_codebooks), i32))
+    if cfg.family == "vlm":
+        vt = cfg.vision_tokens
+        return dict(tokens=f((batch, seq - vt), i32),
+                    image_embeds=f((batch, vt, cfg.d_model), dt),
+                    positions=f((3, batch, seq), i32),
+                    labels=f((batch, seq), i32))
+    return dict(tokens=f((batch, seq), i32), labels=f((batch, seq), i32))
+
+
+def _prefill_batch(cfg, batch, seq, f, i32, dt):
+    b = _train_batch(cfg, batch, seq, f, i32, dt)
+    b.pop("labels", None)
+    b.pop("codes", None)
+    return b
+
+
+def _decode_batch(cfg, batch, seq, f, i32, dt):
+    """One new token and caches filled to seq tokens."""
+    specs: Dict[str, Any] = dict(cache_index=f((), i32))
+    if cfg.family == "audio":
+        specs["frame_embeds"] = f((batch, 1, cfg.d_model), dt)
+    else:
+        specs["tokens"] = f((batch, 1), i32)
+    if cfg.family == "vlm":
+        specs["positions"] = f((3, batch, 1), i32)
+    specs["cache"] = cache_specs(cfg, batch, seq, f, dt)
+    return specs
+
+
+def cache_specs(cfg: ArchConfig, batch: int, seq: int, f, dt
+                ) -> Dict[str, Any]:
+    """The decode cache of ``batch`` rows and ``seq`` positions, each
+    entry made by ``f(shape, dtype)``: ``k``/``v`` (L, B, S, KV, hd) for
+    the attention families (the hybrid: one per shared-block
+    application), ``ssm`` (L, B, H, P, N) float32 and ``conv`` (L, B,
+    d_conv - 1, C) for the ssm and hybrid families."""
+    hd = cfg.resolved_head_dim
+    cache: Dict[str, Any] = {}
+    if cfg.family in ("dense", "moe", "audio", "vlm"):
+        cache["k"] = f((cfg.n_layers, batch, seq, cfg.n_kv_heads, hd), dt)
+        cache["v"] = f((cfg.n_layers, batch, seq, cfg.n_kv_heads, hd), dt)
+    if cfg.family in ("ssm", "hybrid"):
+        gn = cfg.ssm_groups * cfg.ssm_state
+        c_tot = cfg.d_inner + 2 * gn
+        cache["ssm"] = f((cfg.n_layers, batch, cfg.ssm_heads,
+                          cfg.ssm_head_dim, cfg.ssm_state), torch.float32)
+        cache["conv"] = f((cfg.n_layers, batch, cfg.ssm_conv - 1, c_tot), dt)
+    if cfg.family == "hybrid" and cfg.attn_every:
+        n_apps = sum(1 for i in range(cfg.n_layers)
+                     if i % cfg.attn_every == cfg.attn_every - 1)
+        cache["k"] = f((n_apps, batch, seq, cfg.n_kv_heads, hd), dt)
+        cache["v"] = f((n_apps, batch, seq, cfg.n_kv_heads, hd), dt)
+    return cache

@@ -14,16 +14,19 @@ floats as JAX does (23 mantissa bits into ``[1, 2)``, shifted to
 in float64, so a draw differs from JAX's float32 one by the rounding of
 that function alone (well under 1e-6).
 
-The samplers the synthetic token stream draws from (``data/tokens.py``)
-follow: :func:`fold_in` on the host, then :func:`uniform`, :func:`gumbel`
+The samplers the synthetic batches draw from (``data/tokens.py``)
+follow: :func:`fold_in` and :func:`split` on the host, then
+:func:`uniform`, :func:`normal_torch`, :func:`randint`, :func:`gumbel`
 (JAX's default mode ``"low"``), :func:`categorical` and :func:`bernoulli`
 (mode ``"low"``) as tensors on a given device, Threefry in int64 with
 32-bit masks: a row of a token batch at a 151,936-token vocabulary draws
 ~19.6 M Gumbel values, too many for the host in a trainer's step loop.
-Keys stay numpy ``(2,)`` uint32 arrays on the host.  The bits and the
-uniform draws equal JAX's; the Gumbel draws do too but for the last place
-of ``log`` (torch's and XLA's may round it differently), which can move an
-argmax only where two perturbed logits tie within an ulp or two.
+Keys stay numpy ``(2,)`` uint32 arrays on the host.  The bits, the
+uniform draws and the integers equal JAX's.  The normal draws do too but
+for the last places of ``log1p`` in XLA's float32 ``erf_inv`` polynomial
+(three ulps at most), the Gumbel draws but for the last place of ``log``
+(torch's and XLA's may round it differently), which can move an argmax
+only where two perturbed logits tie within an ulp or two.
 """
 from __future__ import annotations
 
@@ -170,3 +173,88 @@ def bernoulli(key: np.ndarray, p: float, shape: tuple,
     """``jax.random.bernoulli(key, p, shape)`` as a bool tensor on
     ``device``, mode ``"low"``: a float32 uniform draw below ``p``."""
     return uniform(key, shape, device) < float(np.float32(p))
+
+
+#: XLA's float32 ``erf_inv`` (Giles, "Approximating the erfinv function",
+#: 2010): polynomial coefficients for ``w < 5`` and ``w >= 5``
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv32(x: torch.Tensor) -> torch.Tensor:
+    """``erf_inv`` of a float32 tensor as XLA computes it, in float32 (the
+    exact inverse, even in float64, is up to ~2e-5 away from JAX's draws
+    near |x| = 1, where ``log1p(-x * x)`` rounds)."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(small, torch.tensor(_ERFINV_SMALL[i]),
+                           torch.tensor(_ERFINV_LARGE[i])).to(x.device)
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_SMALL)):
+        p = coef(i) + p * w
+    return p * x
+
+
+def normal_torch(key: np.ndarray, shape: tuple, device) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32 on ``device``: a
+    uniform draw in ``[nextafter(-1, 0), 1)`` (:func:`uniform`), then
+    ``sqrt(2) * erf_inv`` in float32 as XLA computes it (within three
+    ulps of JAX's draws)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, device, lo, 1.0)
+    return _erfinv32(u) * float(np.float32(np.sqrt(2)))
+
+
+_INT32 = (-2 ** 31, 2 ** 31 - 1)
+
+
+def _rem(x: torch.Tensor, span: int) -> torch.Tensor:
+    """XLA's unsigned remainder: ``x`` itself by a span of 0."""
+    return x if span == 0 else torch.remainder(x, span)
+
+
+def _mul32(a: torch.Tensor, m: int) -> torch.Tensor:
+    """``a * m`` modulo 2**32 for ``a`` and ``m`` below 2**32, without
+    leaving int64: ``m`` split into 16-bit halves."""
+    lo = a * (m & 0xFFFF)
+    hi = ((a * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK
+
+
+def randint(key: np.ndarray, shape: tuple, minval: int, maxval: int,
+            device) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, jnp.int32)`` as an
+    int32 tensor on ``device`` (jax/_src/random.py ``_randint``): the key
+    split in two, 32 higher and 32 lower bits a value, folded into the
+    span ``maxval - minval`` by unsigned 32-bit remainders.  Bounds are
+    clipped to int32 as JAX clips them; ``maxval <= minval`` gives
+    ``minval``; a ``maxval`` above int32's range widens the span by one
+    (to 0, which the remainders leave alone, for the whole range)."""
+    out_of_range = maxval > _INT32[1]
+    lo_v = min(max(int(minval), _INT32[0]), _INT32[1])
+    hi_v = min(max(int(maxval), _INT32[0]), _INT32[1])
+    k1, k2 = split(key)
+    n = int(np.prod(shape, dtype=np.int64))
+    higher = random_bits_torch(k1, n, device)
+    lower = random_bits_torch(k2, n, device)
+    span = (hi_v - lo_v) & _MASK
+    if hi_v <= lo_v:
+        span = 1
+    if out_of_range and hi_v > lo_v:
+        span = (span + 1) & _MASK
+    multiplier = (2 ** 16) % span if span else 2 ** 16
+    multiplier = (multiplier * multiplier) & _MASK
+    multiplier = multiplier % span if span else multiplier
+    offset = (_mul32(_rem(higher, span), multiplier)
+              + _rem(lower, span)) & _MASK
+    offset = _rem(offset, span)
+    value = (lo_v + offset + 2 ** 31) & _MASK                   # int32 wrap
+    return (value - 2 ** 31).to(torch.int32).reshape(shape)

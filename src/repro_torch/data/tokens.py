@@ -7,10 +7,12 @@ reference's batch for the same ``(seed, step)``, and a restart resumes the
 exact data order from the checkpointed step (the cursor is the step).
 
 Tokens follow a Zipf-ish marginal with short-range repetition so losses
-move; this is a load generator, not a corpus.  :func:`synth_tokens` draws
-on a torch device (the CUDA card unless the caller asks for another).  Only
-the text families have batches here: the audio and vlm stubs wait for
-ROADMAP A15.5.
+move; this is a load generator, not a corpus.  :func:`synth_tokens` and
+:func:`synth_batch_for` draw on a torch device (the CUDA card unless the
+caller asks for another).  The audio and vlm families' stub frontends
+take embeddings drawn from a normal distribution (``frame_embeds``,
+``image_embeds``) and the audio codebooks' targets uniform integers
+(``codes``), as the reference draws them.
 """
 from __future__ import annotations
 
@@ -70,14 +72,37 @@ def synth_tokens(cfg: DataConfig, vocab: int, step: int, *,
 def synth_batch_for(cfg: ArchConfig, data: DataConfig, step: int, *,
                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """The training batch of ``cfg``'s family for ``step`` on ``device``
-    (``tokens`` and ``labels``, both (B, S) int32).
+    (the layout of ``configs.base.input_specs``' train batch):
 
-    Raises:
-        ValueError: an audio or vlm configuration (ROADMAP A15.5).
+      text   ``tokens``, ``labels`` (B, S) int32;
+      audio  ``frame_embeds`` (B, S, d) in the config's dtype and
+             ``codes`` (B, S, C) int32 in [0, V);
+      vlm    ``image_embeds`` (B, Vt, d), ``tokens`` (B, S - Vt) and
+             ``labels`` (B, S) (-1 over the image), ``positions``
+             (3, B, S) int32 (0..S-1 on every axis), with ``Vt =
+             min(vision_tokens, S // 2)``; the tokens are the text batch
+             of step ``step``, the image is drawn under step ``step + 1``.
     """
-    if cfg.family in ("audio", "vlm"):
-        raise ValueError(f"{cfg.family} batches (frame embeddings, image "
-                         "patches) wait for the audio and vlm stubs "
-                         "(ROADMAP A15.5)")
-    return synth_tokens(data, cfg.vocab_size, step, device=device)
+    dev = resolve_device(device)
+    if cfg.family == "audio":
+        key = prng.fold_in(prng.prng_key(data.seed), step)
+        B, S = data.global_batch, data.seq_len
+        emb = prng.normal_torch(key, (B, S, cfg.d_model), dev)
+        codes = prng.randint(prng.fold_in(key, 1), (B, S, cfg.n_codebooks),
+                             0, cfg.vocab_size, dev)
+        return {"frame_embeds": emb.to(cfg.torch_dtype), "codes": codes}
+    if cfg.family == "vlm":
+        B, S = data.global_batch, data.seq_len
+        vt = min(cfg.vision_tokens, S // 2)
+        base = synth_tokens(dataclasses.replace(data, seq_len=S - vt),
+                            cfg.vocab_size, step, device=dev)
+        key = prng.fold_in(prng.prng_key(data.seed), step + 1)
+        img = prng.normal_torch(key, (B, vt, cfg.d_model), dev)
+        pos = torch.arange(S, dtype=torch.int32, device=dev).expand(3, B, S)
+        labels = torch.cat([torch.full((B, vt), -1, dtype=torch.int32,
+                                       device=dev), base["labels"]], dim=1)
+        return {"tokens": base["tokens"],
+                "image_embeds": img.to(cfg.torch_dtype),
+                "positions": pos.contiguous(), "labels": labels}
+    return synth_tokens(data, cfg.vocab_size, step, device=dev)
 

@@ -37,6 +37,11 @@ uploaded once as a contiguous tensor: B3 gathers ``w`` and B4
 gathers the Y rows themselves, so the reference's pre-scaled operand and
 its pre-gather of Y rows have no counterpart.  The iteration's odd/even
 branch is taken on the host-side ``it``, as in ``core/sbbnnls.py``.
+
+:func:`life_input_specs` and :func:`life_input_specs_1d` give the dry
+run's operands at paper scale as ``meta`` tensors (no allocation), the
+reference's shapes for a mesh whose rows are its batch axes (``pod`` and
+``data``) and whose columns are ``model``.
 """
 from __future__ import annotations
 
@@ -419,3 +424,65 @@ def op_arrays(shards: LifeShards, op: str) -> Dict[str, np.ndarray]:
     return {k: getattr(shards, f"{op}_{k}" if k in ("atoms", "values")
                        else f"{op}_{k}_local")
             for k in ("atoms", "voxels", "fibers", "values")}
+
+
+# ----------------------------------------------------------------------------
+# dry-run shapes (meta tensors; no allocation)
+# ----------------------------------------------------------------------------
+
+def _row_axes(mesh) -> Tuple[str, ...]:
+    """The mesh axes the voxel rows span: ``pod`` and ``data``, where the
+    mesh has them."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def life_input_specs_1d(mesh, *, n_voxels: int = 247_356,
+                        n_fibers: int = 500_000, n_theta: int = 96,
+                        n_atoms: int = 1_024, nnz: int = 400_000_000
+                        ) -> Dict[str, object]:
+    """:func:`make_sharded_step_1d`'s operands at paper scale as ``meta``
+    tensors: ``(n_dev, ceil(nnz / n_dev))`` coefficient blocks, the whole
+    ``b`` and ``w``, and ``meta`` (the global sizes)."""
+    n_dev = int(mesh.size)
+    nnz_cell = -(-nnz // n_dev)
+    i32, f32 = torch.int32, torch.float32
+    return dict(
+        a=_meta((n_dev, nnz_cell), i32), v=_meta((n_dev, nnz_cell), i32),
+        fi=_meta((n_dev, nnz_cell), i32), vals=_meta((n_dev, nnz_cell), f32),
+        d=_meta((n_atoms, n_theta), f32), b=_meta((n_voxels, n_theta), f32),
+        w=_meta((n_fibers,), f32), it=_meta((), i32),
+        meta=dict(n_voxels=n_voxels, n_fibers=n_fibers, n_theta=n_theta),
+    )
+
+
+def life_input_specs(mesh, *, n_voxels: int = 247_356,
+                     n_fibers: int = 500_000, n_theta: int = 96,
+                     n_atoms: int = 1_024, nnz: int = 400_000_000
+                     ) -> Dict[str, object]:
+    """:func:`make_sharded_step`'s operands at paper scale (Table 9,
+    iFOD1/500k: 2.5e5 voxels, 5e5 fibers, 4e8 coefficients) as ``meta``
+    tensors for a mesh of R rows (its ``pod`` x ``data``) and C columns
+    (``model``): each op's four ``(R, C, ceil(nnz / RC))`` cell arrays
+    (``da dv df dw`` for DSC, ``wa wv wf ww`` for WC), the dictionary,
+    ``b`` ``(R * nv_local, Ntheta)``, ``w`` ``(C * nf_local,)``, ``it``, and
+    ``meta`` (``nv_local``, ``nf_local``, ``n_theta``)."""
+    R = int(np.prod([mesh.shape[a] for a in _row_axes(mesh)]))
+    C = int(mesh.shape["model"])
+    nv_l = -(-n_voxels // R)
+    nf_l = -(-n_fibers // C)
+    nnz_cell = -(-nnz // (R * C))
+    i32, f32 = torch.int32, torch.float32
+    cells = {k: _meta((R, C, nnz_cell), f32 if k.endswith("w") else i32)
+             for k in ("da", "dv", "df", "dw", "wa", "wv", "wf", "ww")}
+    return dict(
+        **cells,
+        d=_meta((n_atoms, n_theta), f32),
+        b=_meta((R * nv_l, n_theta), f32),
+        w=_meta((C * nf_l,), f32),
+        it=_meta((), i32),
+        meta=dict(nv_local=nv_l, nf_local=nf_l, n_theta=n_theta),
+    )

@@ -17,7 +17,9 @@ collectives the reference's compiler would place:
     the gradient over the batch axes (the data-parallel reduction) and
     cuts this rank's block, so gradients come out in the parameters'
     placements;
-  * **the batch** is split over the batch axes (each data rank its rows;
+  * **the batch** is split over the batch axes (each data rank its rows,
+    each input cut along its batch dim by ``sharding.batch_layout``: a
+    vlm's ``positions`` (3, B, S) by dim 1;
     :meth:`ShardedLM.shard_batch`), and every ``model`` rank of a data
     row holds the same rows;
   * **ZeRO-1** (:meth:`ShardedLM.apply_updates`): each moment is held as
@@ -145,22 +147,29 @@ class ShardedLM:
 
     def shard_batch(self, batch: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
-        """This rank's rows of a whole batch (dim 0 over the batch axes).
+        """This rank's rows of a whole batch: each input cut along its
+        batch dim under ``sharding.batch_layout``'s train specs (dim 0,
+        but dim 1 of a vlm's ``positions`` (3, B, S)); a key they do not
+        name is cut along dim 0.
 
         Raises:
             ValueError: the batch does not divide over the batch axes.
         """
         axes = SH.batch_axes(self.mesh)
         n = SH.axis_size(self.mesh, axes)
+        # the specs of a batch that divides: each names its batch dim
+        specs = SH.batch_layout(self.cfg, self.mesh, "train", n)
         out = {}
         for k, v in batch.items():
             if not isinstance(v, torch.Tensor) or v.dim() == 0:
                 out[k] = v
                 continue
-            if v.shape[0] % n:
-                raise ValueError(f"batch {k!r} of {v.shape[0]} rows does "
+            spec = specs.get(k, P(axes))
+            dim = next(i for i, e in enumerate(spec) if e is not None)
+            if v.shape[dim] % n:
+                raise ValueError(f"batch {k!r} of {v.shape[dim]} rows does "
                                  f"not divide over {n} data ranks")
-            out[k] = SH.local_shard(v, P(axes), self.mesh)
+            out[k] = SH.local_shard(v, spec, self.mesh)
         return out
 
     # -- optimizer state -------------------------------------------------

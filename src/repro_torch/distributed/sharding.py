@@ -181,16 +181,19 @@ def opt_state_specs(cfg: ArchConfig, mesh, opt_state_shape: Any) -> Any:
 # ----------------------------------------------------------------------------
 
 def batch_specs(cfg: ArchConfig, mesh, shape_name: str) -> Dict[str, Any]:
-    """Specs of a :data:`~repro_torch.configs.base.SHAPES` batch: tokens
-    and labels for train and prefill, one token and the cache for decode.
-
-    Raises:
-        ValueError: an audio or vlm config (ROADMAP A15.5).
-    """
-    if cfg.family in ("audio", "vlm"):
-        raise ValueError(f"{cfg.family} batches are not ported yet "
-                         "(ROADMAP A15.5)")
+    """Specs of a :data:`~repro_torch.configs.base.SHAPES` batch: the
+    inputs of ``configs.base.input_specs`` for train and prefill (a vlm's
+    ``positions`` (3, B, S) by its dim 1), one token and the cache for
+    decode."""
     seq, batch, kind = SHAPES[shape_name]
+    return batch_layout(cfg, mesh, kind, batch)
+
+
+def batch_layout(cfg: ArchConfig, mesh, kind: str, batch: int
+                 ) -> Dict[str, Any]:
+    """:func:`batch_specs` of a ``kind`` (train, prefill or decode) batch
+    of ``batch`` rows: the rows go over the batch axes when they divide,
+    else stay whole."""
     baxes = batch_axes(mesh)
     bsize = axis_size(mesh, baxes)
     b_ax = baxes if batch % bsize == 0 else None
@@ -198,15 +201,30 @@ def batch_specs(cfg: ArchConfig, mesh, shape_name: str) -> Dict[str, Any]:
     tp_n = axis_size(mesh, tp)
 
     if kind in ("train", "prefill"):
-        specs: Dict[str, Any] = {"tokens": P(b_ax, None)}
+        specs: Dict[str, Any] = {}
+        if cfg.family == "audio":
+            specs["frame_embeds"] = P(b_ax, None, None)
+            if kind == "train":
+                specs["codes"] = P(b_ax, None, None)
+            return specs
+        specs["tokens"] = P(b_ax, None)
+        if cfg.family == "vlm":
+            specs["image_embeds"] = P(b_ax, None, None)
+            specs["positions"] = P(None, b_ax, None)
         if kind == "train":
             specs["labels"] = P(b_ax, None)
         return specs
 
     # decode: one token + cache
-    specs = {"cache_index": P(), "tokens": P(b_ax, None)}
+    specs = {"cache_index": P()}
+    if cfg.family == "audio":
+        specs["frame_embeds"] = P(b_ax, None, None)
+    else:
+        specs["tokens"] = P(b_ax, None)
+    if cfg.family == "vlm":
+        specs["positions"] = P(None, b_ax, None)
     cache: Dict[str, Any] = {}
-    if cfg.family in ("dense", "moe", "hybrid"):
+    if cfg.family in ("dense", "moe", "audio", "vlm", "hybrid"):
         kv_div = cfg.n_kv_heads % tp_n == 0 if tp else False
         if b_ax is not None:
             s_ax = None if kv_div else tp

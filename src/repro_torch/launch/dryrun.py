@@ -1,0 +1,512 @@
+"""The production dry run: one record per (arch x shape x mesh) cell,
+with nothing allocated (torch counterpart of ``repro/launch/dryrun.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh pod \\
+      --arch deepseek-7b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all     # full sweep
+
+Per cell it writes ``results/dryrun/<mesh>/<arch>__<shape>.json`` (or under
+``--out``).  The mesh is ``launch/mesh.py:make_production_mesh()``, a
+shape-only (16, 16) ``(data, model)`` mesh ("pod") or (2, 16, 16) with
+``pod`` ("multipod"); the state is ``launch.steps.abstract_state`` on the
+``meta`` device.
+
+The reference lowers and compiles each cell for 512 placeholder devices
+and reads XLA's memory and cost analysis.  PyTorch has no such compile, so
+a record here is computed from the port's own layouts and schedule
+(ROADMAP §C2):
+
+  * ``memory.argument_size_in_bytes`` is exact: the bytes of one device's
+    blocks (``sharding.shard_bounds`` under the sharding rules' specs) of
+    the parameters, the optimizer state (train; ``opt_for`` picks it as
+    the reference does), the batch and the cache.  Every device holds
+    equal blocks: the rules shard only dims that divide.
+    ``temp_size_in_bytes`` is null: no compiler plans the activations.
+  * ``flops`` are ``roofline.analysis.model_flops``; a train cell with
+    remat adds the recomputed forward (2 N D), which the reference's
+    compiled count holds as well.
+  * the memory term's bytes are the compulsory ones: every argument read
+    once, every output written once (train: parameters and optimizer
+    state; prefill: the cache and the last logits; decode: the logits and
+    the cache entries the step writes).
+  * ``collectives`` are the bytes one device moves in a step of the
+    port's LM mesh (``distributed/lm_shard.py``), through
+    ``roofline.analysis.collective_bytes``: the weight gathers, the
+    gradient sums over the batch axes, ZeRO-1's gathers and region sums
+    and the gradient norm's sums (run by the port's own code on ``meta``
+    tensors over a :class:`RecordingMesh`), and, reckoned from the
+    shapes, the attention heads' and the experts' gathers over ``model``
+    (forward, the remat recompute, backward), the loss's count and the
+    metrics' sums.  A batch that does not divide over the batch axes is
+    held whole by every data rank (the port refuses such a batch on a
+    live mesh; only long_500k's batch of 1 is one, and its decode issues
+    no batch-sized collective).
+  * the 1 T MoE trains with Adafactor (``opt_for``), which the port
+    refuses on a multi-rank mesh (ROADMAP A16.1): its train cells record
+    ``status: "error"`` with that refusal, ``refused: true``.
+
+life-stn96 records the SBBNNLS iteration of the 2-D (voxel x fiber)
+partition at Table-9 scale (``distributed/life_shard.py:
+life_input_specs``; ``life-stn96-1d`` the 1-D one), its collectives those
+of ``make_sharded_step`` (or ``make_sharded_step_1d``), per iteration the
+mean of an odd and an even one.  Full-attention archs skip ``long_500k``, as the
+reference's do.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+import time
+import traceback
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import (ARCH_IDS, SHAPES, ArchConfig,
+                                      cache_specs, get_config, input_specs,
+                                      meta_spec)
+from repro_torch.distributed import lm_shard
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import ShapeMesh, make_production_mesh
+from repro_torch.models import moe as MOE
+from repro_torch.models import transformer as T
+from repro_torch.optim.adamw import OptConfig, apply_updates_zero1
+from repro_torch.roofline import analysis as RL
+
+RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                           "results", "dryrun")
+TEMP_REASON = ("PyTorch compiles no step: the activations' memory is not "
+               "planned ahead, so there is no temp size to read")
+
+Record = Tuple[str, int, int]
+
+
+def opt_for(cfg: ArchConfig) -> OptConfig:
+    """The reference's choice: the 1 T MoE trains with factored moments."""
+    kind = ("adafactor" if cfg.param_count() > SH.FSDP_PARAM_THRESHOLD
+            else "adamw")
+    return OptConfig(kind=kind)
+
+
+class RecordingMesh(ShapeMesh):
+    """A shape-only mesh that stands in for a live one at the coordinates
+    of rank 0: its collectives move nothing (an all-gather returns a
+    ``meta`` tensor of the gathered shape) and are recorded as a
+    :class:`~repro_torch.launch.mesh.HostMesh` records them, ``(kind,
+    bytes of this rank's operand, group size)`` (an all-gather's bytes
+    are its result's)."""
+
+    live = True
+
+    def __init__(self, shape, axis_names):
+        super().__init__(shape, axis_names)
+        self.coords = {a: 0 for a in self.axis_names}
+        self.device = torch.device("meta")
+        self.rank = 0
+        self.collectives: List[Record] = []
+
+    def axes_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    def all_reduce(self, t: torch.Tensor, axes) -> torch.Tensor:
+        n = self.axes_size(axes)
+        if n > 1:
+            self.collectives.append(("all-reduce",
+                                     t.numel() * t.element_size(), n))
+        return t
+
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int
+                   ) -> torch.Tensor:
+        n = self.shape[axis]
+        if n == 1:
+            return t
+        self.collectives.append(("all-gather",
+                                 t.numel() * t.element_size() * n, n))
+        shape = list(t.shape)
+        shape[dim] *= n
+        return t.new_empty(shape, device="meta")
+
+    def barrier(self) -> None:
+        pass
+
+
+# ----------------------------------------------------------------------------
+# bytes per device
+# ----------------------------------------------------------------------------
+
+def _zero(mesh) -> Dict[str, int]:
+    return {a: 0 for a in mesh.axis_names}
+
+
+def block_bytes(t: torch.Tensor, spec, mesh) -> int:
+    """Bytes of one device's block of ``t`` under ``spec``."""
+    b = SH.shard_bounds(tuple(t.shape), spec, mesh, _zero(mesh))
+    return math.prod(s.stop - s.start for s in b) * t.element_size()
+
+
+def tree_bytes(tree: Any, specs: Any, mesh) -> int:
+    """:func:`block_bytes` summed over a tree of tensors and its specs."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(tree[k], specs[k], mesh) for k in tree)
+    return block_bytes(tree, specs, mesh)
+
+
+def param_tree(params: T.Transformer) -> Dict[str, torch.Tensor]:
+    """The reference's parameter tree as ``meta`` tensors (stacked)."""
+    return {k: meta_spec(leaf.shape, leaf.members[0].dtype)
+            for k, leaf in params.reference_leaves().items()}
+
+
+# ----------------------------------------------------------------------------
+# the LM mesh step's collectives
+# ----------------------------------------------------------------------------
+
+def _batch_rows(mesh, batch: int) -> Tuple[int, int]:
+    """(the batch axes' size R, the rows a data rank holds)."""
+    R = SH.axis_size(mesh, SH.batch_axes(mesh))
+    return R, batch // R if batch % R == 0 else batch
+
+
+def _model_collectives(cfg: ArchConfig, mesh, kind: str, seq: int,
+                       batch: int) -> List[Record]:
+    """The collectives the model code issues over ``model`` and the batch
+    axes (``hints.over_model``'s gathers, ``hints.batch_total``, the
+    train step's metric sums), reckoned from the shapes as the code
+    issues them."""
+    R, rows = _batch_rows(mesh, batch)
+    C = mesh.shape.get("model", 1)
+    es = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    train = kind == "train"
+    S = 1 if kind == "decode" else seq
+    out: List[Record] = []
+    # attention: the heads over `model` in training and prefill (decode
+    # runs no over_model); per application a gather of the output, in
+    # training also one per q, k, v gradient and one more for remat
+    if kind != "decode" and C > 1 and cfg.n_heads % C == 0:
+        if cfg.family == "hybrid":
+            apps, recomputed = (cfg.n_layers // cfg.attn_every,) * 2
+        elif cfg.family == "ssm":
+            apps = recomputed = 0
+        else:
+            apps = cfg.n_layers
+            recomputed = cfg.n_layers - (cfg.first_k_dense
+                                         if cfg.family == "moe" else 0)
+        n = apps * (4 if train else 1) + (recomputed if train and cfg.remat
+                                          else 0)
+        out += [("all-gather", rows * S * cfg.n_heads
+                 * cfg.resolved_head_dim * es, C)] * n
+    # the experts over `model`: a gather of every expert's rows of the
+    # rank's dispatch group (forward; backward; the remat recompute)
+    if cfg.family == "moe" and C > 1 and cfg.n_experts % C == 0:
+        capacity = MOE.capacity_of(rows * S, cfg.top_k, cfg.n_experts,
+                                   cfg.capacity_factor)
+        layers = cfg.n_layers - cfg.first_k_dense
+        n = layers * ((2 + (1 if cfg.remat else 0)) if train else 1)
+        out += [("all-gather", cfg.n_experts * capacity * cfg.d_model * es,
+                 C)] * n
+    if train and R > 1:
+        out.append(("all-reduce", 8, R))            # the loss's int64 count
+        out += [("all-reduce", 4, R)] * 3           # loss, aux, total_loss
+    return out
+
+
+def step_collectives(cfg: ArchConfig, mesh, kind: str, seq: int,
+                     batch: int, opt: OptConfig) -> List[Record]:
+    """Every collective one device issues in a ``kind`` step (train,
+    prefill or decode) of ``batch`` sequences of ``seq`` positions on the
+    port's LM mesh of ``mesh``'s shape: ``(kind, bytes, group size)``, as
+    ``HostMesh.collectives`` records them.
+
+    Raises:
+        ValueError: a train step with an optimizer the port refuses on a
+            multi-rank mesh (``ShardedLM.init_opt_state``; ROADMAP A16.1).
+    """
+    rec = RecordingMesh(tuple(mesh.shape.values()), mesh.axis_names)
+    meta = T.Transformer(cfg, "meta")
+    specs = lm_shard.member_specs(cfg, rec, meta)
+    model = T.Transformer(cfg, "meta", place=lambda n, t: SH.local_shard(
+        t, specs[n][1], rec).clone())
+    sharded = lm_shard.ShardedLM(cfg, rec, model, meta)
+    train = kind == "train"
+    if train:
+        state = sharded.init_opt_state(opt)
+    # ShardedLM.call: each parameter gathered into its compute layout (in
+    # training every one passes the gather, whose backward sums its
+    # gradient over the batch axes)
+    for name, p in model.named_parameters():
+        gather = sharded.gathers[name]
+        if train or any(e is not None for e in gather):
+            full = SH.gather_shard(p, gather, rec)
+            if train:
+                rec.all_reduce(full, SH.batch_axes(rec))
+    rec.collectives += _model_collectives(cfg, rec, kind, seq, batch)
+    if train:
+        grads = {k: [torch.empty_like(m) for m in leaf.members]
+                 for k, leaf in model.reference_leaves().items()}
+        apply_updates_zero1(opt, sharded, grads, state)
+    return rec.collectives
+
+
+# ----------------------------------------------------------------------------
+# cells
+# ----------------------------------------------------------------------------
+
+def _lm_memory(cfg: ArchConfig, mesh, shape: str, kind: str, opt):
+    """(arguments by part, outputs) in bytes per device."""
+    seq, batch, _ = SHAPES[shape]
+    params, opt_state = ST.abstract_state(cfg, opt)
+    ptree = param_tree(params)
+    parts = {"params": tree_bytes(ptree, SH.param_specs(cfg, mesh, ptree),
+                                  mesh)}
+    if kind == "train":
+        parts["opt"] = tree_bytes(opt_state, SH.opt_state_specs(
+            cfg, mesh, opt_state), mesh)
+    bspecs = SH.batch_specs(cfg, mesh, shape)
+    bmeta = input_specs(cfg, shape)
+    cache = bmeta.pop("cache", None)
+    cspecs = bspecs.pop("cache", None)
+    parts["batch"] = tree_bytes(bmeta, bspecs, mesh)
+    if cache is not None:
+        parts["cache"] = tree_bytes(cache, cspecs, mesh)
+    _, rows = _batch_rows(mesh, batch)
+    es = cfg.torch_dtype.itemsize
+    logits = rows * max(cfg.n_codebooks, 1) * cfg.vocab_size * es
+    if kind == "train":
+        out = parts["params"] + parts["opt"]
+    elif kind == "prefill":
+        kv = cache_specs(cfg, batch, seq, meta_spec, cfg.torch_dtype)
+        out = logits + tree_bytes(kv, SH.batch_layout(
+            cfg, mesh, "decode", batch)["cache"], mesh)
+    else:
+        out = logits
+        for k, t in cache.items():
+            b = block_bytes(t, cspecs[k], mesh)
+            if k in ("k", "v"):       # one position of the block's
+                local = SH.shard_bounds(tuple(t.shape), cspecs[k], mesh,
+                                        _zero(mesh))[2]
+                b //= local.stop - local.start
+            out += b
+    return parts, out
+
+
+def lower_cell(arch: str, shape: str, mesh, *,
+               variant: str = "base") -> Dict[str, Any]:
+    """One cell's record (see the module docstring)."""
+    if arch.startswith("life-stn96"):
+        return _lower_life(mesh, shape,
+                           variant="1d" if arch.endswith("-1d") else "2d")
+    cfg = get_config(arch)
+    if not cfg.supports(shape):
+        return {"status": "skipped",
+                "reason": "full-attention arch at 500k context "
+                          "(DESIGN.md §4)"}
+    seq, batch, kind = SHAPES[shape]
+    opt = opt_for(cfg)
+    n_chips = mesh.size
+    t0 = time.time()
+    head = {"arch": arch, "shape": shape, "variant": variant,
+            "mesh": dict(shape=dict(mesh.shape), n_chips=int(n_chips)),
+            "kind": kind}
+    try:
+        records = step_collectives(cfg, mesh, kind, seq, batch, opt)
+    except ValueError as e:
+        if kind != "train" or opt.kind == "adamw":
+            raise
+        return {"status": "error", **head, "optimizer": opt.kind,
+                "refused": True, "error": repr(e),
+                "reason": "the port refuses Adafactor on a multi-rank mesh "
+                          "(ROADMAP A16.1); AdamW is not put in its place"}
+    parts, out_bytes = _lm_memory(cfg, mesh, shape, kind, opt)
+    args = sum(parts.values())
+    n_active = cfg.active_param_count()
+    mf = RL.model_flops(cfg, shape, seq, batch, kind)
+    recompute = (2.0 * n_active * seq * batch
+                 if kind == "train" and cfg.remat else 0.0)
+    coll = RL.collective_bytes(records)
+    r = RL.roofline((mf + recompute) / n_chips, args + out_bytes,
+                    coll["total"], n_chips, mf)
+    _, rows = _batch_rows(mesh, batch)
+    return {
+        "status": "ok", **head,
+        "optimizer": opt.kind if kind == "train" else None,
+        "seconds": round(time.time() - t0, 2),
+        "memory": {
+            "argument_size_in_bytes": float(args),
+            "temp_size_in_bytes": None,
+            "temp_size_reason": TEMP_REASON,
+            "output_size_in_bytes": float(out_bytes),
+            "arguments_by_part": {k: float(v) for k, v in parts.items()},
+            "total_bytes_per_device": float(args),
+        },
+        "flops": {"model": mf, "remat_recompute": recompute,
+                  "total": mf + recompute},
+        "collectives": coll,
+        "roofline": r.as_dict(),
+        "mfu_upper_bound": RL.mfu_fraction(r, n_chips, kind),
+        "params": cfg.param_count(),
+        "active_params": n_active,
+        "rows_per_data_rank": rows,
+    }
+
+
+#: the connectome per shape (the reference's Table-9 scales)
+LIFE_SCALES = {
+    "train_4k": dict(n_fibers=500_000, nnz=400_000_000),   # iFOD1 500k
+    "prefill_32k": dict(n_fibers=250_000, nnz=190_000_000),
+    "decode_32k": dict(n_fibers=100_000, nnz=100_000_000),
+    "long_500k": dict(n_fibers=50_000, nnz=50_000_000),
+}
+
+
+def life_collectives(mesh, variant: str, meta: Dict[str, int],
+                     n_y: int, n_w: int) -> List[Record]:
+    """The ``psum``s of an odd and an even SBBNNLS iteration of the port's
+    ``make_sharded_step`` (2-D: partial Y over ``model``, partial w over
+    the rows, every dot over its operand's axis) or
+    ``make_sharded_step_1d`` (1-D: the whole Y and w over the mesh; its
+    dots are local), as a mesh records them (float32).  ``n_y`` and
+    ``n_w``: the rows of the 1-D step's whole ``b`` and ``w``."""
+    from repro_torch.distributed.life_shard import _row_axes
+    R = math.prod(mesh.shape[a] for a in _row_axes(mesh))
+    C = mesh.shape["model"]
+    n_theta = meta["n_theta"]
+    if variant == "1d":
+        y, w = ("all-reduce", n_y * n_theta * 4, R * C), (
+            "all-reduce", n_w * 4, R * C)
+        return [y, w, y] + [y, w, y, w]
+    y = ("all-reduce", meta["nv_local"] * n_theta * 4, C)
+    w = ("all-reduce", meta["nf_local"] * 4, R)
+    dot_y, dot_w = ("all-reduce", 4, R), ("all-reduce", 4, C)
+    odd = [y, w, y, dot_w, dot_y, dot_y]
+    even = [y, w, y, w, dot_y, dot_w, dot_y]
+    return [r for r in odd + even if r[2] > 1]
+
+
+def _lower_life(mesh, shape: str, variant: str = "2d") -> Dict[str, Any]:
+    """The paper's own workload: the distributed SBBNNLS iteration at
+    Table-9 scale, 2-D (voxel x fiber) or the 1-D coefficient partition
+    (the MPI-LiFE analogue)."""
+    from repro_torch.distributed import life_shard as LS
+    from repro_torch.distributed.sharding import P
+    sc = LIFE_SCALES[shape]
+    n_chips = mesh.size
+    t0 = time.time()
+    rows = LS._row_axes(mesh)
+    if variant == "1d":
+        specs = LS.life_input_specs_1d(mesh, **sc)
+        all_axes = rows + ("model",)
+        cell = P(all_axes, None)
+        layout = {"a": cell, "v": cell, "fi": cell, "vals": cell,
+                  "d": P(None, None), "b": P(None, None), "w": P(None),
+                  "it": P()}
+        per_op = {"dsc": ("a", "v", "fi", "vals"),
+                  "wc": ("a", "v", "fi", "vals")}
+    else:
+        specs = LS.life_input_specs(mesh, **sc)
+        cell = P(rows, "model", None)
+        layout = {k: cell for k in ("da", "dv", "df", "dw", "wa", "wv",
+                                    "wf", "ww")}
+        layout.update(d=P(None, None), b=P(rows, None), w=P("model"),
+                      it=P())
+        per_op = {"dsc": ("da", "dv", "df", "dw"),
+                  "wc": ("wa", "wv", "wf", "ww")}
+    meta = specs.pop("meta")
+    held = {k: block_bytes(t, layout[k], mesh) for k, t in specs.items()}
+    records = life_collectives(mesh, variant, meta, specs["b"].shape[0],
+                               specs["w"].shape[0])
+    coll = RL.collective_bytes(records)
+    coll = {k: (v / 2 if k != "counts" else {kk: vv / 2 for kk, vv in
+                                             v.items()})
+            for k, v in coll.items()}
+    n_theta = meta["n_theta"]
+    mf = 3.5 * 2.0 * sc["nnz"] * n_theta
+    # compulsory bytes of an iteration: 2 DSC + 1.5 WC each reading its
+    # op's cell arrays, and the dictionary, b and w read once
+    op_bytes = {op: sum(held[k] for k in ks) for op, ks in per_op.items()}
+    moved = (2 * op_bytes["dsc"] + 1.5 * op_bytes["wc"]
+             + held["d"] + held["b"] + held["w"])
+    r = RL.roofline(mf / n_chips, moved, coll["total"], n_chips, mf)
+    return {
+        "status": "ok",
+        "arch": "life-stn96" + ("-1d" if variant == "1d" else ""),
+        "shape": shape, "variant": variant,
+        "mesh": dict(shape=dict(mesh.shape), n_chips=int(n_chips)),
+        "kind": "sbbnnls", "seconds": round(time.time() - t0, 2),
+        "memory": {
+            "argument_size_in_bytes": float(sum(held.values())),
+            "temp_size_in_bytes": None,
+            "temp_size_reason": TEMP_REASON,
+            "total_bytes_per_device": float(sum(held.values())),
+        },
+        "collectives": coll,
+        "roofline": r.as_dict(),
+        "scale": sc,
+    }
+
+
+def run_cell(arch: str, shape: str, mesh_kind: str,
+             out_dir: Optional[str] = None) -> Dict[str, Any]:
+    """Record one cell into ``<out_dir>/<mesh_kind>/<arch>__<shape>.json``
+    (an exception is recorded, and the sweep goes on)."""
+    mesh = make_production_mesh(multi_pod=(mesh_kind == "multipod"))
+    try:
+        rec = lower_cell(arch, shape, mesh)
+    except Exception as e:  # noqa: BLE001 — recorded, sweep continues
+        rec = {"status": "error", "arch": arch, "shape": shape,
+               "error": repr(e), "traceback": traceback.format_exc()}
+    rec.setdefault("arch", arch)
+    rec.setdefault("shape", shape)
+    rec["mesh_kind"] = mesh_kind
+    rec["package"] = "repro_torch"
+    d = os.path.join(out_dir or RESULTS_DIR, mesh_kind)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, f"{arch}__{shape}.json"), "w") as f:
+        json.dump(rec, f, indent=2, default=float)
+    return rec
+
+
+def main(argv=None) -> int:
+    """Run the cells; returns 1 if a cell failed other than by the
+    port's A16.1 refusal."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="pod", choices=["pod", "multipod"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    archs = ARCH_IDS if (args.all or args.arch is None) else (args.arch,)
+    shapes = tuple(SHAPES) if (args.all or args.shape is None) else (
+        args.shape,)
+    meshes = ("pod", "multipod") if args.all else (args.mesh,)
+    failures = 0
+    for mk in meshes:
+        for a in archs:
+            for s in shapes:
+                t0 = time.time()
+                rec = run_cell(a, s, mk, args.out)
+                dt = time.time() - t0
+                status = rec["status"]
+                extra = ""
+                if status == "ok":
+                    r = rec["roofline"]
+                    mem = rec["memory"]["total_bytes_per_device"] / 1e9
+                    coll = rec["collectives"]["total"] / 1e9
+                    extra = (f" dominant={r['dominant']}"
+                             f" bound={r['bound_s']:.4f}s mem={mem:.2f}GB"
+                             f" coll={coll:.3f}GB")
+                elif status == "error":
+                    failures += not rec.get("refused")
+                    extra = " " + rec["error"][:120]
+                print(f"[{mk}] {a:24s} {s:12s} {status:7s} {dt:6.1f}s{extra}",
+                      flush=True)
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

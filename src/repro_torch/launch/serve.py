@@ -14,6 +14,13 @@ rank 0 prints the whole batch's tokens.  Without ``--model-axis`` (and
 outside a group) no mesh is active, where the reference activates a
 ``(1, 1)`` one.  Beyond the reference's flags, ``--device``,
 ``--backend`` and ``--layers`` (a depth cut) as the trainer's.
+
+Prompts are token ids, so the audio and vlm families are refused: their
+decoders read frame embeddings, or image embeddings with (3, B, S) M-RoPE
+positions, which no prompt format of the CLI carries (the reference's CLI
+fails on them with a ``KeyError``).  Serve them through
+``launch.steps.make_prefill`` / ``make_serve_step`` with their own
+batches.
 """
 from __future__ import annotations
 
@@ -134,6 +141,13 @@ def _serve(args, dev: torch.device, mesh) -> torch.Tensor:
         hints.activate(mesh)
     live = mesh if getattr(mesh, "live", False) else None
     cfg = get_config(args.arch)
+    if cfg.family in ("audio", "vlm"):
+        what = ("frame embeddings" if cfg.family == "audio" else
+                "image embeddings and (3, B, S) M-RoPE positions")
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family reads {what}, which token "
+            "prompts do not carry; serve it through launch.steps."
+            "make_prefill / make_serve_step with its own batches")
     if args.reduced:
         cfg = reduce_cfg(cfg)
     if args.layers:

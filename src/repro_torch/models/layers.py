@@ -4,19 +4,24 @@ Modules hold the parameters in the reference's layout (``x @ w`` with ``w``
 of shape ``(d_in, d_out)``; their constructors take the place of the
 reference's ``init_*`` functions), plain functions do the math with the
 reference's casts.  Parameters take gradients; the serving paths run under
-``torch.no_grad``.  Attention supports GQA/MQA, optional QKV bias, RoPE, a
-dense causal path for sequences of up to :data:`BLOCK_THRESHOLD` tokens,
-flash attention (``models/flash.py``, KV heads repeated to H) beyond it,
-in training and prefill alike (under an active mesh, the reference's mesh
-branch: KV heads repeated to H at every length, heads over ``model``), the reference's blockwise pair-list
-attention (:func:`blockwise_attention`, which nothing calls) and a
-KV-cache decode path.  Learned positions are a table added to the
-embeddings (``models/transformer.py``).  M-RoPE (ROADMAP A15.5) raises.
+``torch.no_grad``.  Attention supports GQA/MQA, optional QKV bias, RoPE
+and M-RoPE (qwen2-vl: :func:`apply_mrope`), a dense causal path for
+sequences of up to :data:`BLOCK_THRESHOLD` tokens, flash attention
+(``models/flash.py``, KV heads repeated to H) beyond it, in training and
+prefill alike (under an active mesh, the reference's mesh branch: KV
+heads repeated to H at every length, heads over ``model``), the
+reference's blockwise pair-list attention (:func:`blockwise_attention`,
+which nothing calls) and a KV-cache decode path.  Learned positions (a
+table) and sinusoidal ones (:func:`sinusoidal_embedding`, musicgen) are
+added to the embeddings (``models/transformer.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Tuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -103,6 +108,51 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def mrope_section_map(head_dim: int,
+                      sections: Tuple[int, int, int]) -> np.ndarray:
+    """The position axis (0 t, 1 h, 2 w) of each of the ``head_dim / 2``
+    frequency slots: ``sections`` consecutive slots each, filled by numpy
+    slices as the reference fills them, so sections that overrun the slots
+    are clipped (at ``head_dim`` 16, sections (16, 24, 24) put every slot
+    in section 0) and slots past their sum stay in section 0."""
+    sec = np.zeros(head_dim // 2, np.int32)
+    ofs = 0
+    for i, s in enumerate(sections):
+        sec[ofs: ofs + s] = i
+        ofs += s
+    return sec
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL).  x: (B, S, H, hd); positions: (3, B, S)
+    int32 for (t, h, w); each frequency slot rotates by the position of
+    its section (:func:`mrope_section_map`)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)            # (hd/2,)
+    sec = torch.as_tensor(mrope_section_map(hd, sections), dtype=torch.long,
+                          device=x.device)
+    pos = positions.float().permute(1, 2, 0)[..., sec]         # (B, S, hd/2)
+    angles = pos * freqs
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_embedding(positions: torch.Tensor,
+                         d_model: int) -> torch.Tensor:
+    """Sine then cosine of ``positions`` (any shape, int) times ``d_model /
+    2`` frequencies ``10000^(-i / (d_model / 2))``: float32, the shape of
+    ``positions`` plus ``d_model``."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ----------------------------------------------------------------------------
 # Attention (GQA / MQA): dense prefill and KV-cache decode
 # ----------------------------------------------------------------------------
@@ -116,6 +166,7 @@ class AttnSpec:
     qkv_bias: bool = False
     rope: str = "rope"           # rope | mrope | none
     rope_theta: float = 1e4
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
 
 
 class Attention(nn.Module):
@@ -155,7 +206,8 @@ def _project_qkv(p: Attention, spec: AttnSpec, x: torch.Tensor,
         q = apply_rope(q, pos2d, spec.rope_theta)
         k = apply_rope(k, pos2d, spec.rope_theta)
     elif spec.rope == "mrope":
-        raise ValueError("M-RoPE is not ported yet (ROADMAP A15.5)")
+        q = apply_mrope(q, positions, spec.rope_theta, spec.mrope_sections)
+        k = apply_mrope(k, positions, spec.rope_theta, spec.mrope_sections)
     return q, k, v
 
 

@@ -1,6 +1,6 @@
 """Model composition: init, the training forward and loss, prefill and
-decode for the dense, MoE, ssm and hybrid families (torch counterpart of
-``repro/models/transformer.py``).
+decode for the dense, MoE, ssm, hybrid, audio and vlm families (torch
+counterpart of ``repro/models/transformer.py``).
 
 The reference scans a stacked layer pytree with ``jax.lax.scan``; here the
 layers are an ``nn.ModuleList`` walked by a Python loop, and
@@ -23,12 +23,19 @@ reference's layout, ``k`` and ``v`` of shape ``(L, B, S_max, KV, hd)``
 add ``ssm`` ``(L, B, H, P, N)`` float32 and ``conv`` ``(L, B, d_conv - 1,
 C)``.
 
+The audio and vlm families are backbones over stub frontends, as in the
+reference.  Audio (musicgen) reads precomputed frame embeddings
+(``frame_embeds`` (B, S, d)) with sinusoidal positions added, and its
+``heads`` (C, d, V) take the place of ``embed`` and ``lm_head``: logits
+are (B, S, C, V), one vocabulary per codebook, and the loss is the mean
+cross-entropy over every ``codes`` (B, S, C) entry.  Vlm (qwen2-vl)
+concatenates ``image_embeds`` (B, Vt, d) before the token embeddings and
+rotates q and k by M-RoPE over ``positions`` (3, B, S), which the batch
+carries in prefill and decode alike.  Both stack dense blocks.
+
 Under an active mesh the reference's sharding hints are called at its
 call sites (``distributed/hints.py``): the layer-entry ``gathered`` and
 the ``residual`` between layers.
-
-The audio and vlm stubs and sinusoidal and M-RoPE positions (ROADMAP
-A15.5) raise.
 """
 from __future__ import annotations
 
@@ -48,7 +55,7 @@ from repro_torch.models.leaves import Leaf, Leaves
 
 AUX_LOSS_WEIGHT = 0.01
 #: the families this module builds
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def attn_spec(cfg: ArchConfig) -> L.AttnSpec:
@@ -56,7 +63,7 @@ def attn_spec(cfg: ArchConfig) -> L.AttnSpec:
     return L.AttnSpec(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias, rope=rope,
-        rope_theta=cfg.rope_theta)
+        rope_theta=cfg.rope_theta, mrope_sections=cfg.mrope_sections)
 
 
 class Block(nn.Module):
@@ -97,18 +104,24 @@ def _table(g, shape, dt, device) -> nn.Parameter:
 
 
 class Transformer(nn.Module):
-    """``embed (V, d)``, ``lm_head (d, V)`` unless the embeddings are tied,
+    """``embed (V, d)``, ``lm_head (d, V)`` unless the embeddings are tied
+    (the audio family: ``heads (C, d, V)`` in place of both),
     ``pos_embed (max_seq_len, d)`` with learned positions, ``final_norm``,
     the MoE family's ``prefix`` dense blocks, and the stacked ``layers``:
-    MoE blocks for the moe family, dense ones for the dense family, Mamba
-    blocks for the ssm family and the hybrid's ``n_super * attn_every``
-    (row-major), which adds its ``tail`` Mamba blocks and the ``shared``
-    attention+MLP block.
+    MoE blocks for the moe family, dense ones for the dense, audio and vlm
+    families, Mamba blocks for the ssm family and the hybrid's ``n_super *
+    attn_every`` (row-major), which adds its ``tail`` Mamba blocks and the
+    ``shared`` attention+MLP block.
 
     ``place(name, tensor) -> tensor``, when given, replaces each
     parameter's data as soon as the table or block holding it is drawn
     (a rank of a mesh keeps its block, and never holds the whole model);
-    the draws are those of an unplaced model."""
+    the draws are those of an unplaced model.
+
+    Raises:
+        ValueError: a family other than :data:`FAMILIES` (life-stn96 is
+            the LiFE workload, not an LM).
+    """
 
     def __init__(self, cfg: ArchConfig, device, g: torch.Generator = None,
                  place=None):
@@ -126,15 +139,19 @@ class Transformer(nn.Module):
 
         if cfg.family not in FAMILIES:
             raise ValueError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP A15.5);"
-                f" the port runs the {', '.join(FAMILIES)} families")
-        if cfg.rope not in ("rope", "learned"):
-            raise ValueError(f"{cfg.rope} positions are not ported yet "
-                             "(ROADMAP A15.5)")
+                f"family {cfg.family!r} is no LM family: the model runs the "
+                f"{', '.join(FAMILIES)} families")
         dt = cfg.torch_dtype
         self.final_norm = L.Norm(cfg.norm, cfg.d_model, dt, device)
-        self.embed = _table(g, (cfg.vocab_size, cfg.d_model), dt, device)
-        if not cfg.tie_embeddings:
+        if cfg.family == "audio":
+            shape = (cfg.n_codebooks, cfg.d_model, cfg.vocab_size)
+            self.heads = L._param(
+                L.normal_init(g, shape, cfg.d_model ** -0.5, dt, device)
+                if g is not None else torch.empty(shape, dtype=dt,
+                                                  device=device))
+        else:
+            self.embed = _table(g, (cfg.vocab_size, cfg.d_model), dt, device)
+        if cfg.family != "audio" and not cfg.tie_embeddings:
             head = (L.dense_init(g, cfg.d_model, cfg.vocab_size, dt, device)
                     if g is not None else torch.empty(
                         (cfg.d_model, cfg.vocab_size), dtype=dt, device=device))
@@ -224,22 +241,36 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 def embed_inputs(cfg: ArchConfig, p: Transformer, batch: Dict,
                  *, offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x (B,S,d), positions (B,S) int32) for a token batch; with
-    learned positions their table's rows are added to ``x``."""
-    tokens = batch["tokens"]
-    x = p.embed[tokens]
+    """Returns (x (B,S,d), positions): (B,S) int32 from ``offset`` on, or
+    the vlm batch's own ``positions`` (3,B,S).  A token batch embeds
+    ``tokens``; the audio family reads ``frame_embeds``; the vlm family
+    puts ``image_embeds`` (when the batch has them: not in decode) before
+    its tokens.  Learned and sinusoidal positions are added to ``x``."""
+    if cfg.family == "audio":
+        x = batch["frame_embeds"]
+    else:
+        x = p.embed[batch["tokens"]]
+        if cfg.family == "vlm":
+            if "image_embeds" in batch:
+                x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
+            return x, batch["positions"]
     B, S, _ = x.shape
     positions = (offset + torch.arange(S, dtype=torch.int32,
                                        device=x.device)[None, :]
                  + torch.zeros((B, 1), dtype=torch.int32, device=x.device))
-    if cfg.rope == "learned":
+    if cfg.rope == "sinusoidal":
+        x = x + L.sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
+    elif cfg.rope == "learned":
         x = x + p.pos_embed[positions]
     return x, positions
 
 
 def logits_fn(cfg: ArchConfig, p: Transformer,
               x: torch.Tensor) -> torch.Tensor:
+    """(B, S, V) logits, or (B, S, C, V) for the audio family."""
     x = L.apply_norm(cfg.norm, p.final_norm, x)
+    if cfg.family == "audio":
+        return torch.einsum("bsd,cdv->bscv", x, p.heads)
     head = p.embed.T if cfg.tie_embeddings else p.lm_head
     return x @ head
 
@@ -347,18 +378,26 @@ def forward_train(cfg: ArchConfig, p: Transformer,
 def loss_fn(cfg: ArchConfig, p: Transformer, batch: Dict
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (``loss + AUX_LOSS_WEIGHT * aux``, {"loss", "aux"}): the
-    mean next-token cross-entropy over labels >= 0, from float32
-    log-probabilities.  On a live mesh each rank holds its data shard's
-    rows and divides by the count over every shard, so the ranks' losses
-    (and gradients) sum to the whole batch's."""
+    mean next-token cross-entropy over labels >= 0 (the audio family: over
+    every entry of ``codes`` (B, S, C)), from float32 log-probabilities.
+    On a live mesh each rank holds its data shard's rows and divides by
+    the count over every shard, so the ranks' losses (and gradients) sum
+    to the whole batch's."""
     logits, aux = forward_train(cfg, p, batch)
-    labels = batch["labels"]
     ls = F.log_softmax(logits.float(), dim=-1)
-    mask = labels >= 0
-    safe = torch.clamp(labels, min=0).long()
-    nll = -torch.gather(ls, -1, safe[..., None])[..., 0]
-    count = hints.batch_total(mask.sum())
-    loss = torch.sum(nll * mask) / torch.clamp(count, min=1)
+    if cfg.family == "audio":
+        codes = batch["codes"].long()
+        nll = -torch.gather(ls, -1, codes[..., None])[..., 0]
+        count = hints.batch_total(torch.tensor(nll.numel(),
+                                               device=nll.device))
+        loss = torch.sum(nll) / count
+    else:
+        labels = batch["labels"]
+        mask = labels >= 0
+        safe = torch.clamp(labels, min=0).long()
+        nll = -torch.gather(ls, -1, safe[..., None])[..., 0]
+        count = hints.batch_total(mask.sum())
+        loss = torch.sum(nll * mask) / torch.clamp(count, min=1)
     total = loss + AUX_LOSS_WEIGHT * aux
     return total, {"loss": loss, "aux": aux}
 
@@ -375,7 +414,8 @@ def _mamba_prefill(cfg: ArchConfig, blk: MambaBlock, x: torch.Tensor,
 @torch.no_grad()
 def prefill(cfg: ArchConfig, p: Transformer,
             batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (last-position logits (B, 1, V), the cache): ``k``/``v`` of
+    """Returns (last-position logits (B, 1, V); audio (B, 1, C, V)) and the
+    cache: ``k``/``v`` of
     shape (L, B, S, KV, hd) (the hybrid: one per shared-block
     application), and for the ssm and hybrid families ``ssm`` (L, B, H, P,
     N) float32 and ``conv`` (L, B, d_conv - 1, C)."""
@@ -422,7 +462,8 @@ def _mamba_decode(cfg: ArchConfig, blk: MambaBlock, x: torch.Tensor,
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, p: Transformer,
                 batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token serve step.  batch: tokens (B, 1), cache (as
+    """One-token serve step.  batch: tokens (B, 1) (audio: frame_embeds
+    (B, 1, d); vlm: also positions (3, B, 1)), cache (as
     :func:`prefill` gives it, ``k``/``v`` padded to S_max), cache_index
     (tokens already cached).  Writes the new keys, values and states into
     the cache in place and returns (logits (B, 1, V), the cache with

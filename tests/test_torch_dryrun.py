@@ -1,0 +1,361 @@
+"""The port's dry run (``repro_torch/launch/dryrun.py``) and its inputs.
+
+``configs.base.input_specs`` / ``cache_specs`` against the reference's,
+shape and dtype, for every architecture and shape; life-stn96's mesh
+operands against ``repro.distributed.life_shard``'s; the records' bytes
+per device against every rank's ``shard_bounds`` blocks; the collective
+schedule against what the port's meshes record: a reduced train, prefill
+and decode step on a (2, 2) mesh of four gloo CPU ranks
+(``HostMesh.collectives``, kind, bytes and group size for each one), and
+an odd and an even SBBNNLS iteration of the 2-D and 1-D steps on a (2, 2)
+``LocalMesh``; the mesh step's loss against one process's (the audio
+loss's count over every data rank); the sweep over every cell of the pod
+mesh (each ``ok`` or ``skipped``, but kimi-k2's train cell, the A16.1
+refusal) through the CLI; and ``roofline/report.py``'s tables over
+records of both packages.
+"""
+import dataclasses
+import json
+import math
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.distributed import life_shard as JLS
+from repro_torch.configs import base
+from repro_torch.distributed import life_shard as LS
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import spmd
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import mesh as HM
+from repro_torch.optim.adamw import OptConfig
+from repro_torch.roofline import report
+
+POD = HM.make_production_mesh()
+MULTIPOD = HM.make_production_mesh(multi_pod=True)
+RANK_ENV = {"OMP_NUM_THREADS": "1"}
+#: the reduced step the gloo ranks record: (arch, seq, global batch)
+RECORDED = (("phi3.5-moe-42b-a6.6b", 16, 4), ("qwen2-vl-7b", 24, 4),
+            ("musicgen-large", 16, 4), ("zamba2-1.2b", 16, 4))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _dt(x) -> str:
+    return str(x.dtype).replace("torch.", "")
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return (tuple(tree.shape), _dt(tree))
+
+
+@pytest.mark.parametrize("arch", base.ARCH_IDS)
+def test_input_specs_equal_reference(arch):
+    """Every shape's batch (the decode cache within it) and the overrides,
+    as meta tensors of the reference's shapes and dtypes."""
+    cfg, jcfg = base.get_config(arch), jbase.get_config(arch)
+    for shape in base.SHAPES:
+        got, want = base.input_specs(cfg, shape), jbase.input_specs(jcfg,
+                                                                    shape)
+        assert _shapes(got) == jax.tree.map(
+            lambda s: (tuple(s.shape), str(s.dtype)), want), shape
+        assert all(t.device.type == "meta" for t in jax.tree.leaves(
+            got, is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    kw = {"seq_len": 64, "global_batch": 3}
+    assert _shapes(base.input_specs(cfg, "decode_32k", kw)) == jax.tree.map(
+        lambda s: (tuple(s.shape), str(s.dtype)),
+        jbase.input_specs(jcfg, "decode_32k", kw))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "qwen2-vl-7b",
+                                  "musicgen-large", "mamba2-2.7b"])
+def test_cache_specs_equal_reference(arch):
+    cfg, jcfg = base.get_config(arch), jbase.get_config(arch)
+    got = base.cache_specs(cfg, 2, 40, base.meta_spec, cfg.torch_dtype)
+    want = jbase.cache_specs(jcfg, 2, 40, jax.ShapeDtypeStruct,
+                             jcfg.jnp_dtype)
+    assert _shapes(got) == {k: (tuple(v.shape), str(v.dtype))
+                            for k, v in want.items()}
+
+
+class _JMesh:
+    """What the reference's life specs read of a mesh."""
+
+    def __init__(self, mesh):
+        self.axis_names = mesh.axis_names
+        self.shape = dict(mesh.shape)
+        self.devices = np.empty(tuple(mesh.shape.values()))
+
+
+@pytest.mark.parametrize("mesh", [POD, MULTIPOD], ids=["pod", "multipod"])
+@pytest.mark.parametrize("fn", ["life_input_specs", "life_input_specs_1d"])
+def test_life_input_specs_equal_reference(mesh, fn):
+    for sc in D.LIFE_SCALES.values():
+        got = getattr(LS, fn)(mesh, **sc)
+        want = getattr(JLS, fn)(_JMesh(mesh), **sc)
+        assert got.pop("meta") == want.pop("meta")
+        assert _shapes(got) == {k: (tuple(v.shape), str(v.dtype))
+                                for k, v in want.items()}
+
+
+def _every_rank_bytes(t, spec, mesh):
+    """Bytes of every rank's block of ``t``, summed (each rank's coordinates
+    walked, its block from ``shard_bounds``)."""
+    total = 0
+    for idx in np.ndindex(*mesh.shape.values()):
+        coords = dict(zip(mesh.axis_names, idx))
+        b = SH.shard_bounds(tuple(t.shape), spec, mesh, coords)
+        total += math.prod(s.stop - s.start for s in b) * t.element_size()
+    return total
+
+
+def _tree_every_rank(tree, specs, mesh):
+    if isinstance(tree, dict):
+        return sum(_tree_every_rank(tree[k], specs[k], mesh) for k in tree)
+    return _every_rank_bytes(tree, specs, mesh)
+
+
+@pytest.mark.parametrize("arch,shape,mesh", [
+    ("deepseek-7b", "train_4k", POD), ("qwen2-vl-7b", "decode_32k", MULTIPOD),
+    ("musicgen-large", "prefill_32k", POD), ("zamba2-1.2b", "long_500k", POD),
+    ("phi3.5-moe-42b-a6.6b", "train_4k", MULTIPOD)])
+def test_argument_bytes_are_every_ranks_blocks(arch, shape, mesh):
+    """``argument_size_in_bytes`` is one device's share of the blocks every
+    rank holds (``shard_bounds`` at each coordinate) of the parameters,
+    the AdamW state (train), the batch and the cache."""
+    from repro_torch.launch import steps as ST
+    cfg = base.get_config(arch)
+    rec = D.lower_cell(arch, shape, mesh)
+    assert rec["status"] == "ok"
+    assert rec["memory"]["temp_size_in_bytes"] is None
+    params, opt = ST.abstract_state(cfg, D.opt_for(cfg))
+    ptree = D.param_tree(params)
+    want = {"params": _tree_every_rank(
+        ptree, SH.param_specs(cfg, mesh, ptree), mesh)}
+    if rec["kind"] == "train":
+        want["opt"] = _tree_every_rank(
+            opt, SH.opt_state_specs(cfg, mesh, opt), mesh)
+    batch = base.input_specs(cfg, shape)
+    specs = SH.batch_specs(cfg, mesh, shape)
+    if "cache" in batch:
+        want["cache"] = _tree_every_rank(batch.pop("cache"),
+                                         specs.pop("cache"), mesh)
+    want["batch"] = _tree_every_rank(batch, specs, mesh)
+    got = rec["memory"]["arguments_by_part"]
+    assert got == {k: v / mesh.size for k, v in want.items()}
+    assert rec["memory"]["argument_size_in_bytes"] == sum(got.values())
+
+
+RANK_STEPS = """
+import dataclasses, json, sys
+import torch
+import torch.distributed as dist
+from repro_torch.configs.base import get_config, reduced
+from repro_torch.data.tokens import DataConfig, synth_batch_for
+from repro_torch.distributed import hints, lm_shard, spmd
+from repro_torch.launch import mesh as HM
+from repro_torch.launch import steps as ST
+from repro_torch.launch.serve import pad_cache
+from repro_torch.optim.adamw import OptConfig
+torch.set_num_threads(1)
+spmd.join_process_group("gloo", torch.device("cpu"))
+out = {}
+for arch, seq, batch in json.load(open(sys.argv[1])):
+    cfg = dataclasses.replace(reduced(get_config(arch)), remat=True)
+    mesh = HM.make_host_mesh(2, "cpu")
+    hints.activate(mesh)
+    params = ST.init_placed(cfg, mesh, torch.Generator().manual_seed(0),
+                            "cpu")
+    sharded = lm_shard.sharded(params)
+    opt = OptConfig()
+    state = sharded.init_opt_state(opt)
+    b = synth_batch_for(cfg, DataConfig(seq_len=seq, global_batch=batch), 0,
+                        device="cpu")
+    mesh.collectives.clear()
+    _, _, metrics = ST.make_train_step(cfg, opt)(params, state, b)
+    out[f"{arch}/train"] = list(mesh.collectives)
+    out[f"{arch}/loss"] = float(metrics["loss"])
+    local = sharded.shard_batch({k: v for k, v in b.items()
+                                 if k not in ("labels", "codes")})
+    mesh.collectives.clear()
+    _, cache = ST.make_prefill(cfg)(params, local)
+    out[f"{arch}/prefill"] = list(mesh.collectives)
+    cache = pad_cache(cache, seq + 1)
+    if cfg.family == "audio":
+        step = {"frame_embeds": local["frame_embeds"][:, -1:]}
+    else:
+        step = {"tokens": local["tokens"][:, -1:]}
+    if cfg.family == "vlm":
+        step["positions"] = local["positions"][:, :, -1:] + 1
+    mesh.collectives.clear()
+    ST.make_serve_step(cfg)(params, dict(step, cache=cache, cache_index=seq))
+    out[f"{arch}/decode"] = list(mesh.collectives)
+    hints.deactivate()
+if dist.get_rank() == 0:
+    with open(sys.argv[2], "w") as f:
+        json.dump(out, f)
+print("RANK DONE", flush=True)
+"""
+
+
+@pytest.fixture(scope="module")
+def recorded(tmp_path_factory):
+    """Four gloo CPU ranks at (2, 2), each step of RECORDED's reduced
+    configs (remat on) once: rank 0's ``HostMesh.collectives`` per step."""
+    root = tmp_path_factory.mktemp("dryrun_mesh")
+    jobs, out = root / "jobs.json", root / "collectives.json"
+    jobs.write_text(json.dumps(RECORDED))
+    spmd.launch(["-c", RANK_STEPS, str(jobs), str(out)], 4,
+                str(root / "ranks"), deadline_s=240.0, env=RANK_ENV)
+    return json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch,seq,batch", RECORDED,
+                         ids=[a for a, _, _ in RECORDED])
+def test_step_collectives_equal_what_a_gloo_mesh_records(recorded, arch, seq,
+                                                          batch, kind):
+    """The dry run's schedule of a reduced step on a (2, 2) mesh is, kind
+    for kind and byte for byte, what four gloo ranks recorded running it
+    (weight gathers, gradient sums, attention and expert gathers, ZeRO-1,
+    the loss's count and the metrics)."""
+    cfg = dataclasses.replace(base.reduced(base.get_config(arch)), remat=True)
+    got = D.step_collectives(cfg, HM.ShapeMesh((2, 2), ("data", "model")),
+                             kind, seq, batch, OptConfig())
+    want = [tuple(r) for r in recorded[f"{arch}/{kind}"]]
+    assert sorted(got) == sorted(want)
+    assert want
+
+
+@pytest.mark.parametrize("arch,seq,batch", RECORDED,
+                         ids=[a for a, _, _ in RECORDED])
+def test_mesh_loss_divides_by_the_whole_batch(recorded, arch, seq, batch):
+    """The first step's loss of the (2, 2) gloo mesh (each data rank its
+    rows, its sum divided by the count over both: B * S * C codes for the
+    audio family, the labels >= 0 for the others) equals one process's
+    loss of the whole batch under a shape-only (2, 2) mesh."""
+    from repro_torch.data.tokens import DataConfig, synth_batch_for
+    from repro_torch.distributed import hints
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(base.reduced(base.get_config(arch)), remat=True)
+    model = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    b = synth_batch_for(cfg, DataConfig(seq_len=seq, global_batch=batch), 0,
+                        device="cpu")
+    hints.activate(HM.ShapeMesh((2, 2), ("data", "model")))
+    try:
+        with torch.no_grad():
+            _, m = T.loss_fn(cfg, model, b)
+    finally:
+        hints.deactivate()
+    np.testing.assert_allclose(recorded[f"{arch}/loss"], float(m["loss"]),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["2d", "1d"])
+def test_life_collectives_equal_a_local_mesh(variant):
+    """An odd and an even SBBNNLS iteration of the port's 2-D / 1-D steps
+    on a (2, 2) LocalMesh record what ``life_collectives`` reckons."""
+    from repro_torch.data.dmri import synth_connectome
+    from repro_torch.distributed.mesh import LocalMesh
+    problem = synth_connectome(n_fibers=60, n_theta=8, n_atoms=12,
+                               grid=(6, 6, 6), seed=3, device="cpu")
+    mesh = LocalMesh(2, 2, "cpu")
+    shape = HM.ShapeMesh((2, 2), ("data", "model"))
+    phi, b = problem.phi, problem.b
+    w = torch.ones(phi.n_fibers)
+    if variant == "2d":
+        shards = LS.build_life_shards(phi, 8, 2, 2)
+        state = LS.sharded_state(mesh, shards, problem)
+        step = LS.make_sharded_step(mesh, shards.meta)
+        args = (state["dsc"], state["wc"], state["b"], state["w"])
+        meta = shards.meta
+    else:
+        blocks = LS.build_life_shards_1d(phi, 4)
+        cells = LS.coo_cells(mesh, {(r, c): {k: v[r * 2 + c] for k, v in
+                                             blocks.items()}
+                                    for r in range(2) for c in range(2)},
+                             "dsc", n_atoms=phi.n_atoms,
+                             nv_local=phi.n_voxels, nf_local=phi.n_fibers,
+                             dictionary=problem.dictionary)
+        step = LS.make_sharded_step_1d(mesh, {})
+        args = (cells, b, w)
+        meta = {"n_theta": 8}
+    for it in (1, 2):
+        args = (*args[:-1], step(*args, it)[0])
+    n_y = b.shape[0] if variant == "1d" else 0
+    want = D.life_collectives(shape, variant, meta, n_y, phi.n_fibers)
+    assert sorted(mesh.collectives) == sorted(want)
+
+
+def test_every_pod_cell_is_ok_skipped_or_refused(tmp_path):
+    """The sweep over every architecture and shape of the pod mesh through
+    the CLI: every cell ``ok`` or ``skipped`` (full attention at
+    long_500k), but kimi-k2's train cell, which records the port's A16.1
+    refusal; the exit code counts no failure."""
+    assert D.main(["--mesh", "pod", "--out", str(tmp_path)]) == 0
+    recs = report.load(str(tmp_path))
+    assert len(recs) == len(base.ARCH_IDS) * len(base.SHAPES)
+    for r in recs:
+        name = (r.get("arch"), r.get("shape"))
+        if name == ("kimi-k2-1t-a32b", "train_4k"):
+            assert r["status"] == "error" and r["refused"], r
+            assert "A16.1" in r["error"] and r["optimizer"] == "adafactor"
+        elif r["status"] == "skipped":
+            assert r["shape"] == "long_500k"
+            assert not base.get_config(r["arch"]).sub_quadratic
+        else:
+            assert r["status"] == "ok", r
+            assert r["memory"]["argument_size_in_bytes"] > 0
+            assert r["roofline"]["dominant"] in ("compute", "memory",
+                                                 "collective")
+            if r["kind"] == "train" and not r["arch"].startswith("life"):
+                assert r["flops"]["remat_recompute"] > 0
+                assert r["collectives"]["all-gather"] > 0
+    life = [r for r in recs if r["arch"] == "life-stn96"]
+    assert {r["kind"] for r in life} == {"sbbnnls"}
+
+
+def test_report_renders_both_packages_records(tmp_path):
+    """A port record, a skip, the refusal and a record in the reference's
+    layout (its compiled temp size) in one table."""
+    for arch, shape in (("qwen2-vl-7b", "prefill_32k"),
+                        ("deepseek-7b", "long_500k"),
+                        ("kimi-k2-1t-a32b", "train_4k")):
+        D.run_cell(arch, shape, "pod", str(tmp_path))
+    ref = {"status": "ok", "arch": "stablelm-12b", "shape": "train_4k",
+           "kind": "train", "mesh_kind": "pod",
+           "memory": {"temp_size_in_bytes": 3e9,
+                      "argument_size_in_bytes": 2e9,
+                      "total_bytes_per_device": 5e9},
+           "roofline": {"compute_s": 1.0, "memory_s": 0.5,
+                        "collective_s": 0.25, "dominant": "compute",
+                        "useful_ratio": 0.8},
+           "mfu_upper_bound": 0.4}
+    (tmp_path / "pod" / "stablelm-12b__train_4k.json").write_text(
+        json.dumps(ref))
+    recs = report.load(str(tmp_path))
+    text = report.table(recs, "pod")
+    rows = text.splitlines()[2:]
+    assert len(rows) == 4
+    assert any(r.startswith("| deepseek-7b | long_500k | — | SKIP")
+               for r in rows)
+    assert any(r.startswith("| kimi-k2-1t-a32b | train_4k | — | ERROR")
+               for r in rows)
+    assert "| stablelm-12b | train_4k | train | 1.0000 | 0.5000 | 0.2500 | " \
+           "**compute** | 0.80 | 5.0 | 0.400 |" in rows
+    vlm = [r for r in rows if r.startswith("| qwen2-vl-7b")][0]
+    assert "| prefill |" in vlm
+    s = report.summary(recs)
+    assert "4 total, 2 ok, 1 documented skips, 1 errors (1 refused" in s
+    report.main(["--dir", str(tmp_path)])

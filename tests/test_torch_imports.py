@@ -124,16 +124,20 @@ SLICE_FOURTEEN = ("launch/mesh.py", "distributed/sharding.py",
                   "distributed/hints.py", "distributed/lm_shard.py",
                   "launch/steps.py", "launch/serve.py", "core/batched.py",
                   "checkpoint/manager.py", "models/moe.py")
-#: the configurations the training and long-sequence slices add
+#: the audio and vlm families and the dry run (ROADMAP A15.5, A15.6)
+SLICE_FIFTEEN = ("launch/dryrun.py", "roofline/report.py", "configs/base.py",
+                 "core/prng.py")
+#: the configurations the training, long-sequence and fifteenth slices add
 NEW_CONFIGS = ("qwen1.5-4b", "deepseek-7b", "stablelm-12b", "granite-34b",
-               "kimi-k2-1t-a32b", "mamba2-2.7b", "zamba2-1.2b")
+               "kimi-k2-1t-a32b", "mamba2-2.7b", "zamba2-1.2b",
+               "musicgen-large", "qwen2-vl-7b", "life-stn96")
 
 
 @pytest.mark.parametrize("module", SLICE_TEN + tuple(
     m for m in SLICE_ELEVEN if m not in SLICE_TEN) + SLICE_TWELVE
-    + SLICE_THIRTEEN + SLICE_FOURTEEN)
+    + SLICE_THIRTEEN + SLICE_FOURTEEN + SLICE_FIFTEEN)
 def test_slice_ten_modules_exist_and_import_alone(module):
-    """Each module of the slices ten to fourteen is in the port and
+    """Each module of the slices ten to fifteen is in the port and
     imports in a fresh interpreter that has neither jax nor the reference
     importable."""
     path = ROOT / "src" / "repro_torch" / module
@@ -144,8 +148,8 @@ def test_slice_ten_modules_exist_and_import_alone(module):
 
 
 def test_new_configs_import_alone():
-    """The training and long-sequence slices' configurations register
-    through get_config in a fresh interpreter without jax or the
+    """The training, long-sequence and fifteenth slices' configurations
+    register through get_config in a fresh interpreter without jax or the
     reference."""
     for name in NEW_CONFIGS:
         path = ROOT / "src" / "repro_torch" / "configs" / (

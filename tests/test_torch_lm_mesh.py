@@ -2,8 +2,9 @@
 reference's, train steps on meshes of gloo CPU ranks against the port's
 single-process step under a shape-only mesh of the same shape (the same
 dispatch groups and attention branch) and against the reference's
-GSPMD step on 8 host devices, the elastic restart (4, 2) -> (2, 4), and
-serving on a mesh.
+GSPMD step on 8 host devices, the elastic restart (4, 2) -> (2, 4),
+serving on a mesh, and a reduced vlm trained on a (2, 1) mesh (its
+``positions`` (3, B, S) split by their batch dim, 1).
 
 One module fixture runs every multi-rank job once
 (``repro_torch.distributed.spmd.launch``: fresh interpreters joined by
@@ -223,6 +224,8 @@ def _restored(ckpt_dir, step=None):
 
 SERVE_ARGV = ["--arch", "phi3.5-moe-42b-a6.6b", "--reduced", "--device",
               "cpu", "--batch", "4", "--gen", "6"]
+#: reduced, 16 image patches and 16 tokens a row at ARGV's --seq-len 32
+VLM = "qwen2-vl-7b"
 
 
 @pytest.fixture(scope="module")
@@ -274,6 +277,23 @@ def runs(tmp_path_factory):
                  str(root / "restart.json"))]
     jobs[4] += [("serve", [*SERVE_ARGV, "--model-axis", "2"]),
                 ("refused", [*ARGV, "--model-axis", "3"])]
+    # the vlm on two data ranks, from its own step-0 checkpoint
+    vlm_start = str(root / "vlm-start")
+    train.main(["--arch", VLM, "--reduced", "--steps", "0", "--device",
+                "cpu", "--ckpt-dir", vlm_start])
+    vlm_single, vlm_mesh = str(root / "vlm-single"), str(root / "vlm-mesh")
+    shutil.copytree(vlm_start, vlm_single)
+    shutil.copytree(vlm_start, vlm_mesh)
+    out["vlm"] = dict(
+        single=train.main(["--arch", VLM, *ARGV, "--ckpt-dir",
+                           vlm_single],
+                          mesh=HM.ShapeMesh((2, 1), ("data", "model"))),
+        single_dir=vlm_single, mesh_dir=vlm_mesh,
+        metrics=str(root / "vlm-2x1.json"))
+    out["logs2"] = _jobs([("train", ["--arch", VLM, *ARGV,
+                                     "--model-axis", "1", "--ckpt-dir",
+                                     vlm_mesh], out["vlm"]["metrics"])],
+                         2, str(root / "ranks2"))
     # the (4, 2) checkpoint is copied for the restart jobs once written
     src = out["deepseek-7b", 4, 2]["mesh_dir"]
     jobs[8].insert(len(ARCHS), ("copy", [src, again, resaved]))
@@ -284,6 +304,8 @@ def runs(tmp_path_factory):
             r = out[arch, R, C]
             with open(r["metrics"]) as f:
                 r["mesh"] = json.load(f)
+    with open(out["vlm"]["metrics"]) as f:
+        out["vlm"]["mesh"] = json.load(f)
     out["resaved"] = _restored(resaved, STEPS)
     with open(root / "restart.json") as f:
         out["continued"] = json.load(f)
@@ -309,6 +331,23 @@ def test_mesh_train_matches_single_process_of_the_same_g(runs, arch, R, C):
     got, want = _losses(r["mesh"]["metrics"]), r["single"].losses
     assert r["mesh"]["mesh"] == {"data": R, "model": C}
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    mesh_w, single_w = _restored(r["mesh_dir"]), _restored(r["single_dir"])
+    assert sorted(mesh_w) == sorted(single_w)
+    for k in mesh_w:
+        np.testing.assert_allclose(mesh_w[k].numpy(), single_w[k].numpy(),
+                                   err_msg=k, **PARAM_TOL)
+
+
+def test_vlm_mesh_train_matches_single_process(runs):
+    """A reduced qwen2-vl on two gloo data ranks at (2, 1): each rank's
+    rows of every input, ``positions`` (3, B, S) cut along dim 1 (cut
+    along dim 0, 3 rows would not divide over 2 ranks), three steps
+    within float32 summation order of one process under a shape-only
+    (2, 1) mesh, in losses and final weights."""
+    r = runs["vlm"]
+    assert r["mesh"]["mesh"] == {"data": 2, "model": 1}
+    np.testing.assert_allclose(_losses(r["mesh"]["metrics"]),
+                               r["single"].losses, rtol=LOSS_RTOL)
     mesh_w, single_w = _restored(r["mesh_dir"]), _restored(r["single_dir"])
     assert sorted(mesh_w) == sorted(single_w)
     for k in mesh_w:

@@ -2,9 +2,11 @@
 
 ``repro_torch.core.prng`` reproduces jax.random's default generator without
 JAX, so the port's dictionary, and with it the whole synthetic problem, is
-the reference's for the same seed.
+the reference's for the same seed; its torch samplers ``randint`` and
+``normal_torch`` draw the audio and vlm batches.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -41,6 +43,54 @@ def test_split_and_normal_match_jax(seed, n):
     want = np.asarray(jax.random.normal(jax.random.split(jkey)[0], (n, 3)))
     assert got.dtype == np.float32 and got.shape == (n, 3)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("lo,hi", [
+    (0, 2048), (0, 152064), (5, 6), (0, 1), (-7, 3), (9, 9), (9, 2),
+    (-2 ** 31, 2 ** 31 - 1), (-2 ** 31, 0), (0, 2 ** 31 - 1),
+    (3, 2 ** 31 - 1)],
+    ids=lambda v: str(v))
+def test_randint_matches_jax_bit_for_bit(lo, hi):
+    """``jax.random.randint(..., jnp.int32)``: a span of 1, an empty span
+    (``minval`` back), spans that are not powers of two, and the whole
+    int32 range (its span wraps in unsigned 32-bit arithmetic)."""
+    for seed, shape in ((0, (3, 5, 4)), (11, (4097,))):
+        jkey = jax.random.fold_in(jax.random.PRNGKey(seed), 1)
+        want = np.asarray(jax.random.randint(jkey, shape, lo, hi, jnp.int32))
+        got = prng.randint(prng.fold_in(prng.prng_key(seed), 1), shape, lo,
+                           hi, "cpu")
+        assert got.dtype == torch.int32 and tuple(got.shape) == shape
+        np.testing.assert_array_equal(got.numpy(), want)
+    if hi - lo == 1 or hi <= lo:
+        assert (got == lo).all()
+
+
+def test_randint_above_int32_widens_the_span():
+    """``maxval`` past int32's range (JAX refuses such a Python int in
+    jit; its rule: clip it, widen the span by one) gives the whole range:
+    the span wraps to 0 and the remainders leave the lower bits as they
+    are."""
+    key = prng.prng_key(2)
+    got = prng.randint(key, (64,), -2 ** 31, 2 ** 31, "cpu").numpy()
+    lower = prng.random_bits(prng.split(key)[1], (64,))        # uint32
+    np.testing.assert_array_equal(got, lower.astype(np.int64) - 2 ** 31)
+
+
+@pytest.mark.parametrize("shape", [(7,), (4, 33, 16), (2, 64, 256)])
+def test_normal_torch_matches_jax(shape):
+    """Within 1e-6 (three float32 ulps at most) of ``jax.random.normal``
+    (XLA's float32
+    ``erf_inv`` polynomial; the exact inverse would be up to ~2e-5 off
+    near the tails)."""
+    for seed in (0, 9):
+        jkey = jax.random.fold_in(jax.random.PRNGKey(seed), 4)
+        want = np.asarray(jax.random.normal(jkey, shape))
+        got = prng.normal_torch(prng.fold_in(prng.prng_key(seed), 4), shape,
+                                "cpu")
+        assert got.dtype == torch.float32
+        err = np.abs(got.numpy() - want)
+        assert np.all(err <= 3 * np.spacing(np.abs(want))), seed
+        assert err.max() <= 1e-6
 
 
 def test_split_key_of_seed_7():

@@ -236,10 +236,25 @@ def test_hints_follow_the_reference():
 
 
 def test_audio_and_vlm_batches_wait_for_their_families():
+    """They wait no more (ROADMAP A15.5): the audio and vlm batches of
+    every shape equal the reference's on a (4, 2) mesh, a vlm's
+    ``positions`` (3, B, S) split by its dim 1, and a family's layout
+    applied to another config follows the family."""
+    mesh = HM.ShapeMesh((4, 2), ("data", "model"))
+    jmesh = _Mesh((4, 2), ("data", "model"))
+    for arch in ("musicgen-large", "qwen2-vl-7b"):
+        cfg, jcfg = base.get_config(arch), jbase.get_config(arch)
+        for shape in base.SHAPES:
+            want = jax.tree.map(_norm, JSH.batch_specs(jcfg, jmesh, shape),
+                                is_leaf=lambda x: isinstance(x, JP))
+            got = {k: ({kk: _norm(vv) for kk, vv in v.items()}
+                       if isinstance(v, dict) else _norm(v))
+                   for k, v in SH.batch_specs(cfg, mesh, shape).items()}
+            assert got == want, (arch, shape)
+    vlm = SH.batch_specs(base.get_config("qwen2-vl-7b"), mesh, "train_4k")
+    assert _norm(vlm["positions"]) == (None, "data", None)
     cfg = base.get_config("phi3.5-moe-42b-a6.6b")
     import dataclasses
-    mesh = HM.ShapeMesh((4, 2), ("data", "model"))
-    for fam in ("audio", "vlm"):
-        with pytest.raises(ValueError, match="A15.5"):
-            SH.batch_specs(dataclasses.replace(cfg, family=fam), mesh,
-                           "train_4k")
+    audio = SH.batch_specs(dataclasses.replace(cfg, family="audio"), mesh,
+                           "decode_32k")
+    assert set(audio) == {"cache_index", "frame_embeds", "cache"}

@@ -152,13 +152,54 @@ def test_synth_batch_for_matches_reference(arch):
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
+@pytest.mark.parametrize("arch", ["musicgen-large", "qwen2-vl-7b"])
+@pytest.mark.parametrize("reduce", [True, False], ids=["reduced", "full"])
+def test_synth_batch_for_audio_and_vlm_match_reference(arch, reduce):
+    """The audio and vlm batches: ``codes``, tokens, labels and positions
+    bit for bit, the normal embeddings within 1e-6 (float32; at full
+    size bf16, within one bf16 rounding of the reference's)."""
+    cfg, jcfg = base.get_config(arch), jbase.get_config(arch)
+    if reduce:
+        cfg, jcfg = base.reduced(cfg), jbase.reduced(jcfg)
+    data = dict(seed=3, seq_len=40, global_batch=2)
+    for step in (0, 5):
+        want = jtokens.synth_batch_for(jcfg, jtokens.DataConfig(**data), step)
+        got = tokens.synth_batch_for(cfg, tokens.DataConfig(**data), step,
+                                     device="cpu")
+        assert set(got) == set(want)
+        for k in want:
+            w = np.asarray(want[k].astype(jnp.float32)
+                           if want[k].dtype == jnp.bfloat16 else want[k])
+            g = got[k].float().numpy() if got[k].is_floating_point() else \
+                got[k].numpy()
+            assert tuple(got[k].shape) == w.shape, k
+            if k.endswith("_embeds"):
+                assert got[k].dtype == cfg.torch_dtype
+                tol = 1e-6 if reduce else 2.0 ** -8 * np.abs(w) + 1e-6
+                assert np.all(np.abs(g - w) <= tol), k
+            else:
+                assert got[k].dtype == torch.int32
+                np.testing.assert_array_equal(g, w, err_msg=k)
+
+
 def test_audio_and_vlm_batches_wait_for_their_stubs():
+    """They wait no more (ROADMAP A15.5): an audio or vlm layout applied to
+    another config gives that family's keys, dtypes and shapes."""
     cfg = base.reduced(base.get_config("qwen1.5-4b"))
-    for family in ("audio", "vlm"):
-        other = dataclasses.replace(cfg, family=family)
-        with pytest.raises(ValueError, match="A15.5"):
-            tokens.synth_batch_for(other, tokens.DataConfig(), 0,
-                                   device="cpu")
+    data = tokens.DataConfig(seq_len=12, global_batch=2)
+    audio = tokens.synth_batch_for(
+        dataclasses.replace(cfg, family="audio", n_codebooks=3), data, 0,
+        device="cpu")
+    assert {k: (tuple(v.shape), v.dtype) for k, v in audio.items()} == {
+        "frame_embeds": ((2, 12, 64), torch.float32),
+        "codes": ((2, 12, 3), torch.int32)}
+    vlm = tokens.synth_batch_for(
+        dataclasses.replace(cfg, family="vlm", vision_tokens=16), data, 0,
+        device="cpu")
+    assert {k: tuple(v.shape) for k, v in vlm.items()} == {
+        "tokens": (2, 6), "image_embeds": (2, 6, 64), "positions": (3, 2, 12),
+        "labels": (2, 12)}
+    assert (vlm["labels"][:, :6] == -1).all()
 
 
 def test_synth_tokens_want_the_card_by_default(monkeypatch):
