@@ -230,7 +230,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                the trainer on one NCCL rank, four gloo ranks on the one
                card at (2, 2) against one process under a shape-only
                mesh, the elastic restart, the cohort's placement, serving
-               through --model-axis 1.  Prints {"mesh_lm": ...}.
+               through --model-axis 1; 16f Adafactor on the four gloo
+               ranks (16b's model, steps and schedule) against one
+               process under the shape-only mesh: losses, gradient norms,
+               gathered weights and factors, B7's launches per rank.
+               Prints {"mesh_lm": ...}.
   17. modal  — (after 16) the audio and vlm families at full width, bf16;
                no kernel of the repo on this path.  17a musicgen-large
                (48 layers): a prefill of 4 x 2,048 frame embeddings
@@ -4395,6 +4399,16 @@ MESH_LM_UPDATE_TOL = 0.3
 #: scales, 1.0 in bf16, do not move at this learning rate)
 MESH_LM_LEAVES = ("embed", "layers/attn/wq", "layers/moe/router",
                   "layers/moe/wi_gate")
+#: 16f's factors (``vr``, ``vc``) gathered on rank 0 after its last step
+MESH_FACTORS = (("layers/attn/wq", "vr"), ("layers/attn/wq", "vc"),
+                ("layers/moe/wi_gate", "vr"), ("layers/moe/wi_gate", "vc"))
+#: 16f's factors against the single process's, per leaf, as
+#: ||v_mesh - v_single|| / ||v_single||: means of squared bf16 gradients,
+#: which two data ranks sum once more in bf16 than one process, and for
+#: the experts' also tokens that a bf16 near-tie routes to another expert
+#: (one column of vc was 19x off); the H100 measured 2.5e-3 and 9.5e-3
+#: (wq's vr, vc), 1.3e-2 and 3.2e-2 (wi_gate's); about 5x each
+MESH_FACTOR_TOL = {"layers/attn/wq": 5e-2, "layers/moe/wi_gate": 0.16}
 #: the cohort on a mesh against the unplaced cohort (the reference's
 #: tolerance, tests/test_distributed.py)
 MESH_COHORT_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -4415,6 +4429,15 @@ def mesh_restart_argv(steps: int, model_axis: int, ckpt: str) -> list:
             "--seq-len", "64", "--global-batch", "8", "--lr", "1e-3",
             "--log-every", "1", "--model-axis", str(model_axis),
             "--device", "cuda:0", "--backend", "gloo", "--ckpt-dir", ckpt]
+
+
+def adafactor_for(argv: list):
+    """The trainer CLI's optimizer for ``argv`` (its learning rate and
+    schedule) with Adafactor in AdamW's place (``train.main``'s ``opt``:
+    the CLI has no flag for it)."""
+    from repro_torch.launch import train
+    return dataclasses.replace(train.cli_opt(train.parse_args(argv)),
+                               kind="adafactor")
 
 
 def b7_per_step(cfg) -> int:
@@ -4535,6 +4558,43 @@ def phase_mesh_single(cfg) -> dict:
     return out
 
 
+def phase_mesh_single_adafactor(cfg) -> dict:
+    """16f's counterpart: 16b's single process with Adafactor; keeps its
+    final MESH_LM_LEAVES and MESH_FACTORS."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as HM
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = mesh_lm_argv(MESH_LM_STEPS)
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    run = train.main(argv, mesh=HM.ShapeMesh((2, 2), ("data", "model")),
+                     opt=adafactor_for(argv))
+    counts = dict(_build.LAUNCHES)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = {"moe_gmm": b7_per_step(cfg) * MESH_LM_STEPS}
+    log("mesh-lm", f"16f one process under a shape-only (2, 2) mesh with "
+        f"Adafactor ({run.opt}): launches {counts} (expected {want}); losses "
+        f"{[round(x, 4) for x in run.losses]}; step ms "
+        f"{[round(x, 3) for x in run.step_ms]}; peak memory "
+        f"{peak / 2**30:.2f} GiB; {wall:.1f} s (init included)")
+    if counts != want:
+        raise AssertionError(f"16f single launch counts {counts} != {want}")
+    if run.opt.kind != "adafactor" or "fac" not in run.opt_state:
+        raise AssertionError(f"16f single ran {run.opt.kind}")
+    out = dict(launches=counts["moe_gmm"], losses=run.losses,
+               grad_norms=[m["grad_norm"] for m in run.metrics],
+               step_ms=run.step_ms, peak_gib=peak / 2**30, wall_s=wall,
+               leaves=picked_leaves(run.params),
+               factors={f"{k}/{v}": run.opt_state["fac"][k][v].float().cpu()
+                        for k, v in MESH_FACTORS})
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_rank_b7(params, cfg) -> dict:
     """B7 on this rank's own experts (EP) at the training step's segment
     shape, against its plain version; held to GMM_TOL's bf16 contract."""
@@ -4601,6 +4661,7 @@ def mesh_rank(jobs_path: str) -> int:
     import shutil
     import torch.distributed as dist
     from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as SH
     from repro_torch.distributed import spmd
     from repro_torch.kernels import _build
     from repro_torch.launch import train
@@ -4622,8 +4683,11 @@ def mesh_rank(jobs_path: str) -> int:
                 continue
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
             _build.reset_launches()
-            run = train.main(job["argv"])
+            opt = (adafactor_for(job["argv"]) if job["kind"] ==
+                   "train-adafactor" else None)
+            run = train.main(job["argv"], opt=opt)
             counts = dict(_build.LAUNCHES)
             mesh = run.params.mesh_state.mesh
             cb = collective_bytes(mesh.collectives)
@@ -4633,7 +4697,8 @@ def mesh_rank(jobs_path: str) -> int:
                        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
                        coll_bytes_per_step=cb["total"] / max(
                            1, len(run.step_ms)),
-                       coll_counts=cb["counts"], coords=mesh.coords)
+                       coll_counts=cb["counts"], coords=mesh.coords,
+                       optimizer=run.opt.kind)
             if job["kind"] == "train-full":
                 cfg = dataclasses.replace(get_config(LM_ARCH),
                                           n_layers=TRAIN_LAYERS)
@@ -4644,6 +4709,20 @@ def mesh_rank(jobs_path: str) -> int:
                 if rank == 0:
                     torch.save(leaves, f"{job['out']}-leaves.pt")
                 del lm, leaves
+            if job["kind"] == "train-adafactor":
+                lm = run.params.mesh_state
+                specs = lm.opt_specs(run.opt)["fac"]
+                saved = {k: lm.gather_leaf(k).float()
+                         for k in MESH_LM_LEAVES}
+                for k, v in MESH_FACTORS:
+                    saved[f"{k}/{v}"] = SH.gather_shard(
+                        run.opt_state["fac"][k][v], specs[k][v],
+                        mesh).cpu()
+                if rank == 0:
+                    torch.save(saved, f"{job['out']}-leaves.pt")
+                del lm, saved
+            torch.cuda.synchronize(dev)
+            out["job_s"] = time.perf_counter() - t0
             with open(f"{job['out']}-rank{rank}.json", "w") as f:
                 json.dump(out, f)
             del run, mesh
@@ -4653,14 +4732,91 @@ def mesh_rank(jobs_path: str) -> int:
     return 0
 
 
-def phase_mesh_ranks(cfg, single: dict, cohort_path: str) -> dict:
-    """16b, 16c and 16d's rank side: one spawn of four gloo ranks on
+def weight_gaps(leaves: dict, single: dict, init: dict) -> dict:
+    """Per gathered leaf, (||w_mesh - w_single|| / ||w_single - w_init||,
+    max abs diff)."""
+    out = {}
+    for k in MESH_LM_LEAVES:
+        w, ws = leaves[k], single[k]
+        step = ws - init[k]
+        out[k] = (float((w - ws).norm() / step.norm()),
+                  float((w - ws).abs().max()))
+    return out
+
+
+def check_mesh_adafactor(cfg, single: dict, init: dict, prefix: str
+                         ) -> dict:
+    """16f: the four ranks' Adafactor job against the single process
+    (``single``, :func:`phase_mesh_single_adafactor`), as 16b is held,
+    and its gathered factors."""
+    ranks = []
+    for k in range(4):
+        with open(f"{prefix}-rank{k}.json") as f:
+            ranks.append(json.load(f))
+    saved = torch.load(f"{prefix}-leaves.pt")
+    gaps = step_gaps(ranks[0], single)
+    updates = weight_gaps(saved, single["leaves"], init)
+    factors = {}
+    for key, want in single["factors"].items():
+        got = saved[key]
+        factors[key] = (float((got - want).norm() / want.norm()),
+                        float(((got - want).abs() / want.abs().clamp(
+                            min=1e-30)).max()))
+    want = {"moe_gmm": b7_per_step(cfg) * MESH_LM_STEPS}
+    for k, r in enumerate(ranks):
+        log("mesh-lm", f"16f rank {k} cell {r['coords']} ({r['optimizer']}): "
+            f"B7 launches {r['launches']} (expected {want}); step ms (CUDA "
+            f"events) {[round(x, 1) for x in r['step_ms']]}; bytes moved per "
+            f"device per step {r['coll_bytes_per_step'] / 1e9:.3f} GB "
+            f"({r['coll_counts']}; staged through host memory: "
+            f"{r['staged']}); peak memory {r['peak_gib']:.2f} GiB; job "
+            f"{r['job_s']:.1f} s")
+    log("mesh-lm", f"16f (2, 2) of four gloo ranks with Adafactor: losses "
+        f"{[round(x, 4) for x in ranks[0]['losses']]} against the single "
+        f"process's {[round(x, 4) for x in single['losses']]}, gradient "
+        f"norms {[round(x, 4) for x in ranks[0]['grad_norms']]} against "
+        f"{[round(x, 4) for x in single['grad_norms']]}; largest relative "
+        f"gaps {gaps} (limit {MESH_LM_REL_TOL}); final weights per leaf "
+        f"(||w_mesh - w_single|| / ||w_single - w_init||, max abs diff) "
+        f"{updates} (limit {MESH_LM_UPDATE_TOL} on the first); factors "
+        f"(||v_mesh - v_single|| / ||v_single||, max relative diff) "
+        f"{factors} (limits {MESH_FACTOR_TOL} on the first)")
+    for k, r in enumerate(ranks):
+        if r["launches"] != want:
+            raise AssertionError(f"16f rank {k} launches {r['launches']}")
+        if r["optimizer"] != "adafactor":
+            raise AssertionError(f"16f rank {k} ran {r['optimizer']}")
+    if not np.isfinite(ranks[0]["losses"]).all() or any(
+            gaps[k] > MESH_LM_REL_TOL[k] for k in gaps):
+        raise AssertionError(f"16f {gaps} against the single process")
+    if max(u for u, _ in updates.values()) > MESH_LM_UPDATE_TOL:
+        raise AssertionError(f"16f final weights {updates}")
+    if not all(np.isfinite(v) and v <= MESH_FACTOR_TOL[key.rsplit("/", 1)[0]]
+               for key, (v, _) in factors.items()):
+        raise AssertionError(f"16f factors {factors}")
+    return dict(losses=ranks[0]["losses"], gaps=gaps, updates=updates,
+                factors=factors, job_s=max(r["job_s"] for r in ranks),
+                step_ms=[r["step_ms"] for r in ranks],
+                bytes_per_step=[r["coll_bytes_per_step"] for r in ranks],
+                coll_counts=ranks[0]["coll_counts"],
+                peak_gib=[r["peak_gib"] for r in ranks],
+                launches=sum(r["launches"]["moe_gmm"] for r in ranks))
+
+
+def phase_mesh_ranks(cfg, single: dict, single_af: dict,
+                     cohort_path: str) -> dict:
+    """16b, 16c, 16d and 16f's rank side: one spawn of four gloo ranks on
     cuda:0 (chip_smoke.py --mesh-rank), then the checks."""
     import shutil
     from repro_torch.checkpoint import manager as CK
     from repro_torch.distributed import spmd
+    from repro_torch.launch.dryrun import step_collectives
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.roofline.analysis import collective_bytes
     d = MESH_LM_DIR
     full = os.path.join(d, "16b")
+    adafactor = os.path.join(d, "16f")
     a, b = os.path.join(d, "ckpt-2x2"), os.path.join(d, "ckpt-1x4")
     restart = os.path.join(d, "16c")
     gloo_out = os.path.join(d, "16d-gloo.npz")
@@ -4668,6 +4824,9 @@ def phase_mesh_ranks(cfg, single: dict, cohort_path: str) -> dict:
         shutil.rmtree(path, ignore_errors=True)
     jobs = [
         dict(kind="train-full", out=full, argv=mesh_lm_argv(
+            MESH_LM_STEPS, ["--model-axis", "2", "--device", "cuda:0",
+                            "--backend", "gloo"])),
+        dict(kind="train-adafactor", out=adafactor, argv=mesh_lm_argv(
             MESH_LM_STEPS, ["--model-axis", "2", "--device", "cuda:0",
                             "--backend", "gloo"])),
         dict(kind="train", out=restart + "-2x2",
@@ -4690,7 +4849,7 @@ def phase_mesh_ranks(cfg, single: dict, cohort_path: str) -> dict:
                             "expandable_segments:True"})
     wall = time.perf_counter() - t0
     staged = [k for k, text in enumerate(logs) if "staging" in text]
-    log("mesh-lm", f"four gloo ranks on cuda:0 ran 16b, 16c and 16d in "
+    log("mesh-lm", f"four gloo ranks on cuda:0 ran 16b, 16f, 16c and 16d in "
         f"{wall:.1f} s (process starts included); ranks that staged their "
         f"collectives through host memory: {staged}")
 
@@ -4702,11 +4861,7 @@ def phase_mesh_ranks(cfg, single: dict, cohort_path: str) -> dict:
     losses = ranks[0]["losses"]
     gaps = step_gaps(ranks[0], single)
     leaves = torch.load(f"{full}-leaves.pt")
-    updates = {}
-    for k, w in leaves.items():
-        step = single["leaves"][k] - single["init"][k]
-        updates[k] = (float((w - single["leaves"][k]).norm() / step.norm()),
-                      float((w - single["leaves"][k]).abs().max()))
+    updates = weight_gaps(leaves, single["leaves"], single["init"])
     want = {"moe_gmm": b7_per_step(cfg) * MESH_LM_STEPS}
     for k, r in enumerate(ranks):
         log("mesh-lm", f"16b rank {k} cell {r['coords']}: B7 launches "
@@ -4742,6 +4897,23 @@ def phase_mesh_ranks(cfg, single: dict, cohort_path: str) -> dict:
     if max(u for u, _ in updates.values()) > MESH_LM_UPDATE_TOL:
         raise AssertionError(f"16b final weights {updates}")
 
+    # 16f
+    af = check_mesh_adafactor(cfg, single_af, single["init"], adafactor)
+    reckoned = {kind: collective_bytes(step_collectives(
+        cfg, ShapeMesh(MESH_SHAPE, ("data", "model")), "train", TRAIN_SEQ,
+        TRAIN_BATCH, OptConfig(kind=kind)))["total"]
+        for kind in ("adafactor", "adamw")}
+    log("mesh-lm", f"16f against 16b (AdamW) on the same ranks: bytes moved "
+        f"per device per step {af['bytes_per_step'][0] / 1e9:.3f} GB against "
+        f"{ranks[0]['coll_bytes_per_step'] / 1e9:.3f} GB (the dry run's "
+        f"schedule, launch/dryrun.py:step_collectives, reckons "
+        f"{reckoned['adafactor'] / 1e9:.3f} and "
+        f"{reckoned['adamw'] / 1e9:.3f} GB); step ms "
+        f"{[round(x, 1) for x in af['step_ms'][0]]} against "
+        f"{[round(x, 1) for x in ranks[0]['step_ms']]}; peak memory per rank "
+        f"{[round(x, 2) for x in af['peak_gib']]} GiB against "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB")
+
     # 16c
     first = CK.restore(a, 3)[1]
     again = CK.restore(b, 3)[1]
@@ -4767,7 +4939,7 @@ def phase_mesh_ranks(cfg, single: dict, cohort_path: str) -> dict:
     with np.load(gloo_out) as z:
         gloo = {k: z[k] for k in z.files}
     return dict(losses=losses, gaps=gaps, updates=updates, ranks=ranks,
-                gloo=gloo, wall_s=wall,
+                gloo=gloo, wall_s=wall, adafactor=af,
                 launches=sum(r["launches"]["moe_gmm"] for r in ranks))
 
 
@@ -4853,20 +5025,27 @@ def phase_mesh_lm(trained: dict, cohort_path: str) -> dict:
     nccl = phase_mesh_nccl(trained, cfg)
     t.append(time.perf_counter())
     single = phase_mesh_single(cfg)
-    ranks = phase_mesh_ranks(cfg, single, cohort_path)
+    single_af = phase_mesh_single_adafactor(cfg)
+    ranks = phase_mesh_ranks(cfg, single, single_af, cohort_path)
     t.append(time.perf_counter())
     cohort = phase_mesh_cohort(cohort_path, ranks.pop("gloo"))
     t.append(time.perf_counter())
     served = phase_mesh_serve(cfg)
     t.append(time.perf_counter())
     secs = [b - a for a, b in zip(t, t[1:])]
+    af = ranks["adafactor"]
+    af_s = single_af["wall_s"] + af["job_s"]
     log("mesh-lm", f"phase 16 took {t[-1] - t[0]:.1f} s: 16a {secs[0]:.1f} "
-        f"s, 16b-16c with 16d's ranks {secs[1]:.1f} s, 16d {secs[2]:.1f} s, "
-        f"16e {secs[3]:.1f} s")
+        f"s, 16b-16c with 16d's and 16f's ranks {secs[1]:.1f} s, 16d "
+        f"{secs[2]:.1f} s, 16e {secs[3]:.1f} s, 16f {af_s:.1f} s (its one "
+        f"process {single_af['wall_s']:.1f} s, its ranks' job "
+        f"{af['job_s']:.1f} s inside the spawn)")
     return dict(nccl=nccl, ranks=ranks, cohort=cohort, served=served,
+                adafactor=af,
                 launches=(nccl["launches"] + single["launches"]
-                          + ranks["launches"] + served["launches"]),
-                seconds=secs)
+                          + single_af["launches"] + ranks["launches"]
+                          + af["launches"] + served["launches"]),
+                seconds=secs + [af_s])
 
 
 # ----------------------------------------------------------------------------

@@ -22,14 +22,19 @@ collectives the reference's compiler would place:
     vlm's ``positions`` (3, B, S) by dim 1;
     :meth:`ShardedLM.shard_batch`), and every ``model`` rank of a data
     row holds the same rows;
-  * **ZeRO-1** (:meth:`ShardedLM.apply_updates`): each moment is held as
-    this rank's region under ``opt_state_specs`` (for a stacked leaf the
-    batch axes usually take the layer dim, so a data rank owns whole
-    layers' moments).  Per parameter, the rank gathers the gradient and
-    weight, updates its moments' region and the weight's region, and the
-    regions are summed over the mesh into the new weight (each element
-    written by one rank, zeros elsewhere), of which each rank keeps its
-    block.
+  * **ZeRO-1** (:meth:`ShardedLM.apply_updates`): each leaf of the
+    optimizer state is held as this rank's region under
+    ``opt_state_specs`` (for a stacked leaf the batch axes usually take
+    the layer dim, so a data rank owns whole layers' moments).  AdamW:
+    per parameter, the rank gathers the gradient and weight, updates its
+    moments' region and the weight's region, and the regions are summed
+    over the mesh into the new weight (each element written by one rank,
+    zeros elsewhere), of which each rank keeps its block.  Adafactor: its
+    factors' row and column sums, and its RMS, span a whole unit, so the
+    rank sums them from its gradient block over the ranks that split
+    them, gathers the factors (``d + ff`` floats a layer, not the
+    weight's ``d * ff``), and updates its own block
+    (:meth:`ShardedLM._adafactor_leaf`).
 
 :meth:`ShardedLM.state_tree` gathers a state into the reference's tree of
 whole tensors (what checkpoints hold); a restore reads each array and
@@ -39,6 +44,7 @@ the parts in.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -46,6 +52,7 @@ from torch import nn
 
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.sharding import P
+from repro_torch.optim.adamw import OptConfig, _chunked, init_opt_state
 
 
 class _GatherParam(torch.autograd.Function):
@@ -115,6 +122,8 @@ class ShardedLM:
         self.cfg, self.mesh, self.model = cfg, mesh, model
         self._bound = _Bound(model)
         leaves = meta.reference_leaves()
+        self.meta_leaves = leaves
+        self._key_specs: Optional[Dict[str, P]] = None
         self.full_shapes = {k: leaf.shape for k, leaf in leaves.items()}
         self.leads = {k: leaf.lead for k, leaf in leaves.items()}
         self.specs = SH.param_specs(cfg, mesh, leaves)
@@ -173,39 +182,31 @@ class ShardedLM:
         return out
 
     # -- optimizer state -------------------------------------------------
-    def opt_shapes(self) -> Dict:
-        """The whole AdamW state's shapes, in its tree."""
-        return {"mu": dict(self.full_shapes), "nu": dict(self.full_shapes),
-                "step": ()}
+    def opt_shapes(self, opt) -> Dict:
+        """The whole state of optimizer ``opt``, in its tree, as ``meta``
+        tensors (``optim.adamw.init_opt_state`` on the reference
+        leaves)."""
+        return init_opt_state(opt, self.meta_leaves)
 
-    def opt_specs(self) -> Dict:
-        """``opt_state_specs`` of the whole AdamW state."""
-        return SH.opt_state_specs(self.cfg, self.mesh, self.opt_shapes())
+    def opt_specs(self, opt) -> Dict:
+        """``opt_state_specs`` of the whole state of optimizer ``opt``."""
+        return SH.opt_state_specs(self.cfg, self.mesh, self.opt_shapes(opt))
 
     def init_opt_state(self, opt) -> Dict:
-        """Zero AdamW state held as this rank's regions (ZeRO-1).
-
-        Raises:
-            ValueError: an optimizer other than AdamW (Adafactor's
-                factored statistics span a parameter's rows and columns;
-                ROADMAP A16.1).
-        """
-        if opt.kind != "adamw":
-            raise ValueError(f"{opt.kind} on a multi-rank mesh is not "
-                             "ported (ROADMAP A16.1); use adamw")
+        """Zero state of optimizer ``opt`` held as this rank's regions
+        under :meth:`opt_specs` (ZeRO-1): AdamW's moments, or
+        Adafactor's factors."""
         dev = self.mesh.device
-        specs = self.opt_specs()
 
-        def zeros(shape, spec):
-            b = SH.shard_bounds(shape, spec, self.mesh, self.mesh.coords)
+        def zeros(x, spec):
+            if isinstance(x, dict):
+                return {k: zeros(v, spec[k]) for k, v in x.items()}
+            b = SH.shard_bounds(tuple(x.shape), spec, self.mesh,
+                                self.mesh.coords)
             return torch.zeros([s.stop - s.start for s in b],
-                               dtype=torch.float32, device=dev)
+                               dtype=x.dtype, device=dev)
 
-        return {"mu": {k: zeros(s, specs["mu"][k])
-                       for k, s in self.full_shapes.items()},
-                "nu": {k: zeros(s, specs["nu"][k])
-                       for k, s in self.full_shapes.items()},
-                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        return zeros(self.opt_shapes(opt), self.opt_specs(opt))
 
     def _owner_axes(self, spec: P) -> Tuple[str, ...]:
         """Mesh axes ``spec`` does not shard over: ranks that differ only
@@ -252,16 +253,23 @@ class ShardedLM:
 
     @torch.no_grad()
     def apply_updates(self, opt, grads: Dict[str, List[torch.Tensor]],
-                      state: Dict, update: Callable) -> torch.Tensor:
+                      state: Dict, update) -> torch.Tensor:
         """ZeRO-1 step: clips ``grads`` (blocks, per path) by the global
-        norm, then per parameter runs ``update(p32, g32, mu, nu, decay) ->
-        new p32`` on this rank's moment region and rebuilds the weight from
-        every rank's region.  Where each rank's region lies in its own
-        block of the weight (the experts: both shard the experts over
-        ``model``) the gradient and weight are cut locally and the new
-        block is summed over the ranks that hold the same block; else the
-        whole gradient and weight are gathered and the new weight summed
-        over the mesh.  Returns the norm before clipping."""
+        norm, then updates every parameter's block and this rank's state
+        regions.  Returns the norm before clipping.
+
+        AdamW (``update(p32, g32, mu, nu, decay) -> new p32``) runs on
+        this rank's moment region and rebuilds the weight from every
+        rank's region.  Where each rank's region lies in its own block of
+        the weight (the experts: both shard the experts over ``model``)
+        the gradient and weight are cut locally and the new block is
+        summed over the ranks that hold the same block; else the whole
+        gradient and weight are gathered and the new weight summed over
+        the mesh.
+
+        Adafactor (``update``: an ``optim.adamw.Adafactor``) runs on each
+        rank's gradient block (:meth:`_adafactor_leaf`), gathering only
+        the factors."""
         gnorm = self.grad_norm(grads)
         scale = torch.clamp(opt.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
@@ -270,7 +278,13 @@ class ShardedLM:
                 g.copy_((g.float() * scale).to(g.dtype))
         mesh = self.mesh
         leaves = self.model.reference_leaves()
-        ospecs = self.opt_specs()["mu"]
+        if opt.kind == "adafactor":
+            ospecs = self.opt_specs(opt)["fac"]
+            for path, leaf in leaves.items():
+                self._adafactor_leaf(update, path, leaf, grads[path],
+                                     state["fac"][path], ospecs[path])
+            return gnorm
+        ospecs = self.opt_specs(opt)["mu"]
         for path, leaf in leaves.items():
             k = len(leaf.lead)
             full = self.full_shapes[path]
@@ -313,6 +327,126 @@ class ShardedLM:
                 p.copy_(SH.local_shard(new, spec, mesh))
         return gnorm
 
+    def _adafactor_leaf(self, af, path: str, leaf, grads, fac: Dict,
+                        ospecs: Dict) -> None:
+        """Adafactor on one reference leaf from this rank's gradient
+        blocks, in three passes over them (each in slices of
+        :data:`_UPDATE_CHUNK` elements, so no float32 copy of a whole unit
+        is kept):
+
+          1. the row and column sums of ``g² + d2`` over the block, summed
+             over the axes that shard the summed dim and gathered whole
+             over the others; with the old factors gathered whole from
+             their regions, every rank computes the new factors whole and
+             keeps its regions;
+          2. the update ``d`` from the new factors on the block, its
+             squares summed per unit (the whole leaf, or one leading slice
+             of a chunked one) over the axes that shard the block;
+          3. ``d`` again, clipped by its unit's RMS, into the block.
+
+        Ranks holding the same block compute it from the same sums, so
+        the replicas stay equal.  A 1-D leaf keeps ``v`` (its update is
+        elementwise) and the same RMS."""
+        mesh = self.mesh
+        full = self.full_shapes[path]
+        k = len(leaf.lead)
+        sspec = self.specs[path]              # stacked: lead dims whole
+        spec = P(*sspec[k:])
+        mb = SH.shard_bounds(full[k:], spec, mesh, mesh.coords)
+        m = len(mb)
+        chunked = _chunked(self.meta_leaves[path])
+        n_units = full[0] if chunked else 1
+        unit_numel = math.prod(full) // n_units
+        decay = len(full) - (1 if chunked else 0) >= 2
+        sharded = SH.sharded_axes(spec, mesh)
+        if len(full) < 2:                     # v: elementwise
+            p, g32 = leaf.members[0], grads[0].float()
+            v = af.moment(SH.gather_shard(fac["v"], ospecs["v"], mesh)[mb],
+                          af.square(g32))
+            d = af.direction(g32, v)
+            sq = mesh.all_reduce(torch.sum(torch.square(d)), sharded)
+            p.copy_(af.step(p.float(), d, af.rms(sq / unit_numel),
+                            decay).to(p.dtype))
+            fac["v"].copy_(SH.local_shard(SH.gather_shard(v, spec, mesh),
+                                          ospecs["v"], mesh))
+            return
+        sb = tuple(slice(0, n) for n in leaf.lead) + mb
+        bshape = tuple(s.stop - s.start for s in sb)
+        dev = mesh.device
+
+        def pieces(t):
+            """Slices of ``t``'s dim 0 near :data:`_UPDATE_CHUNK`
+            elements (a vector whole)."""
+            if t.dim() < 2:
+                return [slice(None)]
+            step = max(1, _UPDATE_CHUNK // max(1, t[0].numel()))
+            return [slice(s, s + step) for s in range(0, t.shape[0], step)]
+
+        rows = torch.zeros(bshape[:-1], dtype=torch.float32, device=dev)
+        cols = torch.zeros(bshape[:-2] + bshape[-1:], dtype=torch.float32,
+                           device=dev)
+        idxs = [_unravel(i, leaf.lead) for i in range(len(grads))]
+        for idx, g in zip(idxs, grads):
+            for sl in pieces(g):
+                g2 = af.square(g[sl].float())
+                if m == 1:
+                    rows[idx] = g2.sum()
+                    cols[idx[:-1]] += g2
+                    continue
+                rows[idx][sl] = g2.sum(dim=-1)
+                if m >= 3:
+                    cols[idx][sl] = g2.sum(dim=-2)
+                else:
+                    cols[idx] += g2.sum(dim=-2)
+        mesh.all_reduce(rows, SH.sharded_axes(P(sspec[-1]), mesh))
+        mesh.all_reduce(cols, SH.sharded_axes(P(sspec[-2]), mesh))
+        rows = SH.gather_shard(rows, P(*sspec[:-1]), mesh)
+        cols = SH.gather_shard(cols, P(*sspec[:-2], sspec[-1]), mesh)
+        new = {}
+        for key, sums, n in (("vr", rows, full[-1]), ("vc", cols, full[-2])):
+            new[key] = af.moment(SH.gather_shard(fac[key], ospecs[key], mesh),
+                                 sums / n)
+            fac[key].copy_(SH.local_shard(new[key], ospecs[key], mesh))
+        del rows, cols
+        rfac = af.row_factor(new["vr"])[sb[:-1]]
+        vc = new["vc"][sb[:-2] + sb[-1:]]
+
+        def direction(idx, g, sl):
+            if m == 1:
+                second = rfac[idx] * vc[idx[:-1]]
+            else:
+                c = vc[idx][sl] if m >= 3 else vc[idx]
+                second = rfac[idx][sl][..., None] * c[..., None, :]
+            return af.direction(g[sl].float(), second)
+
+        def units(idx, sl, n):
+            """The units of a piece: its leading slice's, or (a chunked
+            leaf that is not stacked) its rows' over dim 0."""
+            if not chunked:
+                return slice(0, 1)
+            if k:
+                return slice(idx[0], idx[0] + 1)
+            start = mb[0].start + (sl.start or 0)
+            return slice(start, start + n)
+
+        sq = torch.zeros(n_units, dtype=torch.float32, device=dev)
+        for idx, g in zip(idxs, grads):
+            for sl in pieces(g):
+                d2 = torch.square(direction(idx, g, sl))
+                u = units(idx, sl, d2.shape[0] if d2.dim() else 1)
+                if chunked and not k:
+                    sq[u] += d2.reshape(d2.shape[0], -1).sum(dim=1)
+                else:
+                    sq[u] += d2.sum()
+        rms = af.rms(mesh.all_reduce(sq, sharded) / unit_numel)
+        for idx, p, g in zip(idxs, leaf.members, grads):
+            for sl in pieces(g):
+                d = direction(idx, g, sl)
+                r = rms[units(idx, sl, d.shape[0])]
+                r = r.reshape((-1,) + (1,) * (d.dim() - 1)) if (
+                    chunked and not k) else r[0]
+                p[sl] = af.step(p[sl].float(), d, r, decay).to(p.dtype)
+
     # -- whole trees -------------------------------------------------------
     @torch.no_grad()
     def gather_leaf(self, path: str, leaf=None) -> torch.Tensor:
@@ -334,7 +468,7 @@ class ShardedLM:
         mesh = self.mesh
         params = {path: self.gather_leaf(path, leaf) for path, leaf in
                   self.model.reference_leaves().items()}
-        ospecs = self.opt_specs()
+        ospecs = self.opt_specs(_opt_of(opt_state))
 
         def walk(x, s):
             if isinstance(x, dict):
@@ -345,20 +479,37 @@ class ShardedLM:
 
     def cut(self, key: str, whole: torch.Tensor) -> torch.Tensor:
         """This rank's part of the checkpoint array ``key``
-        (``params/<path>``, ``opt/mu/<path>``, ``opt/nu/<path>`` or
-        ``opt/step``): a stacked parameter's blocks, stacked, or a
-        moment's region.  A restore keeps only it
-        (``checkpoint.manager.restore``'s ``part``), so no rank holds a
-        whole state."""
-        head, _, rest = key.partition("/")
-        if head == "params":
-            k = len(self.leads[rest])
-            spec = P(*((None,) * k + tuple(self.specs[rest][k:])))
+        (``params/<path>``, or an optimizer state's ``opt/...``: AdamW's
+        ``opt/mu/<path>``, Adafactor's ``opt/fac/<path>/vr``, ``opt/step``):
+        a stacked parameter's blocks, stacked, or a state region.  A
+        restore keeps only it (``checkpoint.manager.restore``'s ``part``),
+        so no rank holds a whole state."""
+        if key.startswith("params/"):
+            path = key[len("params/"):]
+            k = len(self.leads[path])
+            spec = P(*((None,) * k + tuple(self.specs[path][k:])))
         else:
-            kind, _, path = rest.partition("/")
-            spec = self.opt_specs()[kind]
-            spec = spec[path] if path else spec
+            spec = self._state_key_specs()[key]
         return SH.local_shard(whole, spec, self.mesh).clone()
+
+    def _state_key_specs(self) -> Dict[str, P]:
+        """The spec of every optimizer state array by its checkpoint key
+        (both optimizers' trees flattened as checkpoints key them: a path
+        inside such a key holds ``/`` too)."""
+        if self._key_specs is None:
+            out: Dict[str, P] = {}
+
+            def walk(x, key):
+                if isinstance(x, dict):
+                    for k, v in x.items():
+                        walk(v, f"{key}/{k}")
+                else:
+                    out[key] = x
+
+            for kind in ("adamw", "adafactor"):
+                walk(self.opt_specs(OptConfig(kind=kind)), "opt")
+            self._key_specs = out
+        return self._key_specs
 
     def part_template(self, opt_state: Dict) -> Dict:
         """The state tree of :meth:`cut`'s parts as ``meta`` tensors (what
@@ -438,6 +589,11 @@ def _unravel(i: int, lead: Tuple[int, ...]) -> Tuple[int, ...]:
         i, r = divmod(i, n)
         out.append(r)
     return tuple(reversed(out))
+
+
+def _opt_of(state: Dict) -> OptConfig:
+    """The optimizer whose state tree ``state`` is."""
+    return OptConfig(kind="adafactor" if "fac" in state else "adamw")
 
 
 def shard(cfg, mesh, model: nn.Module, meta: nn.Module) -> ShardedLM:

@@ -33,17 +33,19 @@ a record here is computed from the port's own layouts and schedule
     port's LM mesh (``distributed/lm_shard.py``), through
     ``roofline.analysis.collective_bytes``: the weight gathers, the
     gradient sums over the batch axes, ZeRO-1's gathers and region sums
-    and the gradient norm's sums (run by the port's own code on ``meta``
-    tensors over a :class:`RecordingMesh`), and, reckoned from the
-    shapes, the attention heads' and the experts' gathers over ``model``
-    (forward, the remat recompute, backward), the loss's count and the
-    metrics' sums.  A batch that does not divide over the batch axes is
+    and the gradient norm's sums, or Adafactor's factor sums and gathers
+    and its RMS sums (run by the port's own code on ``meta`` tensors over
+    a :class:`RecordingMesh`), and, reckoned from the shapes, the
+    attention heads' and the experts' gathers over ``model`` (forward,
+    the remat recompute, backward), the loss's count and the metrics'
+    sums (a train record's ``optimizer_collective_bytes``: the optimizer
+    step's share).  A batch that does not divide over the batch axes is
     held whole by every data rank (the port refuses such a batch on a
     live mesh; only long_500k's batch of 1 is one, and its decode issues
     no batch-sized collective).
-  * the 1 T MoE trains with Adafactor (``opt_for``), which the port
-    refuses on a multi-rank mesh (ROADMAP A16.1): its train cells record
-    ``status: "error"`` with that refusal, ``refused: true``.
+  * the 1 T MoE trains with Adafactor (``opt_for``), as the reference's
+    does: its train cells count the factors' regions as ``memory``'s
+    ``opt`` and Adafactor's step as their collectives.
 
 life-stn96 records the SBBNNLS iteration of the 2-D (voxel x fiber)
 partition at Table-9 scale (``distributed/life_shard.py:
@@ -219,12 +221,16 @@ def step_collectives(cfg: ArchConfig, mesh, kind: str, seq: int,
     """Every collective one device issues in a ``kind`` step (train,
     prefill or decode) of ``batch`` sequences of ``seq`` positions on the
     port's LM mesh of ``mesh``'s shape: ``(kind, bytes, group size)``, as
-    ``HostMesh.collectives`` records them.
+    ``HostMesh.collectives`` records them (a train step's optimizer
+    ``opt``: AdamW or Adafactor)."""
+    model, optimizer = _step_parts(cfg, mesh, kind, seq, batch, opt)
+    return model + optimizer
 
-    Raises:
-        ValueError: a train step with an optimizer the port refuses on a
-            multi-rank mesh (``ShardedLM.init_opt_state``; ROADMAP A16.1).
-    """
+
+def _step_parts(cfg: ArchConfig, mesh, kind: str, seq: int, batch: int,
+                opt: OptConfig) -> Tuple[List[Record], List[Record]]:
+    """:func:`step_collectives` in two parts: the model's (forward and
+    backward) and the optimizer's (train; else none)."""
     rec = RecordingMesh(tuple(mesh.shape.values()), mesh.axis_names)
     meta = T.Transformer(cfg, "meta")
     specs = lm_shard.member_specs(cfg, rec, meta)
@@ -244,11 +250,12 @@ def step_collectives(cfg: ArchConfig, mesh, kind: str, seq: int,
             if train:
                 rec.all_reduce(full, SH.batch_axes(rec))
     rec.collectives += _model_collectives(cfg, rec, kind, seq, batch)
+    n_model = len(rec.collectives)
     if train:
         grads = {k: [torch.empty_like(m) for m in leaf.members]
                  for k, leaf in model.reference_leaves().items()}
         apply_updates_zero1(opt, sharded, grads, state)
-    return rec.collectives
+    return rec.collectives[:n_model], rec.collectives[n_model:]
 
 
 # ----------------------------------------------------------------------------
@@ -311,15 +318,9 @@ def lower_cell(arch: str, shape: str, mesh, *,
     head = {"arch": arch, "shape": shape, "variant": variant,
             "mesh": dict(shape=dict(mesh.shape), n_chips=int(n_chips)),
             "kind": kind}
-    try:
-        records = step_collectives(cfg, mesh, kind, seq, batch, opt)
-    except ValueError as e:
-        if kind != "train" or opt.kind == "adamw":
-            raise
-        return {"status": "error", **head, "optimizer": opt.kind,
-                "refused": True, "error": repr(e),
-                "reason": "the port refuses Adafactor on a multi-rank mesh "
-                          "(ROADMAP A16.1); AdamW is not put in its place"}
+    model_records, opt_records = _step_parts(cfg, mesh, kind, seq, batch,
+                                             opt)
+    records = model_records + opt_records
     parts, out_bytes = _lm_memory(cfg, mesh, shape, kind, opt)
     args = sum(parts.values())
     n_active = cfg.active_param_count()
@@ -345,6 +346,9 @@ def lower_cell(arch: str, shape: str, mesh, *,
         "flops": {"model": mf, "remat_recompute": recompute,
                   "total": mf + recompute},
         "collectives": coll,
+        "optimizer_collective_bytes": (
+            RL.collective_bytes(opt_records)["total"] if kind == "train"
+            else None),
         "roofline": r.as_dict(),
         "mfu_upper_bound": RL.mfu_fraction(r, n_chips, kind),
         "params": cfg.param_count(),
@@ -470,8 +474,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
 
 
 def main(argv=None) -> int:
-    """Run the cells; returns 1 if a cell failed other than by the
-    port's A16.1 refusal."""
+    """Run the cells; returns 1 if a cell failed."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
@@ -501,7 +504,7 @@ def main(argv=None) -> int:
                              f" bound={r['bound_s']:.4f}s mem={mem:.2f}GB"
                              f" coll={coll:.3f}GB")
                 elif status == "error":
-                    failures += not rec.get("refused")
+                    failures += 1
                     extra = " " + rec["error"][:120]
                 print(f"[{mk}] {a:24s} {s:12s} {status:7s} {dt:6.1f}s{extra}",
                       flush=True)

@@ -22,7 +22,13 @@ Without ``--model-axis`` (and outside a group) no mesh is active: the
 reference activates a ``(1, 1)`` mesh even then, which moves attention to
 its mesh branch.  Beyond the reference's flags, ``--device`` picks the
 device, ``--backend`` the group's backend and ``--layers`` cuts the
-depth; :func:`main` returns the run's metrics (:class:`TrainRun`).
+depth; :func:`main` returns the run's metrics (:class:`TrainRun`), and
+its ``opt`` keyword trains with another optimizer than the CLI's AdamW
+(Adafactor, on one process or a mesh; the reference's CLI builds only
+AdamW), with no flag for it:
+
+  train.main([...], opt=OptConfig(kind="adafactor", lr=1e-3,
+                                  warmup_steps=2, decay_steps=50))
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \
       --steps 50 --reduced --ckpt-dir /tmp/ck --device cpu
@@ -35,7 +41,7 @@ import argparse
 import dataclasses
 import functools
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -133,15 +139,19 @@ def _save(ckpt_dir: str, step: int, cfg: ArchConfig, params, opt_state,
         mesh.barrier()
 
 
-def main(argv=None, *, mesh=None) -> TrainRun:
+def main(argv=None, *, mesh=None, opt: Optional[OptConfig] = None
+         ) -> TrainRun:
     """Run the trainer.  ``mesh``: activate this mesh instead of building
     one from ``--model-axis`` (a shape-only mesh gives one process the
-    dispatch groups and attention branch of a mesh run)."""
+    dispatch groups and attention branch of a mesh run).  ``opt``: the
+    optimizer, used as given, instead of the CLI's AdamW (``--lr``,
+    warmup over a twentieth of ``--steps`` (at least 2), decay over
+    ``--steps``: :func:`cli_opt`)."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
     joined = spmd.join_process_group(args.backend, dev)
     try:
-        return _main(args, dev, mesh)
+        return _main(args, dev, mesh, opt or cli_opt(args))
     finally:
         hints.deactivate()
         if joined:
@@ -149,7 +159,14 @@ def main(argv=None, *, mesh=None) -> TrainRun:
             dist.destroy_process_group()
 
 
-def _main(args, dev: torch.device, mesh) -> TrainRun:
+def cli_opt(args: argparse.Namespace) -> OptConfig:
+    """The CLI's optimizer: AdamW at ``--lr``, its schedule from
+    ``--steps``."""
+    return OptConfig(lr=args.lr, warmup_steps=max(2, args.steps // 20),
+                     decay_steps=args.steps)
+
+
+def _main(args, dev: torch.device, mesh, opt: OptConfig) -> TrainRun:
     if mesh is None and (args.model_axis is not None
                          or HM.world_size() > 1):
         mesh = HM.make_host_mesh(args.model_axis or 1, dev)
@@ -161,8 +178,6 @@ def _main(args, dev: torch.device, mesh) -> TrainRun:
         cfg = dataclasses.replace(reduce_cfg(cfg), remat=False)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    opt = OptConfig(lr=args.lr, warmup_steps=max(2, args.steps // 20),
-                    decay_steps=args.steps)
     data = DataConfig(seed=0, seq_len=args.seq_len,
                       global_batch=args.global_batch)
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -27,9 +27,13 @@ leading axis, as the reference's ``_maybe_chunked`` does: the slices'
 temporaries are a layer's size, and Adafactor's statistics are then taken
 per slice, as there.
 
-On a live mesh :func:`apply_updates_zero1` runs the same AdamW arithmetic
-as ZeRO-1: each rank updates its region of the moments under
-``opt_state_specs`` (``distributed/lm_shard.py``).
+On a live mesh :func:`apply_updates_zero1` runs the same arithmetic as
+ZeRO-1: each rank holds its region of the moments (AdamW) or of the
+factored statistics (Adafactor) under ``opt_state_specs``
+(``distributed/lm_shard.py``).  AdamW's update is elementwise
+(:func:`_adamw`); Adafactor's statistics span rows, columns and the unit,
+so the mesh sums them over the ranks and then runs the same element
+arithmetic (:class:`Adafactor`) on each rank's block.
 """
 from __future__ import annotations
 
@@ -155,6 +159,58 @@ def _adamw(cfg: OptConfig, p32: torch.Tensor, g32: torch.Tensor,
     return p32 - lr * d
 
 
+#: Adafactor's floor: added to every squared gradient, under the row
+#: statistics' mean and the RMS
+_D2 = 1e-30
+
+
+@dataclasses.dataclass(frozen=True)
+class Adafactor:
+    """Adafactor's element arithmetic at one step's learning rate (beta1
+    0, factored second moment, the update's RMS clip): what
+    :func:`apply_updates` runs on a whole unit and the mesh
+    (:meth:`repro_torch.distributed.lm_shard.ShardedLM.apply_updates`) on
+    each rank's block, from statistics summed over the ranks."""
+    cfg: OptConfig
+    lr: torch.Tensor
+
+    @staticmethod
+    def square(g32: torch.Tensor) -> torch.Tensor:
+        """The squared gradient the statistics average, floored."""
+        return torch.square(g32) + _D2
+
+    def moment(self, old: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
+        """A statistic's new value from its old one and the mean of
+        :meth:`square` it takes in."""
+        return self.cfg.b2 * old + (1 - self.cfg.b2) * mean
+
+    @staticmethod
+    def row_factor(vr: torch.Tensor) -> torch.Tensor:
+        """``vr`` over its mean along its last axis (clamped to the
+        floor)."""
+        return vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=_D2)
+
+    def direction(self, g32: torch.Tensor, second: torch.Tensor
+                  ) -> torch.Tensor:
+        """The unclipped update of ``g32`` under the second moment
+        ``second`` (``v``, or the factors' product, broadcast to it)."""
+        return g32 * torch.rsqrt(second + self.cfg.eps)
+
+    @staticmethod
+    def rms(mean_sq: torch.Tensor) -> torch.Tensor:
+        """The update's RMS from the mean of its squares over the unit."""
+        return torch.sqrt(mean_sq + _D2)
+
+    def step(self, p32: torch.Tensor, d: torch.Tensor, rms: torch.Tensor,
+             decay: bool) -> torch.Tensor:
+        """The new float32 weight: ``d`` clipped by ``rms``, weight decay
+        on a unit of two or more dimensions."""
+        d = d / torch.clamp(rms, min=1.0)
+        if decay:
+            d = d + self.cfg.weight_decay * p32
+        return p32 - self.lr * d
+
+
 def _bias_corrections(cfg: OptConfig, step: torch.Tensor):
     s32 = step.to(torch.float32)
     bc1 = 1 - torch.pow(torch.tensor(cfg.b1, device=s32.device), s32)
@@ -166,24 +222,22 @@ def _bias_corrections(cfg: OptConfig, step: torch.Tensor):
 def apply_updates_zero1(cfg: OptConfig, sharded,
                         grads: Dict[str, Sequence[torch.Tensor]], state: Dict
                         ) -> Tuple[Dict, Dict[str, torch.Tensor]]:
-    """One AdamW step on a live mesh (ZeRO-1,
+    """One optimizer step on a live mesh (ZeRO-1,
     :meth:`repro_torch.distributed.lm_shard.ShardedLM.apply_updates`):
     ``grads`` are the parameters' blocks (summed over the batch axes),
-    ``state`` holds each rank's moment regions (``opt_state_specs``).  The
-    arithmetic is :func:`apply_updates`'s.
-
-    Raises:
-        ValueError: an optimizer other than AdamW.
-    """
-    if cfg.kind != "adamw":
-        raise ValueError(f"{cfg.kind} on a multi-rank mesh is not ported "
-                         "(ROADMAP A16.1); use adamw")
+    ``state`` holds each rank's regions of the moments or factors
+    (``opt_state_specs``).  The arithmetic is :func:`apply_updates`'s."""
+    if cfg.kind not in ("adamw", "adafactor"):
+        raise ValueError(cfg.kind)
     state["step"] += 1
     lr = schedule(cfg, state["step"])
-    bc1, bc2 = _bias_corrections(cfg, state["step"])
+    if cfg.kind == "adafactor":
+        update = Adafactor(cfg, lr)
+    else:
+        bc1, bc2 = _bias_corrections(cfg, state["step"])
 
-    def update(p32, g32, mu, nu, decay):
-        return _adamw(cfg, p32, g32, mu, nu, bc1, bc2, lr, decay)
+        def update(p32, g32, mu, nu, decay):
+            return _adamw(cfg, p32, g32, mu, nu, bc1, bc2, lr, decay)
 
     gnorm = sharded.apply_updates(cfg, grads, state, update)
     return state, {"grad_norm": gnorm, "lr": lr}
@@ -218,30 +272,26 @@ def apply_updates(cfg: OptConfig, leaves: Leaves,
         raise ValueError(cfg.kind)
 
     # -- adafactor (beta1 = 0, factored second moment) ------------------------
-    d2 = 1e-30
+    af = Adafactor(cfg, lr)
     for path, leaf in leaves.items():
         for unit, gs, fac in _units(leaf, grads[path], state["fac"][path]):
             g32 = unit.stack([g.float() for g in gs])
-            g2 = torch.square(g32) + d2
+            g2 = af.square(g32)
             if g32.dim() < 2:
-                v = cfg.b2 * fac["v"] + (1 - cfg.b2) * g2
-                d = g32 * torch.rsqrt(v + cfg.eps)
+                v = af.moment(fac["v"], g2)
+                d = af.direction(g32, v)
                 fac["v"].copy_(v)
             else:
-                vr = cfg.b2 * fac["vr"] + (1 - cfg.b2) * g2.mean(dim=-1)
-                vc = cfg.b2 * fac["vc"] + (1 - cfg.b2) * g2.mean(dim=-2)
-                rfac = vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=d2)
-                d = g32 * torch.rsqrt(rfac[..., None] * vc[..., None, :]
-                                      + cfg.eps)
+                vr = af.moment(fac["vr"], g2.mean(dim=-1))
+                vc = af.moment(fac["vc"], g2.mean(dim=-2))
+                d = af.direction(g32, af.row_factor(vr)[..., None]
+                                 * vc[..., None, :])
                 fac["vr"].copy_(vr)
                 fac["vc"].copy_(vc)
             # update clipping (Adafactor's RMS rule), over the whole unit
-            rms = torch.sqrt(torch.mean(torch.square(d)) + d2)
-            d = d / torch.clamp(rms, min=1.0)
+            rms = af.rms(torch.mean(torch.square(d)))
             p32 = unit.stack([p.float() for p in unit.members])
-            if d.dim() >= 2:
-                d = d + cfg.weight_decay * p32
-            new = p32 - lr * d
+            new = af.step(p32, d, rms, d.dim() >= 2)
             for p, q in zip(unit.members, unit.unstack(new)):
                 p.copy_(q.to(p.dtype))
     return leaves, state, {"grad_norm": gnorm, "lr": lr}

@@ -61,7 +61,7 @@ def summary(recs: List[Dict]) -> str:
     refused = [r for r in err if r.get("refused")]
     lines = [f"- cells: {len(recs)} total, {len(ok)} ok, {len(skip)} "
              f"documented skips, {len(err)} errors ({len(refused)} refused "
-             f"by the port: ROADMAP A16.1)"]
+             f"by the port)"]
     if any(r.get("package") == "repro_torch" for r in ok):
         lines.append("- the port's memory per device is its arguments "
                      "alone (no compiled temp size)")

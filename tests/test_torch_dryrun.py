@@ -6,13 +6,14 @@ operands against ``repro.distributed.life_shard``'s; the records' bytes
 per device against every rank's ``shard_bounds`` blocks; the collective
 schedule against what the port's meshes record: a reduced train, prefill
 and decode step on a (2, 2) mesh of four gloo CPU ranks
-(``HostMesh.collectives``, kind, bytes and group size for each one), and
-an odd and an even SBBNNLS iteration of the 2-D and 1-D steps on a (2, 2)
-``LocalMesh``; the mesh step's loss against one process's (the audio
-loss's count over every data rank); the sweep over every cell of the pod
-mesh (each ``ok`` or ``skipped``, but kimi-k2's train cell, the A16.1
-refusal) through the CLI; and ``roofline/report.py``'s tables over
-records of both packages.
+(``HostMesh.collectives``, kind, bytes and group size for each one; the
+train step with AdamW and with Adafactor), and an odd and an even SBBNNLS
+iteration of the 2-D and 1-D steps on a (2, 2) ``LocalMesh``; the mesh
+step's loss against one process's (the audio loss's count over every
+data rank); the sweep over every cell of the pod mesh (each ``ok`` or
+``skipped``; kimi-k2's train cell trains with Adafactor) through the
+CLI; and ``roofline/report.py``'s tables over records of both packages
+(a refused record among them).
 """
 import dataclasses
 import json
@@ -129,11 +130,14 @@ def _tree_every_rank(tree, specs, mesh):
 @pytest.mark.parametrize("arch,shape,mesh", [
     ("deepseek-7b", "train_4k", POD), ("qwen2-vl-7b", "decode_32k", MULTIPOD),
     ("musicgen-large", "prefill_32k", POD), ("zamba2-1.2b", "long_500k", POD),
-    ("phi3.5-moe-42b-a6.6b", "train_4k", MULTIPOD)])
+    ("phi3.5-moe-42b-a6.6b", "train_4k", MULTIPOD),
+    ("kimi-k2-1t-a32b", "train_4k", POD),
+    ("kimi-k2-1t-a32b", "train_4k", MULTIPOD)])
 def test_argument_bytes_are_every_ranks_blocks(arch, shape, mesh):
     """``argument_size_in_bytes`` is one device's share of the blocks every
     rank holds (``shard_bounds`` at each coordinate) of the parameters,
-    the AdamW state (train), the batch and the cache."""
+    the optimizer state (train: AdamW's moments, or kimi-k2's Adafactor
+    factors), the batch and the cache."""
     from repro_torch.launch import steps as ST
     cfg = base.get_config(arch)
     rec = D.lower_cell(arch, shape, mesh)
@@ -186,6 +190,11 @@ for arch, seq, batch in json.load(open(sys.argv[1])):
     _, _, metrics = ST.make_train_step(cfg, opt)(params, state, b)
     out[f"{arch}/train"] = list(mesh.collectives)
     out[f"{arch}/loss"] = float(metrics["loss"])
+    adafactor = OptConfig(kind="adafactor")
+    state = sharded.init_opt_state(adafactor)
+    mesh.collectives.clear()
+    ST.make_train_step(cfg, adafactor)(params, state, b)
+    out[f"{arch}/train-adafactor"] = list(mesh.collectives)
     local = sharded.shard_batch({k: v for k, v in b.items()
                                  if k not in ("labels", "codes")})
     mesh.collectives.clear()
@@ -212,7 +221,8 @@ print("RANK DONE", flush=True)
 @pytest.fixture(scope="module")
 def recorded(tmp_path_factory):
     """Four gloo CPU ranks at (2, 2), each step of RECORDED's reduced
-    configs (remat on) once: rank 0's ``HostMesh.collectives`` per step."""
+    configs (remat on) once, the train step with AdamW and then with
+    Adafactor: rank 0's ``HostMesh.collectives`` per step."""
     root = tmp_path_factory.mktemp("dryrun_mesh")
     jobs, out = root / "jobs.json", root / "collectives.json"
     jobs.write_text(json.dumps(RECORDED))
@@ -236,6 +246,27 @@ def test_step_collectives_equal_what_a_gloo_mesh_records(recorded, arch, seq,
     want = [tuple(r) for r in recorded[f"{arch}/{kind}"]]
     assert sorted(got) == sorted(want)
     assert want
+
+
+@pytest.mark.parametrize("arch,seq,batch", RECORDED,
+                         ids=[a for a, _, _ in RECORDED])
+def test_adafactor_step_collectives_equal_what_a_gloo_mesh_records(
+        recorded, arch, seq, batch):
+    """The dry run's schedule of a reduced Adafactor train step on a (2, 2)
+    mesh is, byte for byte, what four gloo ranks recorded running it
+    (the model's as AdamW's; the optimizer's factor sums over the axes
+    that split a block, the factors' gathers and the RMS sums), and
+    differs from AdamW's only in the optimizer."""
+    cfg = dataclasses.replace(base.reduced(base.get_config(arch)), remat=True)
+    mesh = HM.ShapeMesh((2, 2), ("data", "model"))
+    got = D.step_collectives(cfg, mesh, "train", seq, batch,
+                             OptConfig(kind="adafactor"))
+    want = [tuple(r) for r in recorded[f"{arch}/train-adafactor"]]
+    assert sorted(got) == sorted(want)
+    model, opt = D._step_parts(cfg, mesh, "train", seq, batch,
+                               OptConfig(kind="adafactor"))
+    adamw = D._step_parts(cfg, mesh, "train", seq, batch, OptConfig())
+    assert model == adamw[0] and opt and opt != adamw[1]
 
 
 @pytest.mark.parametrize("arch,seq,batch", RECORDED,
@@ -301,38 +332,51 @@ def test_life_collectives_equal_a_local_mesh(variant):
 def test_every_pod_cell_is_ok_skipped_or_refused(tmp_path):
     """The sweep over every architecture and shape of the pod mesh through
     the CLI: every cell ``ok`` or ``skipped`` (full attention at
-    long_500k), but kimi-k2's train cell, which records the port's A16.1
-    refusal; the exit code counts no failure."""
+    long_500k), none refused; kimi-k2's train cell trains with Adafactor,
+    its ``opt`` bytes the factors' regions; the exit code counts no
+    failure."""
+    from repro_torch.launch import steps as ST
     assert D.main(["--mesh", "pod", "--out", str(tmp_path)]) == 0
     recs = report.load(str(tmp_path))
     assert len(recs) == len(base.ARCH_IDS) * len(base.SHAPES)
     for r in recs:
-        name = (r.get("arch"), r.get("shape"))
-        if name == ("kimi-k2-1t-a32b", "train_4k"):
-            assert r["status"] == "error" and r["refused"], r
-            assert "A16.1" in r["error"] and r["optimizer"] == "adafactor"
-        elif r["status"] == "skipped":
+        if r["status"] == "skipped":
             assert r["shape"] == "long_500k"
             assert not base.get_config(r["arch"]).sub_quadratic
-        else:
-            assert r["status"] == "ok", r
-            assert r["memory"]["argument_size_in_bytes"] > 0
-            assert r["roofline"]["dominant"] in ("compute", "memory",
-                                                 "collective")
-            if r["kind"] == "train" and not r["arch"].startswith("life"):
-                assert r["flops"]["remat_recompute"] > 0
-                assert r["collectives"]["all-gather"] > 0
+            continue
+        assert r["status"] == "ok", r
+        assert r["memory"]["argument_size_in_bytes"] > 0
+        assert r["roofline"]["dominant"] in ("compute", "memory",
+                                             "collective")
+        if r["kind"] == "train" and not r["arch"].startswith("life"):
+            assert r["flops"]["remat_recompute"] > 0
+            assert r["collectives"]["all-gather"] > 0
+            assert 0 < r["optimizer_collective_bytes"] < \
+                r["collectives"]["total"]
+    kimi = [r for r in recs if (r["arch"], r["shape"]) == (
+        "kimi-k2-1t-a32b", "train_4k")][0]
+    cfg = base.get_config("kimi-k2-1t-a32b")
+    _, opt = ST.abstract_state(cfg, OptConfig(kind="adafactor"))
+    assert kimi["optimizer"] == "adafactor" and "fac" in opt
+    assert kimi["memory"]["arguments_by_part"]["opt"] == D.tree_bytes(
+        opt, SH.opt_state_specs(cfg, POD, opt), POD)
     life = [r for r in recs if r["arch"] == "life-stn96"]
     assert {r["kind"] for r in life} == {"sbbnnls"}
 
 
 def test_report_renders_both_packages_records(tmp_path):
-    """A port record, a skip, the refusal and a record in the reference's
-    layout (its compiled temp size) in one table."""
+    """A port record, a skip, a refused record (synthetic: the port
+    refuses no cell now) and a record in the reference's layout (its
+    compiled temp size) in one table."""
     for arch, shape in (("qwen2-vl-7b", "prefill_32k"),
-                        ("deepseek-7b", "long_500k"),
-                        ("kimi-k2-1t-a32b", "train_4k")):
+                        ("deepseek-7b", "long_500k")):
         D.run_cell(arch, shape, "pod", str(tmp_path))
+    refused = {"status": "error", "arch": "kimi-k2-1t-a32b",
+               "shape": "train_4k", "kind": "train", "mesh_kind": "pod",
+               "package": "repro_torch", "refused": True,
+               "error": "ValueError('not ported')"}
+    (tmp_path / "pod" / "kimi-k2-1t-a32b__train_4k.json").write_text(
+        json.dumps(refused))
     ref = {"status": "ok", "arch": "stablelm-12b", "shape": "train_4k",
            "kind": "train", "mesh_kind": "pod",
            "memory": {"temp_size_in_bytes": 3e9,

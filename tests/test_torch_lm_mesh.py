@@ -4,7 +4,11 @@ single-process step under a shape-only mesh of the same shape (the same
 dispatch groups and attention branch) and against the reference's
 GSPMD step on 8 host devices, the elastic restart (4, 2) -> (2, 4),
 serving on a mesh, and a reduced vlm trained on a (2, 1) mesh (its
-``positions`` (3, B, S) split by their batch dim, 1).
+``positions`` (3, B, S) split by their batch dim, 1).  Adafactor is held
+the same ways: against one process (deepseek-7b at (4, 2), phi3.5-moe
+and a reduced kimi-k2 with FSDP experts and per-layer units at (2, 2)),
+against the reference's GSPMD Adafactor step, through the restart and
+across the packages.
 
 One module fixture runs every multi-rank job once
 (``repro_torch.distributed.spmd.launch``: fresh interpreters joined by
@@ -12,9 +16,10 @@ One module fixture runs every multi-rank job once
 checkpoint written by the port's trainer, so all of them share weights.
 Tolerances: a mesh run against the single-process run of the same G
 agrees to float32 summation order (losses rtol 1e-5; weights after three
-AdamW steps rtol 1e-4 / atol 1e-5); against the reference's mesh step the
-losses agree within rtol 1e-4 and the weights within atol 5e-5 (two
-compilers' float32 products).
+AdamW or Adafactor steps rtol 1e-4 / atol 1e-5, the factors at rtol 1e-4
+with the atol scaled to their largest value); against the reference's
+mesh step the losses agree within rtol 1e-4 and the weights within atol
+5e-5 (two compilers' float32 products).
 """
 import dataclasses
 import json
@@ -142,9 +147,11 @@ from repro.launch import steps as ST
 from repro.optim.adamw import OptConfig
 
 start_dir, out_dir, steps = sys.argv[1], sys.argv[2], int(sys.argv[3])
+kind = sys.argv[4] if len(sys.argv) > 4 else "adamw"
 cfg = dataclasses.replace(reduced(get_config("deepseek-7b")), remat=False)
 # the trainer CLI's schedule at --lr 1e-3 --steps 3
-opt = OptConfig(lr=1e-3, warmup_steps=max(2, steps // 20), decay_steps=steps)
+opt = OptConfig(kind=kind, lr=1e-3, warmup_steps=max(2, steps // 20),
+                decay_steps=steps)
 data = DataConfig(seed=0, seq_len=32, global_batch=8)
 mesh = compat.make_mesh((4, 2), ("data", "model"))
 hints.activate(mesh)
@@ -172,16 +179,25 @@ print("LOSSES", json.dumps(losses))
 #: one rank of a job list: joins the group once, then runs each job's
 #: entry point in turn (a job of kind "refused" must raise ValueError;
 #: "copy" copies a directory on rank 0; a third entry of a "train" job
-#: names the JSON file rank 0 writes the returned run's metrics to)
+#: names the JSON file rank 0 writes the returned run's metrics to, or is
+#: null, and a fourth holds options: "opt", the trainer's OptConfig
+#: fields, and "thresholds", FSDP_PARAM_THRESHOLD and _CHUNK_THRESHOLD
+#: for the job)
 RANK_JOBS = """
 import json, shutil, sys
 import torch
 import torch.distributed as dist
-from repro_torch.distributed import spmd
+from repro_torch.distributed import sharding, spmd
 from repro_torch.launch import serve, train
+from repro_torch.optim import adamw
 torch.set_num_threads(1)
 spmd.join_process_group("gloo", torch.device("cpu"))
+defaults = sharding.FSDP_PARAM_THRESHOLD, adamw._CHUNK_THRESHOLD
 for kind, argv, *out in json.load(open(sys.argv[1])):
+    opts = out[1] if len(out) > 1 else {}
+    out = [o for o in out[:1] if o]
+    sharding.FSDP_PARAM_THRESHOLD, adamw._CHUNK_THRESHOLD = opts.get(
+        "thresholds", defaults)
     if kind == "copy":
         if dist.get_rank() == 0:
             for dst in argv[1:]:
@@ -195,7 +211,10 @@ for kind, argv, *out in json.load(open(sys.argv[1])):
             print("REFUSED", exc, flush=True)
             continue
         raise AssertionError("the job was not refused")
-    run = {"train": train.main, "serve": serve.main}[kind](argv)
+    if "opt" in opts:
+        run = train.main(argv, opt=adamw.OptConfig(**opts["opt"]))
+    else:
+        run = {"train": train.main, "serve": serve.main}[kind](argv)
     if out and dist.get_rank() == 0:
         with open(out[0], "w") as f:
             json.dump({"start": run.start, "metrics": run.metrics,
@@ -228,13 +247,89 @@ SERVE_ARGV = ["--arch", "phi3.5-moe-42b-a6.6b", "--reduced", "--device",
 VLM = "qwen2-vl-7b"
 
 
+#: Adafactor at the CLI's schedule for ARGV (--lr 1e-3, --steps 3)
+ADAFACTOR = dict(kind="adafactor", lr=1e-3, warmup_steps=2,
+                 decay_steps=STEPS)
+#: the Adafactor jobs: (tag, arch, mesh shape, extra argv, thresholds);
+#: kimi-k2 reduced to 3 layers (2 MoE) with the 1 T's paths turned on:
+#: FSDP experts (the d_model dim over data) and per-layer units for the
+#: expert stacks (2 x 4 x 64 x 128 elements; nothing else reaches 32768)
+ADAFACTOR_RUNS = (
+    ("deepseek-7b", "deepseek-7b", (4, 2), [], None),
+    ("phi3.5-moe", "phi3.5-moe-42b-a6.6b", (2, 2), [], None),
+    ("kimi-k2", "kimi-k2-1t-a32b", (2, 2), ["--layers", "3"], (0, 32768)),
+)
+
+
+class _thresholds:
+    """FSDP_PARAM_THRESHOLD and _CHUNK_THRESHOLD set for a block (None:
+    unchanged)."""
+
+    def __init__(self, values):
+        from repro_torch.distributed import sharding
+        from repro_torch.optim import adamw
+        self.values, self.mods = values, (sharding, adamw)
+
+    def __enter__(self):
+        sh, ad = self.mods
+        self.saved = sh.FSDP_PARAM_THRESHOLD, ad._CHUNK_THRESHOLD
+        if self.values is not None:
+            sh.FSDP_PARAM_THRESHOLD, ad._CHUNK_THRESHOLD = self.values
+
+    def __exit__(self, *exc):
+        sh, ad = self.mods
+        sh.FSDP_PARAM_THRESHOLD, ad._CHUNK_THRESHOLD = self.saved
+
+
+def _adafactor_runs(root, jobs):
+    """The Adafactor cases: each from its own step-0 checkpoint, one
+    process under a shape-only mesh, and a mesh job appended to
+    ``jobs``; deepseek-7b's (4, 2) checkpoint is then copied and placed
+    under (2, 4) and saved again.  Returns the cases' dirs and the
+    resave's."""
+    from repro_torch.optim.adamw import OptConfig
+    opt = OptConfig(**ADAFACTOR)
+    out = {}
+    for tag, arch, (R, C), extra, th in ADAFACTOR_RUNS:
+        base = ["--arch", arch, *ARGV, *extra]
+        start, single = str(root / f"af-{tag}-start"), str(
+            root / f"af-{tag}-single")
+        with _thresholds(th):
+            train.main(["--arch", arch, "--reduced", "--steps", "0",
+                        "--device", "cpu", *extra, "--ckpt-dir", start],
+                       opt=opt)
+            shutil.copytree(start, single)
+            run = train.main([*base, "--ckpt-dir", single], opt=opt,
+                             mesh=HM.ShapeMesh((R, C), ("data", "model")))
+        mesh_dir = str(root / f"af-{tag}-mesh")
+        shutil.copytree(start, mesh_dir)
+        metrics = str(root / f"af-{tag}.json")
+        opts = {"opt": ADAFACTOR}
+        if th is not None:
+            opts["thresholds"] = list(th)
+        jobs[R * C].append(("train", [*base, "--model-axis", str(C),
+                                      "--ckpt-dir", mesh_dir], metrics,
+                            opts))
+        out[tag] = dict(single=run, single_dir=single, mesh_dir=mesh_dir,
+                        metrics=metrics, start=start, shape=(R, C))
+    src = out["deepseek-7b"]["mesh_dir"]
+    resaved = str(root / "af-restart-resaved")
+    jobs[8] += [("copy", [src, resaved]),
+                ("train", ["--arch", "deepseek-7b", "--model-axis", "4",
+                           *ARGV, "--ckpt-dir", resaved], None,
+                 {"opt": ADAFACTOR})]
+    out["resaved"] = resaved
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every mesh job once: two spawns (8 ranks: both archs at (4, 2) and
-    the restart under (2, 4); 4 ranks: both archs at (2, 2), serving, a
-    model axis that does not divide the world), the single-process
-    counterparts, and the reference's (4, 2) step in a subprocess of 8
-    host devices, which overlaps the spawns."""
+    the restart under (2, 4), AdamW and Adafactor; 4 ranks: both archs
+    at (2, 2), serving, a model axis that does not divide the world, and
+    Adafactor on phi3.5-moe and a reduced kimi-k2), the single-process
+    counterparts, and the reference's (4, 2) step, AdamW and Adafactor,
+    in subprocesses of 8 host devices, which overlap the spawns."""
     root = tmp_path_factory.mktemp("lm_mesh")
     out = {}
     for arch in ARCHS:
@@ -297,6 +392,14 @@ def runs(tmp_path_factory):
     # the (4, 2) checkpoint is copied for the restart jobs once written
     src = out["deepseek-7b", 4, 2]["mesh_dir"]
     jobs[8].insert(len(ARCHS), ("copy", [src, again, resaved]))
+    out["adafactor"] = af = _adafactor_runs(root, jobs)
+    af_ref_dir = str(root / "reference-4x2-adafactor")
+    af_ref = subprocess.Popen([sys.executable, "-c",
+                               textwrap.dedent(REFERENCE_RUN),
+                               af["deepseek-7b"]["start"], af_ref_dir,
+                               str(STEPS), "adafactor"],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env)
     out["logs8"] = _jobs(jobs[8], 8, str(root / "ranks8"))
     out["logs4"] = _jobs(jobs[4], 4, str(root / "ranks4"))
     for arch in ARCHS:
@@ -309,11 +412,15 @@ def runs(tmp_path_factory):
     out["resaved"] = _restored(resaved, STEPS)
     with open(root / "restart.json") as f:
         out["continued"] = json.load(f)
-    stdout, stderr = ref.communicate(timeout=600)
-    assert ref.returncode == 0, stderr[-3000:]
-    line = [x for x in stdout.splitlines() if x.startswith("LOSSES")][0]
-    out["reference"] = dict(losses=json.loads(line.split(" ", 1)[1]),
-                            dir=ref_dir)
+    for tag, *_ in ADAFACTOR_RUNS:
+        with open(af[tag]["metrics"]) as f:
+            af[tag]["mesh"] = json.load(f)
+    for key, proc, d in (("reference", ref, ref_dir),
+                         ("reference-adafactor", af_ref, af_ref_dir)):
+        stdout, stderr = proc.communicate(timeout=600)
+        assert proc.returncode == 0, stderr[-3000:]
+        line = [x for x in stdout.splitlines() if x.startswith("LOSSES")][0]
+        out[key] = dict(losses=json.loads(line.split(" ", 1)[1]), dir=d)
     return out
 
 
@@ -443,6 +550,148 @@ def test_place_under_a_mesh_cuts_each_ranks_block(runs):
     _, opt = ST.abstract_state(cfg, OptConfig())
     ospecs = SH.opt_state_specs(cfg, mesh, opt)
     assert ospecs["mu"]["layers/attn/wq"][0] == "data"
+
+
+def _hold_state(mesh_w, single_w):
+    """Every array of two checkpoints: parameters at PARAM_TOL, the
+    factors (squares of gradients, far below PARAM_TOL's atol) at its
+    rtol with the atol scaled to the array's largest value."""
+    assert sorted(mesh_w) == sorted(single_w)
+    for k in mesh_w:
+        got, want = mesh_w[k].float().numpy(), single_w[k].float().numpy()
+        tol = PARAM_TOL
+        if k.startswith("opt/fac/"):
+            tol = dict(rtol=PARAM_TOL["rtol"],
+                       atol=PARAM_TOL["atol"] * float(np.abs(want).max()))
+        np.testing.assert_allclose(got, want, err_msg=k, **tol)
+
+
+@pytest.mark.parametrize("tag", [t for t, *_ in ADAFACTOR_RUNS])
+def test_adafactor_mesh_train_matches_single_process(runs, tag):
+    """Adafactor on R * C gloo ranks against one process under a
+    shape-only (R, C) mesh, from one step-0 checkpoint: losses, final
+    weights and the factors (every ``opt/fac`` array).  deepseek-7b at
+    (4, 2) (TP columns and rows), phi3.5-moe at (2, 2) (experts over
+    ``model``), and kimi-k2 reduced at (2, 2) with the 1 T's paths on:
+    its experts' d_model FSDP-sharded over ``data`` (``rfac``'s mean over
+    a sharded dim) and the expert stacks updated a layer at a time
+    (per-layer RMS)."""
+    r = runs["adafactor"][tag]
+    R, C = r["shape"]
+    assert r["mesh"]["mesh"] == {"data": R, "model": C}
+    np.testing.assert_allclose(_losses(r["mesh"]["metrics"]),
+                               r["single"].losses, rtol=LOSS_RTOL)
+    mesh_w, single_w = _restored(r["mesh_dir"]), _restored(r["single_dir"])
+    assert any(k.startswith("opt/fac/") for k in mesh_w)
+    assert not any(k.startswith("opt/mu/") for k in mesh_w)
+    _hold_state(mesh_w, single_w)
+
+
+def test_adafactor_mesh_train_matches_the_reference_mesh_step(runs):
+    """deepseek-7b (reduced) on (4, 2) with Adafactor: the port's 8 gloo
+    ranks against the reference's jitted Adafactor step under GSPMD on 8
+    host devices, from one step-0 checkpoint."""
+    r = runs["adafactor"]["deepseek-7b"]
+    ref = runs["reference-adafactor"]
+    np.testing.assert_allclose(_losses(r["mesh"]["metrics"]), ref["losses"],
+                               rtol=REF_LOSS_RTOL)
+    got = _restored(r["mesh_dir"])
+    _, want, _ = JCK.restore(ref["dir"])
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if k.startswith("params/"):
+            np.testing.assert_allclose(got[k].numpy(), want[k],
+                                       atol=REF_PARAM_ATOL, rtol=0,
+                                       err_msg=k)
+
+
+def test_adafactor_elastic_restart_reshards_bit_identically(runs):
+    """An Adafactor checkpoint of (4, 2) restored and placed under (2, 4)
+    (each factor's region under the new shape's ``opt_state_specs``),
+    then gathered and saved again, is bit for bit the same."""
+    first = _restored(runs["adafactor"]["deepseek-7b"]["mesh_dir"], STEPS)
+    again = _restored(runs["adafactor"]["resaved"], STEPS)
+    assert sorted(first) == sorted(again)
+    assert any(k.endswith("/vr") for k in first)
+    for k, v in first.items():
+        assert torch.equal(again[k], v), k
+
+
+def test_adafactor_sharded_saves_cross_between_the_packages(runs):
+    """An Adafactor checkpoint a (4, 2) mesh of the port wrote reads back
+    bit for bit in the reference's restore and ``unflatten_like`` onto
+    ``init_opt_state(OptConfig(kind="adafactor"))``; the reference's
+    (4, 2) Adafactor save reads back bit for bit in the port's."""
+    import repro.launch.steps as JST
+    from repro.configs.base import get_config, reduced
+    from repro.optim.adamw import OptConfig as JOpt
+    port_dir = runs["adafactor"]["deepseek-7b"]["mesh_dir"]
+    _, jflat, _ = JCK.restore(port_dir)
+    flat = _restored(port_dir)
+    cfg = dataclasses.replace(reduced(get_config("deepseek-7b")), remat=False)
+    template = jax.eval_shape(lambda: dict(zip(
+        ("params", "opt"), JST.init_all(cfg, JOpt(kind="adafactor"),
+                                        jax.random.PRNGKey(0)))))
+    tree = JCK.unflatten_like(template, jflat)
+    leaves = jax.tree_util.tree_flatten_with_path(tree)[0]
+    assert len(leaves) == len(flat)
+    for path, leaf in leaves:
+        key = "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                       for p in path)
+        np.testing.assert_array_equal(np.asarray(leaf), flat[key].numpy())
+    ref_dir = runs["reference-adafactor"]["dir"]
+    _, jflat, _ = JCK.restore(ref_dir)
+    flat = _restored(ref_dir)
+    assert sorted(jflat) == sorted(flat)
+    assert any(k.startswith("opt/fac/") for k in flat)
+    for k, v in jflat.items():
+        np.testing.assert_array_equal(flat[k].numpy(), v)
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "zamba2-1.2b"])
+def test_adafactor_mesh_update_on_one_rank_equals_apply_updates(
+        arch, monkeypatch):
+    """The mesh's Adafactor (``ShardedLM._adafactor_leaf``) on a (1, 1)
+    mesh of one process, whose collectives do nothing, against
+    ``optim.adamw.apply_updates`` from the same weights, three steps.
+    The chunk threshold at 4096 elements updates musicgen's ``heads`` (3-D
+    and not stacked) row by row and zamba2's Mamba leaves (stacked
+    ``(n_super, attn_every)``) a leading slice at a time; the update's
+    slices of 256 elements sum rows and columns over several slices."""
+    from repro_torch.checkpoint import manager as CKM
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data.tokens import DataConfig, synth_batch_for
+    from repro_torch.distributed import hints, lm_shard
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw
+    monkeypatch.setattr(adamw, "_CHUNK_THRESHOLD", 4096)
+    monkeypatch.setattr(lm_shard, "_UPDATE_CHUNK", 256)
+    cfg = dataclasses.replace(reduced(get_config(arch)), remat=False)
+    opt = adamw.OptConfig(**ADAFACTOR)
+    mesh = HM.HostMesh(1, 1, "cpu")
+    data = DataConfig(seed=0, seq_len=32, global_batch=4)
+    hints.activate(mesh)
+    try:
+        placed = ST.init_placed(cfg, mesh, torch.Generator().manual_seed(0),
+                                "cpu")
+        placed_state = lm_shard.sharded(placed).init_opt_state(opt)
+        whole, state = ST.init_all(cfg, opt,
+                                   torch.Generator().manual_seed(0), "cpu")
+        step = ST.make_train_step(cfg, opt)
+        for s in range(STEPS):
+            b = synth_batch_for(cfg, data, s, device="cpu")
+            _, placed_state, got = step(placed, placed_state, b)
+            _, state, want = step(whole, state, b)
+            np.testing.assert_allclose(float(got["loss"]),
+                                       float(want["loss"]), rtol=LOSS_RTOL)
+        chunked = [v for v in whole.reference_leaves().values()
+                   if adamw._chunked(v)]
+        assert any(len(v.lead) == (2 if arch == "zamba2-1.2b" else 0)
+                   for v in chunked)
+        _hold_state(dict(CKM._leaves(ST.state_tree(placed, placed_state))),
+                    dict(CKM._leaves(ST.state_tree(whole, state))))
+    finally:
+        hints.deactivate()
 
 
 def test_model_axis_must_divide_the_world(runs):
