@@ -234,7 +234,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                ranks (16b's model, steps and schedule) against one
                process under the shape-only mesh: losses, gradient norms,
                gathered weights and factors, B7's launches per rank.
-               Prints {"mesh_lm": ...}.
+               The mesh computes in the reference's tensor-parallel
+               layout (column- and row-parallel projections, the
+               residual stream split along the sequence, vocabulary-
+               parallel embedding and loss); 16g serves phi3.5-moe at
+               full width at 16b's depth through launch/serve.py
+               --model-axis 2 on the four gloo ranks (4 x 128 prompts, 8
+               tokens): the tokens of one process under the shape-only
+               (2, 2) mesh, each rank's bytes a decode step equal to
+               launch/dryrun.py's reckoning, its KV cache cache_specs'
+               block.  Prints {"mesh_lm": ...}.
   17. modal  — (after 16) the audio and vlm families at full width, bf16;
                no kernel of the repo on this path.  17a musicgen-large
                (48 layers): a prefill of 4 x 2,048 frame embeddings
@@ -4378,16 +4387,18 @@ MESH_LM_DIR = os.path.join(ROOT, "build", "mesh-lm")
 #: 16a and 16b train phi3.5-moe at full width at 14b's depth, batch and
 #: learning rate: at 2 layers each of 16b's four ranks holds 8 of the 16
 #: experts (bf16 weights and gradients), a quarter of the float32 moments
-#: (ZeRO-1) and the dense weights whole while it computes, reckoned below
+#: (ZeRO-1) and its tensor-parallel blocks of the dense weights
 MESH_LM_STEPS = 3
 #: 16a's largest relative gap per step to 14b's losses and gradient norms:
 #: the mesh's attention takes the expanded-KV branch and 14b's the grouped
 #: one (the H100 measured 1.649e-4 and 7.779e-3; about 5x each)
 MESH_NCCL_REL_TOL = dict(losses=1e-3, grad_norms=4e-2)
 #: 16b's largest relative gap per step to the single process of the same
-#: G: two data ranks' bf16 gradients are summed once more in bf16 than
-#: one process's (the H100 measured 3.959e-4 and 1.694e-3; about 5x each;
-#: one process at G = 1 is 8.9e-3 off in the losses)
+#: G (which runs the tensor-parallel blocks' arithmetic,
+#: ``hints.shape_blocks``): two data ranks' bf16 gradients are summed once
+#: more in bf16 than one process's (the H100 measured 3.959e-4 and
+#: 1.694e-3; about 5x each; one process at G = 1 is 8.9e-3 off in the
+#: losses)
 MESH_LM_REL_TOL = dict(losses=2e-3, grad_norms=1e-2)
 #: 16b's final weights against the single process's, per leaf, as
 #: ||w_mesh - w_single|| / ||w_single - w_init||: bf16 weights move about
@@ -4413,6 +4424,9 @@ MESH_FACTOR_TOL = {"layers/attn/wq": 5e-2, "layers/moe/wi_gate": 0.16}
 #: tolerance, tests/test_distributed.py)
 MESH_COHORT_TOL = dict(rtol=1e-4, atol=1e-5)
 MESH_RANK_DEADLINE_S = 600.0
+#: 16g: batch x prompt tokens and the tokens generated (one prefill, then
+#: GEN - 1 decode steps), served by 16b's four ranks at 16b's depth
+TP_SERVE = dict(batch=4, prompt=128, gen=8)
 #: phase 7's served tokens and logits, which 16e is held to
 LM_SERVED: dict = {}
 
@@ -4653,6 +4667,78 @@ def mesh_rank_cohort(job: dict, dev: torch.device) -> None:
     torch.cuda.empty_cache()
 
 
+def tp_serve_argv(extra=()) -> list:
+    return ["--arch", LM_ARCH, "--layers", str(TRAIN_LAYERS), "--batch",
+            str(TP_SERVE["batch"]), "--prompt-len", str(TP_SERVE["prompt"]),
+            "--gen", str(TP_SERVE["gen"]), *extra]
+
+
+def mesh_rank_serve(job: dict, dev: torch.device, rank: int) -> None:
+    """16g on this rank: launch/serve.py --model-axis 2, with the prefill
+    and each decode step wrapped to record the mesh's collectives, the
+    cache's shapes and bytes and the steps' seconds; writes a JSON."""
+    from repro_torch.distributed import hints
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.roofline.analysis import collective_bytes
+    seen: dict = {"steps": []}
+    make_prefill, make_serve_step = serve.make_prefill, serve.make_serve_step
+
+    def recorded_prefill(cfg):
+        run = make_prefill(cfg)
+
+        def prefill(params, batch, **kw):
+            mesh = hints.live_mesh()
+            n = len(mesh.collectives)
+            logits, cache = run(params, batch, **kw)
+            seen.update(prefill=list(mesh.collectives[n:]), mesh=mesh,
+                        cache={k: [list(v.shape), v.numel() * v.element_size()]
+                               for k, v in cache.items()})
+            return logits, cache
+        return prefill
+
+    def recorded_step(cfg):
+        run = make_serve_step(cfg)
+
+        def step(params, batch):
+            mesh = hints.live_mesh()
+            n = len(mesh.collectives)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = run(params, batch)
+            torch.cuda.synchronize(dev)
+            seen["steps"].append((list(mesh.collectives[n:]),
+                                  time.perf_counter() - t0))
+            return out
+        return step
+
+    serve.make_prefill, serve.make_serve_step = recorded_prefill, recorded_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    try:
+        tokens = serve.main(job["argv"])
+    finally:
+        serve.make_prefill, serve.make_serve_step = (make_prefill,
+                                                     make_serve_step)
+    mesh = seen["mesh"]
+    out = dict(tokens=tokens.cpu().tolist(), launches=dict(_build.LAUNCHES),
+               cache=seen["cache"], coords=mesh.coords, staged=mesh.staged,
+               rs_emulated=list(mesh.rs_emulated),
+               prefill=seen["prefill"],
+               prefill_bytes=collective_bytes(seen["prefill"])["total"],
+               steps=[r for r, _ in seen["steps"]],
+               step_bytes=[collective_bytes(r)["total"]
+                           for r, _ in seen["steps"]],
+               step_counts=collective_bytes(seen["steps"][0][0])["counts"],
+               step_ms=[t * 1e3 for _, t in seen["steps"]],
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    with open(f"{job['out']}-rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    del tokens, mesh, seen
+    torch.cuda.empty_cache()
+
+
 def mesh_rank(jobs_path: str) -> int:
     """One gloo rank on cuda:0 of phase 16's spawn: joins the group the
     environment names, runs the job list in turn, writes a JSON per
@@ -4680,6 +4766,9 @@ def mesh_rank(jobs_path: str) -> int:
                 continue
             if job["kind"] == "cohort":
                 mesh_rank_cohort(job, dev)
+                continue
+            if job["kind"] == "serve-tp":
+                mesh_rank_serve(job, dev, rank)
                 continue
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -4803,10 +4892,10 @@ def check_mesh_adafactor(cfg, single: dict, init: dict, prefix: str
                 launches=sum(r["launches"]["moe_gmm"] for r in ranks))
 
 
-def phase_mesh_ranks(cfg, single: dict, single_af: dict,
+def phase_mesh_ranks(cfg, single: dict, single_af: dict, single_tp: dict,
                      cohort_path: str) -> dict:
-    """16b, 16c, 16d and 16f's rank side: one spawn of four gloo ranks on
-    cuda:0 (chip_smoke.py --mesh-rank), then the checks."""
+    """16b, 16c, 16d, 16f and 16g's rank side: one spawn of four gloo
+    ranks on cuda:0 (chip_smoke.py --mesh-rank), then the checks."""
     import shutil
     from repro_torch.checkpoint import manager as CK
     from repro_torch.distributed import spmd
@@ -4837,6 +4926,9 @@ def phase_mesh_ranks(cfg, single: dict, single_af: dict,
         dict(kind="train", out=restart + "-more",
              argv=mesh_restart_argv(5, 4, b)),
         dict(kind="cohort", cohort=cohort_path, out=gloo_out),
+        dict(kind="serve-tp", out=os.path.join(d, "16g"), argv=tp_serve_argv(
+            ["--model-axis", "2", "--device", "cuda:0", "--backend",
+             "gloo"])),
     ]
     jobs_path = os.path.join(d, "jobs.json")
     with open(jobs_path, "w") as f:
@@ -4849,7 +4941,7 @@ def phase_mesh_ranks(cfg, single: dict, single_af: dict,
                             "expandable_segments:True"})
     wall = time.perf_counter() - t0
     staged = [k for k, text in enumerate(logs) if "staging" in text]
-    log("mesh-lm", f"four gloo ranks on cuda:0 ran 16b, 16f, 16c and 16d in "
+    log("mesh-lm", f"four gloo ranks on cuda:0 ran 16b, 16f, 16c, 16d and 16g in "
         f"{wall:.1f} s (process starts included); ranks that staged their "
         f"collectives through host memory: {staged}")
 
@@ -4935,11 +5027,111 @@ def phase_mesh_ranks(cfg, single: dict, single_af: dict,
             more[-1] < before[0]):
         raise AssertionError(f"16c losses {more} after {before}")
 
+    # 16g
+    served = check_mesh_serve(cfg, single_tp, os.path.join(d, "16g"))
+
     # 16d's gloo side
     with np.load(gloo_out) as z:
         gloo = {k: z[k] for k in z.files}
     return dict(losses=losses, gaps=gaps, updates=updates, ranks=ranks,
-                gloo=gloo, wall_s=wall, adafactor=af,
+                gloo=gloo, wall_s=wall, adafactor=af, serve_tp=served,
+                launches=sum(r["launches"]["moe_gmm"] for r in ranks))
+
+
+def phase_mesh_single_serve() -> dict:
+    """16g's counterpart: launch/serve.py in one process under a
+    shape-only (2, 2) mesh (the mesh run's dispatch groups and attention
+    branch), the same seed, prompts and depth."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as HM
+    from repro_torch.launch import serve
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tokens = serve.main(tp_serve_argv(), mesh=HM.ShapeMesh(
+        MESH_SHAPE, ("data", "model"))).cpu()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    want = {"moe_gmm": 3 * TRAIN_LAYERS * TP_SERVE["gen"]}
+    log("mesh-lm", f"16g one process under a shape-only (2, 2) mesh: "
+        f"launch/serve.py {TP_SERVE}: launches {counts} (expected {want}) "
+        f"in {wall:.1f} s; first row {tokens[0].tolist()}")
+    if counts != want:
+        raise AssertionError(f"16g single launch counts {counts} != {want}")
+    torch.cuda.empty_cache()
+    return dict(tokens=tokens, launches=counts["moe_gmm"], wall_s=wall)
+
+
+def check_mesh_serve(cfg, single: dict, prefix: str) -> dict:
+    """16g: the four ranks' tokens against the single process's; each
+    rank's decode steps' collectives against launch/dryrun.py's reckoning
+    (record for record) and its KV cache against cache_specs' block."""
+    from repro_torch.configs.base import cache_specs, meta_spec
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.dryrun import block_bytes, step_collectives
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.roofline.analysis import collective_bytes
+    mesh = ShapeMesh(MESH_SHAPE, ("data", "model"))
+    B, P, G = TP_SERVE["batch"], TP_SERVE["prompt"], TP_SERVE["gen"]
+    s_max = P + G
+    reckoned = sorted(tuple(r) for r in step_collectives(
+        cfg, mesh, "decode", s_max, B, OptConfig()))
+    reckoned_bytes = collective_bytes(reckoned)["total"]
+    whole = cache_specs(cfg, B, s_max, meta_spec, cfg.torch_dtype)
+    specs = SH.batch_layout(cfg, mesh, "decode", B)["cache"]
+    want_launches = {"moe_gmm": 3 * TRAIN_LAYERS * G}
+    want_tokens = single["tokens"].tolist()
+    ranks, failures = [], []
+    for k in range(4):
+        with open(f"{prefix}-rank{k}.json") as f:
+            r = json.load(f)
+        ranks.append(r)
+        block = {key: [[b.stop - b.start for b in SH.shard_bounds(
+            tuple(whole[key].shape), specs[key], mesh, r["coords"])],
+            block_bytes(whole[key], specs[key], mesh)] for key in ("k", "v")}
+        cache_ok = all(r["cache"][key] == block[key] for key in ("k", "v"))
+        steps_ok = all(sorted(tuple(x) for x in st) == reckoned
+                       for st in r["steps"])
+        log("mesh-lm", f"16g rank {k} cell {r['coords']}: B7 launches "
+            f"{r['launches']} (expected {want_launches}); KV cache k "
+            f"{r['cache']['k'][0]} = {r['cache']['k'][1] / 2**20:.2f} MiB "
+            f"(cache_specs' block {block['k'][0]}, "
+            f"{block['k'][1] / 2**20:.2f} MiB; a data rank's whole cache "
+            f"{block['k'][1] * MESH_SHAPE[1] / 2**20:.2f} MiB), the same for "
+            f"v: {cache_ok}; bytes moved a decode step "
+            f"{[round(x) for x in r['step_bytes']]} (launch/dryrun.py "
+            f"reckons {round(reckoned_bytes)}; record for record: "
+            f"{steps_ok}) in {r['step_counts']}; the prefill's "
+            f"{r['prefill_bytes'] / 1e6:.3f} MB; decode step ms (host "
+            f"clock, synchronised) {[round(x, 1) for x in r['step_ms']]}; "
+            f"staged through host memory: {r['staged']}; reduce-scatters "
+            f"run as all-reduces on: {r['rs_emulated']}; peak memory "
+            f"{r['peak_gib']:.2f} GiB")
+        if r["tokens"] != want_tokens:
+            failures.append(f"rank {k} tokens {r['tokens']} != "
+                            f"{want_tokens}")
+        if r["launches"] != want_launches:
+            failures.append(f"rank {k} launches {r['launches']}")
+        if not cache_ok:
+            failures.append(f"rank {k} cache {r['cache']} != {block}")
+        if not steps_ok:
+            failures.append(f"rank {k} decode collectives {r['steps'][0]} "
+                            f"!= {reckoned}")
+    log("mesh-lm", f"16g launch/serve.py --model-axis 2 on four gloo ranks "
+        f"(TP: q/k/v column blocks, wo row blocks, vocabulary-parallel "
+        f"embedding and greedy pick; EP over model): tokens equal the "
+        f"single process's on every rank: "
+        f"{all(r['tokens'] == want_tokens for r in ranks)}; first row "
+        f"{ranks[0]['tokens'][0]}")
+    if failures:
+        raise AssertionError("16g " + "; ".join(failures))
+    return dict(step_bytes=ranks[0]["step_bytes"][0],
+                reckoned_bytes=reckoned_bytes,
+                prefill_bytes=ranks[0]["prefill_bytes"],
+                cache_bytes=ranks[0]["cache"]["k"][1] * 2,
+                step_ms=[r["step_ms"] for r in ranks],
+                rs_emulated=ranks[0]["rs_emulated"],
                 launches=sum(r["launches"]["moe_gmm"] for r in ranks))
 
 
@@ -5026,7 +5218,8 @@ def phase_mesh_lm(trained: dict, cohort_path: str) -> dict:
     t.append(time.perf_counter())
     single = phase_mesh_single(cfg)
     single_af = phase_mesh_single_adafactor(cfg)
-    ranks = phase_mesh_ranks(cfg, single, single_af, cohort_path)
+    single_tp = phase_mesh_single_serve()
+    ranks = phase_mesh_ranks(cfg, single, single_af, single_tp, cohort_path)
     t.append(time.perf_counter())
     cohort = phase_mesh_cohort(cohort_path, ranks.pop("gloo"))
     t.append(time.perf_counter())
@@ -5034,6 +5227,7 @@ def phase_mesh_lm(trained: dict, cohort_path: str) -> dict:
     t.append(time.perf_counter())
     secs = [b - a for a, b in zip(t, t[1:])]
     af = ranks["adafactor"]
+    tp = ranks["serve_tp"]
     af_s = single_af["wall_s"] + af["job_s"]
     log("mesh-lm", f"phase 16 took {t[-1] - t[0]:.1f} s: 16a {secs[0]:.1f} "
         f"s, 16b-16c with 16d's and 16f's ranks {secs[1]:.1f} s, 16d "
@@ -5041,10 +5235,11 @@ def phase_mesh_lm(trained: dict, cohort_path: str) -> dict:
         f"process {single_af['wall_s']:.1f} s, its ranks' job "
         f"{af['job_s']:.1f} s inside the spawn)")
     return dict(nccl=nccl, ranks=ranks, cohort=cohort, served=served,
-                adafactor=af,
+                adafactor=af, serve_tp=tp,
                 launches=(nccl["launches"] + single["launches"]
                           + single_af["launches"] + ranks["launches"]
-                          + af["launches"] + served["launches"]),
+                          + af["launches"] + served["launches"]
+                          + single_tp["launches"] + tp["launches"]),
                 seconds=secs + [af_s])
 
 

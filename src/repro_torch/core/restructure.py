@@ -28,6 +28,17 @@ from repro_torch.core.std import PhiTensor
 SORT_DIMS = ("atom", "voxel", "fiber")
 
 
+def sort_by(phi: PhiTensor, dim: str) -> Tuple[PhiTensor, torch.Tensor]:
+    """Stable sort of the coefficients along one indirection dimension, on
+    the coefficients' device.
+
+    Returns (restructured phi, permutation): the permutation is kept so
+    plans can be cached and replayed."""
+    key = {"atom": phi.atoms, "voxel": phi.voxels, "fiber": phi.fibers}[dim]
+    order = torch.argsort(key, stable=True)
+    return phi.take(order), order
+
+
 def sort_by_host(phi: PhiTensor, dim: str) -> Tuple[PhiTensor, np.ndarray]:
     """Stable host (numpy) sort along one indirection dimension.
 

@@ -99,3 +99,13 @@ def dsc_atom_sorted(phi_sorted: PhiTensor, dictionary: torch.Tensor,
                     w: torch.Tensor) -> torch.Tensor:
     """Paper Table-2 variant: DSC with atom-sorted data (D reuse, unsorted Y)."""
     return dsc_naive(phi_sorted, dictionary, w)
+
+
+def matvec_dense_oracle(m: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``M w`` of a dense matrix (a test oracle)."""
+    return m @ w
+
+
+def rmatvec_dense_oracle(m: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``M^T y`` of a dense matrix (a test oracle)."""
+    return m.T @ y

@@ -1,7 +1,7 @@
 """The LM on a live ``(data, model)`` mesh: its parameters and optimizer
-state placed by the sharding rules, its forward on gathered weights, and
-the ZeRO-1 update (the LM half of the reference's ``repro/distributed``,
-which GSPMD partitions from the same rules).
+state placed by the sharding rules, its forward in the tensor-parallel
+layout, and the ZeRO-1 update (the LM half of the reference's
+``repro/distributed``, which GSPMD partitions from the same rules).
 
 PyTorch has no GSPMD, so the port holds plain local tensors and runs the
 collectives the reference's compiler would place:
@@ -9,14 +9,16 @@ collectives the reference's compiler would place:
   * **parameters** are held as this rank's block under ``param_specs``,
     each cut as soon as its layer is drawn (``launch.steps.init_placed``),
     so no rank holds the whole model;
-  * **the forward** (:meth:`ShardedLM.call`) runs the mesh-agnostic model
-    code on each parameter in its compute layout
-    (:func:`~repro_torch.distributed.sharding.compute_spec`): whole,
-    gathered over the axes it is sharded on, except the routed experts,
-    which stay sharded over ``model`` (EP).  The gather's backward sums
-    the gradient over the batch axes (the data-parallel reduction) and
-    cuts this rank's block, so gradients come out in the parameters'
-    placements;
+  * **the forward** (:meth:`ShardedLM.call`) runs the model code on each
+    parameter in its compute layout
+    (:func:`~repro_torch.distributed.sharding.compute_spec`): its block
+    over ``model``, which the model computes on in the tensor-parallel
+    layout (``distributed/hints.py``), gathered only over the batch axes
+    where the rules put FSDP and, for the Mamba2 mixer's leaves, over
+    ``model`` too.  In training every parameter passes
+    :class:`_GatherParam`, whose backward sums the gradient over the
+    batch axes (the data-parallel reduction) and cuts this rank's block,
+    so gradients come out in the parameters' placements;
   * **the batch** is split over the batch axes (each data rank its rows,
     each input cut along its batch dim by ``sharding.batch_layout``: a
     vlm's ``positions`` (3, B, S) by dim 1;
@@ -56,9 +58,9 @@ from repro_torch.optim.adamw import OptConfig, _chunked, init_opt_state
 
 
 class _GatherParam(torch.autograd.Function):
-    """A parameter block gathered over ``axes`` (into its compute
-    layout); the backward sums the gradient over the batch axes and cuts
-    this rank's block again."""
+    """A parameter block gathered over the axes ``spec`` names (into its
+    compute layout; none for most); the backward sums the gradient over
+    the batch axes and cuts this rank's block again."""
 
     @staticmethod
     def forward(ctx, local, spec, mesh):

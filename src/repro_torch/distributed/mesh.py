@@ -151,8 +151,8 @@ class ProcessGroupMesh(_Mesh):
     Under gloo a CUDA tensor is reduced in place.  If this build's gloo
     refuses CUDA tensors, the mesh stages each one through a host tensor
     from then on, says so on stderr, and sets ``staged``.  The LM's mesh
-    (``launch/mesh.py``) runs its collectives through :meth:`all_reduce`
-    and :meth:`all_gather`.
+    (``launch/mesh.py``) runs its collectives through :meth:`all_reduce`,
+    :meth:`all_gather` and :meth:`reduce_scatter`.
     """
 
     def __init__(self, R: int, C: int, *, device):
@@ -169,6 +169,7 @@ class ProcessGroupMesh(_Mesh):
         self.r, self.c = divmod(self.rank, C)
         self.cells = ((self.r, self.c),)
         self.staged = False
+        self.rs_emulated: set = set()
         self._rows = [dist.new_group([r * C + c for c in range(C)])
                       for r in range(R)]
         self._cols = [dist.new_group([r * C + c for r in range(R)])
@@ -198,18 +199,57 @@ class ProcessGroupMesh(_Mesh):
         return (self._rows[self.r] if axis == "model" else
                 self._cols[self.c] if axis == "data" else None)
 
-    def all_reduce(self, x: torch.Tensor, axis: Axis) -> None:
-        """Sum ``x`` in place over this rank's row (``model``), column
-        (``data``) or the world (both), staged once gloo has refused a
-        CUDA tensor."""
+    def all_reduce(self, x: torch.Tensor, axis: Axis, op: str = "sum"
+                   ) -> None:
+        """Sum ``x`` (``op="max"``: its maximum) in place over this rank's
+        row (``model``), column (``data``) or the world (both), staged
+        once gloo has refused a CUDA tensor."""
         group = self.group_of(axis)
+        rop = {"sum": self._dist.ReduceOp.SUM,
+               "max": self._dist.ReduceOp.MAX}[op]
 
         def staged():
             h = x.cpu()
-            self._dist.all_reduce(h, group=group)
+            self._dist.all_reduce(h, op=rop, group=group)
             x.copy_(h)
         self._try(x, "all_reduce",
-                  lambda: self._dist.all_reduce(x, group=group), staged)
+                  lambda: self._dist.all_reduce(x, op=rop, group=group),
+                  staged)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: Axis, dim: int
+                       ) -> torch.Tensor:
+        """This rank's block along ``dim`` of ``x`` summed over its row
+        (``model``) or column (``data``): the ``i``-th of ``n`` equal
+        blocks goes to the rank at coordinate ``i``.  Where the backend
+        implements no reduce-scatter for the tensor's device type (which
+        it then adds to ``rs_emulated``), an all-reduce and a ``narrow`` do
+        it, moving the whole ``x`` twice."""
+        group = self.group_of(axis)
+        n = self.group_size(axis)
+        i = self.c if axis == "model" else self.r
+        m = x.shape[dim] // n
+        xt = x.movedim(dim, 0).contiguous()
+
+        def native(t):
+            out = torch.empty((m,) + tuple(t.shape[1:]), dtype=t.dtype,
+                              device=t.device)
+            self._dist.reduce_scatter_tensor(out, t, group=group)
+            return out
+
+        def run(t):
+            kind = t.device.type
+            if kind not in self.rs_emulated:
+                try:
+                    return native(t)
+                except (RuntimeError, NotImplementedError, ValueError):
+                    self.rs_emulated.add(kind)
+            t = t.clone()
+            self._dist.all_reduce(t, group=group)
+            return t.narrow(0, i * m, m).contiguous()
+
+        out = self._try(x, "reduce_scatter", lambda: run(xt),
+                        lambda: run(xt.cpu()).to(x.device))
+        return out.movedim(0, dim).contiguous()
 
     def all_gather(self, x: torch.Tensor, axis: Axis, dim: int
                    ) -> torch.Tensor:

@@ -24,7 +24,8 @@ PyTorch has no GSPMD to place collectives from these specs.
 axis named on dim ``i``, ``Replicate()`` for the others), and the port
 places tensors itself: :func:`local_shard` cuts this rank's block of a
 whole tensor, :func:`gather_shard` rebuilds the whole tensor from the
-blocks over a live mesh (``distributed/lm_shard.py`` uses both).
+blocks over a live mesh (``distributed/lm_shard.py`` uses both), and
+:func:`compute_spec` names the layout each parameter is computed in.
 """
 from __future__ import annotations
 
@@ -347,12 +348,23 @@ def sharded_axes(spec: P, mesh) -> Tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a in named)
 
 
+#: the Mamba2 mixer's leaves: a live mesh still gathers them whole to
+#: compute (their tensor-parallel layout, and the ssm cache over heads,
+#: are open items)
+MIXER_LEAVES = ("wz", "wx", "wb", "wc", "wdt", "out_proj", "conv_wx",
+                "conv_wb", "conv_wc")
+
+
 def compute_spec(path: str, spec: P) -> P:
-    """The layout a parameter is computed in on a live mesh: whole, except
-    that the routed experts stay sharded over ``model`` (EP: each rank
-    runs its own experts).  Every other sharded axis is gathered before
-    use (``distributed/lm_shard.py``)."""
-    keep = ("model",) if is_expert_weight(path) else ()
+    """The layout a parameter is computed in on a live mesh: its block
+    over ``model`` (the tensor-parallel layout: column- and row-parallel
+    projections, vocabulary-parallel ``embed``, ``lm_head`` and ``heads``,
+    the QKV biases, the routed experts over ``model``), except the Mamba2
+    mixer's leaves (:data:`MIXER_LEAVES`), which are gathered whole.  The
+    batch axes are gathered wherever the rules put FSDP (the 1 T MoE's
+    expert ``d_model`` dim); ``distributed/lm_shard.py`` gathers them."""
+    parts = path.split("/")
+    keep = () if ("mamba" in parts and parts[-1] in MIXER_LEAVES) else (
+        "model",)
     return P(*((tuple(a for a in _axes_of(entry) if a in keep) or None)
                for entry in spec))
-

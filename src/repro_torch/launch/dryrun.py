@@ -30,16 +30,19 @@ a record here is computed from the port's own layouts and schedule
     state; prefill: the cache and the last logits; decode: the logits and
     the cache entries the step writes).
   * ``collectives`` are the bytes one device moves in a step of the
-    port's LM mesh (``distributed/lm_shard.py``), through
-    ``roofline.analysis.collective_bytes``: the weight gathers, the
-    gradient sums over the batch axes, ZeRO-1's gathers and region sums
-    and the gradient norm's sums, or Adafactor's factor sums and gathers
-    and its RMS sums (run by the port's own code on ``meta`` tensors over
-    a :class:`RecordingMesh`), and, reckoned from the shapes, the
-    attention heads' and the experts' gathers over ``model`` (forward,
-    the remat recompute, backward), the loss's count and the metrics'
-    sums (a train record's ``optimizer_collective_bytes``: the optimizer
-    step's share).  A batch that does not divide over the batch axes is
+    port's LM mesh (``distributed/lm_shard.py``) in the tensor-parallel
+    layout, through ``roofline.analysis.collective_bytes``: the gathers
+    of the parameters computed whole (the Mamba2 mixer's) or FSDP-split
+    (the 1 T MoE's experts), the gradient sums over the batch axes,
+    ZeRO-1's gathers and region sums and the gradient norm's sums, or
+    Adafactor's factor sums and gathers and its RMS sums (run by the
+    port's own code on ``meta`` tensors over a :class:`RecordingMesh`),
+    and, reckoned from the shapes (:func:`_model_collectives`), the
+    Megatron-SP gathers and reduce-scatters of every attention and MLP,
+    the MoE's gathers, the vocabulary-parallel embedding and loss, the
+    decode's log-sum-exp over a sequence-split cache (forward, the remat
+    recompute, backward), the loss's count and the metrics' sums (a train
+    record's ``optimizer_collective_bytes``: the optimizer step's share).  A batch that does not divide over the batch axes is
     held whole by every data rank (the port refuses such a batch on a
     live mesh; only long_500k's batch of 1 is one, and its decode issues
     no batch-sized collective).
@@ -99,8 +102,8 @@ class RecordingMesh(ShapeMesh):
     of rank 0: its collectives move nothing (an all-gather returns a
     ``meta`` tensor of the gathered shape) and are recorded as a
     :class:`~repro_torch.launch.mesh.HostMesh` records them, ``(kind,
-    bytes of this rank's operand, group size)`` (an all-gather's bytes
-    are its result's)."""
+    bytes of this rank's operand, group size)`` (an all-gather's and a
+    reduce-scatter's bytes are their result's)."""
 
     live = True
 
@@ -114,12 +117,25 @@ class RecordingMesh(ShapeMesh):
     def axes_size(self, axes) -> int:
         return math.prod(self.shape[a] for a in axes)
 
-    def all_reduce(self, t: torch.Tensor, axes) -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"
+                   ) -> torch.Tensor:
         n = self.axes_size(axes)
         if n > 1:
             self.collectives.append(("all-reduce",
                                      t.numel() * t.element_size(), n))
         return t
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int
+                       ) -> torch.Tensor:
+        n = self.shape[axis]
+        if n == 1:
+            return t
+        shape = list(t.shape)
+        shape[dim] //= n
+        out = t.new_empty(shape, device="meta")
+        self.collectives.append(("reduce-scatter",
+                                 out.numel() * out.element_size(), n))
+        return out
 
     def all_gather(self, t: torch.Tensor, axis: str, dim: int
                    ) -> torch.Tensor:
@@ -175,45 +191,140 @@ def _batch_rows(mesh, batch: int) -> Tuple[int, int]:
 
 def _model_collectives(cfg: ArchConfig, mesh, kind: str, seq: int,
                        batch: int) -> List[Record]:
-    """The collectives the model code issues over ``model`` and the batch
-    axes (``hints.over_model``'s gathers, ``hints.batch_total``, the
-    train step's metric sums), reckoned from the shapes as the code
-    issues them."""
+    """The collectives the model code runs in the tensor-parallel layout
+    (``distributed/hints.py``, ``models/layers.py``,
+    ``models/transformer.py``), reckoned from the shapes as the code
+    runs them: per attention or MLP the Megatron-SP pair (an all-gather
+    of the sequence in, a reduce-scatter of the row-parallel partial sums
+    out; on a whole stream Megatron's ``f`` / ``g``), the gathered q, k, v
+    columns where heads do not divide, the MoE's gathers (its input whole,
+    its experts' outputs over ``model``), the vocabulary-parallel
+    embedding and cross entropy, the norms' parameter sums on a split
+    stream, the decode's log-sum-exp over a sequence-split cache, the
+    loss's count and the metrics' sums.  In training each layer under
+    remat runs its forward collectives again in the backward pass up to
+    its last saved tensor (``torch.utils.checkpoint``'s early stop: a
+    block's final reduce-scatter or all-reduce is not recomputed)."""
     R, rows = _batch_rows(mesh, batch)
     C = mesh.shape.get("model", 1)
     es = torch.empty((), dtype=cfg.torch_dtype).element_size()
     train = kind == "train"
     S = 1 if kind == "decode" else seq
     out: List[Record] = []
-    # attention: the heads over `model` in training and prefill (decode
-    # runs no over_model); per application a gather of the output, in
-    # training also one per q, k, v gradient and one more for remat
-    if kind != "decode" and C > 1 and cfg.n_heads % C == 0:
-        if cfg.family == "hybrid":
-            apps, recomputed = (cfg.n_layers // cfg.attn_every,) * 2
-        elif cfg.family == "ssm":
-            apps = recomputed = 0
-        else:
-            apps = cfg.n_layers
-            recomputed = cfg.n_layers - (cfg.first_k_dense
-                                         if cfg.family == "moe" else 0)
-        n = apps * (4 if train else 1) + (recomputed if train and cfg.remat
-                                          else 0)
-        out += [("all-gather", rows * S * cfg.n_heads
-                 * cfg.resolved_head_dim * es, C)] * n
-    # the experts over `model`: a gather of every expert's rows of the
-    # rank's dispatch group (forward; backward; the remat recompute)
-    if cfg.family == "moe" and C > 1 and cfg.n_experts % C == 0:
-        capacity = MOE.capacity_of(rows * S, cfg.top_k, cfg.n_experts,
-                                   cfg.capacity_factor)
-        layers = cfg.n_layers - cfg.first_k_dense
-        n = layers * ((2 + (1 if cfg.remat else 0)) if train else 1)
-        out += [("all-gather", cfg.n_experts * capacity * cfg.d_model * es,
-                 C)] * n
+
+    def ag(n):
+        return ("all-gather", int(n), C)
+
+    def rs(n):
+        return ("reduce-scatter", int(n), C)
+
+    def ar(n):
+        return ("all-reduce", int(n), C)
+
+    tail = []
     if train and R > 1:
-        out.append(("all-reduce", 8, R))            # the loss's int64 count
-        out += [("all-reduce", 4, R)] * 3           # loss, aux, total_loss
-    return out
+        tail.append(("all-reduce", 8, R))           # the loss's int64 count
+        tail += [("all-reduce", 4, R)] * 3          # loss, aux, total_loss
+    if C == 1:
+        return out + tail
+    d, V = cfg.d_model, cfg.vocab_size
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    split = cfg.family in T.SP_FAMILIES and S % C == 0   # the stream's
+    act = rows * S * d * es
+    n_norm = 1 if cfg.norm == "rms" else 2
+    norm_sums = [ar(d * 4)] * n_norm if split else []     # in float32
+
+    def enter():
+        """(forward, backward) of ``hints.column_products``: the input
+        all-gathered, its gradient reduce-scattered (or all-reduced)."""
+        return ([ag(act)], [rs(act // C)]) if split else ([], [ar(act)])
+
+    def leave():
+        """(forward, backward) of ``hints.residual``."""
+        return ([rs(act // C)], [ag(act)]) if split else ([ar(act)], [])
+
+    def attention():
+        ef, eb = enter()
+        lf, lb = leave()
+        fwd, bwd = list(ef), norm_sums + eb
+        if H % C:
+            fwd.append(ag(rows * S * H * hd * es))
+            bwd.append(rs(rows * S * H * hd // C * es))
+        if KV % C:
+            fwd += [ag(rows * S * KV * hd * es)] * 2
+            bwd += [rs(rows * S * KV * hd // C * es)] * 2
+        if kind == "decode" and KV % C:
+            if H % C == 0:
+                fwd.append(ag(rows * H * hd * es))
+            fwd += [ar(rows * H * 4)] * 2 + [rs(rows * H * hd // C * 4)]
+        return fwd + lf, bwd + lb, 0
+
+    def ffn(moe_layer: bool):
+        """(forward, backward, forward collectives at its end that a
+        remat recompute skips)."""
+        if not moe_layer and cfg.d_ff % C == 0:
+            ef, eb = enter()
+            lf, lb = leave()
+            return ef + lf, norm_sums + eb + lb, len(lf)
+        fwd = [ag(act)] if split else []
+        bwd = [ag(act)] if split else []
+        skipped = 0
+        if moe_layer:
+            if cfg.n_experts % C == 0:
+                capacity = MOE.capacity_of(rows * S, cfg.top_k,
+                                           cfg.n_experts,
+                                           cfg.capacity_factor)
+                g = ag(cfg.n_experts * capacity * d * es)
+                fwd.append(g)
+                bwd.append(g)
+            if cfg.n_shared_experts and (cfg.moe_d_ff
+                                         * cfg.n_shared_experts) % C == 0:
+                fwd.append(ar(act))             # g
+                bwd.append(ar(act))             # f
+                skipped = 1
+        return fwd, bwd, skipped
+
+    def block(moe_layer: bool, remat: bool) -> List[Record]:
+        af, ab, _ = attention()
+        ff, fb, skipped = ffn(moe_layer)
+        fwd = af + ff
+        if not train:
+            return fwd
+        again = fwd[:len(fwd) - skipped] if remat else []
+        return fwd + again + ab + fb
+
+    # the embedding: vocabulary-parallel partial sums, or a whole table
+    if cfg.family != "audio":
+        if V % C == 0:
+            out.append(rs(act // C) if split else ar(act))
+            if train and split:
+                out.append(ag(act))
+        elif train and split:
+            out.append(ag(act))
+    if train and split and cfg.rope == "learned":
+        out.append(ag(act))
+    # the layers
+    if cfg.family in ("dense", "moe", "audio", "vlm"):
+        kd = cfg.first_k_dense if cfg.family == "moe" else 0
+        for _ in range(kd):
+            out += block(False, False)
+        for _ in range(cfg.n_layers - kd):
+            out += block(cfg.family == "moe", cfg.remat)
+    elif cfg.family == "hybrid":
+        for _ in range(cfg.n_layers // cfg.attn_every):
+            out += block(False, cfg.remat)
+    # the head and the loss
+    vdim = V % C == 0
+    if kind == "prefill" and split:
+        out.append(ag(rows * C * d * es))           # the last position
+    if train:
+        cb = max(cfg.n_codebooks, 1)
+        if vdim:
+            ef, eb = enter()
+            out += ef + [ar(rows * S * cb * 4)] * 3 + norm_sums + eb
+        elif split:
+            out.append(ag(act))
+    return out + tail
 
 
 def step_collectives(cfg: ArchConfig, mesh, kind: str, seq: int,

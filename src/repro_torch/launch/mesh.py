@@ -24,7 +24,8 @@ Under gloo a CUDA tensor is reduced or gathered on the card.  If this
 build's gloo refuses one, the mesh stages every later collective through
 host tensors, says so on stderr and sets ``staged``: it never runs on the
 host silently.  Every collective is recorded as ``(kind, bytes, group
-size)`` in ``collectives`` (the bytes of this rank's operand), what
+size)`` in ``collectives`` (the bytes of this rank's operand; for an
+all-gather and a reduce-scatter, of its result), what
 :func:`repro_torch.roofline.analysis.collective_bytes` reads.
 """
 from __future__ import annotations
@@ -99,17 +100,38 @@ class HostMesh(ShapeMesh):
     def axes_size(self, axes: Sequence[str]) -> int:
         return math.prod(self.shape[a] for a in axes)
 
-    def all_reduce(self, t: torch.Tensor, axes: Sequence[str]
-                   ) -> torch.Tensor:
-        """Sum ``t`` over the ranks that differ only along ``axes``, in
-        place; returns ``t``."""
+    def all_reduce(self, t: torch.Tensor, axes: Sequence[str],
+                   op: str = "sum") -> torch.Tensor:
+        """Sum ``t`` (``op="max"``: its maximum) over the ranks that differ
+        only along ``axes``, in place; returns ``t``."""
         n = self.axes_size(axes)
         if self.live and n > 1:
             self.collectives.append(("all-reduce",
                                      t.numel() * t.element_size(), n))
             key = tuple(a for a in AXES if a in axes)
-            self._pg.all_reduce(t, key[0] if len(key) == 1 else key)
+            self._pg.all_reduce(t, key[0] if len(key) == 1 else key, op)
         return t
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int
+                       ) -> torch.Tensor:
+        """This rank's block along ``dim`` of ``t`` summed over mesh
+        ``axis`` (the block at its coordinate), recorded as
+        ``("reduce-scatter", bytes of the block, group size)``.  Where
+        the backend has no reduce-scatter the process-group mesh runs an
+        all-reduce and a ``narrow`` in its place (``rs_emulated``), which
+        the record does not show."""
+        n = self.shape[axis]
+        if not self.live or n == 1:
+            return t
+        out = self._pg.reduce_scatter(t, axis, dim)
+        self.collectives.append(("reduce-scatter",
+                                 out.numel() * out.element_size(), n))
+        return out
+
+    @property
+    def rs_emulated(self) -> tuple:
+        """The device types whose reduce-scatters ran as all-reduces."""
+        return tuple(sorted(self._pg.rs_emulated)) if self._pg else ()
 
     def all_gather(self, t: torch.Tensor, axis: str, dim: int
                    ) -> torch.Tensor:

@@ -64,24 +64,29 @@ def generate(cfg, params, prompts: torch.Tensor, n_gen: int, *,
     the chosen ones (teacher forcing, to hold two runs step by step).
     ``s_max``: the KV cache's positions (the static budget every decode
     step attends over, as the reference's decode masks over it; at least
-    ``P + n_gen``, the default).
+    ``P + n_gen``, the default; rounded up to a multiple of the ``model``
+    axis where the cache splits the sequence over it).
     Returns (the argmax tokens (B, n_gen) int32, each step's last-position
-    logits (B, V), and the seconds of the prefill and of all decode steps,
-    each ending in a device synchronisation)."""
+    logits (B, V; on a tensor-parallel mesh this rank's block of V), and
+    the seconds of the prefill and of all decode steps, each ending in a
+    device synchronisation).  The pick is ``hints.vocab_argmax``: the
+    lowest id wins a tie, as ``jnp.argmax``'s."""
     prefill_step, serve_step = make_prefill(cfg), make_serve_step(cfg)
     batch, prompt_len = prompts.shape
     sync = (torch.cuda.synchronize if prompts.device.type == "cuda"
             else lambda: None)
 
     def pick(logits, i):
-        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        tok = hints.vocab_argmax(logits[:, -1], cfg.vocab_size).to(
+            torch.int32)[:, None]
         feed = tok if forced is None else forced[:, i:i + 1]
         return tok, feed
 
     sync()
     t0 = time.perf_counter()
-    logits, cache = prefill_step(params, {"tokens": prompts})
-    cache = pad_cache(cache, max(prompt_len + n_gen, s_max or 0))
+    positions = T.cache_positions(cfg, max(prompt_len + n_gen, s_max or 0))
+    logits, cache = prefill_step(params, {"tokens": prompts},
+                                 s_max=positions)
     tok, feed = pick(logits, 0)
     sync()
     seconds = {"prefill": time.perf_counter() - t0}

@@ -7,7 +7,9 @@ and its gradient (autograd over :func:`repro_torch.models.transformer.loss_fn`)
 and the optimizer update, which runs in place (``optim/adamw.py``).
 ``make_eval_step(cfg)`` returns the loss's metrics without a gradient,
 ``make_prefill(cfg)`` the prefill and ``make_serve_step(cfg)`` the
-one-token decode step.
+one-token decode step.  On a tensor-parallel mesh the serving steps'
+logits are this rank's block of the vocabulary and their cache
+``cache_specs``' block (``models/transformer.py``).
 
 A training state crosses to checkpoints (and to the reference) as the
 reference's tree: :func:`state_tree` stacks every layer-stacked parameter
@@ -91,19 +93,22 @@ def make_eval_step(cfg: ArchConfig) -> Callable:
 
 
 def _on_mesh(fn: Callable) -> Callable:
-    """``fn(params, batch)``, on a model placed on a live mesh through its
-    gathered weights (the batch is this rank's rows)."""
-    def step(params, batch):
+    """``fn(params, batch, **kw)``, on a model placed on a live mesh
+    through its compute layout (the batch is this rank's rows)."""
+    def step(params, batch, **kw):
         sharded = lm_shard.sharded(params)
         if sharded is None:
-            return fn(params, batch)
+            return fn(params, batch, **kw)
         with torch.no_grad():
-            return sharded.call(fn, batch)
+            return sharded.call(lambda m, b: fn(m, b, **kw), batch)
     return step
 
 
 def make_prefill(cfg: ArchConfig) -> Callable:
-    return _on_mesh(lambda params, batch: T.prefill(cfg, params, batch))
+    """``prefill(params, batch, s_max=None)``: the cache holds ``s_max``
+    positions (``models.transformer.prefill``)."""
+    return _on_mesh(lambda params, batch, s_max=None: T.prefill(
+        cfg, params, batch, s_max))
 
 
 def make_serve_step(cfg: ArchConfig) -> Callable:

@@ -9,9 +9,19 @@ and M-RoPE (qwen2-vl: :func:`apply_mrope`), a dense causal path for
 sequences of up to :data:`BLOCK_THRESHOLD` tokens, flash attention
 (``models/flash.py``, KV heads repeated to H) beyond it, in training and
 prefill alike (under an active mesh, the reference's mesh branch: KV
-heads repeated to H at every length, heads over ``model``), the
-reference's blockwise pair-list attention (:func:`blockwise_attention`,
-which nothing calls) and a KV-cache decode path.  Learned positions (a
+heads repeated to H at every length), the reference's blockwise
+pair-list attention (:func:`blockwise_attention`, which nothing calls)
+and a KV-cache decode path.
+
+On a tensor-parallel mesh (``distributed/hints.py``) each rank holds the
+column blocks of ``wq wk wv`` (and the biases) and the row block of
+``wo``: it runs attention on its own heads where ``H`` divides over
+``model``, else on every head from the gathered columns (the reference's
+``attn_heads`` fallback), and returns its row-parallel partial sum.  Its
+KV cache is ``cache_specs``' block: its KV heads where ``KV`` divides,
+else every KV head at its block of the positions, which decode combines
+over ``model`` by the log-sum-exp.  The MLP is column- then
+row-parallel (:func:`row_parallel`).  Learned positions (a
 table) and sinusoidal ones (:func:`sinusoidal_embedding`, musicgen) are
 added to the embeddings (``models/transformer.py``).
 """
@@ -190,17 +200,30 @@ class Attention(nn.Module):
 
 
 def _project_qkv(p: Attention, spec: AttnSpec, x: torch.Tensor,
-                 positions: torch.Tensor):
-    B, S, _ = x.shape
+                 positions: torch.Tensor, split: bool = False):
+    """q (B, S, H, hd), k and v (B, S, KV, hd), rotated.  On a
+    tensor-parallel mesh (:func:`tp_layout`) ``x`` is the stream in its
+    layout (``split``: this rank's positions), gathered whole with the
+    column-parallel products (``hints.column_products``); q holds this
+    rank's heads where ``H`` divides over ``model`` (its column block),
+    else every head (the columns gathered: the reference's ``attn_heads``
+    fallback), and k and v this rank's KV heads where ``KV`` divides, else
+    every KV head (the columns gathered)."""
     H, KV, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    tp = tp_layout(p, spec)
+    q, k, v = hints.column_products(x, (p.wq, p.wk, p.wv), split)
+    B, S = q.shape[:2]
     if spec.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    if tp is not None:
+        C, _ = tp
+        if H % C:
+            q = hints.gather_model(q, -1)
+        if KV % C:
+            k, v = hints.gather_model(k, -1), hints.gather_model(v, -1)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if spec.rope == "rope":
         pos2d = positions if positions.dim() == 2 else positions[0]
         q = apply_rope(q, pos2d, spec.rope_theta)
@@ -209,6 +232,80 @@ def _project_qkv(p: Attention, spec: AttnSpec, x: torch.Tensor,
         q = apply_mrope(q, positions, spec.rope_theta, spec.mrope_sections)
         k = apply_mrope(k, positions, spec.rope_theta, spec.mrope_sections)
     return q, k, v
+
+
+def tp_layout(p: Attention, spec: AttnSpec):
+    """``(C, c)`` when a live mesh splits this attention's projections
+    over a ``model`` axis of ``C > 1`` ranks (``c``: this rank's
+    coordinate), else None.
+
+    Raises:
+        ValueError: a ``model`` axis of ``C > 1`` that does not divide
+            ``H * head_dim`` or ``KV * head_dim`` (those projections stay
+            whole; the port's tensor-parallel attention needs them split).
+    """
+    C, c = hints.model_coords()
+    if C == 1:
+        return None
+    if (p.wo.shape[0] == spec.n_heads * spec.head_dim
+            or p.wk.shape[1] == spec.n_kv_heads * spec.head_dim):
+        raise ValueError(f"a model axis of {C} does not divide the "
+                         f"attention's {spec.n_heads} (q) or "
+                         f"{spec.n_kv_heads} (k, v) x {spec.head_dim} "
+                         "columns: its tensor-parallel layout needs them "
+                         "split")
+    return C, c
+
+
+def kv_seq_split(spec: AttnSpec) -> bool:
+    """Whether the KV cache holds a block of positions of every KV head on
+    each ``model`` rank (``cache_specs``' layout where the KV heads do not
+    divide over ``model``), rather than its KV heads at every position."""
+    C, _ = hints.model_coords()
+    return C > 1 and spec.n_kv_heads % C != 0
+
+
+def _expand_kv(t: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
+    """k or v (B, S, n, hd) with each KV head repeated ``H / KV`` times
+    (G = 1), cut to this rank's ``H / C`` heads where a tensor-parallel
+    mesh splits the heads and ``t`` holds every KV head.  GQA stays
+    contiguous: q head ``h`` uses KV head ``h // (H / KV)``, so a rank's
+    own KV heads cover its own q heads."""
+    H = spec.n_heads
+    G = H // spec.n_kv_heads
+    if G > 1:
+        t = torch.repeat_interleave(t, G, dim=2)
+    C, c = hints.model_coords()
+    if C > 1 and H % C == 0 and t.shape[2] == H:
+        t = t.narrow(2, c * (H // C), H // C)
+    return t
+
+
+def _cache_block(t: torch.Tensor, spec: AttnSpec, s_max) -> torch.Tensor:
+    """A prefill's k or v (B, S, n, hd) as this rank's cache block of
+    ``s_max`` positions (default S): every KV head at its own
+    ``s_max / C`` positions where the cache splits the sequence
+    (:func:`kv_seq_split`), else the heads it holds at every position,
+    zero-padded."""
+    B, S = t.shape[:2]
+    s_max = S if s_max is None else s_max
+    if s_max < S:
+        raise ValueError(f"a cache of {s_max} positions cannot hold a "
+                         f"prompt of {S}")
+    if kv_seq_split(spec):
+        C, c = hints.model_coords()
+        if s_max % C:
+            raise ValueError(f"a cache of {s_max} positions does not "
+                             f"divide over a model axis of {C}")
+        blk = s_max // C
+        lo = c * blk
+        n = max(0, min(S, lo + blk) - lo)
+        out = t.new_zeros((B, blk) + tuple(t.shape[2:]))
+        out[:, :n] = t[:, lo:lo + n]
+        return out
+    if s_max == S:
+        return t
+    return F.pad(t, (0, 0, 0, 0, 0, s_max - S))
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -255,10 +352,8 @@ def _self_attention(q: torch.Tensor, k: torch.Tensor,
     """Causal self-attention: dense up to :data:`BLOCK_THRESHOLD` tokens,
     else flash attention in chunks of 512, or of the largest power of two
     that divides S.  Under an active mesh (and on the flash path) the KV
-    heads are first repeated to H (G = 1; their gradients sum back over
-    the repeat), as the reference's mesh branch does; on a live mesh each
-    ``model`` rank then runs its share of the heads
-    (:func:`repro_torch.distributed.hints.over_model`)."""
+    heads are first repeated to q's heads (G = 1; their gradients sum back
+    over the repeat), as the reference's mesh branch does."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     if S <= BLOCK_THRESHOLD and not hints.active():
@@ -266,16 +361,11 @@ def _self_attention(q: torch.Tensor, k: torch.Tensor,
     if KV != H:
         k = torch.repeat_interleave(k, H // KV, dim=2)
         v = torch.repeat_interleave(v, H // KV, dim=2)
-    q, k, v = hints.attn_heads(q), hints.attn_heads(k), hints.attn_heads(v)
-
-    def core(q, k, v):
-        if S <= BLOCK_THRESHOLD:
-            return dense_attention(q, k, v, causal=True)
-        chunk = 512 if S % 512 == 0 else _chunk_of(S)
-        out = flash_attention(q[:, :, :, None, :], k, v, chunk)
-        return out.reshape(B, S, q.shape[2], hd)
-
-    return hints.attn_heads(hints.over_model(core, q, k, v, dim=2))
+    if S <= BLOCK_THRESHOLD:
+        return dense_attention(q, k, v, causal=True)
+    chunk = 512 if S % 512 == 0 else _chunk_of(S)
+    out = flash_attention(q[:, :, :, None, :], k, v, chunk)
+    return out.reshape(B, S, H, hd)
 
 
 def _chunk_of(s: int) -> int:
@@ -286,19 +376,58 @@ def _chunk_of(s: int) -> int:
 
 
 def attention_train(p: Attention, spec: AttnSpec, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
+                    positions: torch.Tensor, split: bool = False
+                    ) -> torch.Tensor:
     """Causal self-attention over the whole sequence (the prefill's output
     without its cache), differentiable."""
-    return attention_prefill(p, spec, x, positions)[0]
+    return _attention(p, spec, x, positions, split)[0]
+
+
+def _attention(p: Attention, spec: AttnSpec, x: torch.Tensor,
+               positions: torch.Tensor, split: bool = False):
+    """(output, k, v): the attention's output (on a tensor-parallel mesh
+    this rank's row-parallel partial sum) and the k and v it ran on
+    (:func:`_project_qkv`'s)."""
+    q, k, v = _project_qkv(p, spec, x, positions, split)
+    B, S = q.shape[:2]
+    tp = tp_layout(p, spec)
+    n = hints.shape_blocks()
+    if tp is None and n > 1 and spec.n_heads % n == 0:
+        # one process under a shape-only mesh: each rank's heads in turn
+        kx, vx = _expand_kv(k, spec), _expand_kv(v, spec)
+        hb = spec.n_heads // n
+        out = torch.cat([_self_attention(
+            *(t[:, :, c * hb:(c + 1) * hb].contiguous() for t in (q, kx, vx)))
+            for c in range(n)], dim=2).reshape(B, S, -1)
+        return row_parallel(out, p.wo), k, v
+    if tp is None:
+        out = _self_attention(q, k, v).reshape(B, S, -1)
+        return row_parallel(out, p.wo), k, v
+    C, c = tp
+    out = _self_attention(q, _expand_kv(k, spec),
+                          _expand_kv(v, spec)).reshape(B, S, -1)
+    if spec.n_heads % C:                # every head ran: this rank's columns
+        n = out.shape[2] // C
+        out = out.narrow(2, c * n, n)
+    return row_parallel(out, p.wo), k, v
 
 
 def attention_prefill(p: Attention, spec: AttnSpec, x: torch.Tensor,
-                      positions: torch.Tensor):
-    """Prefill: returns (output, (k_cache, v_cache))."""
-    B, S, _ = x.shape
-    q, k, v = _project_qkv(p, spec, x, positions)
-    out = _self_attention(q, k, v)
-    return out.reshape(B, S, -1) @ p.wo, (k, v)
+                      positions: torch.Tensor, s_max: int = None,
+                      split: bool = False):
+    """Prefill: returns (output, (k_cache, v_cache)), the cache of
+    ``s_max`` positions (default S, the prompt's; zero-padded past it).
+
+    On a tensor-parallel mesh (:func:`tp_layout`) ``x`` is the stream in
+    its layout (``split``: this rank's positions), the output is this
+    rank's row-parallel partial sum over every position
+    (``hints.residual`` sums it), and the cache is this rank's block under
+    ``cache_specs``: its KV heads at every position, or every KV head at
+    its block of the positions (:func:`kv_seq_split`)."""
+    out, k, v = _attention(p, spec, x, positions, split)
+    if kv_seq_split(spec) or s_max not in (None, k.shape[1]):
+        k, v = _cache_block(k, spec, s_max), _cache_block(v, spec, s_max)
+    return out, (k, v)
 
 
 def attention_decode(p: Attention, spec: AttnSpec, x: torch.Tensor,
@@ -307,9 +436,16 @@ def attention_decode(p: Attention, spec: AttnSpec, x: torch.Tensor,
 
     ``cache_index``: tokens already in the cache.  The new key and value
     are written into ``cache`` in place (the reference returns updated
-    copies); the same tensors are returned."""
-    B, S1, _ = x.shape
+    copies); the same tensors are returned.  On a tensor-parallel mesh the
+    cache is this rank's block (:func:`attention_prefill`) and the output
+    its row-parallel partial sum; over a cache that splits the sequence
+    see :func:`_decode_over_positions`."""
     q, k_new, v_new = _project_qkv(p, spec, x, positions)
+    B, S1 = q.shape[:2]
+    tp = tp_layout(p, spec)
+    if tp is not None and kv_seq_split(spec):
+        return _decode_over_positions(p, spec, q, k_new, v_new, cache,
+                                      cache_index, tp)
     k_cache, v_cache = cache
     s_max = k_cache.shape[1]
     if not 0 <= cache_index <= s_max - S1:
@@ -317,16 +453,65 @@ def attention_decode(p: Attention, spec: AttnSpec, x: torch.Tensor,
                          f"{s_max} positions")
     k_cache[:, cache_index:cache_index + S1] = k_new
     v_cache[:, cache_index:cache_index + S1] = v_new
-    H, KV, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    hd = spec.head_dim
+    H, KV = q.shape[2], k_cache.shape[2]        # this rank's on a TP mesh
     G = H // KV
     qg = q.reshape(B, S1, KV, G, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k_cache).float() / math.sqrt(hd)
-    valid = torch.arange(s_max, device=x.device) <= (cache_index + S1 - 1)
+    valid = torch.arange(s_max, device=q.device) <= (cache_index + S1 - 1)
     s = torch.where(valid, s, -1e30)
-    probs = torch.softmax(s, dim=-1).to(x.dtype)
+    probs = torch.softmax(s, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v_cache).reshape(
         B, S1, H * hd)
-    return out @ p.wo, (k_cache, v_cache)
+    return row_parallel(out, p.wo), (k_cache, v_cache)
+
+
+def _decode_over_positions(p: Attention, spec: AttnSpec, q, k_new, v_new,
+                           cache, cache_index: int, tp):
+    """Decode over a cache that holds every KV head at this rank's block
+    of ``s_max / C`` positions: the new key and value go to the rank that
+    owns ``cache_index``; each rank runs every head over its positions
+    with a running maximum and sum, and the log-sum-exp over ``model``
+    combines them (float32: the maxima and sums all-reduced, the weighted
+    values reduce-scattered to the columns of this rank's block of
+    ``wo``).  A rank whose positions are all masked adds
+    nothing (its maximum is -1e30).  Returns this rank's row-parallel
+    partial sum and the cache."""
+    mesh = hints.tp_mesh()
+    C, c = tp
+    k_cache, v_cache = cache
+    B, S1 = q.shape[:2]
+    H, KV, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    blk = k_cache.shape[1]
+    if not 0 <= cache_index <= blk * C - S1:
+        raise ValueError(f"cache_index {cache_index} outside a cache of "
+                         f"{blk * C} positions")
+    if q.shape[2] != H:
+        q = hints.gather_model(q, 2)
+    lo = c * blk
+    for j in range(S1):
+        pos = cache_index + j
+        if lo <= pos < lo + blk:
+            k_cache[:, pos - lo] = k_new[:, j]
+            v_cache[:, pos - lo] = v_new[:, j]
+    qg = q.reshape(B, S1, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k_cache).float() / math.sqrt(hd)
+    kpos = lo + torch.arange(blk, device=q.device)
+    s = torch.where(kpos <= (cache_index + S1 - 1), s, -1e30)
+    m = s.amax(dim=-1)                                    # (B, KV, G, S1)
+    e = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgqs,bskh->bkgqh", e, v_cache.float())
+    top = mesh.all_reduce(m.clone(), ("model",), "max")
+    scale = torch.exp(m - top)
+    total = mesh.all_reduce(e.sum(dim=-1) * scale, ("model",))
+    # each rank needs only its columns of the output (wo's row block):
+    # the weighted sums are reduce-scattered over the H * hd columns
+    o = (o * scale[..., None]).permute(0, 3, 1, 2, 4).reshape(B, S1, H * hd)
+    o = mesh.reduce_scatter(o, "model", 2)
+    n = H * hd // C
+    heads = torch.arange(c * n, (c + 1) * n, device=q.device) // hd
+    total = total.permute(0, 3, 1, 2).reshape(B, S1, H)[..., heads]
+    return row_parallel((o / total).to(q.dtype), p.wo), (k_cache, v_cache)
 
 
 # ----------------------------------------------------------------------------
@@ -334,11 +519,14 @@ def attention_decode(p: Attention, spec: AttnSpec, x: torch.Tensor,
 # ----------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """SwiGLU (``wi_gate``, ``wi_up``, ``wo``) or GELU (``wi``, ``wo``)."""
+    """SwiGLU (``wi_gate``, ``wi_up``, ``wo``) or GELU (``wi``, ``wo``);
+    ``width`` is the hidden width (a tensor-parallel mesh holds a block of
+    it)."""
 
     def __init__(self, d_model: int, d_ff: int, kind: str, dtype, device,
                  g: torch.Generator = None):
         super().__init__()
+        self.width = d_ff
         names = ((("wi_gate", d_model, d_ff), ("wi_up", d_model, d_ff))
                  if kind == "swiglu" else (("wi", d_model, d_ff),))
         for name, d_in, d_out in (*names, ("wo", d_ff, d_model)):
@@ -347,7 +535,55 @@ class MLP(nn.Module):
             setattr(self, name, _param(w))
 
 
-def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: MLP, x: torch.Tensor, split: bool = False) -> torch.Tensor:
+    """The MLP of ``x``.  Where a tensor-parallel mesh splits its width,
+    ``x`` is the stream in its layout (``split``: this rank's positions),
+    gathered with the column-parallel products
+    (``hints.column_products``), and the result this rank's row-parallel
+    partial sum (:func:`row_parallel`)."""
+    tp = mlp_split(p)
     if hasattr(p, "wi_gate"):
-        return (F.silu(x @ p.wi_gate) * (x @ p.wi_up)) @ p.wo
-    return F.gelu(x @ p.wi, approximate="tanh") @ p.wo   # jax.nn.gelu's default
+        ws = (p.wi_gate, p.wi_up)
+        gate, up = (hints.column_products(x, ws, split) if tp
+                    else (x @ p.wi_gate, x @ p.wi_up))
+        h = F.silu(gate) * up
+    else:
+        (wi,) = (hints.column_products(x, (p.wi,), split) if tp
+                 else (x @ p.wi,))
+        h = F.gelu(wi, approximate="tanh")   # jax.nn.gelu's default
+    return row_parallel(h, p.wo) if tp else h @ p.wo
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of a row-parallel block: on a tensor-parallel mesh this
+    rank's partial sum (``hints.residual`` sums them in the model's
+    dtype); on one process under a shape-only mesh the ranks' partial
+    products summed in rank order (where ``w``'s rows divide), as the
+    mesh's reduction sums them; off a mesh ``x @ w``."""
+    n = hints.shape_blocks()
+    if n == 1 or w.shape[0] % n:
+        return x @ w
+    k = w.shape[0] // n
+    out = None
+    for c in range(n):
+        part = x[..., c * k:(c + 1) * k].contiguous() @ w[c * k:(c + 1) * k]
+        out = part if out is None else out + part
+    return out
+
+
+def mlp_split(p: MLP) -> bool:
+    """Whether a tensor-parallel mesh splits this MLP's hidden width over
+    ``model`` (column-parallel inputs, row-parallel ``wo``), or one
+    process under a shape-only mesh computes it in such blocks."""
+    if hints.tp_mesh() is not None:
+        return p.wo.shape[0] != p.width
+    n = hints.shape_blocks()
+    return n > 1 and p.width % n == 0
+
+
+def mlp_whole(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    """The MLP of an ``x`` every ``model`` rank holds whole, whole on every
+    rank: where its width is split, between Megatron's ``f`` and ``g``."""
+    if not mlp_split(p):
+        return mlp(p, x)
+    return hints.reduce_from_model(mlp(p, x))

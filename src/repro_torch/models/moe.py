@@ -19,7 +19,11 @@ groups.  On a live mesh the experts shard over ``model`` (EP): the
 dispatched rows are whole on every ``model`` rank (the MoE's input is
 whole over ``model``), each rank runs B7 over its own experts' segments
 and the outputs are gathered over ``model`` for the combine
-(:func:`repro_torch.distributed.hints.over_model`).
+(:func:`repro_torch.distributed.hints.over_model`), so every rank holds
+the layer's whole output (the stream keeps its own positions of it).
+The MoE's input is whole on every ``model`` rank (``hints.whole`` gathers
+a split stream), and the shared experts' MLP is tensor-parallel between
+Megatron's ``f`` and ``g`` (``layers.mlp_whole``).
 """
 from __future__ import annotations
 
@@ -113,7 +117,7 @@ def moe_ffn(p: MoE, x: torch.Tensor, *, top_k: int,
     out, aux = _dispatch(p, xg, top_k, capacity, n_experts)
     out = out.reshape(n_tokens, d)
     if hasattr(p, "shared"):
-        out = out + L.mlp(p.shared, xg.reshape(n_tokens, d))
+        out = out + L.mlp_whole(p.shared, xg.reshape(n_tokens, d))
     return out.reshape(B, S, d), n_experts * aux.sum() / groups
 
 

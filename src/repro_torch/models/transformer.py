@@ -33,16 +33,23 @@ concatenates ``image_embeds`` (B, Vt, d) before the token embeddings and
 rotates q and k by M-RoPE over ``positions`` (3, B, S), which the batch
 carries in prefill and decode alike.  Both stack dense blocks.
 
-Under an active mesh the reference's sharding hints are called at its
-call sites (``distributed/hints.py``): the layer-entry ``gathered`` and
-the ``residual`` between layers.
+On a tensor-parallel mesh (``distributed/hints.py``) the blocks compute
+in the reference's layout: each attention and MLP between the
+Megatron-SP pair (``hints.column_products`` gathering its input with its
+column-parallel products, ``hints.residual`` summing its row-parallel
+partial sums into the stream), the MoE whole
+on every ``model`` rank between ``hints.whole`` and ``hints.part``, the
+embedding and the head vocabulary-parallel and the loss their cross
+entropy (``hints.vocab_nll``).  The residual stream of the
+:data:`SP_FAMILIES` is split along the sequence where ``model`` divides
+it, else whole.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -236,8 +243,54 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 
 # ----------------------------------------------------------------------------
+# The stream's layout
+# ----------------------------------------------------------------------------
+
+#: the families whose residual stream is split over ``model`` along the
+#: sequence on a tensor-parallel mesh; the ssm and hybrid families keep it
+#: whole (their Mamba2 mixers compute whole on every rank)
+SP_FAMILIES = ("dense", "moe", "audio", "vlm")
+
+
+def stream_split(cfg: ArchConfig, n: int) -> bool:
+    """Whether a stream of ``n`` positions is split over ``model``
+    (``hints.split_seq``; the :data:`SP_FAMILIES` only)."""
+    return cfg.family in SP_FAMILIES and hints.split_seq(n)
+
+
+def _norm(cfg: ArchConfig, p: L.Norm, x: torch.Tensor,
+          split: bool) -> torch.Tensor:
+    """The norm of the stream ``x``; on a split stream each rank normalises
+    its own positions and the parameters' gradients sum over ``model``."""
+    if not split:
+        return L.apply_norm(cfg.norm, p, x)
+    n = hints.shape_blocks()
+    if n > 1:                  # one process: each rank's positions in turn
+        return torch.cat([L.apply_norm(cfg.norm, p, b.contiguous())
+                          for b in x.chunk(n, dim=1)], dim=1)
+    q = SimpleNamespace(scale=hints.shared(p.scale, split),
+                        bias=hints.shared(p.bias, split)
+                        if cfg.norm != "rms" else None)
+    return L.apply_norm(cfg.norm, q, x)
+
+
+def cache_positions(cfg: ArchConfig, n: int) -> int:
+    """The positions a KV cache of at least ``n`` holds: ``n`` rounded up
+    to a multiple of the ``model`` axis where the cache splits the
+    sequence over it."""
+    C, _ = hints.model_coords()
+    if cfg.family in ("ssm",) or not L.kv_seq_split(attn_spec(cfg)):
+        return n
+    return -(-n // C) * C
+
+
+# ----------------------------------------------------------------------------
 # Embedding & logits
 # ----------------------------------------------------------------------------
+
+def _vocab_split(cfg: ArchConfig, t: torch.Tensor, dim: int) -> bool:
+    return t.shape[dim] != cfg.vocab_size
+
 
 def embed_inputs(cfg: ArchConfig, p: Transformer, batch: Dict,
                  *, offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -245,78 +298,167 @@ def embed_inputs(cfg: ArchConfig, p: Transformer, batch: Dict,
     the vlm batch's own ``positions`` (3,B,S).  A token batch embeds
     ``tokens``; the audio family reads ``frame_embeds``; the vlm family
     puts ``image_embeds`` (when the batch has them: not in decode) before
-    its tokens.  Learned and sinusoidal positions are added to ``x``."""
+    its tokens.  Learned and sinusoidal positions are added to ``x``.
+
+    On a tensor-parallel mesh ``x`` is in the stream's layout
+    (:func:`stream_split`: this rank's positions, or whole) and the
+    positions whole.  The embedding is vocabulary-parallel: each rank
+    looks up the ids in its block of ``embed`` (zeros elsewhere) and the
+    partial sums are reduce-scattered along the sequence, or all-reduced
+    (``hints.residual``); a vlm's image embeddings enter on ``model`` rank
+    0 only."""
+    if cfg.family == "vlm":
+        positions = batch["positions"]
+        S = positions.shape[-1]
+    else:
+        lead = batch["frame_embeds"] if cfg.family == "audio" else \
+            batch["tokens"]
+        B, S = lead.shape[:2]
+        positions = (offset + torch.arange(S, dtype=torch.int32,
+                                           device=lead.device)[None, :]
+                     + torch.zeros((B, 1), dtype=torch.int32,
+                                   device=lead.device))
+    split = stream_split(cfg, S)
     if cfg.family == "audio":
-        x = batch["frame_embeds"]
+        x = hints.part(batch["frame_embeds"], split)
+    elif _vocab_split(cfg, p.embed, 0):
+        C, c = hints.model_coords()
+        vl = p.embed.shape[0]
+        local = batch["tokens"].long() - c * vl
+        inside = (local >= 0) & (local < vl)
+        x = torch.where(inside[..., None], p.embed[local.clamp(0, vl - 1)],
+                        0)
+        if "image_embeds" in batch:
+            image = batch["image_embeds"].to(x.dtype)
+            x = torch.cat([image if c == 0 else torch.zeros_like(image), x],
+                          dim=1)
+        x = hints.residual(x, split)
     else:
         x = p.embed[batch["tokens"]]
-        if cfg.family == "vlm":
-            if "image_embeds" in batch:
-                x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
-            return x, batch["positions"]
-    B, S, _ = x.shape
-    positions = (offset + torch.arange(S, dtype=torch.int32,
-                                       device=x.device)[None, :]
-                 + torch.zeros((B, 1), dtype=torch.int32, device=x.device))
+        if "image_embeds" in batch:
+            x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
+        x = hints.part(x, split)
+    return _add_positions(cfg, p, x, positions, split), positions
+
+
+def _add_positions(cfg: ArchConfig, p: Transformer, x: torch.Tensor,
+                   positions: torch.Tensor, split: bool) -> torch.Tensor:
+    """Learned or sinusoidal positions added to a stream ``x`` in its
+    layout (the table's rows for this rank's positions)."""
     if cfg.rope == "sinusoidal":
-        x = x + L.sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
+        pe = L.sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
     elif cfg.rope == "learned":
-        x = x + p.pos_embed[positions]
-    return x, positions
+        pe = p.pos_embed[positions]
+    else:
+        return x
+    return x + hints.part(pe, split)
 
 
-def logits_fn(cfg: ArchConfig, p: Transformer,
-              x: torch.Tensor) -> torch.Tensor:
-    """(B, S, V) logits, or (B, S, C, V) for the audio family."""
-    x = L.apply_norm(cfg.norm, p.final_norm, x)
+def logits_fn(cfg: ArchConfig, p: Transformer, x: torch.Tensor,
+              split: bool = False) -> torch.Tensor:
+    """(B, S, V) logits, or (B, S, C, V) for the audio family, of a stream
+    ``x`` in its layout (``split``: this rank's positions).  On a
+    tensor-parallel mesh whose ``model`` axis divides the vocabulary the
+    head is vocabulary-parallel: ``x`` is gathered whole with the
+    product (``hints.column_products``) and the logits are this rank's
+    block of V."""
     if cfg.family == "audio":
-        return torch.einsum("bsd,cdv->bscv", x, p.heads)
-    head = p.embed.T if cfg.tie_embeddings else p.lm_head
-    return x @ head
+        head = p.heads
+        vsplit = _vocab_split(cfg, head, 2)
+    else:
+        head = p.embed.T if cfg.tie_embeddings else p.lm_head
+        vsplit = _vocab_split(cfg, head, 1)
+    n = hints.shape_blocks()
+    vsplit = vsplit or (n > 1 and cfg.vocab_size % n == 0)
+    n = n if not hints.tp_mesh() else 1      # vocabulary blocks held here
+    if not vsplit:
+        h = L.apply_norm(cfg.norm, p.final_norm, hints.whole(x, split))
+        if cfg.family == "audio":
+            return torch.einsum("bsd,cdv->bscv", h, head)
+        return h @ head
+    h = _norm(cfg, p.final_norm, x, split)
+    if cfg.family == "audio":
+        # the codebooks' heads side by side within each vocabulary block
+        cb, d, v = head.shape
+        vl = v // n
+        flat = head.reshape(cb, d, n, vl).permute(1, 2, 0, 3).reshape(
+            d, n * cb * vl)
+        (out,) = hints.column_products(h, (flat,), split)
+        B, S = out.shape[:2]
+        return out.reshape(B, S, n, cb, vl).permute(0, 1, 3, 2, 4).reshape(
+            B, S, cb, v)
+    return hints.column_products(h, (head,), split)[0]
+
+
+def _last_position(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """The stream's last position (B, 1, d), whole: on a split stream the
+    last rank's (every rank's last one gathered over ``model``)."""
+    mesh = hints.tp_mesh()
+    if not split or mesh is None:
+        return x[:, -1:, :]
+    return mesh.all_gather(x[:, -1:, :].contiguous(), "model", 1)[:, -1:, :]
 
 
 # ----------------------------------------------------------------------------
 # Blocks and forward passes
 # ----------------------------------------------------------------------------
 
-def _ffn(cfg: ArchConfig, blk: Block,
-         h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _attn_part(cfg: ArchConfig, blk: Block, x: torch.Tensor,
+               positions: torch.Tensor, split: bool, run):
+    """``x`` plus the attention of ``blk`` (``run(p, spec, h, positions)
+    -> (out, extra)``), and ``extra``: on a tensor-parallel mesh the
+    attention gathers its input whole with its column-parallel products
+    (``hints.column_products``) and its row-parallel partial sums are
+    summed into the stream (``hints.residual``)."""
+    h = _norm(cfg, blk.ln1, x, split)
+    out, extra = run(blk.attn, attn_spec(cfg), h, positions)
+    return x + hints.residual(out, split), extra
+
+
+def _ffn_part(cfg: ArchConfig, blk: Block, x: torch.Tensor,
+              split: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` plus the FFN of ``blk`` and the MoE aux loss (0 for an MLP).
+    A split MLP runs tensor-parallel as the attention does; the MoE (and
+    an MLP whose width does not divide) runs whole on every ``model``
+    rank (``hints.whole``), the stream keeping its positions of the
+    output (``hints.part``)."""
+    if not hasattr(blk, "moe") and L.mlp_split(blk.mlp):
+        h = _norm(cfg, blk.ln2, x, split)
+        out = hints.residual(L.mlp(blk.mlp, h, split), split)
+        return x + out, torch.zeros((), dtype=torch.float32, device=x.device)
+    h = L.apply_norm(cfg.norm, blk.ln2, hints.whole(x, split))
     if hasattr(blk, "moe"):
-        return MOE.moe_ffn(blk.moe, h, top_k=cfg.top_k,
-                           capacity_factor=cfg.capacity_factor)
-    return L.mlp(blk.mlp, h), torch.zeros((), dtype=torch.float32,
-                                          device=h.device)
+        out, aux = MOE.moe_ffn(blk.moe, h, top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor)
+    else:
+        out = L.mlp(blk.mlp, h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + hints.part(out, split), aux
 
 
 def _attn_block_train(cfg: ArchConfig, blk: Block, x: torch.Tensor,
-                      positions: torch.Tensor
+                      positions: torch.Tensor, split: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    x = hints.gathered(x)
-    h = L.apply_norm(cfg.norm, blk.ln1, x)
-    x = x + L.attention_train(blk.attn, attn_spec(cfg), h, positions)
-    h = L.apply_norm(cfg.norm, blk.ln2, x)
-    out, aux = _ffn(cfg, blk, h)
-    return hints.residual(x + out), aux
+    x, _ = _attn_part(cfg, blk, x, positions, split, lambda p, sp, h, pos: (
+        L.attention_train(p, sp, h, pos, split), None))
+    return _ffn_part(cfg, blk, x, split)
 
 
 def _attn_block_prefill(cfg: ArchConfig, blk: Block, x: torch.Tensor,
-                        positions: torch.Tensor):
-    x = hints.gathered(x)
-    h = L.apply_norm(cfg.norm, blk.ln1, x)
-    out, kv = L.attention_prefill(blk.attn, attn_spec(cfg), h, positions)
-    x = x + out
-    h = L.apply_norm(cfg.norm, blk.ln2, x)
-    return x + _ffn(cfg, blk, h)[0], kv
+                        positions: torch.Tensor, split: bool = False,
+                        s_max: int = None):
+    x, kv = _attn_part(cfg, blk, x, positions, split,
+                       lambda p, sp, h, pos: L.attention_prefill(
+                           p, sp, h, pos, s_max, split))
+    return _ffn_part(cfg, blk, x, split)[0], kv
 
 
 def _attn_block_decode(cfg: ArchConfig, blk: Block, x: torch.Tensor,
                        positions: torch.Tensor, kv, cache_index: int):
-    h = L.apply_norm(cfg.norm, blk.ln1, x)
-    out, kv_new = L.attention_decode(blk.attn, attn_spec(cfg), h, positions,
-                                     kv, cache_index)
-    x = x + out
-    h = L.apply_norm(cfg.norm, blk.ln2, x)
-    return x + _ffn(cfg, blk, h)[0], kv_new
+    x, kv_new = _attn_part(cfg, blk, x, positions, False,
+                           lambda p, sp, h, pos: L.attention_decode(
+                               p, sp, h, pos, kv, cache_index))
+    return _ffn_part(cfg, blk, x, False)[0], kv_new
 
 
 def _mamba_kwargs(cfg: ArchConfig) -> Dict:
@@ -326,7 +468,6 @@ def _mamba_kwargs(cfg: ArchConfig) -> Dict:
 
 def _mamba_train(cfg: ArchConfig, blk: MambaBlock,
                  x: torch.Tensor) -> torch.Tensor:
-    x = hints.gathered(x)
     h = L.apply_norm(cfg.norm, blk.ln1, x)
     return x + M2.mamba2_forward(blk.mamba, h, **_mamba_kwargs(cfg))
 
@@ -342,9 +483,8 @@ def _remat(cfg: ArchConfig, fn, *args):
 def _super_train(cfg: ArchConfig, p: Transformer, g: int, x: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
     """The hybrid's super-layer ``g``: its ``attn_every`` Mamba blocks,
-    then the shared block."""
+    then the shared block (its stream whole on every ``model`` rank)."""
     per = cfg.attn_every
-    x = hints.residual(x)
     for blk in p.layers[g * per:(g + 1) * per]:
         x = _mamba_train(cfg, blk, x)
     return _attn_block_train(cfg, p.shared, x, positions)[0]
@@ -354,12 +494,15 @@ def forward_train(cfg: ArchConfig, p: Transformer,
                   batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V), the summed MoE aux loss, 0 outside the
     moe family).  With ``cfg.remat`` each stacked layer (the hybrid: each
-    super-layer) is recomputed in the backward pass."""
+    super-layer) is recomputed in the backward pass.  On a
+    tensor-parallel mesh the logits are this rank's block of V
+    (:func:`logits_fn`)."""
     x, positions = embed_inputs(cfg, p, batch)
+    split = stream_split(cfg, positions.shape[-1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         for blk in p.layers:
-            x = _remat(cfg, _mamba_train, cfg, blk, hints.residual(x))
+            x = _remat(cfg, _mamba_train, cfg, blk, x)
     elif cfg.family == "hybrid":
         for g in range(p.lead["layers"][0]):
             x = _remat(cfg, _super_train, cfg, p, g, x, positions)
@@ -367,12 +510,12 @@ def forward_train(cfg: ArchConfig, p: Transformer,
             x = _mamba_train(cfg, blk, x)
     else:
         for blk in p.prefix:
-            x, _ = _attn_block_train(cfg, blk, x, positions)
+            x, _ = _attn_block_train(cfg, blk, x, positions, split)
         for blk in p.layers:
-            x, a = _remat(cfg, _attn_block_train, cfg, blk,
-                          hints.residual(x), positions)
+            x, a = _remat(cfg, _attn_block_train, cfg, blk, x, positions,
+                          split)
             aux = aux + a
-    return logits_fn(cfg, p, x), aux
+    return logits_fn(cfg, p, x, split), aux
 
 
 def loss_fn(cfg: ArchConfig, p: Transformer, batch: Dict
@@ -382,20 +525,19 @@ def loss_fn(cfg: ArchConfig, p: Transformer, batch: Dict
     every entry of ``codes`` (B, S, C)), from float32 log-probabilities.
     On a live mesh each rank holds its data shard's rows and divides by
     the count over every shard, so the ranks' losses (and gradients) sum
-    to the whole batch's."""
+    to the whole batch's; on a vocabulary-parallel head the cross entropy
+    reduces its maximum, sum and target logit over ``model``
+    (``hints.vocab_nll``)."""
     logits, aux = forward_train(cfg, p, batch)
-    ls = F.log_softmax(logits.float(), dim=-1)
     if cfg.family == "audio":
-        codes = batch["codes"].long()
-        nll = -torch.gather(ls, -1, codes[..., None])[..., 0]
+        nll = hints.vocab_nll(logits, batch["codes"])
         count = hints.batch_total(torch.tensor(nll.numel(),
                                                device=nll.device))
         loss = torch.sum(nll) / count
     else:
         labels = batch["labels"]
         mask = labels >= 0
-        safe = torch.clamp(labels, min=0).long()
-        nll = -torch.gather(ls, -1, safe[..., None])[..., 0]
+        nll = hints.vocab_nll(logits, torch.clamp(labels, min=0))
         count = hints.batch_total(mask.sum())
         loss = torch.sum(nll * mask) / torch.clamp(count, min=1)
     total = loss + AUX_LOSS_WEIGHT * aux
@@ -404,7 +546,6 @@ def loss_fn(cfg: ArchConfig, p: Transformer, batch: Dict
 
 def _mamba_prefill(cfg: ArchConfig, blk: MambaBlock, x: torch.Tensor,
                    states: list) -> torch.Tensor:
-    x = hints.gathered(hints.residual(x))
     h = L.apply_norm(cfg.norm, blk.ln1, x)
     y, ssm, conv = M2.mamba2_prefill(blk.mamba, h, **_mamba_kwargs(cfg))
     states.append((ssm, conv))
@@ -412,21 +553,25 @@ def _mamba_prefill(cfg: ArchConfig, blk: MambaBlock, x: torch.Tensor,
 
 
 @torch.no_grad()
-def prefill(cfg: ArchConfig, p: Transformer,
-            batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def prefill(cfg: ArchConfig, p: Transformer, batch: Dict,
+            s_max: int = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (last-position logits (B, 1, V); audio (B, 1, C, V)) and the
-    cache: ``k``/``v`` of
-    shape (L, B, S, KV, hd) (the hybrid: one per shared-block
-    application), and for the ssm and hybrid families ``ssm`` (L, B, H, P,
-    N) float32 and ``conv`` (L, B, d_conv - 1, C)."""
+    cache: ``k``/``v`` of shape (L, B, s_max, KV, hd) (``s_max`` defaults
+    to the prompt's S, zero-padded past it; the hybrid: one per
+    shared-block application), and for the ssm and hybrid families ``ssm``
+    (L, B, H, P, N) float32 and ``conv`` (L, B, d_conv - 1, C).  On a
+    tensor-parallel mesh the logits are this rank's block of V and the
+    cache ``cache_specs``' block (``layers.attention_prefill``)."""
     x, positions = embed_inputs(cfg, p, batch)
+    split = stream_split(cfg, positions.shape[-1])
     if cfg.family in ("ssm", "hybrid"):
         states, ks, vs = [], [], []
         hybrid, per = cfg.family == "hybrid", cfg.attn_every
         for i, blk in enumerate(p.layers):
             x = _mamba_prefill(cfg, blk, x, states)
             if hybrid and i % per == per - 1:
-                x, (k, v) = _attn_block_prefill(cfg, p.shared, x, positions)
+                x, (k, v) = _attn_block_prefill(cfg, p.shared, x, positions,
+                                                s_max=s_max)
                 ks.append(k)
                 vs.append(v)
         for blk in getattr(p, "tail", ()):
@@ -437,14 +582,12 @@ def prefill(cfg: ArchConfig, p: Transformer,
             cache.update(k=torch.stack(ks), v=torch.stack(vs))
         return logits_fn(cfg, p, x[:, -1:, :]), cache
     ks, vs = [], []
-    for i, blk in enumerate(p.blocks()):
-        if i >= len(p.prefix):
-            x = hints.residual(x)
-        x, (k, v) = _attn_block_prefill(cfg, blk, x, positions)
+    for blk in p.blocks():
+        x, (k, v) = _attn_block_prefill(cfg, blk, x, positions, split, s_max)
         ks.append(k)
         vs.append(v)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
-    return logits_fn(cfg, p, x[:, -1:, :]), cache
+    return logits_fn(cfg, p, _last_position(x, split)), cache
 
 
 def _mamba_decode(cfg: ArchConfig, blk: MambaBlock, x: torch.Tensor,
@@ -467,7 +610,9 @@ def decode_step(cfg: ArchConfig, p: Transformer,
     :func:`prefill` gives it, ``k``/``v`` padded to S_max), cache_index
     (tokens already cached).  Writes the new keys, values and states into
     the cache in place and returns (logits (B, 1, V), the cache with
-    "index" = cache_index + 1)."""
+    "index" = cache_index + 1).  On a tensor-parallel mesh the stream is
+    whole (S = 1 does not divide) and the logits this rank's block of
+    V."""
     cache = batch["cache"]
     idx = int(batch["cache_index"])
     x, positions = embed_inputs(cfg, p, batch, offset=idx)

@@ -2,6 +2,7 @@
 ``repro/roofline/report.py``).
 
     PYTHONPATH=src python -m repro_torch.roofline.report [--dir results/dryrun]
+        [--before DIR]
 
 The tables read either package's records (``repro.launch.dryrun`` or
 ``repro_torch.launch.dryrun``): status, kind, the three roofline terms,
@@ -25,6 +26,11 @@ def load(results_dir: str) -> List[Dict]:
         with open(path) as f:
             recs.append(json.load(f))
     return recs
+
+
+def fmt_bytes(b: float) -> str:
+    """Bytes as GB with two decimals."""
+    return f"{b / 1e9:.2f}"
 
 
 def table(recs: List[Dict], mesh_kind: str) -> str:
@@ -77,10 +83,41 @@ def summary(recs: List[Dict]) -> str:
     return "\n".join(lines)
 
 
+def compare(before: List[Dict], after: List[Dict]) -> str:
+    """A markdown table of two sweeps' ok cells: per mesh and
+    architecture one row, per shape the collective GB a device and step
+    before and after, each with its dominant term's initial (c, m, x for
+    compute, memory, collective)."""
+    def key(r):
+        return r.get("mesh_kind"), r.get("arch"), r.get("shape")
+
+    old = {key(r): r for r in before if r["status"] == "ok"}
+    shapes = sorted({r["shape"] for r in after if r["status"] == "ok"})
+    rows: Dict[tuple, Dict[str, str]] = {}
+    for r in after:
+        if r["status"] != "ok" or key(r) not in old:
+            continue
+        b = old[key(r)]
+        cell = (f"{fmt_bytes(b['collectives']['total'])} "
+                f"{b['roofline']['dominant'][0]} → "
+                f"{fmt_bytes(r['collectives']['total'])} "
+                f"{r['roofline']['dominant'][0]}")
+        rows.setdefault((r["mesh_kind"], r["arch"]), {})[r["shape"]] = cell
+    head = ("| mesh | arch | " + " | ".join(shapes) + " |\n|---|---|"
+            + "---|" * len(shapes))
+    lines = [f"| {mk} | {arch} | "
+             + " | ".join(cells.get(s, "—") for s in shapes) + " |"
+             for (mk, arch), cells in sorted(rows.items())]
+    return head + "\n" + "\n".join(lines)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default=os.path.join(
         os.path.dirname(__file__), "..", "..", "..", "results", "dryrun"))
+    ap.add_argument("--before", default=None,
+                    help="another sweep's directory: print the collective "
+                         "bytes and dominant terms of both, cell by cell")
     args = ap.parse_args(argv)
     recs = load(args.dir)
     print("## Summary\n")
@@ -88,6 +125,9 @@ def main(argv=None) -> None:
     for mk in ("pod", "multipod"):
         print(f"\n## {mk} mesh\n")
         print(table(recs, mk))
+    if args.before:
+        print("\n## Collective GB a device and step, before -> after\n")
+        print(compare(load(args.before), recs))
 
 
 if __name__ == "__main__":

@@ -15,10 +15,11 @@ from repro_torch.tune.plan import (BF16_ATOL, BF16_RTOL, COMPUTE_DTYPES,
 from repro_torch.tune.space import (AXIS_CANDIDATES, TUNABLE_TILES,
                                     current_params, search_space, tile_axes)
 from repro_torch.tune.tuner import (backend_name, resolve_plan,
-                                    validate_config)
+                                    tunable_executors, validate_config)
 
 __all__ = [
     "BF16_ATOL", "BF16_RTOL", "COMPUTE_DTYPES", "TUNE_MODES", "TunePlan",
     "AXIS_CANDIDATES", "TUNABLE_TILES", "current_params", "search_space",
-    "tile_axes", "backend_name", "resolve_plan", "validate_config",
+    "tile_axes", "backend_name", "resolve_plan", "tunable_executors",
+    "validate_config",
 ]

@@ -243,5 +243,11 @@ def resolve_plan(name: str, phi, problem, config, cache) -> Optional[TunePlan]:
     return plan
 
 
+def tunable_executors() -> tuple:
+    """Executor names with at least one tile axis (introspection helper)."""
+    from repro_torch.tune.space import TUNABLE_TILES
+    return tuple(sorted(TUNABLE_TILES))
+
+
 __all__ = ["resolve_plan", "validate_config", "backend_name", "device_count",
-           "DSC_WEIGHT", "WC_WEIGHT"]
+           "tunable_executors", "DSC_WEIGHT", "WC_WEIGHT"]

@@ -40,7 +40,8 @@ MULTIPOD = HM.make_production_mesh(multi_pod=True)
 RANK_ENV = {"OMP_NUM_THREADS": "1"}
 #: the reduced step the gloo ranks record: (arch, seq, global batch)
 RECORDED = (("phi3.5-moe-42b-a6.6b", 16, 4), ("qwen2-vl-7b", 24, 4),
-            ("musicgen-large", 16, 4), ("zamba2-1.2b", 16, 4))
+            ("musicgen-large", 16, 4), ("zamba2-1.2b", 16, 4),
+            ("granite-34b", 16, 4), ("kimi-k2-1t-a32b", 16, 4))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -170,7 +171,6 @@ from repro_torch.data.tokens import DataConfig, synth_batch_for
 from repro_torch.distributed import hints, lm_shard, spmd
 from repro_torch.launch import mesh as HM
 from repro_torch.launch import steps as ST
-from repro_torch.launch.serve import pad_cache
 from repro_torch.optim.adamw import OptConfig
 torch.set_num_threads(1)
 spmd.join_process_group("gloo", torch.device("cpu"))
@@ -198,9 +198,8 @@ for arch, seq, batch in json.load(open(sys.argv[1])):
     local = sharded.shard_batch({k: v for k, v in b.items()
                                  if k not in ("labels", "codes")})
     mesh.collectives.clear()
-    _, cache = ST.make_prefill(cfg)(params, local)
+    _, cache = ST.make_prefill(cfg)(params, local, s_max=seq + 2)
     out[f"{arch}/prefill"] = list(mesh.collectives)
-    cache = pad_cache(cache, seq + 1)
     if cfg.family == "audio":
         step = {"frame_embeds": local["frame_embeds"][:, -1:]}
     else:

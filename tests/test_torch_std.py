@@ -138,3 +138,44 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         std.make_dictionary(4, 4)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("helper", ["tunable_executors", "sort_by",
+                                    "matvec_dense_oracle",
+                                    "rmatvec_dense_oracle", "fmt_bytes"])
+def test_public_helpers_match_the_reference(tiny_problem, helper):
+    """The small public helpers the port keeps beside the reference's:
+    the tuner's executor list, the on-device stable sort (phi and
+    permutation, each dimension), the dense oracles and the report's
+    byte format."""
+    from repro import tune as jtune
+    from repro.core import restructure as jrs
+    from repro.core import spmv as jspmv
+    from repro.roofline import report as jreport
+    from repro_torch import tune
+    from repro_torch.core import restructure as rs
+    from repro_torch.core import spmv
+    from repro_torch.roofline import report
+    if helper == "tunable_executors":
+        assert tune.tunable_executors() == jtune.tunable_executors()
+    elif helper == "sort_by":
+        tp = _port(tiny_problem)
+        for dim in ("atom", "voxel", "fiber"):
+            got, order = rs.sort_by(tp.phi, dim)
+            want, jorder = jrs.sort_by(tiny_problem.phi, dim)
+            np.testing.assert_array_equal(to_numpy(order), np.asarray(jorder))
+            for a in ("atoms", "voxels", "fibers", "values"):
+                np.testing.assert_array_equal(to_numpy(getattr(got, a)),
+                                              np.asarray(getattr(want, a)))
+    elif helper == "fmt_bytes":
+        for b in (0.0, 1.0, 123456789.0, 2.5e12):
+            assert report.fmt_bytes(b) == jreport.fmt_bytes(b)
+    else:
+        r = np.random.default_rng(3)
+        m = r.normal(size=(7, 5)).astype(np.float32)
+        v = r.normal(size=(5 if helper == "matvec_dense_oracle" else 7,)
+                     ).astype(np.float32)
+        got = getattr(spmv, helper)(torch.from_numpy(m), torch.from_numpy(v))
+        want = getattr(jspmv, helper)(jnp.asarray(m), jnp.asarray(v))
+        np.testing.assert_allclose(to_numpy(got), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
