@@ -243,7 +243,20 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                tokens): the tokens of one process under the shape-only
                (2, 2) mesh, each rank's bytes a decode step equal to
                launch/dryrun.py's reckoning, its KV cache cache_specs'
-               block.  Prints {"mesh_lm": ...}.
+               block.  16h the Mamba2 mixer in the same layout (column-
+               parallel z, x, b, c, dt, channel-split convolutions, the
+               scan on each rank's heads, a row-parallel out_proj, the
+               ssm and hybrid streams split along the sequence):
+               mamba2-2.7b and zamba2-1.2b at full width on the four
+               gloo ranks against one process under the shape-only
+               (2, 2) mesh, served at full depth through launch/serve.py
+               --model-axis 2 (4 x 128 prompts, 8 tokens: the same
+               tokens, the decode step's bytes equal to the reckoning,
+               the ssm, conv and KV caches cache_specs' blocks) and
+               trained (bf16, remat, AdamW, 16b's batch, sequence, steps
+               and learning rate) cut to 4 of 64 and 8 of 38 layers:
+               losses and gradient norms within 16b's limits, the bytes
+               a step equal to the reckoning.  Prints {"mesh_lm": ...}.
   17. modal  — (after 16) the audio and vlm families at full width, bf16;
                no kernel of the repo on this path.  17a musicgen-large
                (48 layers): a prefill of 4 x 2,048 frame embeddings
@@ -4429,6 +4442,25 @@ MESH_RANK_DEADLINE_S = 600.0
 TP_SERVE = dict(batch=4, prompt=128, gen=8)
 #: phase 7's served tokens and logits, which 16e is held to
 LM_SERVED: dict = {}
+#: 16h: the Mamba2 families' depth in training on the four ranks and in
+#: one process (served at full depth): mamba2 4 of its 64 layers, zamba2
+#: one super-layer of 6 and a tail of 2 (8 of 38).  Time sets the cut, not
+#: memory: on an H100 a step through gloo takes seconds at these depths and
+#: grows with depth, and the script must end within its time limit; the
+#: ranks peak below 10 GiB each
+SSM_MESH_LAYERS = {"mamba2-2.7b": 4, "zamba2-1.2b": 8}
+SSM_MESH_REDUCED = ("reduced: trained at {} of {} layers (the time of a "
+                    "step through gloo's host copies, which grows with "
+                    "depth, within the script's time limit; not memory); "
+                    "served at full depth")
+#: the leaves 16h gathers on rank 0 after its last step and holds to one
+#: process's as 16b does (MESH_LM_UPDATE_TOL): the small leaves every
+#: ``model`` rank holds whole and uses a slice of (their gradients summed
+#: over ``model``) and a column block.  ``norm_scale``, 1.0 in bf16, does
+#: not move at this learning rate
+SSM_MESH_LEAVES = ("layers/mamba/a_log", "layers/mamba/d_skip",
+                   "layers/mamba/dt_bias", "layers/mamba/conv_bx",
+                   "layers/mamba/conv_bb", "layers/mamba/wx")
 
 
 def mesh_lm_argv(steps: int, extra=()) -> list:
@@ -4526,12 +4558,13 @@ def phase_mesh_nccl(trained: dict, cfg) -> dict:
     return out
 
 
-def picked_leaves(model) -> dict:
-    """MESH_LM_LEAVES of a whole (unplaced) model, float32 on the host."""
+def picked_leaves(model, names=MESH_LM_LEAVES) -> dict:
+    """The leaves ``names`` of a whole (unplaced) model, float32 on the
+    host."""
     leaves = model.reference_leaves()
     return {k: leaves[k].stack([m.detach().float().cpu()
                                 for m in leaves[k].members])
-            for k in MESH_LM_LEAVES}
+            for k in names}
 
 
 def phase_mesh_single(cfg) -> dict:
@@ -4667,10 +4700,22 @@ def mesh_rank_cohort(job: dict, dev: torch.device) -> None:
     torch.cuda.empty_cache()
 
 
-def tp_serve_argv(extra=()) -> list:
-    return ["--arch", LM_ARCH, "--layers", str(TRAIN_LAYERS), "--batch",
-            str(TP_SERVE["batch"]), "--prompt-len", str(TP_SERVE["prompt"]),
-            "--gen", str(TP_SERVE["gen"]), *extra]
+def tp_serve_argv(extra=(), arch: str = LM_ARCH,
+                  layers: int = TRAIN_LAYERS) -> list:
+    """launch/serve.py's arguments for 16g (16h: ``arch`` at full depth,
+    ``layers`` 0)."""
+    cut = ["--layers", str(layers)] if layers else []
+    return ["--arch", arch, *cut, "--batch", str(TP_SERVE["batch"]),
+            "--prompt-len", str(TP_SERVE["prompt"]), "--gen",
+            str(TP_SERVE["gen"]), *extra]
+
+
+def ssm_train_argv(arch: str, extra=()) -> list:
+    """launch/train.py's arguments for 16h's training of ``arch``."""
+    return ["--arch", arch, "--layers", str(SSM_MESH_LAYERS[arch]),
+            "--steps", str(MESH_LM_STEPS), "--global-batch",
+            str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--lr",
+            str(TRAIN_LR), "--log-every", "1", *extra]
 
 
 def mesh_rank_serve(job: dict, dev: torch.device, rank: int) -> None:
@@ -4798,6 +4843,13 @@ def mesh_rank(jobs_path: str) -> int:
                 if rank == 0:
                     torch.save(leaves, f"{job['out']}-leaves.pt")
                 del lm, leaves
+            if job["kind"] == "train-ssm":
+                lm = run.params.mesh_state
+                leaves = {k: lm.gather_leaf(k).float()
+                          for k in SSM_MESH_LEAVES}
+                if rank == 0:
+                    torch.save(leaves, f"{job['out']}-leaves.pt")
+                del lm, leaves
             if job["kind"] == "train-adafactor":
                 lm = run.params.mesh_state
                 specs = lm.opt_specs(run.opt)["fac"]
@@ -4821,11 +4873,12 @@ def mesh_rank(jobs_path: str) -> int:
     return 0
 
 
-def weight_gaps(leaves: dict, single: dict, init: dict) -> dict:
+def weight_gaps(leaves: dict, single: dict, init: dict,
+                names=MESH_LM_LEAVES) -> dict:
     """Per gathered leaf, (||w_mesh - w_single|| / ||w_single - w_init||,
     max abs diff)."""
     out = {}
-    for k in MESH_LM_LEAVES:
+    for k in names:
         w, ws = leaves[k], single[k]
         step = ws - init[k]
         out[k] = (float((w - ws).norm() / step.norm()),
@@ -4893,9 +4946,9 @@ def check_mesh_adafactor(cfg, single: dict, init: dict, prefix: str
 
 
 def phase_mesh_ranks(cfg, single: dict, single_af: dict, single_tp: dict,
-                     cohort_path: str) -> dict:
-    """16b, 16c, 16d, 16f and 16g's rank side: one spawn of four gloo
-    ranks on cuda:0 (chip_smoke.py --mesh-rank), then the checks."""
+                     single_ssm: dict, cohort_path: str) -> dict:
+    """16b, 16c, 16d, 16f, 16g and 16h's rank side: one spawn of four
+    gloo ranks on cuda:0 (chip_smoke.py --mesh-rank), then the checks."""
     import shutil
     from repro_torch.checkpoint import manager as CK
     from repro_torch.distributed import spmd
@@ -4929,6 +4982,7 @@ def phase_mesh_ranks(cfg, single: dict, single_af: dict, single_tp: dict,
         dict(kind="serve-tp", out=os.path.join(d, "16g"), argv=tp_serve_argv(
             ["--model-axis", "2", "--device", "cuda:0", "--backend",
              "gloo"])),
+        *ssm_rank_jobs(d),
     ]
     jobs_path = os.path.join(d, "jobs.json")
     with open(jobs_path, "w") as f:
@@ -4941,9 +4995,9 @@ def phase_mesh_ranks(cfg, single: dict, single_af: dict, single_tp: dict,
                             "expandable_segments:True"})
     wall = time.perf_counter() - t0
     staged = [k for k, text in enumerate(logs) if "staging" in text]
-    log("mesh-lm", f"four gloo ranks on cuda:0 ran 16b, 16f, 16c, 16d and 16g in "
-        f"{wall:.1f} s (process starts included); ranks that staged their "
-        f"collectives through host memory: {staged}")
+    log("mesh-lm", f"four gloo ranks on cuda:0 ran 16b, 16f, 16c, 16d, 16g "
+        f"and 16h in {wall:.1f} s (process starts included); ranks that "
+        f"staged their collectives through host memory: {staged}")
 
     # 16b
     ranks = []
@@ -5030,12 +5084,15 @@ def phase_mesh_ranks(cfg, single: dict, single_af: dict, single_tp: dict,
     # 16g
     served = check_mesh_serve(cfg, single_tp, os.path.join(d, "16g"))
 
+    # 16h
+    ssm = check_mesh_ssm(single_ssm, d)
+
     # 16d's gloo side
     with np.load(gloo_out) as z:
         gloo = {k: z[k] for k in z.files}
     return dict(losses=losses, gaps=gaps, updates=updates, ranks=ranks,
                 gloo=gloo, wall_s=wall, adafactor=af, serve_tp=served,
-                launches=sum(r["launches"]["moe_gmm"] for r in ranks))
+                ssm=ssm, launches=sum(r["launches"]["moe_gmm"] for r in ranks))
 
 
 def phase_mesh_single_serve() -> dict:
@@ -5062,10 +5119,12 @@ def phase_mesh_single_serve() -> dict:
     return dict(tokens=tokens, launches=counts["moe_gmm"], wall_s=wall)
 
 
-def check_mesh_serve(cfg, single: dict, prefix: str) -> dict:
-    """16g: the four ranks' tokens against the single process's; each
-    rank's decode steps' collectives against launch/dryrun.py's reckoning
-    (record for record) and its KV cache against cache_specs' block."""
+def check_mesh_serve(cfg, single: dict, prefix: str,
+                     label: str = "16g") -> dict:
+    """16g (16h): the four ranks' tokens against the single process's;
+    each rank's decode steps' collectives against launch/dryrun.py's
+    reckoning (record for record) and each of its caches (KV; ssm, conv)
+    against cache_specs' block."""
     from repro_torch.configs.base import cache_specs, meta_spec
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch.dryrun import block_bytes, step_collectives
@@ -5080,7 +5139,8 @@ def check_mesh_serve(cfg, single: dict, prefix: str) -> dict:
     reckoned_bytes = collective_bytes(reckoned)["total"]
     whole = cache_specs(cfg, B, s_max, meta_spec, cfg.torch_dtype)
     specs = SH.batch_layout(cfg, mesh, "decode", B)["cache"]
-    want_launches = {"moe_gmm": 3 * TRAIN_LAYERS * G}
+    want_launches = ({"moe_gmm": 3 * cfg.n_layers * G}
+                     if cfg.family == "moe" else {})
     want_tokens = single["tokens"].tolist()
     ranks, failures = [], []
     for k in range(4):
@@ -5088,18 +5148,20 @@ def check_mesh_serve(cfg, single: dict, prefix: str) -> dict:
             r = json.load(f)
         ranks.append(r)
         block = {key: [[b.stop - b.start for b in SH.shard_bounds(
-            tuple(whole[key].shape), specs[key], mesh, r["coords"])],
-            block_bytes(whole[key], specs[key], mesh)] for key in ("k", "v")}
-        cache_ok = all(r["cache"][key] == block[key] for key in ("k", "v"))
+            tuple(t.shape), specs[key], mesh, r["coords"])],
+            block_bytes(t, specs[key], mesh)] for key, t in whole.items()}
+        cache_ok = sorted(r["cache"]) == sorted(block) and all(
+            r["cache"][key] == block[key] for key in block)
         steps_ok = all(sorted(tuple(x) for x in st) == reckoned
                        for st in r["steps"])
-        log("mesh-lm", f"16g rank {k} cell {r['coords']}: B7 launches "
-            f"{r['launches']} (expected {want_launches}); KV cache k "
-            f"{r['cache']['k'][0]} = {r['cache']['k'][1] / 2**20:.2f} MiB "
-            f"(cache_specs' block {block['k'][0]}, "
-            f"{block['k'][1] / 2**20:.2f} MiB; a data rank's whole cache "
-            f"{block['k'][1] * MESH_SHAPE[1] / 2**20:.2f} MiB), the same for "
-            f"v: {cache_ok}; bytes moved a decode step "
+        held = "; ".join(
+            f"{key} {r['cache'][key][0]} = {r['cache'][key][1] / 2**20:.2f} "
+            f"MiB (cache_specs' block {block[key][0]}; a data rank's whole "
+            f"{key} {t.numel() * t.element_size() / 2**20 / MESH_SHAPE[0]:.2f}"
+            f" MiB)" for key, t in whole.items() if key in r["cache"])
+        log("mesh-lm", f"{label} rank {k} cell {r['coords']}: launches "
+            f"{r['launches']} (expected {want_launches}); caches {held}: "
+            f"{cache_ok}; bytes moved a decode step "
             f"{[round(x) for x in r['step_bytes']]} (launch/dryrun.py "
             f"reckons {round(reckoned_bytes)}; record for record: "
             f"{steps_ok}) in {r['step_counts']}; the prefill's "
@@ -5111,28 +5173,227 @@ def check_mesh_serve(cfg, single: dict, prefix: str) -> dict:
         if r["tokens"] != want_tokens:
             failures.append(f"rank {k} tokens {r['tokens']} != "
                             f"{want_tokens}")
-        if r["launches"] != want_launches:
+        if {n: c for n, c in r["launches"].items() if c} != want_launches:
             failures.append(f"rank {k} launches {r['launches']}")
         if not cache_ok:
             failures.append(f"rank {k} cache {r['cache']} != {block}")
         if not steps_ok:
             failures.append(f"rank {k} decode collectives {r['steps'][0]} "
                             f"!= {reckoned}")
-    log("mesh-lm", f"16g launch/serve.py --model-axis 2 on four gloo ranks "
-        f"(TP: q/k/v column blocks, wo row blocks, vocabulary-parallel "
-        f"embedding and greedy pick; EP over model): tokens equal the "
-        f"single process's on every rank: "
+    log("mesh-lm", f"{label} launch/serve.py --model-axis 2 ({cfg.name}, "
+        f"{cfg.n_layers} layers) on four gloo ranks in the tensor-parallel "
+        f"layout: tokens equal the single process's on every rank: "
         f"{all(r['tokens'] == want_tokens for r in ranks)}; first row "
         f"{ranks[0]['tokens'][0]}")
     if failures:
-        raise AssertionError("16g " + "; ".join(failures))
+        raise AssertionError(f"{label} " + "; ".join(failures))
     return dict(step_bytes=ranks[0]["step_bytes"][0],
                 reckoned_bytes=reckoned_bytes,
                 prefill_bytes=ranks[0]["prefill_bytes"],
-                cache_bytes=ranks[0]["cache"]["k"][1] * 2,
+                cache_bytes={key: v[1]
+                             for key, v in ranks[0]["cache"].items()},
                 step_ms=[r["step_ms"] for r in ranks],
+                peak_gib=[r["peak_gib"] for r in ranks],
                 rs_emulated=ranks[0]["rs_emulated"],
-                launches=sum(r["launches"]["moe_gmm"] for r in ranks))
+                launches=sum(r["launches"].get("moe_gmm", 0) for r in ranks))
+
+
+def serve_by_rows(arch: str, rows: int = 0) -> tuple:
+    """launch/serve.py's greedy tokens for TP_SERVE at full depth (its
+    seed, weights and prompts) in one process under a shape-only (2, 2)
+    mesh, ``rows`` rows at a time (0: each data rank's rows in turn, as
+    the ranks hold them: the card's matrix products round by the rows
+    they are given).  Returns the tokens (B, GEN), each step's logits (B,
+    GEN, V) float32 and each decode step's ms (host clock around the
+    synchronised step, as the ranks time theirs), all on the host."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import hints
+    from repro_torch.launch import mesh as HM
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    B, P, G = TP_SERVE["batch"], TP_SERVE["prompt"], TP_SERVE["gen"]
+    rows = rows or B // MESH_SHAPE[0]
+    make_serve_step, step_ms = serve.make_serve_step, []
+
+    def timed_step(cfg):
+        run = make_serve_step(cfg)
+
+        def step(params, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(params, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return step
+
+    hints.activate(HM.ShapeMesh(MESH_SHAPE, ("data", "model")))
+    serve.make_serve_step = timed_step
+    try:
+        params = T.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0), "cuda")
+        prompts = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B, P)), dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            runs = [serve.generate(cfg, params, prompts[r:r + rows], G)
+                    for r in range(0, B, rows)]
+    finally:
+        serve.make_serve_step = make_serve_step
+        hints.deactivate()
+    del params
+    tokens = torch.cat([t for t, _, _ in runs]).cpu()
+    logits = torch.cat([torch.stack(lg, 1).float() for _, lg, _ in runs]
+                       ).cpu()
+    return tokens, logits, step_ms
+
+
+def phase_mesh_single_ssm() -> dict:
+    """16h's counterparts: mamba2-2.7b and zamba2-1.2b in one process
+    under a shape-only (2, 2) mesh, the ranks' seed, prompts and batches:
+    served at full depth (:func:`serve_by_rows`) and trained at
+    SSM_MESH_LAYERS (launch/train.py); keeps the final SSM_MESH_LEAVES and
+    the same leaves at initialisation (the trainer's seed)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as HM
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    out = {}
+    for arch in SSM_MESH_LAYERS:
+        torch.cuda.empty_cache()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        tokens, _, decode_ms = serve_by_rows(arch)
+        serve_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = train.main(ssm_train_argv(arch), mesh=HM.ShapeMesh(
+            MESH_SHAPE, ("data", "model")))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        out[arch] = dict(tokens=tokens, serve_s=serve_s, decode_ms=decode_ms,
+                         losses=run.losses,
+                         grad_norms=[m["grad_norm"] for m in run.metrics],
+                         step_ms=run.step_ms, peak_gib=peak,
+                         leaves=picked_leaves(run.params, SSM_MESH_LEAVES))
+        del run
+        torch.cuda.empty_cache()
+        cut = dataclasses.replace(get_config(arch),
+                                  n_layers=SSM_MESH_LAYERS[arch])
+        init = T.init_params(cut, torch.Generator(device="cuda").manual_seed(
+            0), "cuda")
+        out[arch]["init"] = picked_leaves(init, SSM_MESH_LEAVES)
+        del init
+        log("mesh-lm", f"16h {arch} in one process under a shape-only (2, 2)"
+            f" mesh: launch/serve.py's {TP_SERVE} at full depth, each data "
+            f"rank's rows in turn, in {serve_s:.1f} s (weights made on the "
+            f"card included), decode step ms (host clock, synchronised; "
+            f"{TP_SERVE['batch'] // MESH_SHAPE[0]} rows a step) "
+            f"{[round(x, 1) for x in decode_ms]}, "
+            f"first row {tokens[0].tolist()}; trained at "
+            f"{SSM_MESH_LAYERS[arch]} layers: losses "
+            f"{[round(x, 4) for x in out[arch]['losses']]}, gradient norms "
+            f"{[round(x, 4) for x in out[arch]['grad_norms']]}, step ms "
+            f"{[round(x, 1) for x in out[arch]['step_ms']]}, peak memory "
+            f"{peak:.2f} GiB; launches {counts} (none: no kernel of the "
+            f"repo on this path)")
+        if counts:
+            raise AssertionError(f"16h {arch} single launches {counts}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_rank_jobs(d: str) -> list:
+    """16h's jobs for the four ranks: each Mamba2 family served, then
+    trained."""
+    ext = ["--model-axis", "2", "--device", "cuda:0", "--backend", "gloo"]
+    jobs = []
+    for arch in SSM_MESH_LAYERS:
+        jobs += [dict(kind="serve-tp", out=os.path.join(d, f"16h-{arch}"),
+                      argv=tp_serve_argv(ext, arch=arch, layers=0)),
+                 dict(kind="train-ssm",
+                      out=os.path.join(d, f"16h-train-{arch}"),
+                      argv=ssm_train_argv(arch, ext))]
+    return jobs
+
+
+def check_mesh_ssm(single: dict, d: str) -> dict:
+    """16h: each Mamba2 family's serving (:func:`check_mesh_serve`) and
+    training on the four ranks against one process: losses and gradient
+    norms within MESH_LM_REL_TOL, the final SSM_MESH_LEAVES within
+    MESH_LM_UPDATE_TOL (as 16b's), every rank's bytes a step equal to
+    launch/dryrun.py's reckoning."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun import step_collectives
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.roofline.analysis import collective_bytes
+    out = {}
+    for arch, layers in SSM_MESH_LAYERS.items():
+        full = get_config(arch)
+        served = check_mesh_serve(full, single[arch], os.path.join(
+            d, f"16h-{arch}"), label=f"16h {arch}")
+        cfg = dataclasses.replace(full, n_layers=layers)
+        reckoned = collective_bytes(step_collectives(
+            cfg, ShapeMesh(MESH_SHAPE, ("data", "model")), "train",
+            TRAIN_SEQ, TRAIN_BATCH, OptConfig()))["total"]
+        ranks = []
+        for k in range(4):
+            with open(os.path.join(d, f"16h-train-{arch}-rank{k}.json")) as f:
+                ranks.append(json.load(f))
+        gaps = step_gaps(ranks[0], single[arch])
+        updates = weight_gaps(torch.load(os.path.join(
+            d, f"16h-train-{arch}-leaves.pt")), single[arch]["leaves"],
+            single[arch]["init"], SSM_MESH_LEAVES)
+        for k, r in enumerate(ranks):
+            log("mesh-lm", f"16h {arch} training rank {k} cell "
+                f"{r['coords']}: step ms (CUDA events) "
+                f"{[round(x, 1) for x in r['step_ms']]}; bytes moved per "
+                f"device per step {r['coll_bytes_per_step'] / 1e9:.4f} GB "
+                f"(reckoned {reckoned / 1e9:.4f}; {r['coll_counts']}; staged "
+                f"through host memory: {r['staged']}); peak memory "
+                f"{r['peak_gib']:.2f} GiB")
+        log("mesh-lm", f"16h {arch} trained on four gloo ranks at (2, 2), "
+            f"{SSM_MESH_REDUCED.format(layers, full.n_layers)}: losses "
+            f"{[round(x, 4) for x in ranks[0]['losses']]} against the "
+            f"single process's {[round(x, 4) for x in single[arch]['losses']]}"
+            f", gradient norms {[round(x, 4) for x in ranks[0]['grad_norms']]}"
+            f" against {[round(x, 4) for x in single[arch]['grad_norms']]}; "
+            f"largest relative gaps {gaps} (limit {MESH_LM_REL_TOL}); final "
+            f"weights per leaf (||w_mesh - w_single|| / ||w_single - "
+            f"w_init||, max abs diff) {updates} (limit {MESH_LM_UPDATE_TOL} "
+            f"on the first); these are gloo-through-host numbers on one "
+            f"card, not NVLink ones")
+        if not np.isfinite(ranks[0]["losses"]).all() or any(
+                gaps[k] > MESH_LM_REL_TOL[k] for k in gaps):
+            raise AssertionError(f"16h {arch} {gaps} against the single "
+                                 "process")
+        if not all(np.isfinite(u) and u <= MESH_LM_UPDATE_TOL
+                   for u, _ in updates.values()):
+            raise AssertionError(f"16h {arch} final weights {updates}")
+        for k, r in enumerate(ranks):
+            if abs(r["coll_bytes_per_step"] - reckoned) > 1e-9 * reckoned:
+                raise AssertionError(f"16h {arch} rank {k} moved "
+                                     f"{r['coll_bytes_per_step']} B a step, "
+                                     f"the reckoning {reckoned}")
+            if any(r["launches"].values()):
+                raise AssertionError(f"16h {arch} rank {k} launches "
+                                     f"{r['launches']}")
+        out[arch] = dict(
+            reduced=SSM_MESH_REDUCED.format(layers, full.n_layers),
+            serve=served, serve_single_s=single[arch]["serve_s"],
+            serve_single_step_ms=single[arch]["decode_ms"],
+            train=dict(layers=layers, losses=ranks[0]["losses"], gaps=gaps,
+                       updates=updates,
+                       step_ms=[r["step_ms"] for r in ranks],
+                       single_step_ms=single[arch]["step_ms"],
+                       bytes_per_step=[r["coll_bytes_per_step"]
+                                       for r in ranks],
+                       reckoned_bytes=reckoned,
+                       peak_gib=[r["peak_gib"] for r in ranks],
+                       single_peak_gib=single[arch]["peak_gib"]))
+    return out
 
 
 def phase_mesh_cohort(cohort_path: str, gloo: dict) -> dict:
@@ -5219,7 +5480,11 @@ def phase_mesh_lm(trained: dict, cohort_path: str) -> dict:
     single = phase_mesh_single(cfg)
     single_af = phase_mesh_single_adafactor(cfg)
     single_tp = phase_mesh_single_serve()
-    ranks = phase_mesh_ranks(cfg, single, single_af, single_tp, cohort_path)
+    t_ssm = time.perf_counter()
+    single_ssm = phase_mesh_single_ssm()
+    ssm_single_s = time.perf_counter() - t_ssm
+    ranks = phase_mesh_ranks(cfg, single, single_af, single_tp, single_ssm,
+                             cohort_path)
     t.append(time.perf_counter())
     cohort = phase_mesh_cohort(cohort_path, ranks.pop("gloo"))
     t.append(time.perf_counter())
@@ -5228,14 +5493,16 @@ def phase_mesh_lm(trained: dict, cohort_path: str) -> dict:
     secs = [b - a for a, b in zip(t, t[1:])]
     af = ranks["adafactor"]
     tp = ranks["serve_tp"]
+    ssm = ranks["ssm"]
     af_s = single_af["wall_s"] + af["job_s"]
     log("mesh-lm", f"phase 16 took {t[-1] - t[0]:.1f} s: 16a {secs[0]:.1f} "
         f"s, 16b-16c with 16d's and 16f's ranks {secs[1]:.1f} s, 16d "
         f"{secs[2]:.1f} s, 16e {secs[3]:.1f} s, 16f {af_s:.1f} s (its one "
         f"process {single_af['wall_s']:.1f} s, its ranks' job "
-        f"{af['job_s']:.1f} s inside the spawn)")
+        f"{af['job_s']:.1f} s inside the spawn), 16h's one process "
+        f"{ssm_single_s:.1f} s")
     return dict(nccl=nccl, ranks=ranks, cohort=cohort, served=served,
-                adafactor=af, serve_tp=tp,
+                adafactor=af, serve_tp=tp, ssm=ssm,
                 launches=(nccl["launches"] + single["launches"]
                           + single_af["launches"] + ranks["launches"]
                           + af["launches"] + served["launches"]

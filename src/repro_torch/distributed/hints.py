@@ -14,10 +14,11 @@ run.
 On a live :class:`~repro_torch.launch.mesh.HostMesh` whose ``model`` axis
 has ``C > 1`` ranks the model computes in the reference's
 tensor-parallel layout (``distributed/sharding.py``: column-parallel
-``wq wk wv`` and FFN inputs, row-parallel ``wo``, vocabulary-parallel
-embeddings and heads), and these functions are the collectives GSPMD
-places from the reference's ``residual`` / ``gathered`` hints, the
-Megatron-SP schedule, as autograd functions:
+``wq wk wv``, FFN inputs and Mamba2 mixer inputs, row-parallel ``wo``
+and ``out_proj``, vocabulary-parallel embeddings and heads), and these
+functions are the collectives GSPMD places from the reference's
+``residual`` / ``gathered`` hints, the Megatron-SP schedule, as autograd
+functions:
 
   * :func:`column_products` enters a tensor-parallel region (attention,
     an MLP, a vocabulary-parallel head) with its column-parallel
@@ -38,18 +39,26 @@ Megatron-SP schedule, as autograd functions:
     rank's slice) and slice (backward: all-gather).
   * :func:`shared` passes a parameter that every ``model`` rank holds
     whole (a norm's scale) into the computation on its own positions of
-    a split stream: identity, its gradient summed over ``model``.
+    a split stream: identity, its gradient summed over ``model``;
+    :func:`replicated` does so for several at once (the Mamba2 mixer's
+    small leaves, of which each rank uses its heads' or channels' slice),
+    in one float32 all-reduce.
+  * :func:`model_sum` sums a tensor over ``model`` both ways (the Mamba2
+    gated norm's sums of squares over its channel blocks).
 
 Where the sequence does not divide over ``model`` (decode's ``S = 1``) the
 stream stays whole on every ``model`` rank, as the reference's
 :func:`constrain` drops an axis that does not divide.  On a live mesh
 with ``C = 1`` every one of them returns its argument, and on a
 shape-only mesh every collective does (one process computes the ranks'
-blocks in turn, :func:`shape_blocks`).  :func:`constrain` and :func:`attn_heads` are layout constraints
-of the reference that the port's explicit blocks make hold; they return
-their argument.  :func:`batch_total` sums a count over the batch axes (a
-loss's normalisation); :func:`vocab_nll` and :func:`vocab_argmax` are the
-vocabulary-parallel cross entropy and greedy pick.
+blocks in turn, :func:`shape_blocks`; :func:`fan` sums the gradients of
+a tensor every block uses in rank order, as a collective's backward
+sums them over the ranks).  :func:`constrain` and :func:`attn_heads`
+are layout constraints of the reference that the port's explicit blocks
+make hold; they return their argument.  :func:`batch_total` sums a
+count over the batch axes (a loss's normalisation); :func:`vocab_nll`
+and :func:`vocab_argmax` are the vocabulary-parallel cross entropy and
+greedy pick.
 """
 from __future__ import annotations
 
@@ -155,18 +164,24 @@ def attn_heads(t: torch.Tensor) -> torch.Tensor:
 
 
 class _Copy(torch.autograd.Function):
-    """Megatron's ``f``: identity; the backward sums the gradient over
-    ``model`` (in float32)."""
+    """Megatron's ``f`` over one or more tensors: identity; the backward
+    sums their gradients over ``model`` in one float32 all-reduce, each
+    rounded once to its dtype."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
+    def forward(ctx, mesh, *ps):
         ctx.mesh = mesh
-        return x.view_as(x)
+        return tuple(p.view_as(p) for p in ps)
 
     @staticmethod
-    def backward(ctx, g):
-        return ctx.mesh.all_reduce(g.to(torch.float32, copy=True).contiguous(),
-                                   ("model",)).to(g.dtype), None
+    def backward(ctx, *gs):
+        flat = ctx.mesh.all_reduce(torch.cat(
+            [g.reshape(-1).float() for g in gs]), ("model",))
+        out, i = [], 0
+        for g in gs:
+            out.append(flat[i:i + g.numel()].view_as(g).to(g.dtype))
+            i += g.numel()
+        return (None, *out)
 
 
 class _Columns(torch.autograd.Function):
@@ -390,7 +405,61 @@ def shared(p: torch.Tensor, split: bool) -> torch.Tensor:
     """A parameter every ``model`` rank holds whole, used on this rank's
     positions of a split stream: its gradient summed over ``model``."""
     mesh = tp_mesh()
-    return _Copy.apply(p, mesh) if mesh is not None and split else p
+    return _Copy.apply(mesh, p)[0] if mesh is not None and split else p
+
+
+def replicated(*ps: torch.Tensor) -> tuple:
+    """Parameters every ``model`` rank holds whole, of which each uses its
+    own part (its heads', its channels'): on a tensor-parallel mesh their
+    gradients summed over ``model`` (one all-reduce); else as they are."""
+    mesh = tp_mesh()
+    return ps if mesh is None else _Copy.apply(mesh, *ps)
+
+
+class _SumBoth(torch.autograd.Function):
+    """The sum over ``model`` of a quantity each rank's share of the work
+    adds to and uses (backward: the same sum of the gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce(x.clone(memory_format=torch.contiguous_format),
+                               ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(
+            g.clone(memory_format=torch.contiguous_format), ("model",)), None
+
+
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over ``model`` on a tensor-parallel mesh, its gradient
+    too (an all-reduce each way); else ``x``."""
+    mesh = tp_mesh()
+    return x if mesh is None else _SumBoth.apply(x, mesh)
+
+
+class _Fan(torch.autograd.Function):
+    """``n`` uses of one tensor whose gradients are summed in the order of
+    the uses (a shape-only process's counterpart of a collective's
+    backward sum over the ranks, in rank order)."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        total = gs[0]
+        for g in gs[1:]:
+            total = total + g
+        return total, None
+
+
+def fan(x: torch.Tensor, n: int) -> tuple:
+    """``n`` copies of ``x``, one for each rank's block that one process
+    computes in turn; their gradients meet in rank order."""
+    return _Fan.apply(x, n)
 
 
 def reduce_from_model(y: torch.Tensor) -> torch.Tensor:

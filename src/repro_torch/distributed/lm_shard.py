@@ -13,9 +13,9 @@ collectives the reference's compiler would place:
     parameter in its compute layout
     (:func:`~repro_torch.distributed.sharding.compute_spec`): its block
     over ``model``, which the model computes on in the tensor-parallel
-    layout (``distributed/hints.py``), gathered only over the batch axes
-    where the rules put FSDP and, for the Mamba2 mixer's leaves, over
-    ``model`` too.  In training every parameter passes
+    layout (``distributed/hints.py``; the Mamba2 mixer's too), gathered
+    only over the batch axes where the rules put FSDP.  In training every
+    parameter passes
     :class:`_GatherParam`, whose backward sums the gradient over the
     batch axes (the data-parallel reduction) and cuts this rank's block,
     so gradients come out in the parameters' placements;
@@ -132,8 +132,8 @@ class ShardedLM:
         specs = member_specs(cfg, mesh, meta)
         # parameter name -> the axes it is gathered over to compute
         self.gathers: Dict[str, P] = {
-            n: _without(spec, SH.compute_spec(path, spec))
-            for n, (path, spec) in specs.items()}
+            n: _without(spec, SH.compute_spec(spec))
+            for n, (_, spec) in specs.items()}
         shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
         for name, p in model.named_parameters():
             block = tuple(b.stop - b.start for b in SH.shard_bounds(

@@ -348,23 +348,14 @@ def sharded_axes(spec: P, mesh) -> Tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a in named)
 
 
-#: the Mamba2 mixer's leaves: a live mesh still gathers them whole to
-#: compute (their tensor-parallel layout, and the ssm cache over heads,
-#: are open items)
-MIXER_LEAVES = ("wz", "wx", "wb", "wc", "wdt", "out_proj", "conv_wx",
-                "conv_wb", "conv_wc")
-
-
-def compute_spec(path: str, spec: P) -> P:
+def compute_spec(spec: P) -> P:
     """The layout a parameter is computed in on a live mesh: its block
     over ``model`` (the tensor-parallel layout: column- and row-parallel
-    projections, vocabulary-parallel ``embed``, ``lm_head`` and ``heads``,
-    the QKV biases, the routed experts over ``model``), except the Mamba2
-    mixer's leaves (:data:`MIXER_LEAVES`), which are gathered whole.  The
-    batch axes are gathered wherever the rules put FSDP (the 1 T MoE's
-    expert ``d_model`` dim); ``distributed/lm_shard.py`` gathers them."""
-    parts = path.split("/")
-    keep = () if ("mamba" in parts and parts[-1] in MIXER_LEAVES) else (
-        "model",)
-    return P(*((tuple(a for a in _axes_of(entry) if a in keep) or None)
+    projections, the Mamba2 mixer's column blocks, its convolutions'
+    channel blocks and its row-parallel ``out_proj``, vocabulary-parallel
+    ``embed``, ``lm_head`` and ``heads``, the QKV biases, the routed
+    experts over ``model``).  The batch axes are gathered wherever the
+    rules put FSDP (the 1 T MoE's expert ``d_model`` dim);
+    ``distributed/lm_shard.py`` gathers them."""
+    return P(*((tuple(a for a in _axes_of(entry) if a == "model") or None)
                for entry in spec))

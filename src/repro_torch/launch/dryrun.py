@@ -32,14 +32,15 @@ a record here is computed from the port's own layouts and schedule
   * ``collectives`` are the bytes one device moves in a step of the
     port's LM mesh (``distributed/lm_shard.py``) in the tensor-parallel
     layout, through ``roofline.analysis.collective_bytes``: the gathers
-    of the parameters computed whole (the Mamba2 mixer's) or FSDP-split
-    (the 1 T MoE's experts), the gradient sums over the batch axes,
-    ZeRO-1's gathers and region sums and the gradient norm's sums, or
-    Adafactor's factor sums and gathers and its RMS sums (run by the
-    port's own code on ``meta`` tensors over a :class:`RecordingMesh`),
-    and, reckoned from the shapes (:func:`_model_collectives`), the
-    Megatron-SP gathers and reduce-scatters of every attention and MLP,
-    the MoE's gathers, the vocabulary-parallel embedding and loss, the
+    of the parameters FSDP splits (the 1 T MoE's experts), the gradient
+    sums over the batch axes, ZeRO-1's gathers and region sums and the
+    gradient norm's sums, or Adafactor's factor sums and gathers and its
+    RMS sums (run by the port's own code on ``meta`` tensors over a
+    :class:`RecordingMesh`), and, reckoned from the shapes
+    (:func:`_model_collectives`), the Megatron-SP gathers and
+    reduce-scatters of every attention, MLP and Mamba2 mixer, the
+    mixer's gathered ``b`` and ``c``, norm sums and conv exchange, the
+    MoE's gathers, the vocabulary-parallel embedding and loss, the
     decode's log-sum-exp over a sequence-split cache (forward, the remat
     recompute, backward), the loss's count and the metrics' sums (a train
     record's ``optimizer_collective_bytes``: the optimizer step's share).  A batch that does not divide over the batch axes is
@@ -192,19 +193,24 @@ def _batch_rows(mesh, batch: int) -> Tuple[int, int]:
 def _model_collectives(cfg: ArchConfig, mesh, kind: str, seq: int,
                        batch: int) -> List[Record]:
     """The collectives the model code runs in the tensor-parallel layout
-    (``distributed/hints.py``, ``models/layers.py``,
+    (``distributed/hints.py``, ``models/layers.py``, ``models/mamba2.py``,
     ``models/transformer.py``), reckoned from the shapes as the code
-    runs them: per attention or MLP the Megatron-SP pair (an all-gather
-    of the sequence in, a reduce-scatter of the row-parallel partial sums
-    out; on a whole stream Megatron's ``f`` / ``g``), the gathered q, k, v
-    columns where heads do not divide, the MoE's gathers (its input whole,
-    its experts' outputs over ``model``), the vocabulary-parallel
-    embedding and cross entropy, the norms' parameter sums on a split
-    stream, the decode's log-sum-exp over a sequence-split cache, the
-    loss's count and the metrics' sums.  In training each layer under
-    remat runs its forward collectives again in the backward pass up to
-    its last saved tensor (``torch.utils.checkpoint``'s early stop: a
-    block's final reduce-scatter or all-reduce is not recomputed)."""
+    runs them: per attention, MLP or Mamba2 mixer the Megatron-SP pair
+    (an all-gather of the sequence in, a reduce-scatter of the
+    row-parallel partial sums out; on a whole stream Megatron's ``f`` /
+    ``g``), the gathered q, k, v columns where heads do not divide, the
+    mixer's gathered ``b`` and ``c`` (and ``z`` and ``x`` where its heads
+    do not divide), its gated norm's sums of squares, its small leaves'
+    gradient sum and its conv state's exchange (prefill, decode), the
+    hybrid's gathers at each super-layer's entry and before its tail,
+    the MoE's gathers (its input whole, its experts' outputs over
+    ``model``), the vocabulary-parallel embedding and cross entropy, the
+    norms' parameter sums on a split stream, the decode's log-sum-exp over
+    a sequence-split cache, the loss's count and the metrics' sums.  In
+    training each layer under remat runs its forward collectives again in
+    the backward pass up to its last saved tensor
+    (``torch.utils.checkpoint``'s early stop: a block's final
+    reduce-scatter or all-reduce is not recomputed)."""
     R, rows = _batch_rows(mesh, batch)
     C = mesh.shape.get("model", 1)
     es = torch.empty((), dtype=cfg.torch_dtype).element_size()
@@ -229,24 +235,27 @@ def _model_collectives(cfg: ArchConfig, mesh, kind: str, seq: int,
         return out + tail
     d, V = cfg.d_model, cfg.vocab_size
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    split = cfg.family in T.SP_FAMILIES and S % C == 0   # the stream's
+    split = S % C == 0                               # the stream's
     act = rows * S * d * es
     n_norm = 1 if cfg.norm == "rms" else 2
-    norm_sums = [ar(d * 4)] * n_norm if split else []     # in float32
 
-    def enter():
+    def norm_sums(sp):
+        """A norm's parameter sums on a split stream, in float32."""
+        return [ar(d * 4)] * n_norm if sp else []
+
+    def enter(sp):
         """(forward, backward) of ``hints.column_products``: the input
         all-gathered, its gradient reduce-scattered (or all-reduced)."""
-        return ([ag(act)], [rs(act // C)]) if split else ([], [ar(act)])
+        return ([ag(act)], [rs(act // C)]) if sp else ([], [ar(act)])
 
-    def leave():
+    def leave(sp):
         """(forward, backward) of ``hints.residual``."""
-        return ([rs(act // C)], [ag(act)]) if split else ([ar(act)], [])
+        return ([rs(act // C)], [ag(act)]) if sp else ([ar(act)], [])
 
-    def attention():
-        ef, eb = enter()
-        lf, lb = leave()
-        fwd, bwd = list(ef), norm_sums + eb
+    def attention(sp):
+        ef, eb = enter(sp)
+        lf, lb = leave(sp)
+        fwd, bwd = list(ef), norm_sums(sp) + eb
         if H % C:
             fwd.append(ag(rows * S * H * hd * es))
             bwd.append(rs(rows * S * H * hd // C * es))
@@ -259,15 +268,15 @@ def _model_collectives(cfg: ArchConfig, mesh, kind: str, seq: int,
             fwd += [ar(rows * H * 4)] * 2 + [rs(rows * H * hd // C * 4)]
         return fwd + lf, bwd + lb, 0
 
-    def ffn(moe_layer: bool):
+    def ffn(moe_layer: bool, sp: bool):
         """(forward, backward, forward collectives at its end that a
         remat recompute skips)."""
         if not moe_layer and cfg.d_ff % C == 0:
-            ef, eb = enter()
-            lf, lb = leave()
-            return ef + lf, norm_sums + eb + lb, len(lf)
-        fwd = [ag(act)] if split else []
-        bwd = [ag(act)] if split else []
+            ef, eb = enter(sp)
+            lf, lb = leave(sp)
+            return ef + lf, norm_sums(sp) + eb + lb, len(lf)
+        fwd = [ag(act)] if sp else []
+        bwd = [ag(act)] if sp else []
         skipped = 0
         if moe_layer:
             if cfg.n_experts % C == 0:
@@ -284,14 +293,55 @@ def _model_collectives(cfg: ArchConfig, mesh, kind: str, seq: int,
                 skipped = 1
         return fwd, bwd, skipped
 
-    def block(moe_layer: bool, remat: bool) -> List[Record]:
-        af, ab, _ = attention()
-        ff, fb, skipped = ffn(moe_layer)
-        fwd = af + ff
+    def shared_block(sp: bool):
+        """The hybrid's shared block on a whole stream: its attention
+        between ``f`` and ``g``, its MLP's partial sums reduce-scattered
+        onto the split stream (``sp``; ``g`` on a whole one), the stream
+        cut to this rank's positions (backward: all-gather)."""
+        af, ab, _ = attention(False)
+        cut = [ag(act)] if sp else []
+        if cfg.d_ff % C:
+            return af, ab + cut, 0
+        ef, eb = enter(False)
+        lf, lb = leave(sp)
+        return af + ef + lf, ab + eb + lb + cut, len(lf)
+
+    def mamba(sp: bool):
+        """(forward, backward, skipped) of a Mamba2 block on a split
+        (``sp``) or whole stream."""
+        di, gn, Hs = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, \
+            cfg.ssm_heads
+        heads = Hs % C == 0
+        ef, eb = enter(sp)
+        lf, lb = leave(sp)
+        cols = rows * S * (2 * gn + (0 if heads else 2 * di)) * es
+        fwd, bwd = ef + [ag(cols)], norm_sums(sp) + eb + [rs(cols // C)]
+        if heads:                         # the gated norm's sums of squares
+            fwd.append(ar(rows * S * 4))
+            bwd.append(ar(rows * S * 4))
+        # a_log d_skip dt_bias norm_scale conv_b* (and a whole wdt)
+        bwd.append(ar((3 * Hs + 2 * di + 2 * gn
+                       + (0 if heads else d * Hs)) * 4))
+        c_tot = di + 2 * gn
+        if kind == "decode":              # the conv window's exchange
+            fwd.append(ag(rows * cfg.ssm_conv * c_tot * es))
+        elif kind == "prefill":           # the conv state's block
+            fwd.append(ag(rows * (cfg.ssm_conv - 1) * c_tot * es))
+        return fwd + lf, bwd + lb, len(lf)
+
+    def run(part, remat: bool) -> List[Record]:
+        """A layer's forward, and in training its recompute and
+        backward."""
+        fwd, bwd, skipped = part
         if not train:
             return fwd
         again = fwd[:len(fwd) - skipped] if remat else []
-        return fwd + again + ab + fb
+        return fwd + again + bwd
+
+    def block(moe_layer: bool, remat: bool) -> List[Record]:
+        af, ab, _ = attention(split)
+        ff, fb, skipped = ffn(moe_layer, split)
+        return run((af + ff, ab + fb, skipped), remat)
 
     # the embedding: vocabulary-parallel partial sums, or a whole table
     if cfg.family != "audio":
@@ -304,25 +354,40 @@ def _model_collectives(cfg: ArchConfig, mesh, kind: str, seq: int,
     if train and split and cfg.rope == "learned":
         out.append(ag(act))
     # the layers
+    last = split                          # the stream's layout at the head
     if cfg.family in ("dense", "moe", "audio", "vlm"):
         kd = cfg.first_k_dense if cfg.family == "moe" else 0
         for _ in range(kd):
             out += block(False, False)
         for _ in range(cfg.n_layers - kd):
             out += block(cfg.family == "moe", cfg.remat)
+    elif cfg.family == "ssm":
+        for _ in range(cfg.n_layers):
+            out += run(mamba(split), cfg.remat)
     elif cfg.family == "hybrid":
-        for _ in range(cfg.n_layers // cfg.attn_every):
-            out += block(False, cfg.remat)
+        n_super, n_tail = divmod(cfg.n_layers, cfg.attn_every)
+        for _ in range(n_super):
+            fwd, bwd = ([ag(act)] if split else []), []
+            for _ in range(cfg.attn_every):
+                f, b, _ = mamba(False)
+                fwd, bwd = fwd + f, bwd + b
+            f, b, skipped = shared_block(split)
+            out += run((fwd + f, bwd + b, skipped), cfg.remat)
+        if n_tail:
+            out += [ag(act)] if split else []
+            for _ in range(n_tail):
+                out += run(mamba(False), False)
+            last = False
     # the head and the loss
     vdim = V % C == 0
-    if kind == "prefill" and split:
+    if kind == "prefill" and last:
         out.append(ag(rows * C * d * es))           # the last position
     if train:
         cb = max(cfg.n_codebooks, 1)
         if vdim:
-            ef, eb = enter()
-            out += ef + [ar(rows * S * cb * 4)] * 3 + norm_sums + eb
-        elif split:
+            ef, eb = enter(last)
+            out += ef + [ar(rows * S * cb * 4)] * 3 + norm_sums(last) + eb
+        elif last:
             out.append(ag(act))
     return out + tail
 

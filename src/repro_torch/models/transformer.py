@@ -34,15 +34,19 @@ rotates q and k by M-RoPE over ``positions`` (3, B, S), which the batch
 carries in prefill and decode alike.  Both stack dense blocks.
 
 On a tensor-parallel mesh (``distributed/hints.py``) the blocks compute
-in the reference's layout: each attention and MLP between the
-Megatron-SP pair (``hints.column_products`` gathering its input with its
-column-parallel products, ``hints.residual`` summing its row-parallel
+in the reference's layout: each attention, MLP and Mamba2 mixer between
+the Megatron-SP pair (``hints.column_products`` gathering its input with
+its column-parallel products, ``hints.residual`` summing its row-parallel
 partial sums into the stream), the MoE whole
 on every ``model`` rank between ``hints.whole`` and ``hints.part``, the
 embedding and the head vocabulary-parallel and the loss their cross
-entropy (``hints.vocab_nll``).  The residual stream of the
-:data:`SP_FAMILIES` is split along the sequence where ``model`` divides
-it, else whole.
+entropy (``hints.vocab_nll``).  The residual stream is split along the
+sequence where ``model`` divides it, else whole, and placed where the
+reference's hints place it: the ssm family's at every layer; the
+hybrid's at each super-layer's entry, gathered whole for its Mamba blocks
+(their partial sums all-reduced, Megatron's ``g``) and the shared
+attention block, whose MLP reduce-scatters its partial sums back onto the
+split stream, and gathered again for the tail.
 """
 from __future__ import annotations
 
@@ -246,18 +250,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # The stream's layout
 # ----------------------------------------------------------------------------
 
-#: the families whose residual stream is split over ``model`` along the
-#: sequence on a tensor-parallel mesh; the ssm and hybrid families keep it
-#: whole (their Mamba2 mixers compute whole on every rank)
-SP_FAMILIES = ("dense", "moe", "audio", "vlm")
-
-
-def stream_split(cfg: ArchConfig, n: int) -> bool:
-    """Whether a stream of ``n`` positions is split over ``model``
-    (``hints.split_seq``; the :data:`SP_FAMILIES` only)."""
-    return cfg.family in SP_FAMILIES and hints.split_seq(n)
-
-
 def _norm(cfg: ArchConfig, p: L.Norm, x: torch.Tensor,
           split: bool) -> torch.Tensor:
     """The norm of the stream ``x``; on a split stream each rank normalises
@@ -301,7 +293,7 @@ def embed_inputs(cfg: ArchConfig, p: Transformer, batch: Dict,
     its tokens.  Learned and sinusoidal positions are added to ``x``.
 
     On a tensor-parallel mesh ``x`` is in the stream's layout
-    (:func:`stream_split`: this rank's positions, or whole) and the
+    (``hints.split_seq``: this rank's positions, or whole) and the
     positions whole.  The embedding is vocabulary-parallel: each rank
     looks up the ids in its block of ``embed`` (zeros elsewhere) and the
     partial sums are reduce-scattered along the sequence, or all-reduced
@@ -318,7 +310,7 @@ def embed_inputs(cfg: ArchConfig, p: Transformer, batch: Dict,
                                            device=lead.device)[None, :]
                      + torch.zeros((B, 1), dtype=torch.int32,
                                    device=lead.device))
-    split = stream_split(cfg, S)
+    split = hints.split_seq(S)
     if cfg.family == "audio":
         x = hints.part(batch["frame_embeds"], split)
     elif _vocab_split(cfg, p.embed, 0):
@@ -466,10 +458,15 @@ def _mamba_kwargs(cfg: ArchConfig) -> Dict:
                 expand=cfg.ssm_expand, n_groups=cfg.ssm_groups)
 
 
-def _mamba_train(cfg: ArchConfig, blk: MambaBlock,
-                 x: torch.Tensor) -> torch.Tensor:
-    h = L.apply_norm(cfg.norm, blk.ln1, x)
-    return x + M2.mamba2_forward(blk.mamba, h, **_mamba_kwargs(cfg))
+def _mamba_train(cfg: ArchConfig, blk: MambaBlock, x: torch.Tensor,
+                 split: bool = False) -> torch.Tensor:
+    """``x`` plus the Mamba block of ``blk``: on a tensor-parallel mesh
+    its mixer gathers its input with its column-parallel products and its
+    row-parallel partial sums are summed into the stream
+    (``hints.residual``)."""
+    h = _norm(cfg, blk.ln1, x, split)
+    y = M2.mamba2_forward(blk.mamba, h, split=split, **_mamba_kwargs(cfg))
+    return x + hints.residual(y, split)
 
 
 def _remat(cfg: ArchConfig, fn, *args):
@@ -480,14 +477,33 @@ def _remat(cfg: ArchConfig, fn, *args):
     return fn(*args)
 
 
+def _shared_ffn(cfg: ArchConfig, blk: Block, x: torch.Tensor,
+                split: bool) -> torch.Tensor:
+    """``x``, whole on every ``model`` rank, plus the hybrid's shared MLP,
+    in the stream's layout (``split``: this rank's positions, its partial
+    sums reduce-scattered onto them); an MLP whose width does not divide
+    runs whole."""
+    h = L.apply_norm(cfg.norm, blk.ln2, x)
+    if L.mlp_split(blk.mlp):
+        return hints.part(x, split) + hints.residual(L.mlp(blk.mlp, h), split)
+    return hints.part(x + L.mlp(blk.mlp, h), split)
+
+
 def _super_train(cfg: ArchConfig, p: Transformer, g: int, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """The hybrid's super-layer ``g``: its ``attn_every`` Mamba blocks,
-    then the shared block (its stream whole on every ``model`` rank)."""
+                 positions: torch.Tensor, split: bool = False
+                 ) -> torch.Tensor:
+    """The hybrid's super-layer ``g`` on the stream ``x`` (``split``: this
+    rank's positions): the stream gathered whole, its ``attn_every``
+    Mamba blocks, then the shared block, which leaves the stream in its
+    layout again."""
     per = cfg.attn_every
+    x = hints.whole(x, split)
     for blk in p.layers[g * per:(g + 1) * per]:
         x = _mamba_train(cfg, blk, x)
-    return _attn_block_train(cfg, p.shared, x, positions)[0]
+    x, _ = _attn_part(cfg, p.shared, x, positions, False,
+                      lambda q, spec, h, pos: (
+                          L.attention_train(q, spec, h, pos), None))
+    return _shared_ffn(cfg, p.shared, x, split)
 
 
 def forward_train(cfg: ArchConfig, p: Transformer,
@@ -498,14 +514,16 @@ def forward_train(cfg: ArchConfig, p: Transformer,
     tensor-parallel mesh the logits are this rank's block of V
     (:func:`logits_fn`)."""
     x, positions = embed_inputs(cfg, p, batch)
-    split = stream_split(cfg, positions.shape[-1])
+    split = hints.split_seq(positions.shape[-1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         for blk in p.layers:
-            x = _remat(cfg, _mamba_train, cfg, blk, x)
+            x = _remat(cfg, _mamba_train, cfg, blk, x, split)
     elif cfg.family == "hybrid":
         for g in range(p.lead["layers"][0]):
-            x = _remat(cfg, _super_train, cfg, p, g, x, positions)
+            x = _remat(cfg, _super_train, cfg, p, g, x, positions, split)
+        if len(p.tail):
+            x, split = hints.whole(x, split), False
         for blk in p.tail:
             x = _mamba_train(cfg, blk, x)
     else:
@@ -545,11 +563,12 @@ def loss_fn(cfg: ArchConfig, p: Transformer, batch: Dict
 
 
 def _mamba_prefill(cfg: ArchConfig, blk: MambaBlock, x: torch.Tensor,
-                   states: list) -> torch.Tensor:
-    h = L.apply_norm(cfg.norm, blk.ln1, x)
-    y, ssm, conv = M2.mamba2_prefill(blk.mamba, h, **_mamba_kwargs(cfg))
+                   states: list, split: bool = False) -> torch.Tensor:
+    h = _norm(cfg, blk.ln1, x, split)
+    y, ssm, conv = M2.mamba2_prefill(blk.mamba, h, split=split,
+                                     **_mamba_kwargs(cfg))
     states.append((ssm, conv))
-    return x + y
+    return x + hints.residual(y, split)
 
 
 @torch.no_grad()
@@ -561,26 +580,39 @@ def prefill(cfg: ArchConfig, p: Transformer, batch: Dict,
     shared-block application), and for the ssm and hybrid families ``ssm``
     (L, B, H, P, N) float32 and ``conv`` (L, B, d_conv - 1, C).  On a
     tensor-parallel mesh the logits are this rank's block of V and the
-    cache ``cache_specs``' block (``layers.attention_prefill``)."""
+    cache ``cache_specs``' block (``layers.attention_prefill``,
+    ``mamba2.mamba2_prefill``), the stream placed as in training."""
     x, positions = embed_inputs(cfg, p, batch)
-    split = stream_split(cfg, positions.shape[-1])
-    if cfg.family in ("ssm", "hybrid"):
+    split = hints.split_seq(positions.shape[-1])
+    if cfg.family == "ssm":
+        states = []
+        for blk in p.layers:
+            x = _mamba_prefill(cfg, blk, x, states, split)
+        return logits_fn(cfg, p, _last_position(x, split)), _ssm_cache(
+            states)
+    if cfg.family == "hybrid":
         states, ks, vs = [], [], []
-        hybrid, per = cfg.family == "hybrid", cfg.attn_every
+        per, sp = cfg.attn_every, split
         for i, blk in enumerate(p.layers):
+            if i % per == 0:
+                x, sp = hints.whole(x, sp), False
             x = _mamba_prefill(cfg, blk, x, states)
-            if hybrid and i % per == per - 1:
-                x, (k, v) = _attn_block_prefill(cfg, p.shared, x, positions,
-                                                s_max=s_max)
+            if i % per == per - 1:
+                x, (k, v) = _attn_part(
+                    cfg, p.shared, x, positions, False,
+                    lambda q, spec, h, pos: L.attention_prefill(
+                        q, spec, h, pos, s_max))
+                x, sp = _shared_ffn(cfg, p.shared, x, split), split
                 ks.append(k)
                 vs.append(v)
-        for blk in getattr(p, "tail", ()):
+        if len(p.tail):
+            x, sp = hints.whole(x, sp), False
+        for blk in p.tail:
             x = _mamba_prefill(cfg, blk, x, states)
-        cache = {"ssm": torch.stack([s for s, _ in states]),
-                 "conv": torch.stack([c for _, c in states])}
+        cache = _ssm_cache(states)
         if ks:
             cache.update(k=torch.stack(ks), v=torch.stack(vs))
-        return logits_fn(cfg, p, x[:, -1:, :]), cache
+        return logits_fn(cfg, p, _last_position(x, sp)), cache
     ks, vs = [], []
     for blk in p.blocks():
         x, (k, v) = _attn_block_prefill(cfg, blk, x, positions, split, s_max)
@@ -590,16 +622,22 @@ def prefill(cfg: ArchConfig, p: Transformer, batch: Dict,
     return logits_fn(cfg, p, _last_position(x, split)), cache
 
 
+def _ssm_cache(states: list) -> Dict[str, torch.Tensor]:
+    return {"ssm": torch.stack([s for s, _ in states]),
+            "conv": torch.stack([c for _, c in states])}
+
+
 def _mamba_decode(cfg: ArchConfig, blk: MambaBlock, x: torch.Tensor,
                   ssm: torch.Tensor, conv: torch.Tensor) -> torch.Tensor:
     """One Mamba block's decode step; writes its new states into ``ssm``
-    and ``conv`` in place."""
+    and ``conv`` in place (on a tensor-parallel mesh ``cache_specs``'
+    blocks; the partial sums all-reduced into the whole stream)."""
     h = L.apply_norm(cfg.norm, blk.ln1, x)
     y, s2, c2 = M2.mamba2_decode(blk.mamba, h, ssm, conv,
                                  **_mamba_kwargs(cfg))
     ssm.copy_(s2)
     conv.copy_(c2)
-    return x + y
+    return x + hints.residual(y, False)
 
 
 @torch.no_grad()

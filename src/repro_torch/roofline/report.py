@@ -83,6 +83,10 @@ def summary(recs: List[Dict]) -> str:
     return "\n".join(lines)
 
 
+#: :func:`compare`'s initial of each dominant term
+INITIALS = {"compute": "c", "memory": "m", "collective": "x"}
+
+
 def compare(before: List[Dict], after: List[Dict]) -> str:
     """A markdown table of two sweeps' ok cells: per mesh and
     architecture one row, per shape the collective GB a device and step
@@ -99,9 +103,9 @@ def compare(before: List[Dict], after: List[Dict]) -> str:
             continue
         b = old[key(r)]
         cell = (f"{fmt_bytes(b['collectives']['total'])} "
-                f"{b['roofline']['dominant'][0]} → "
+                f"{INITIALS[b['roofline']['dominant']]} → "
                 f"{fmt_bytes(r['collectives']['total'])} "
-                f"{r['roofline']['dominant'][0]}")
+                f"{INITIALS[r['roofline']['dominant']]}")
         rows.setdefault((r["mesh_kind"], r["arch"]), {})[r["shape"]] = cell
     head = ("| mesh | arch | " + " | ".join(shapes) + " |\n|---|---|"
             + "---|" * len(shapes))

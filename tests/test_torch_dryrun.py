@@ -7,13 +7,15 @@ per device against every rank's ``shard_bounds`` blocks; the collective
 schedule against what the port's meshes record: a reduced train, prefill
 and decode step on a (2, 2) mesh of four gloo CPU ranks
 (``HostMesh.collectives``, kind, bytes and group size for each one; the
-train step with AdamW and with Adafactor), and an odd and an even SBBNNLS
-iteration of the 2-D and 1-D steps on a (2, 2) ``LocalMesh``; the mesh
+train step with AdamW and with Adafactor; the Mamba2 mixer's in mamba2,
+in mamba2 with one head and in zamba2 with and without a tail), and an
+odd and an even SBBNNLS iteration of the 2-D and 1-D steps on a (2, 2)
+``LocalMesh``; the mesh
 step's loss against one process's (the audio loss's count over every
 data rank); the sweep over every cell of the pod mesh (each ``ok`` or
 ``skipped``; kimi-k2's train cell trains with Adafactor) through the
 CLI; and ``roofline/report.py``'s tables over records of both packages
-(a refused record among them).
+(a refused record among them) and their comparison of two sweeps.
 """
 import dataclasses
 import json
@@ -41,7 +43,24 @@ RANK_ENV = {"OMP_NUM_THREADS": "1"}
 #: the reduced step the gloo ranks record: (arch, seq, global batch)
 RECORDED = (("phi3.5-moe-42b-a6.6b", 16, 4), ("qwen2-vl-7b", 24, 4),
             ("musicgen-large", 16, 4), ("zamba2-1.2b", 16, 4),
-            ("granite-34b", 16, 4), ("kimi-k2-1t-a32b", 16, 4))
+            ("granite-34b", 16, 4), ("kimi-k2-1t-a32b", 16, 4),
+            ("mamba2-2.7b", 16, 4), ("zamba2-1.2b+tail", 16, 4),
+            ("mamba2-2.7b+whole-heads", 16, 4))
+#: reduced configs with a change: zamba2 with a Mamba tail after its
+#: super-layer (the stream gathered whole for it), mamba2 with one head,
+#: which a model axis of 2 does not divide (every rank runs it from the
+#: gathered columns)
+VARIANTS = {"zamba2-1.2b+tail": ("zamba2-1.2b", dict(n_layers=3)),
+            "mamba2-2.7b+whole-heads": ("mamba2-2.7b",
+                                        dict(ssm_head_dim=128))}
+
+
+def _recorded_cfg(name: str):
+    """RECORDED's reduced config ``name`` (a VARIANTS entry's change
+    applied), remat on."""
+    arch, change = VARIANTS.get(name, (name, {}))
+    return dataclasses.replace(base.reduced(base.get_config(arch)),
+                               remat=True, **change)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -175,8 +194,11 @@ from repro_torch.optim.adamw import OptConfig
 torch.set_num_threads(1)
 spmd.join_process_group("gloo", torch.device("cpu"))
 out = {}
-for arch, seq, batch in json.load(open(sys.argv[1])):
-    cfg = dataclasses.replace(reduced(get_config(arch)), remat=True)
+jobs, variants = json.load(open(sys.argv[1]))
+for arch, seq, batch in jobs:
+    name, change = variants.get(arch, (arch, {}))
+    cfg = dataclasses.replace(reduced(get_config(name)), remat=True,
+                              **change)
     mesh = HM.make_host_mesh(2, "cpu")
     hints.activate(mesh)
     params = ST.init_placed(cfg, mesh, torch.Generator().manual_seed(0),
@@ -224,7 +246,7 @@ def recorded(tmp_path_factory):
     Adafactor: rank 0's ``HostMesh.collectives`` per step."""
     root = tmp_path_factory.mktemp("dryrun_mesh")
     jobs, out = root / "jobs.json", root / "collectives.json"
-    jobs.write_text(json.dumps(RECORDED))
+    jobs.write_text(json.dumps([RECORDED, VARIANTS]))
     spmd.launch(["-c", RANK_STEPS, str(jobs), str(out)], 4,
                 str(root / "ranks"), deadline_s=240.0, env=RANK_ENV)
     return json.loads(out.read_text())
@@ -239,7 +261,7 @@ def test_step_collectives_equal_what_a_gloo_mesh_records(recorded, arch, seq,
     for kind and byte for byte, what four gloo ranks recorded running it
     (weight gathers, gradient sums, attention and expert gathers, ZeRO-1,
     the loss's count and the metrics)."""
-    cfg = dataclasses.replace(base.reduced(base.get_config(arch)), remat=True)
+    cfg = _recorded_cfg(arch)
     got = D.step_collectives(cfg, HM.ShapeMesh((2, 2), ("data", "model")),
                              kind, seq, batch, OptConfig())
     want = [tuple(r) for r in recorded[f"{arch}/{kind}"]]
@@ -256,7 +278,7 @@ def test_adafactor_step_collectives_equal_what_a_gloo_mesh_records(
     (the model's as AdamW's; the optimizer's factor sums over the axes
     that split a block, the factors' gathers and the RMS sums), and
     differs from AdamW's only in the optimizer."""
-    cfg = dataclasses.replace(base.reduced(base.get_config(arch)), remat=True)
+    cfg = _recorded_cfg(arch)
     mesh = HM.ShapeMesh((2, 2), ("data", "model"))
     got = D.step_collectives(cfg, mesh, "train", seq, batch,
                              OptConfig(kind="adafactor"))
@@ -278,7 +300,7 @@ def test_mesh_loss_divides_by_the_whole_batch(recorded, arch, seq, batch):
     from repro_torch.data.tokens import DataConfig, synth_batch_for
     from repro_torch.distributed import hints
     from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(base.reduced(base.get_config(arch)), remat=True)
+    cfg = _recorded_cfg(arch)
     model = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     b = synth_batch_for(cfg, DataConfig(seq_len=seq, global_batch=batch), 0,
                         device="cpu")
@@ -402,3 +424,20 @@ def test_report_renders_both_packages_records(tmp_path):
     s = report.summary(recs)
     assert "4 total, 2 ok, 1 documented skips, 1 errors (1 refused" in s
     report.main(["--dir", str(tmp_path)])
+
+
+def test_report_compare_names_each_dominant_term():
+    """``report.compare`` sets each cell's collective GB before and after
+    beside its dominant term's initial: c compute, m memory, x
+    collective."""
+    def rec(dominant, total):
+        return {"status": "ok", "mesh_kind": "pod", "arch": "mamba2-2.7b",
+                "shape": "prefill_32k", "collectives": {"total": total},
+                "roofline": {"dominant": dominant}}
+
+    text = report.compare([rec("compute", 4.824e9)],
+                          [rec("collective", 42.31e9)])
+    assert "| pod | mamba2-2.7b | 4.82 c → 42.31 x |" in text
+    text = report.compare([rec("collective", 4.824e9)],
+                          [rec("memory", 2.6e7)])
+    assert "| pod | mamba2-2.7b | 4.82 x → 0.03 m |" in text

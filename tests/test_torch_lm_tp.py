@@ -4,12 +4,18 @@ tensor-parallel layout: four gloo CPU ranks run reduced configs at
 
   * no rank gathers a whole ``model``-split weight in a train, prefill or
     decode step (every ``sharding.gather_shard`` call inside
-    ``ShardedLM.call`` is recorded by parameter): only the Mamba2 mixer's
-    leaves (zamba2) and the FSDP expert axis (kimi-k2 with its threshold
-    at 0) are gathered;
+    ``ShardedLM.call`` is recorded by parameter), the Mamba2 mixer's
+    (mamba2, zamba2) included: only the FSDP expert axis (kimi-k2 with
+    its threshold at 0) is gathered;
   * each rank's KV cache is ``cache_specs``' block under the decode
     layout, in both layouts: KV heads over ``model`` (deepseek-7b, KV 4)
-    and the sequence over ``model`` (phi3.5-moe, KV 1);
+    and the sequence over ``model`` (phi3.5-moe, KV 1); its ``ssm`` cache
+    its heads and its ``conv`` cache its block of the concatenated ``[x |
+    b | c]`` channels (mamba2, zamba2; at (1, 4) blocks of 40 of 160,
+    which cross the streams' boundaries), holding one process's values;
+  * the Mamba2 mixer whose heads a model axis does not divide (mamba2
+    with one head) runs every head from the gathered columns and serves
+    and differentiates as one process;
   * greedy tokens and logits on both meshes equal one process's under a
     shape-only mesh of the same shape (tokens exactly, logits within
     float32 summation order: rtol 1e-4, atol 1e-5) and the reference's
@@ -48,25 +54,36 @@ from repro_torch.optim.adamw import OptConfig
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = ((2, 2), (1, 4))
 SERVE_ARCHS = ("deepseek-7b", "phi3.5-moe-42b-a6.6b")
+#: the Mamba2 families: served from the reference's weights, as SERVE_ARCHS
+SSM_ARCHS = ("mamba2-2.7b", "zamba2-1.2b")
+#: mamba2 with one head (a model axis of 2 or 4 does not divide it: the
+#: mixer runs every head on every rank), served and differentiated from
+#: seed 0 against one process
+WHOLE_HEADS = "mamba2-2.7b+whole-heads"
+VARIANTS = {WHOLE_HEADS: ("mamba2-2.7b", dict(ssm_head_dim=128))}
 #: (arch, FSDP_PARAM_THRESHOLD or None, --layers or None)
 STEP_ARCHS = (("deepseek-7b", None, None), ("phi3.5-moe-42b-a6.6b", None,
                                             None),
-              ("zamba2-1.2b", None, None), ("kimi-k2-1t-a32b", 0, 3))
+              ("zamba2-1.2b", None, None), ("kimi-k2-1t-a32b", 0, 3),
+              ("mamba2-2.7b", None, None))
 LOSS_ARCHS = ("deepseek-7b", "musicgen-large", "qwen2-vl-7b")
 #: every family's blocks: SP attention and MLP (deepseek), MQA with
 #: gathered k, v and the MoE (phi3.5), learned positions, LayerNorm and
 #: GELU (granite), per-codebook heads (musicgen), image embeddings, QKV
-#: biases and M-RoPE (qwen2-vl), the whole hybrid stream with f / g and
-#: the mixer's gathers (zamba2), shared experts and a dense prefix (kimi)
+#: biases and M-RoPE (qwen2-vl), the hybrid's stream gathered whole for
+#: its Mamba blocks (f / g) and its shared block (zamba2), the Mamba2
+#: mixer's column blocks, gathered b and c, norm sums and replicated small
+#: leaves on the split stream (mamba2) and with every head on every rank
+#: (mamba2 with one head), shared experts and a dense prefix (kimi)
 GRAD_ARCHS = ("deepseek-7b", "phi3.5-moe-42b-a6.6b", "granite-34b",
               "musicgen-large", "qwen2-vl-7b", "zamba2-1.2b",
-              "kimi-k2-1t-a32b")
+              "kimi-k2-1t-a32b", "mamba2-2.7b", WHOLE_HEADS)
 #: the whole gradient of the ranks against one process's, per leaf:
 #: float32 summation order, the atol scaled by the leaf's largest entry
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 #: bf16 on (1, 2): one process under the shape-only mesh is the tensor-
 #: parallel run's counterpart to the last bit (no data-parallel sums)
-BITWISE_ARCHS = ("deepseek-7b", "qwen1.5-4b")
+BITWISE_ARCHS = ("deepseek-7b", "qwen1.5-4b", "mamba2-2.7b", "zamba2-1.2b")
 #: but the embedding's gradient, which its lookup's backward accumulates
 #: over repeated ids in another order: within a few bf16 ulps
 EMBED_RTOL = 2e-2
@@ -203,7 +220,8 @@ for job in args["jobs"]:
     mesh = HM.make_host_mesh(C, "cpu")
     hints.activate(mesh)
     SH.FSDP_PARAM_THRESHOLD = job.get("threshold", default_threshold)
-    cfg = reduced(get_config(arch))
+    name, change = args["variants"].get(arch, (arch, {}))
+    cfg = dataclasses.replace(reduced(get_config(name)), **change)
     if job.get("layers"):
         cfg = dataclasses.replace(cfg, n_layers=job["layers"])
     if job.get("dtype"):
@@ -214,9 +232,9 @@ for job in args["jobs"]:
     key = f"{kind}/{arch}/{C}" + (f"/{job['dtype']}" if job.get("dtype")
                                   else "")
     if kind == "serve":
-        opt = OptConfig()
-        state_ = sharded.init_opt_state(opt)
-        ST.restore_state(job["ckpt"], params, state_)
+        if job.get("ckpt"):
+            state_ = sharded.init_opt_state(OptConfig())
+            ST.restore_state(job["ckpt"], params, state_)
         prompts = torch.as_tensor(np.random.default_rng(0).integers(
             0, cfg.vocab_size, (args["batch"], args["prompt"])),
             dtype=torch.int32)
@@ -232,6 +250,8 @@ for job in args["jobs"]:
                                         s_max=args["s_max"])
         out[key] = dict(tokens=toks.tolist(), logits=logits.tolist(),
                         cache={k: list(v.shape) for k, v in cache.items()},
+                        states={k: cache[k].tolist() for k in ("ssm", "conv")
+                                if k in cache},
                         coords=mesh.coords,
                         positions=T.cache_positions(cfg, args["gen_s_max"]))
     elif kind == "steps":
@@ -255,8 +275,9 @@ for job in args["jobs"]:
             cache_index=args["seq"]))
         out[key] = dict(train=train_calls, prefill=prefill_calls,
                         decode=list(calls),
-                        mixer=[n for n, s in sharded.gathers.items()
-                               if any("model" in SH._axes_of(e) for e in s)])
+                        over_model=[n for n, s in sharded.gathers.items()
+                                    if any("model" in SH._axes_of(e)
+                                           for e in s)])
     elif kind == "loss":
         b = synth_batch_for(cfg, DataConfig(seq_len=args["seq"],
                                             global_batch=args["global_batch"]),
@@ -315,7 +336,8 @@ def runs(tmp_path_factory):
     shapes = ",".join(f"{R}x{C}" for R, C in MESHES)
     ref = subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(REFERENCE_SERVE), ref_dir,
-         ",".join(SERVE_ARCHS), shapes, str(BATCH), str(PROMPT), str(GEN),
+         ",".join(SERVE_ARCHS + SSM_ARCHS), shapes, str(BATCH), str(PROMPT),
+         str(GEN),
          str(S_MAX)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, env=env)
     jobs = []
@@ -330,7 +352,9 @@ def runs(tmp_path_factory):
         jobs.append(dict(kind="argmax", arch="deepseek-7b", C=C))
     for _, C in MESHES:
         jobs += [dict(kind="serve", arch=a, C=C,
-                      ckpt=os.path.join(ref_dir, a)) for a in SERVE_ARCHS]
+                      ckpt=os.path.join(ref_dir, a))
+                 for a in SERVE_ARCHS + SSM_ARCHS]
+        jobs.append(dict(kind="serve", arch=WHOLE_HEADS, C=C))
     deadline = time.monotonic() + 300
     while not os.path.exists(os.path.join(ref_dir, "SAVED")):
         assert ref.poll() is None, ref.communicate()[1][-3000:]
@@ -340,6 +364,7 @@ def runs(tmp_path_factory):
     out = str(root / "out")
     path.write_text(json.dumps(dict(
         jobs=jobs, out=out, batch=BATCH, prompt=PROMPT, gen=GEN, s_max=S_MAX,
+        variants=VARIANTS,
         gen_s_max=GEN_S_MAX,
         seq=SEQ, global_batch=GLOBAL_BATCH, ties=TIES.tolist())))
     spmd.launch(["-c", RANK_JOBS, str(path)], 4, str(root / "ranks"),
@@ -348,7 +373,7 @@ def runs(tmp_path_factory):
     bf16 = root / "jobs-bf16.json"
     bf16.write_text(json.dumps(dict(
         jobs=[dict(kind="grads", arch=a, C=2, dtype="bfloat16")
-              for a in BITWISE_ARCHS], out=out + "-2",
+              for a in BITWISE_ARCHS], out=out + "-2", variants=VARIANTS,
         seq=SEQ, global_batch=GLOBAL_BATCH)))
     spmd.launch(["-c", RANK_JOBS, str(bf16)], 2, str(root / "ranks2"),
                 deadline_s=240.0, env=RANK_ENV)
@@ -358,11 +383,17 @@ def runs(tmp_path_factory):
     return dict(ranks=ranks, reference=ref_dir, out=out)
 
 
+def _cfg(arch):
+    """The reduced config ``arch`` (a VARIANTS entry's change applied)."""
+    name, change = VARIANTS.get(arch, (arch, {}))
+    return dataclasses.replace(reduced(get_config(name)), **change)
+
+
 def _single(arch, R, C, fn):
     """``fn(cfg)`` on one process under a shape-only (R, C) mesh."""
     hints.activate(HM.ShapeMesh((R, C), ("data", "model")))
     try:
-        return fn(reduced(get_config(arch)))
+        return fn(_cfg(arch))
     finally:
         hints.deactivate()
 
@@ -381,29 +412,23 @@ def _whole_from(ckpt, cfg):
 def test_no_rank_gathers_a_model_split_weight(runs, arch, threshold, layers,
                                               R, C):
     """Inside ``ShardedLM.call`` of a train, a prefill and a decode step,
-    every rank's ``gather_shard`` calls by parameter: none for the dense
-    and MoE models; over ``model`` only the Mamba2 mixer's leaves; over
-    ``data`` only the FSDP expert weights."""
+    every rank's ``gather_shard`` calls by parameter: none for the dense,
+    MoE, ssm and hybrid models (the Mamba2 mixer's leaves included); over
+    ``data`` only the FSDP expert weights; over ``model`` none."""
     for rank in runs["ranks"]:
         got = rank[f"steps/{arch}/{C}"]
+        assert not got["over_model"]
         for step in ("train", "prefill", "decode"):
             for name, spec in got[step]:
                 axes = {a for entry in spec for a in entry}
                 leaf = name.split(".")[-1]
-                mixer = ".mamba." in name and leaf in SH.MIXER_LEAVES
                 expert = ".moe." in name and ".shared." not in name and \
                     leaf in ("wi_gate", "wi_up", "wo")
-                assert axes, (step, name)
-                if "model" in axes:
-                    assert mixer, (step, name, spec)
-                assert axes <= {"model"} if mixer else (
-                    expert and axes == {"data"}), (step, name, spec)
+                assert expert and axes == {"data"}, (step, name, spec)
             names = {n for n, _ in got[step]}
-            if arch == "zamba2-1.2b":
-                assert names == set(got["mixer"]) and names, step
-            elif threshold is not None:
+            if threshold is not None:
                 assert names and all(".moe." in n for n in names), step
-            elif threshold is None:
+            else:
                 assert not names, (step, names)
 
 
@@ -430,7 +455,80 @@ def test_kv_cache_is_the_cache_specs_block(runs, arch, R, C):
 
 
 @pytest.mark.parametrize("R,C", MESHES)
-@pytest.mark.parametrize("arch", SERVE_ARCHS)
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_caches_are_the_cache_specs_block(runs, arch, R, C):
+    """Each rank's prefill ``ssm`` and ``conv`` caches are its blocks of
+    ``cache_specs`` under ``batch_layout``'s decode spec (its heads; its
+    ``C_tot / C`` contiguous channels of ``[x | b | c]``), and hold the
+    values of one process's whole cache there (same weights, prompts)."""
+    cfg = reduced(get_config(arch))
+    mesh = HM.ShapeMesh((R, C), ("data", "model"))
+    whole = cache_specs(cfg, BATCH, S_MAX, meta_spec, cfg.torch_dtype)
+    specs = SH.batch_layout(cfg, mesh, "decode", BATCH)["cache"]
+    assert specs["ssm"][2] == "model" and specs["conv"][3] == "model"
+    ckpt = os.path.join(runs["reference"], arch)
+
+    def one(cfg):
+        prompts = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (BATCH, PROMPT)), dtype=torch.int32)
+        _, cache = ST.make_prefill(cfg)(_whole_from(ckpt, cfg),
+                                        {"tokens": prompts}, s_max=S_MAX)
+        return cache
+
+    want = _single(arch, R, C, one)
+    for rank in runs["ranks"]:
+        got = rank[f"serve/{arch}/{C}"]
+        for k in ("ssm", "conv"):
+            b = SH.shard_bounds(tuple(whole[k].shape), specs[k], mesh,
+                                got["coords"])
+            assert got["cache"][k] == [s.stop - s.start for s in b], k
+            np.testing.assert_allclose(np.asarray(got["states"][k]),
+                                       want[k][b].numpy(), err_msg=k,
+                                       **LOGIT_TOL)
+
+
+@pytest.mark.parametrize("R,C", MESHES)
+def test_whole_heads_mixer_serves_as_one_process(runs, R, C):
+    """mamba2 with one head on a model axis of 2 or 4: its ``wz wx wb wc``
+    and ``out_proj`` stay in their blocks, every rank runs the head from
+    the gathered columns, its ``ssm`` cache is whole and its ``conv``
+    cache ``cache_specs``' block; tokens and logits equal one process's
+    under the shape-only mesh and one process's off a mesh, whose mixer
+    runs every channel in one block (seed-0 weights)."""
+    cfg = _cfg(WHOLE_HEADS)
+    assert cfg.ssm_heads % C
+    mesh = HM.ShapeMesh((R, C), ("data", "model"))
+    specs = SH.batch_layout(cfg, mesh, "decode", BATCH)["cache"]
+    assert specs["ssm"][2] is None and specs["conv"][3] == "model"
+
+    def one(cfg):
+        params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        prompts = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (BATCH, PROMPT)), dtype=torch.int32)
+        toks, logits, _ = generate(cfg, params, prompts, GEN, s_max=S_MAX)
+        return toks.numpy(), torch.stack(logits, 1).numpy()
+
+    want_t, want_l = _single(WHOLE_HEADS, R, C, one)
+    off_t, off_l = one(cfg)
+    np.testing.assert_array_equal(want_t, off_t)
+    np.testing.assert_allclose(want_l, off_l, **LOGIT_TOL)
+    whole = cache_specs(cfg, BATCH, S_MAX, meta_spec, cfg.torch_dtype)
+    for rank in runs["ranks"]:
+        got = rank[f"serve/{WHOLE_HEADS}/{C}"]
+        for k in ("ssm", "conv"):
+            b = SH.shard_bounds(tuple(whole[k].shape), specs[k], mesh,
+                                got["coords"])
+            assert got["cache"][k] == [s.stop - s.start for s in b], k
+        np.testing.assert_array_equal(np.asarray(got["tokens"]), want_t)
+        np.testing.assert_allclose(np.asarray(got["logits"], np.float32),
+                                   want_l, **LOGIT_TOL)
+        np.testing.assert_array_equal(np.asarray(got["tokens"]), off_t)
+        np.testing.assert_allclose(np.asarray(got["logits"], np.float32),
+                                   off_l, **LOGIT_TOL)
+
+
+@pytest.mark.parametrize("R,C", MESHES)
+@pytest.mark.parametrize("arch", SERVE_ARCHS + SSM_ARCHS)
 def test_mesh_serving_equals_one_process_and_the_reference(runs, arch, R,
                                                            C):
     """Greedy tokens and every step's logits of the four ranks (logits
@@ -492,12 +590,14 @@ def test_vocab_parallel_loss_equals_one_process(runs, arch, R, C):
 
 
 @pytest.mark.parametrize("C", [C for _, C in MESHES])
-@pytest.mark.parametrize("arch", SERVE_ARCHS)
+@pytest.mark.parametrize("arch", SERVE_ARCHS + SSM_ARCHS)
 def test_cache_positions_round_up_where_the_sequence_splits(runs, arch, C):
     """The ranks generated with a budget of 22 positions: a cache that
     splits the sequence (phi3.5-moe, KV 1) rounds it up to a multiple of
-    C, one that splits KV heads keeps it; one process and the reference
-    use 24 and give the same tokens (the test above)."""
+    C, one that splits KV heads keeps it, and so do the ssm and hybrid
+    families (their ``ssm`` and ``conv`` caches hold no positions; zamba2's
+    KV part splits its heads); one process and the reference use 24 and
+    give the same tokens (the test above)."""
     split = reduced(get_config(arch)).n_kv_heads % C != 0
     want = -(-GEN_S_MAX // C) * C if split else GEN_S_MAX
     for rank in runs["ranks"]:
