@@ -276,8 +276,26 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                logits at the same positions.  Losses finite and falling;
                prefill seconds, decode ms a step, tokens/s, step ms and
                peak memory.  Prints {"modal": ...}.
+  18. examples — (after 17) the eight example programs of
+               src/repro_torch/examples, each through its main with
+               --device cuda and the reference example's default arguments
+               (4 subjects for the serving ones; train_lm's checkpoints in
+               a fresh directory under build/examples/, removed after):
+               18a python -m repro_torch.examples.quickstart in a fresh
+               interpreter (exit 0, its first line names the card), 18b
+               quickstart's main, 18c quickstart on phase 4's problem
+               (STN96 at 50,000 fibers, kept on the host since phase 6),
+               18d serve_subjects, 18e serve_life (B3/B4's launches around
+               it > 0, its SELL tenant within the trajectory tolerance of
+               the same job on opt/coo), 18f serve_async (the statuses and
+               counters its story gives), 18g prune_connectome, 18h
+               distributed_life (the (4, 2) partition as 8 gloo ranks on
+               the one card), 18i serve_lm, 18j train_lm (200 steps of
+               the ~100M llama, the loss falling).  Each example's own
+               assertions hold; its seconds and the numbers it prints are
+               logged.  Prints {"examples": ...}.
 
-Then it prints phases 15-17's JSON lines, one JSON line describing the
+Then it prints phases 15-18's JSON lines, one JSON line describing the
 kernels, the card's name and power limit as nvidia-smi gives them, and,
 last, the result line.
 """
@@ -5833,6 +5851,194 @@ def phase_modal() -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# 18. the example programs (repro_torch/examples)
+# ----------------------------------------------------------------------------
+
+EXAMPLES_DIR = os.path.join(ROOT, "build", "examples")
+#: the serving examples' subjects (their own default)
+EXAMPLE_SUBJECTS = "4"
+#: seconds the quickstart's command-line run may take, start-up included
+EXAMPLE_CLI_TIMEOUT_S = 300
+
+
+def example_cli() -> float:
+    """18a: ``python -m repro_torch.examples.quickstart`` in a fresh
+    interpreter, as a user starts it; returns its seconds."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.quickstart"], cwd=ROOT,
+        env=env, capture_output=True, text=True,
+        timeout=EXAMPLE_CLI_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0:
+        raise RuntimeError(f"18a quickstart exited {proc.returncode}:\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    if not lines or not lines[0].startswith("device: cuda"):
+        raise AssertionError(f"18a quickstart's first line {lines[:1]} does "
+                             "not name the card")
+    log("examples", f"18a python -m repro_torch.examples.quickstart: exit 0 "
+        f"in {seconds:.1f} s (a fresh interpreter); first line "
+        f"{lines[0]!r}; {lines[-3].strip()!r}")
+    return seconds
+
+
+def quickstart_row(label: str, out: dict, seconds: float) -> dict:
+    ls = out["losses"].cpu().numpy()
+    row = dict(seconds=seconds, iterations=len(ls), loss_first=float(ls[0]),
+               loss_last=float(ls[-1]),
+               inspector_seconds=float(out["inspector_seconds"]),
+               kept=int(out["stats"]["kept"]),
+               total=int(out["stats"]["total"]),
+               precision=float(out["stats"]["precision"]),
+               recall=float(out["stats"]["recall"]), plans=out["plans"])
+    if not np.isfinite(ls).all():
+        raise AssertionError(f"{label}: a loss is not finite")
+    log("examples", f"{label}: {seconds:.1f} s; loss {ls[0]:.3f} -> "
+        f"{ls[-1]:.5f} in {len(ls)} iterations, inspector "
+        f"{out['inspector_seconds']:.2f} s, kept {row['kept']}/"
+        f"{row['total']}, plans {out['plans']}")
+    return row
+
+
+def check_serve_life(out: dict, launches: dict) -> dict:
+    """18e's gates beyond the example's own: B3 and B4 launched, the SELL
+    tenant within the trajectory tolerance of the same job on opt/coo."""
+    from repro_torch.core.life import LifeConfig, LifeEngine
+    from repro_torch.examples import serve_life
+    sell = {k: launches.get(k, 0) for k in PATH_KERNELS["sell"]}
+    n = len(out["cohort"])
+    # the reference run and the killed + resumed one each take every SELL
+    # iteration once: 2 DSC + 1.5 WC launches an iteration
+    iters = 2 * serve_life.N_ITERS
+    log("examples", f"18e serve_life B3/B4 launches {sell} (2 DSC + 1.5 WC "
+        f"per iteration of the SELL tenant's {iters}: {2 * iters} / "
+        f"{3 * iters // 2}); all launches {launches}")
+    for k, v in sell.items():
+        if v <= 0:
+            raise AssertionError(f"18e serve_life launched {k} {v} times")
+    jid = f"tenant-{n - 1}"
+    w_sell = out["resumed"][jid][0]
+    w_opt, _ = LifeEngine(out["cohort"][-1], LifeConfig(
+        executor="opt", format="coo", n_iters=serve_life.N_ITERS,
+        plan_cache_dir=""), device="cuda").run()
+    err = float((w_sell - w_opt).abs().max())
+    log("examples", f"18e {jid} (format=sell, kernel-sell) vs the same job "
+        f"on opt/coo: max abs diff {err:.3e} (rtol {TRAJ_TOL['rtol']}, atol "
+        f"{TRAJ_TOL['atol']})")
+    np.testing.assert_allclose(w_sell.cpu().numpy(), w_opt.cpu().numpy(),
+                               **TRAJ_TOL)
+    return dict(launches=sell, sell_vs_opt=err,
+                max_dw=out["max_dw"], progress_at_kill=out["progress"])
+
+
+def phase_examples(stn96) -> dict:
+    """18: each example's main on the card with the reference's default
+    arguments, the quickstart once more on phase 4's problem and once
+    from the command line."""
+    import shutil
+    from repro_torch.examples import (distributed_life, prune_connectome,
+                                      quickstart, serve_async, serve_life,
+                                      serve_lm, serve_subjects, train_lm)
+    from repro_torch.kernels import _build
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    os.makedirs(EXAMPLES_DIR)
+    # the examples' default plan cache
+    os.environ["REPRO_PLAN_CACHE"] = os.path.join(EXAMPLES_DIR, "plans")
+    torch.cuda.empty_cache()
+    cuda = ["--device", "cuda"]
+    out: dict = {}
+    t_phase = time.perf_counter()
+
+    def timed(fn, *args, **kw):
+        t0 = time.perf_counter()
+        r = fn(*args, **kw)
+        return r, time.perf_counter() - t0
+
+    out["quickstart_cli"] = dict(seconds=example_cli())
+    r, s = timed(quickstart.main, cuda)
+    out["quickstart"] = quickstart_row("18b quickstart", r, s)
+    r, s = timed(quickstart.run, problem=stn96, device="cuda")
+    out["quickstart_stn96"] = quickstart_row(
+        f"18c quickstart on phase 4's problem {MAIN_PROBLEM}", r, s)
+
+    r, s = timed(serve_subjects.main, cuda + [EXAMPLE_SUBJECTS])
+    out["serve_subjects"] = dict(seconds=s, subjects_per_s=r[
+        "subjects_per_s"], final_losses=r["losses"][:, -1].tolist())
+    log("examples", f"18d serve_subjects: {s:.1f} s; subjects/s "
+        f"{r['subjects_per_s']}")
+
+    _build.reset_launches()
+    r, s = timed(serve_life.main, cuda + [EXAMPLE_SUBJECTS])
+    launches = dict(_build.LAUNCHES)
+    log("examples", f"18e serve_life: {s:.1f} s")
+    out["serve_life"] = dict(seconds=s, **check_serve_life(r, launches))
+
+    r, s = timed(serve_async.main, cuda + [EXAMPLE_SUBJECTS])
+    n = int(EXAMPLE_SUBJECTS)
+    want = {**{f"tenant-{i}": "done" for i in range(n)},
+            "poisoned": "failed", "lo": "shed", "hi": "done"}
+    counters = dict(admitted=n + 1.0, completed=float(n), failed=1.0)
+    log("examples", f"18f serve_async: {s:.1f} s; statuses {r['statuses']}, "
+        f"counters {r['counters']}")
+    if r["statuses"] != want or r["counters"] != counters:
+        raise AssertionError(f"18f serve_async: statuses {r['statuses']} / "
+                             f"counters {r['counters']}, want {want} / "
+                             f"{counters}")
+    out["serve_async"] = dict(seconds=s, statuses=r["statuses"],
+                              counters=r["counters"])
+
+    r, s = timed(prune_connectome.main, cuda)
+    out["prune_connectome"] = dict(
+        seconds=s, iters_cold=int(r["solve"].iters),
+        iters_warm=int(r["report"].iters_warm),
+        evidence=float(r["report"].evidence),
+        cv_rmse=float(r["cv"].mean_rmse))
+    log("examples", f"18g prune_connectome: {s:.1f} s; cold "
+        f"{r['solve'].iters} iterations, warm {r['report'].iters_warm}, "
+        f"evidence {r['report'].evidence:+.6f}, crossval rmse "
+        f"{r['cv'].mean_rmse:.5f}")
+
+    torch.cuda.empty_cache()
+    r, s = timed(distributed_life.main, cuda)
+    out["distributed_life"] = dict(seconds=s, err=r["err"], cells=r["cells"],
+                                   loss_last=float(r["losses"][-1]))
+    log("examples", f"18h distributed_life: {s:.1f} s; {r['cells']}; max "
+        f"|dw| {r['err']:.3e} against LifeEngine(opt) (gate 1e-2)")
+
+    r, s = timed(serve_lm.main, cuda)
+    out["serve_lm"] = dict(seconds=s, tok_s=r["tok_s"],
+                           prefill_ms=r["seconds"]["prefill"] * 1e3,
+                           decode_ms=r["seconds"]["decode"] * 1e3)
+    log("examples", f"18i serve_lm: {s:.1f} s; prefill "
+        f"{out['serve_lm']['prefill_ms']:.1f} ms, decode {r['tok_s']:.0f} "
+        f"tok/s")
+    del r
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(EXAMPLES_DIR, "train_lm_ckpt")
+    r, s = timed(train_lm.main, cuda + ["--ckpt-dir", ckpt])
+    ls = r["losses"]
+    out["train_lm"] = dict(seconds=s, steps=len(ls), loss_first=ls[0],
+                           loss_last=ls[-1], tok_s=r["tok_s"],
+                           params=r["cfg"].param_count())
+    log("examples", f"18j train_lm: {s:.1f} s; {len(ls)} steps, loss "
+        f"{ls[0]:.4f} -> {ls[-1]:.4f}, {r['tok_s']:.0f} tok/s at the last "
+        f"logged step")
+    del r
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log("examples", f"phase 18 took {out['seconds']:.1f} s: "
+        + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in out.items()
+                    if isinstance(v, dict)))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -5878,6 +6084,7 @@ def main() -> int:
     add_launches(launches, phase_mesh(problem, errors))
     torch.cuda.empty_cache()
     entries = phase_timing(problem, launches, errors)
+    stn96 = problem.to("cpu")                 # for phase 18
     del problem, w_opt
     torch.cuda.empty_cache()
     entries.append(phase_lm(errors))
@@ -5896,11 +6103,18 @@ def main() -> int:
               max_abs_err=max(b7["max_abs_err"], *mesh_errs),
               mesh_rank_errs=mesh_errs)
     modal = phase_modal()
+    examples = phase_examples(stn96)
+    for e in entries:
+        if e["name"] in examples["serve_life"]["launches"]:
+            e["examples_launches"] = examples["serve_life"]["launches"][
+                e["name"]]
+            e["launches"] += e["examples_launches"]
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"long": long}))
     print(json.dumps({"mesh_lm": {k: v for k, v in mesh_lm.items()
                                   if k != "ranks"}}))
     print(json.dumps({"modal": modal}))
+    print(json.dumps({"examples": examples}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ Factories that do inspector work route it through ``cache``
 
 The ladder (paper §6.3.1/§6.4.1):
 
-  naive        Figure-3 translation: gathers and ``index_add_`` scatters
+  naive        Figure-3 translation: gathers and scatter-adds
   opt-paper    DSC voxel-sorted segment sum, WC atom-sorted scatter
   opt          output-side sorts for both ops (segment sums)
   kernel       inspector-planned COO tiles on the CUDA kernels B1/B2

@@ -4,7 +4,9 @@ Torch counterpart of ``repro/core/spmv.py``, the paper's Figure-3 ops as
 separate code versions:
 
   * ``*_naive``        — direct translation: per-coefficient gather and
-                         ``index_add_`` scatter (the ``naive`` executor).
+                         scatter-add in a fixed order (:func:`scatter_add`;
+                         the ``naive`` and ``alto`` executors, and the
+                         atom-sorted variants below).
   * ``dsc`` / ``wc``   — restructured executors: a dense (Nc, Ntheta)
                          contribution stream reduced by a *sorted* segment
                          sum over the output dimension (the ``opt`` executor).
@@ -28,6 +30,19 @@ from repro_torch.core.std import PhiTensor
 # Naive code versions (paper Figure 3): per-coefficient indirect ops.
 # ----------------------------------------------------------------------------
 
+def scatter_add(out: torch.Tensor, index: torch.Tensor,
+                src: torch.Tensor) -> torch.Tensor:
+    """``out[index[i]] += src[i]`` along dim 0, every output's terms added
+    in the same order on every run.  On CUDA ``index_add_`` adds with
+    atomics, whose order (and so the float result) changes from run to
+    run; ``index_put_(accumulate=True)`` sorts the indices and sums each
+    output's run in order.  On the CPU ``index_add_`` already adds in
+    index order."""
+    if out.is_cuda:
+        return out.index_put_((index.long(),), src, accumulate=True)
+    return out.index_add_(0, index, src)
+
+
 def dsc_naive(phi: PhiTensor, dictionary: torch.Tensor,
               w: torch.Tensor) -> torch.Tensor:
     """y = M w via scatter-add, no restructuring assumed. (Nv, Ntheta)."""
@@ -35,7 +50,7 @@ def dsc_naive(phi: PhiTensor, dictionary: torch.Tensor,
     contrib = dictionary[phi.atoms] * scaled[:, None]          # (Nc, Ntheta)
     out = torch.zeros((phi.n_voxels, dictionary.shape[1]),
                       dtype=contrib.dtype, device=contrib.device)
-    return out.index_add_(0, phi.voxels, contrib)
+    return scatter_add(out, phi.voxels, contrib)
 
 
 def wc_naive(phi: PhiTensor, dictionary: torch.Tensor,
@@ -44,7 +59,7 @@ def wc_naive(phi: PhiTensor, dictionary: torch.Tensor,
     dots = (dictionary[phi.atoms] * y[phi.voxels]).sum(dim=1)
     vals = dots * phi.values
     out = torch.zeros((phi.n_fibers,), dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, phi.fibers, vals)
+    return scatter_add(out, phi.fibers, vals)
 
 
 # ----------------------------------------------------------------------------

@@ -72,7 +72,15 @@ def test_port_files_exist():
                  "src/repro_torch/models/flash.py",
                  "src/repro_torch/models/mamba2.py",
                  "src/repro_torch/configs/mamba2_2_7b.py",
-                 "src/repro_torch/configs/zamba2_1_2b.py", "chip_smoke.py"):
+                 "src/repro_torch/configs/zamba2_1_2b.py",
+                 "src/repro_torch/examples/quickstart.py",
+                 "src/repro_torch/examples/serve_subjects.py",
+                 "src/repro_torch/examples/serve_life.py",
+                 "src/repro_torch/examples/serve_async.py",
+                 "src/repro_torch/examples/prune_connectome.py",
+                 "src/repro_torch/examples/distributed_life.py",
+                 "src/repro_torch/examples/serve_lm.py",
+                 "src/repro_torch/examples/train_lm.py", "chip_smoke.py"):
         assert want in names
 
 
@@ -127,6 +135,10 @@ SLICE_FOURTEEN = ("launch/mesh.py", "distributed/sharding.py",
 #: the audio and vlm families and the dry run (ROADMAP A15.5, A15.6)
 SLICE_FIFTEEN = ("launch/dryrun.py", "roofline/report.py", "configs/base.py",
                  "core/prng.py")
+#: the example programs as the port's entry points (ROADMAP A14b)
+SLICE_NINETEEN = tuple(f"examples/{m}.py" for m in (
+    "__init__", "quickstart", "serve_subjects", "serve_life", "serve_async",
+    "prune_connectome", "distributed_life", "serve_lm", "train_lm"))
 #: the configurations the training, long-sequence and fifteenth slices add
 NEW_CONFIGS = ("qwen1.5-4b", "deepseek-7b", "stablelm-12b", "granite-34b",
                "kimi-k2-1t-a32b", "mamba2-2.7b", "zamba2-1.2b",
@@ -135,11 +147,11 @@ NEW_CONFIGS = ("qwen1.5-4b", "deepseek-7b", "stablelm-12b", "granite-34b",
 
 @pytest.mark.parametrize("module", SLICE_TEN + tuple(
     m for m in SLICE_ELEVEN if m not in SLICE_TEN) + SLICE_TWELVE
-    + SLICE_THIRTEEN + SLICE_FOURTEEN + SLICE_FIFTEEN)
+    + SLICE_THIRTEEN + SLICE_FOURTEEN + SLICE_FIFTEEN + SLICE_NINETEEN)
 def test_slice_ten_modules_exist_and_import_alone(module):
-    """Each module of the slices ten to fifteen is in the port and
-    imports in a fresh interpreter that has neither jax nor the reference
-    importable."""
+    """Each module of the slices ten to fifteen and each example program
+    is in the port and imports in a fresh interpreter that has neither jax
+    nor the reference importable."""
     path = ROOT / "src" / "repro_torch" / module
     assert path in FILES
     name = "repro_torch." + module[:-3].replace("/", ".").removesuffix(
