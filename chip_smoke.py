@@ -294,8 +294,18 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                the ~100M llama, the loss falling).  Each example's own
                assertions hold; its seconds and the numbers it prints are
                logged.  Prints {"examples": ...}.
+ 19. trace   — 14b's and 14c's train steps (each measured by one more
+               step after its run: the growth of allocated memory over
+               the state and batch, max_memory_allocated() after
+               reset_peak_memory_stats() less memory_allocated() before,
+               and its CUDA-event time) traced on tensors without data
+               (roofline/trace_cost.py through launch.dryrun.trace_step):
+               the measured growth within 10% of the trace's
+               peak_temp_bytes; the traced FLOPs and bytes over the
+               measured time (achieved TFLOP/s, TB/s) and the trace's own
+               seconds, printed.  Prints {"trace": ...}.
 
-Then it prints phases 15-18's JSON lines, one JSON line describing the
+Then it prints phases 15-19's JSON lines, one JSON line describing the
 kernels, the card's name and power limit as nvidia-smi gives them, and,
 last, the result line.
 """
@@ -3810,6 +3820,7 @@ def phase_train_moe() -> dict:
         state["params"], state["opt"], _ = step_fn(state["params"],
                                                    state["opt"], batch)
 
+    measure_step_memory("14b", run, one_step)
     prof = profile_train_step("14b profiled step", one_step)
     params = state["params"]
     del state, run
@@ -3868,7 +3879,17 @@ def phase_train_dense() -> dict:
             and moved):
         raise AssertionError(f"14c: losses {losses}, parameters moved "
                              f"{moved}")
-    del run
+    from repro_torch.data.tokens import synth_batch_for
+    from repro_torch.launch import steps as ST
+    batch = synth_batch_for(run.cfg, run.data, 3, device="cuda")
+    step_fn = ST.make_train_step(run.cfg, run.opt)
+
+    def one_step():
+        run.params, run.opt_state, _ = step_fn(run.params, run.opt_state,
+                                               batch)
+
+    measure_step_memory("14c", run, one_step)
+    del run, batch
     torch.cuda.empty_cache()
     return dict(step_ms=med, tokens_per_s=tokens / med * 1e3,
                 peak_gib=peak / 2**30, losses=losses)
@@ -3926,6 +3947,36 @@ def check_train_grads(cfg, errors: dict) -> None:
     # above 128 must be multiples of 128 (the reference's f_tile rule)
     check_gmm_grad("ragged", dict(n_exp=3, capacity=72, t_tile=24, k=96,
                                   n=640), seed=42, errors=errors)
+
+
+#: phase 19's measured steps: label -> the step's config, optimizer,
+#: batch shape, its growth of allocated memory and its CUDA-event time
+STEP_MEMORY: dict = {}
+
+
+def measure_step_memory(label: str, run, one_step) -> None:
+    """One more (warm) training step: the growth of the allocated memory
+    over what the state and batch hold (``max_memory_allocated()`` after
+    ``reset_peak_memory_stats()`` less ``memory_allocated()`` before) and
+    its CUDA-event time, kept for phase 19 with the trainer ``run``'s
+    config, optimizer and batch shape."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    one_step()
+    t1.record()
+    t1.synchronize()
+    growth = torch.cuda.max_memory_allocated() - before
+    STEP_MEMORY[label] = dict(cfg=run.cfg, opt=run.opt,
+                              seq=run.data.seq_len,
+                              batch=run.data.global_batch, growth=growth,
+                              ms=t0.elapsed_time(t1), before=before)
+    log("train", f"{label} one more step: allocated {before / 2**30:.3f} GiB "
+        f"before, peak growth {growth} B ({growth / 2**30:.3f} GiB), "
+        f"{t0.elapsed_time(t1):.3f} ms")
 
 
 def phase_train(errors: dict) -> dict:
@@ -6039,6 +6090,60 @@ def phase_examples(stn96) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# 19. the traced cost model against the card
+# ----------------------------------------------------------------------------
+
+#: phase 19's limit: the measured peak growth of a step against the trace's
+#: peak_temp_bytes, relative
+TRACE_MEM_TOL = 0.10
+
+
+def phase_trace() -> dict:
+    """19: 14b's and 14c's train steps traced on tensors without data
+    (``launch.dryrun.trace_step``, ``roofline/trace_cost.py``): the trace's
+    peak_temp_bytes against the growth of allocated memory that one more
+    step of the same run showed on the card (``measure_step_memory``),
+    within TRACE_MEM_TOL; the traced FLOPs and bytes over that step's
+    CUDA-event time and the trace's own seconds, printed."""
+    from repro_torch.launch import dryrun as D
+    t0 = time.perf_counter()
+    out, bad = {}, []
+    for label, m in sorted(STEP_MEMORY.items()):
+        cost = D.trace_step(m["cfg"], "train", m["seq"], m["batch"], None,
+                            m["opt"])
+        peak = cost.peak_temp_bytes
+        rel = abs(m["growth"] - peak) / peak
+        s = m["ms"] / 1e3
+        top = sorted(cost.by_op.items(), key=lambda kv: -kv[1]["bytes"])[:6]
+        out[label] = dict(
+            arch=m["cfg"].name, layers=m["cfg"].n_layers, seq=m["seq"],
+            batch=m["batch"], growth_bytes=m["growth"], traced_peak=peak,
+            rel=rel, step_ms=m["ms"], traced_flops=cost.flops,
+            traced_bytes=cost.bytes_accessed, tflops=cost.flops / s / 1e12,
+            tb_per_s=cost.bytes_accessed / s / 1e12,
+            trace_seconds=cost.seconds, loops=cost.loops)
+        log("trace", f"19 {label} {m['cfg'].name} ({m['cfg'].n_layers} "
+            f"layers, {m['batch']} x {m['seq']}): measured growth "
+            f"{m['growth']} B, traced peak {peak:.0f} B, relative "
+            f"{rel:.4f} (limit {TRACE_MEM_TOL}); traced {cost.flops:.4e} "
+            f"FLOPs and {cost.bytes_accessed:.4e} B in {m['ms']:.3f} ms: "
+            f"{cost.flops / s / 1e12:.1f} TFLOP/s, "
+            f"{cost.bytes_accessed / s / 1e12:.3f} TB/s; trace "
+            f"{cost.seconds:.2f} s, loops {cost.loops}; most bytes: "
+            + ", ".join(f"{k} {v['bytes']:.3e}" for k, v in top))
+        if rel > TRACE_MEM_TOL:
+            bad.append(f"{label}: measured {m['growth']} B against the "
+                       f"trace's {peak:.0f} B ({rel:.3f} relative)")
+    if len(out) != 2:
+        bad.append(f"phase 19 measured {sorted(out)}, not 14b and 14c")
+    out["seconds"] = time.perf_counter() - t0
+    log("trace", f"phase 19 took {out['seconds']:.1f} s")
+    if bad:
+        raise AssertionError("19: " + "; ".join(bad))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -6104,6 +6209,7 @@ def main() -> int:
               mesh_rank_errs=mesh_errs)
     modal = phase_modal()
     examples = phase_examples(stn96)
+    trace = phase_trace()
     for e in entries:
         if e["name"] in examples["serve_life"]["launches"]:
             e["examples_launches"] = examples["serve_life"]["launches"][
@@ -6115,6 +6221,7 @@ def main() -> int:
                                   if k != "ranks"}}))
     print(json.dumps({"modal": modal}))
     print(json.dumps({"examples": examples}))
+    print(json.dumps({"trace": trace}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -545,13 +545,17 @@ class _VocabNLL(torch.autograd.Function):
         return (grad * g[..., None]).to(ctx.dtype), None, None, None
 
 
-def vocab_nll(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def vocab_nll(logits: torch.Tensor, target: torch.Tensor,
+              vocab: int = None) -> torch.Tensor:
     """``-log_softmax(logits)[target]`` in float32 over the last dim, which
     on a tensor-parallel mesh holds this rank's block of the vocabulary
     (the ``c``-th of ``C``; on one process under a shape-only mesh the
-    blocks' reductions in rank order); ``target`` holds global ids."""
+    blocks' reductions in rank order); ``target`` holds global ids.
+    ``vocab``: the whole vocabulary's size; logits that hold all of it
+    (a head whose vocabulary ``model`` does not divide stays whole) reduce
+    nothing over the mesh."""
     mesh = tp_mesh()
-    if mesh is not None:
+    if mesh is not None and logits.shape[-1] != vocab:
         return _VocabNLL.apply(logits, target, mesh, 1)
     n = shape_blocks()
     if n > 1 and logits.shape[-1] % n == 0:

@@ -55,6 +55,7 @@ from torch import nn
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.sharding import P
 from repro_torch.optim.adamw import OptConfig, _chunked, init_opt_state
+from repro_torch.roofline import trace_cost as TC
 
 
 class _GatherParam(torch.autograd.Function):
@@ -225,7 +226,8 @@ class ShardedLM:
         for path in sorted(grads):
             spec = self.specs[path]
             axes = SH.sharded_axes(spec, self.mesh)
-            sq = sum(torch.sum(torch.square(g.float())) for g in grads[path])
+            sq = sum(torch.sum(torch.square(g.float()))
+                     for g in _members(grads[path]))
             buckets[axes] = buckets.get(axes, torch.zeros(
                 (), dtype=torch.float32, device=dev)) + sq
         total = torch.zeros((), dtype=torch.float32, device=dev)
@@ -276,7 +278,7 @@ class ShardedLM:
         scale = torch.clamp(opt.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         for gs in grads.values():
-            for g in gs:
+            for g in _members(gs):
                 g.copy_((g.float() * scale).to(g.dtype))
         mesh = self.mesh
         leaves = self.model.reference_leaves()
@@ -304,10 +306,16 @@ class ShardedLM:
                 replicas = tuple(a for a in mesh.axis_names
                                  if a not in SH.sharded_axes(spec, mesh))
             mu_l, nu_l = state["mu"][path], state["nu"][path]
-            for i, (p, g) in enumerate(zip(leaf.members, grads[path])):
+
+            def owned(i, lead=leaf.lead, bounds=bounds):
+                return all(b.start <= j < b.stop
+                           for j, b in zip(_unravel(i, lead), bounds))
+
+            for i in TC.classes("zero1.members", range(len(leaf.members)),
+                                key=owned):
+                p, g = leaf.members[i], grads[path][i]
                 idx = _unravel(i, leaf.lead)
-                owns = all(b.start <= j < b.stop
-                           for j, b in zip(idx, bounds))
+                owns = owned(i)
                 loc = tuple(j - b.start for j, b in zip(idx, bounds))
                 if aligned:
                     new = torch.zeros_like(p)
@@ -384,22 +392,31 @@ class ShardedLM:
             step = max(1, _UPDATE_CHUNK // max(1, t[0].numel()))
             return [slice(s, s + step) for s in range(0, t.shape[0], step)]
 
+        def walk(*members):
+            """``(idx, g, sl, *members)`` over every member's pieces, in
+            order; under a trace two of each size
+            (``roofline.trace_cost.classes``: they cost the same)."""
+            items = [(idx, g, sl, *rest)
+                     for idx, g, *rest in zip(idxs, grads, *members)
+                     for sl in pieces(g)]
+            return TC.classes("adafactor.pieces", items, key=lambda it: len(
+                range(*it[2].indices(it[1].shape[0]))) if it[1].dim() else 0)
+
         rows = torch.zeros(bshape[:-1], dtype=torch.float32, device=dev)
         cols = torch.zeros(bshape[:-2] + bshape[-1:], dtype=torch.float32,
                            device=dev)
         idxs = [_unravel(i, leaf.lead) for i in range(len(grads))]
-        for idx, g in zip(idxs, grads):
-            for sl in pieces(g):
-                g2 = af.square(g[sl].float())
-                if m == 1:
-                    rows[idx] = g2.sum()
-                    cols[idx[:-1]] += g2
-                    continue
-                rows[idx][sl] = g2.sum(dim=-1)
-                if m >= 3:
-                    cols[idx][sl] = g2.sum(dim=-2)
-                else:
-                    cols[idx] += g2.sum(dim=-2)
+        for idx, g, sl in walk():
+            g2 = af.square(g[sl].float())
+            if m == 1:
+                rows[idx] = g2.sum()
+                cols[idx[:-1]] += g2
+                continue
+            rows[idx][sl] = g2.sum(dim=-1)
+            if m >= 3:
+                cols[idx][sl] = g2.sum(dim=-2)
+            else:
+                cols[idx] += g2.sum(dim=-2)
         mesh.all_reduce(rows, SH.sharded_axes(P(sspec[-1]), mesh))
         mesh.all_reduce(cols, SH.sharded_axes(P(sspec[-2]), mesh))
         rows = SH.gather_shard(rows, P(*sspec[:-1]), mesh)
@@ -432,22 +449,20 @@ class ShardedLM:
             return slice(start, start + n)
 
         sq = torch.zeros(n_units, dtype=torch.float32, device=dev)
-        for idx, g in zip(idxs, grads):
-            for sl in pieces(g):
-                d2 = torch.square(direction(idx, g, sl))
-                u = units(idx, sl, d2.shape[0] if d2.dim() else 1)
-                if chunked and not k:
-                    sq[u] += d2.reshape(d2.shape[0], -1).sum(dim=1)
-                else:
-                    sq[u] += d2.sum()
+        for idx, g, sl in walk():
+            d2 = torch.square(direction(idx, g, sl))
+            u = units(idx, sl, d2.shape[0] if d2.dim() else 1)
+            if chunked and not k:
+                sq[u] += d2.reshape(d2.shape[0], -1).sum(dim=1)
+            else:
+                sq[u] += d2.sum()
         rms = af.rms(mesh.all_reduce(sq, sharded) / unit_numel)
-        for idx, p, g in zip(idxs, leaf.members, grads):
-            for sl in pieces(g):
-                d = direction(idx, g, sl)
-                r = rms[units(idx, sl, d.shape[0])]
-                r = r.reshape((-1,) + (1,) * (d.dim() - 1)) if (
-                    chunked and not k) else r[0]
-                p[sl] = af.step(p[sl].float(), d, r, decay).to(p.dtype)
+        for idx, g, sl, p in walk(leaf.members):
+            d = direction(idx, g, sl)
+            r = rms[units(idx, sl, d.shape[0])]
+            r = r.reshape((-1,) + (1,) * (d.dim() - 1)) if (
+                chunked and not k) else r[0]
+            p[sl] = af.step(p[sl].float(), d, r, decay).to(p.dtype)
 
     # -- whole trees -------------------------------------------------------
     @torch.no_grad()
@@ -559,6 +574,13 @@ class ShardedLM:
             dst.copy_(src)
 
         copy(opt_state, tree["opt"], "opt")
+
+
+def _members(items):
+    """A leaf's members (or their gradients) in order; under a trace two
+    of them, the second standing for the rest
+    (``roofline.trace_cost.classes``: they cost the same)."""
+    return TC.classes("optimizer.members", items, key=lambda t: None)
 
 
 #: elements the update takes at a time (its float32 temporaries)

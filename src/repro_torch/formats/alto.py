@@ -107,6 +107,11 @@ class AltoPhi:
         return dataclasses.replace(
             self, lin=self.lin[keep], values=self.values[keep])
 
+    def fibers_of(self) -> np.ndarray:
+        """Just the fiber coordinates (for weight-compaction masks) without
+        paying for the full delinearization."""
+        return self._extract_mode("fiber")
+
     # -- accounting -----------------------------------------------------------
     @property
     def n_coeffs(self) -> int:

@@ -136,6 +136,23 @@ class SellPhi:
         return self.atoms.shape[1]
 
     @property
+    def n_row_blocks(self) -> int:
+        return self.atoms.shape[0] // self.row_tile
+
+    @property
+    def n_chunks(self) -> int:
+        return self.width // self.slot_tile
+
+    @property
+    def slice_widths(self) -> np.ndarray:
+        """Per row-block width a ragged SELL-C-sigma would allocate
+        (max row nnz in the slice, rounded up to the slot tile)."""
+        padded = np.zeros(self.atoms.shape[0], np.int64)
+        padded[: self.n_rows] = self.row_nnz
+        per_slice = padded.reshape(-1, self.row_tile).max(axis=1)
+        return -(-per_slice // self.slot_tile) * self.slot_tile
+
+    @property
     def nbytes(self) -> int:
         return int(self.atoms.nbytes + self.others.nbytes + self.values.nbytes
                    + self.row_nnz.nbytes)

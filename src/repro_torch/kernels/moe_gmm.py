@@ -19,7 +19,9 @@ Result: ``[n_tiles * t_tile, d_ff]`` in ``x_p``'s dtype, summed in float32.
 The wrapper launches the kernel on CUDA tensors (counted in
 :data:`repro_torch.kernels._build.LAUNCHES` under ``"moe_gmm"``), runs the
 plain version (:func:`repro_torch.kernels.ref.moe_gmm_ref`) on CPU
-tensors, and raises on anything else.
+tensors, on tensors without data (a trace's ``meta`` or fake tensors)
+returns an output of the right shape and records the kernel's op
+(:func:`_traced`), and raises on anything else.
 
 :class:`GroupedMatmul` differentiates it for the training path, on the
 expert FFN's segment layout (each of the E experts owns ``capacity``
@@ -41,6 +43,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.dsc import _device_of
 from repro_torch.kernels.ref import moe_gmm_ref
+from repro_torch.roofline import trace_cost as TC
 
 DEFAULT_T_TILE = 128
 DEFAULT_F_TILE = 128
@@ -111,10 +114,28 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, capacity: int,
     return GroupedMatmul.apply(x, w, capacity, t_tile)
 
 
+def _traced(expert_of_tile: torch.Tensor, x_p: torch.Tensor,
+            w_experts: torch.Tensor) -> torch.Tensor:
+    """B7 on tensors without data (a trace, ``roofline/trace_cost.py``):
+    the output of its shape and dtype and one ``moe_gmm`` op of 2 rows K N
+    FLOPs that reads ``x``, the tiles' experts' ``W`` blocks and the tile
+    ids and writes ``out``.  Nothing is built or launched."""
+    (n_rows, d_model), (n_exp, _, d_ff) = x_p.shape, w_experts.shape
+    out = torch.empty((n_rows, d_ff), dtype=x_p.dtype, device=x_p.device)
+    es = x_p.element_size()
+    experts = min(expert_of_tile.numel(), n_exp)
+    TC.record_kernel(
+        "moe_gmm", 2.0 * n_rows * d_model * d_ff,
+        (n_rows * d_model + experts * d_model * d_ff + n_rows * d_ff) * es
+        + expert_of_tile.numel() * expert_of_tile.element_size())
+    return out
+
+
 def moe_gmm(expert_of_tile: torch.Tensor, x_p: torch.Tensor,
             w_experts: torch.Tensor, *, t_tile: int = DEFAULT_T_TILE,
             f_tile: int = DEFAULT_F_TILE) -> torch.Tensor:
-    """Run B7 on CUDA tensors; on CPU tensors, the plain version.
+    """Run B7 on CUDA tensors; on CPU tensors, the plain version; on
+    tensors without data, its traced op (:func:`_traced`).
 
     ``t_tile`` is the rows of a token tile.  ``f_tile`` only bounds the
     shapes accepted, as in the reference (``d_ff`` a multiple of it); the
@@ -138,7 +159,8 @@ def moe_gmm(expert_of_tile: torch.Tensor, x_p: torch.Tensor,
     f_tile = min(f_tile, d_ff)
     if d_ff % f_tile:
         raise ValueError("d_ff must be a multiple of f_tile")
-    dev = _device_of(x_p, "moe_gmm")
+    traced = TC.without_data(x_p)
+    dev = x_p.device if traced else _device_of(x_p, "moe_gmm")
     _build.check_operand(x_p, "x_p", device=dev,
                          dtypes=(torch.float32, torch.bfloat16),
                          shape=(None, None))
@@ -146,6 +168,8 @@ def moe_gmm(expert_of_tile: torch.Tensor, x_p: torch.Tensor,
                          dtypes=(x_p.dtype,), shape=(None, d_model, None))
     _build.check_operand(expert_of_tile, "expert_of_tile", device=dev,
                          dtypes=(torch.int32,), shape=(n_tiles,))
+    if traced:
+        return _traced(expert_of_tile, x_p, w_experts)
     if dev.type == "cpu":
         return moe_gmm_ref(x_p.view(n_tiles, t_tile, d_model), w_experts,
                            expert_of_tile).view(n_rows, d_ff)

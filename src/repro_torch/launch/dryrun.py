@@ -12,51 +12,51 @@ shape-only (16, 16) ``(data, model)`` mesh ("pod") or (2, 16, 16) with
 ``meta`` device.
 
 The reference lowers and compiles each cell for 512 placeholder devices
-and reads XLA's memory and cost analysis.  PyTorch has no such compile, so
-a record here is computed from the port's own layouts and schedule
-(ROADMAP §C2):
+and reads XLA's memory and cost analysis, its FLOPs, bytes and
+collectives through ``roofline/hlo_cost.py``.  PyTorch compiles nothing;
+the port traces the step instead (:func:`trace_step`,
+``roofline/trace_cost.py``): the step the cell names
+(``steps.make_train_step(cfg, opt_for(cfg))``, ``make_prefill`` or
+``make_serve_step``) runs on rank 0's blocks of a model placed on a
+:class:`RecordingMesh` of the cell's shape, its batch ``input_specs``'
+shapes, all as ``meta`` tensors, the layer stacks, flash attention's
+chunk pairs and the SSD's chunks counted by their trip counts:
 
   * ``memory.argument_size_in_bytes`` is exact: the bytes of one device's
     blocks (``sharding.shard_bounds`` under the sharding rules' specs) of
     the parameters, the optimizer state (train; ``opt_for`` picks it as
     the reference does), the batch and the cache.  Every device holds
     equal blocks: the rules shard only dims that divide.
-    ``temp_size_in_bytes`` is null: no compiler plans the activations.
-  * ``flops`` are ``roofline.analysis.model_flops``; a train cell with
-    remat adds the recomputed forward (2 N D), which the reference's
-    compiled count holds as well.
-  * the memory term's bytes are the compulsory ones: every argument read
-    once, every output written once (train: parameters and optimizer
-    state; prefill: the cache and the last logits; decode: the logits and
-    the cache entries the step writes).
-  * ``collectives`` are the bytes one device moves in a step of the
-    port's LM mesh (``distributed/lm_shard.py``) in the tensor-parallel
-    layout, through ``roofline.analysis.collective_bytes``: the gathers
-    of the parameters FSDP splits (the 1 T MoE's experts), the gradient
-    sums over the batch axes, ZeRO-1's gathers and region sums and the
-    gradient norm's sums, or Adafactor's factor sums and gathers and its
-    RMS sums (run by the port's own code on ``meta`` tensors over a
-    :class:`RecordingMesh`), and, reckoned from the shapes
-    (:func:`_model_collectives`), the Megatron-SP gathers and
-    reduce-scatters of every attention, MLP and Mamba2 mixer, the
-    mixer's gathered ``b`` and ``c``, norm sums and conv exchange, the
-    MoE's gathers, the vocabulary-parallel embedding and loss, the
-    decode's log-sum-exp over a sequence-split cache (forward, the remat
-    recompute, backward), the loss's count and the metrics' sums (a train
-    record's ``optimizer_collective_bytes``: the optimizer step's share).  A batch that does not divide over the batch axes is
-    held whole by every data rank (the port refuses such a batch on a
-    live mesh; only long_500k's batch of 1 is one, and its decode issues
-    no batch-sized collective).
+    ``temp_size_in_bytes`` is the trace's peak (the most bytes alive at
+    once among the tensors the step made), and ``total_bytes_per_device``
+    temp plus arguments, as the reference's ``_mem_dict``;
+  * ``flops.traced`` are the products' FLOPs the trace counts (and B7's),
+    beside ``flops.model`` (``roofline.analysis.model_flops``; a train
+    cell with remat adds the recomputed forward, 2 N D);
+  * ``bytes.traced``: every op's inputs and outputs, beside the
+    compulsory bytes (every argument read once, every output written
+    once: train, the parameters and optimizer state; prefill, the cache
+    and the last logits; decode, the logits and the cache entries the
+    step writes);
+  * ``collectives`` are the records the mesh took, through
+    ``roofline.analysis.collective_bytes`` (``optimizer_collective_bytes``:
+    the optimizer step's share); ``loop_multipliers`` the trip counts.
+    A batch that does not divide over the batch axes is held whole by
+    every data rank (only long_500k's batch of 1 is one; its cache's
+    positions split over them and the decode writes rank 0's block);
+  * the roofline takes the traced FLOPs, bytes and collectives;
+    ``mfu_upper_bound`` keeps ``flops.model`` as its numerator;
   * the 1 T MoE trains with Adafactor (``opt_for``), as the reference's
     does: its train cells count the factors' regions as ``memory``'s
     ``opt`` and Adafactor's step as their collectives.
 
-life-stn96 records the SBBNNLS iteration of the 2-D (voxel x fiber)
-partition at Table-9 scale (``distributed/life_shard.py:
-life_input_specs``; ``life-stn96-1d`` the 1-D one), its collectives those
-of ``make_sharded_step`` (or ``make_sharded_step_1d``), per iteration the
-mean of an odd and an even one.  Full-attention archs skip ``long_500k``, as the
-reference's do.
+life-stn96 records, analytic (no trace: their temp size is null with its
+reason), the SBBNNLS iteration of the 2-D (voxel x fiber) partition at
+Table-9 scale (``distributed/life_shard.py:life_input_specs``;
+``life-stn96-1d`` the 1-D one), its collectives those of
+``make_sharded_step`` (or ``make_sharded_step_1d``), per iteration the
+mean of an odd and an even one.  Full-attention archs skip ``long_500k``,
+as the reference's do.
 """
 from __future__ import annotations
 
@@ -78,15 +78,15 @@ from repro_torch.distributed import lm_shard
 from repro_torch.distributed import sharding as SH
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import ShapeMesh, make_production_mesh
-from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import OptConfig, apply_updates_zero1
 from repro_torch.roofline import analysis as RL
+from repro_torch.roofline import trace_cost as TC
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun")
-TEMP_REASON = ("PyTorch compiles no step: the activations' memory is not "
-               "planned ahead, so there is no temp size to read")
+TEMP_REASON = ("the SBBNNLS iteration is reckoned from its operands, not "
+               "traced: no temp size")
 
 Record = Tuple[str, int, int]
 
@@ -104,7 +104,9 @@ class RecordingMesh(ShapeMesh):
     ``meta`` tensor of the gathered shape) and are recorded as a
     :class:`~repro_torch.launch.mesh.HostMesh` records them, ``(kind,
     bytes of this rank's operand, group size)`` (an all-gather's and a
-    reduce-scatter's bytes are their result's)."""
+    reduce-scatter's bytes are their result's), and, under a trace over
+    this mesh, counted with the iterations their loop stands for
+    (``trace_cost.record_collective``)."""
 
     live = True
 
@@ -122,8 +124,8 @@ class RecordingMesh(ShapeMesh):
                    ) -> torch.Tensor:
         n = self.axes_size(axes)
         if n > 1:
-            self.collectives.append(("all-reduce",
-                                     t.numel() * t.element_size(), n))
+            TC.record_collective(
+                self, ("all-reduce", t.numel() * t.element_size(), n), t)
         return t
 
     def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int
@@ -133,21 +135,20 @@ class RecordingMesh(ShapeMesh):
             return t
         shape = list(t.shape)
         shape[dim] //= n
-        out = t.new_empty(shape, device="meta")
-        self.collectives.append(("reduce-scatter",
-                                 out.numel() * out.element_size(), n))
-        return out
+        TC.record_collective(self, ("reduce-scatter", math.prod(shape)
+                                    * t.element_size(), n), t)
+        return t.new_empty(shape)
 
     def all_gather(self, t: torch.Tensor, axis: str, dim: int
                    ) -> torch.Tensor:
         n = self.shape[axis]
         if n == 1:
             return t
-        self.collectives.append(("all-gather",
-                                 t.numel() * t.element_size() * n, n))
+        TC.record_collective(
+            self, ("all-gather", t.numel() * t.element_size() * n, n), t)
         shape = list(t.shape)
         shape[dim] *= n
-        return t.new_empty(shape, device="meta")
+        return t.new_empty(shape)
 
     def barrier(self) -> None:
         pass
@@ -190,206 +191,89 @@ def _batch_rows(mesh, batch: int) -> Tuple[int, int]:
     return R, batch // R if batch % R == 0 else batch
 
 
-def _model_collectives(cfg: ArchConfig, mesh, kind: str, seq: int,
-                       batch: int) -> List[Record]:
-    """The collectives the model code runs in the tensor-parallel layout
-    (``distributed/hints.py``, ``models/layers.py``, ``models/mamba2.py``,
-    ``models/transformer.py``), reckoned from the shapes as the code
-    runs them: per attention, MLP or Mamba2 mixer the Megatron-SP pair
-    (an all-gather of the sequence in, a reduce-scatter of the
-    row-parallel partial sums out; on a whole stream Megatron's ``f`` /
-    ``g``), the gathered q, k, v columns where heads do not divide, the
-    mixer's gathered ``b`` and ``c`` (and ``z`` and ``x`` where its heads
-    do not divide), its gated norm's sums of squares, its small leaves'
-    gradient sum and its conv state's exchange (prefill, decode), the
-    hybrid's gathers at each super-layer's entry and before its tail,
-    the MoE's gathers (its input whole, its experts' outputs over
-    ``model``), the vocabulary-parallel embedding and cross entropy, the
-    norms' parameter sums on a split stream, the decode's log-sum-exp over
-    a sequence-split cache, the loss's count and the metrics' sums.  In
-    training each layer under remat runs its forward collectives again in
-    the backward pass up to its last saved tensor
-    (``torch.utils.checkpoint``'s early stop: a block's final
-    reduce-scatter or all-reduce is not recomputed)."""
-    R, rows = _batch_rows(mesh, batch)
-    C = mesh.shape.get("model", 1)
-    es = torch.empty((), dtype=cfg.torch_dtype).element_size()
-    train = kind == "train"
-    S = 1 if kind == "decode" else seq
-    out: List[Record] = []
+def _placed(cfg: ArchConfig, rec: "RecordingMesh"):
+    """Rank 0's model on ``rec`` (``meta``), placed as
+    ``steps.init_placed`` places it."""
+    meta = T.Transformer(cfg, "meta")
+    specs = lm_shard.member_specs(cfg, rec, meta)
+    model = T.Transformer(cfg, "meta", place=lambda n, t: SH.local_shard(
+        t, specs[n][1], rec).clone())
+    return model, lm_shard.shard(cfg, rec, model, meta)
 
-    def ag(n):
-        return ("all-gather", int(n), C)
 
-    def rs(n):
-        return ("reduce-scatter", int(n), C)
+def step_batch(cfg: ArchConfig, rec, kind: str, seq: int, batch: int
+               ) -> Dict[str, Any]:
+    """A ``kind`` step's batch of ``batch`` rows and ``seq`` positions as
+    ``meta`` tensors: the whole batch for train (the step takes its rows)
+    and off a mesh (``rec`` None), else rank 0's block
+    (``sharding.batch_layout``; the cache's block of ``cache_specs``); the
+    decode's ``cache_index`` is the cache's last position (its block's,
+    where the positions split over the batch axes)."""
+    shape = {"train": "train_4k", "prefill": "prefill_32k",
+             "decode": "decode_32k"}[kind]
+    b = input_specs(cfg, shape, {"seq_len": seq, "global_batch": batch})
+    if kind == "decode":
+        b["cache_index"] = seq - 1
+    if kind == "train" or rec is None:
+        return b
+    specs = SH.batch_layout(cfg, rec, kind, batch)
 
-    def ar(n):
-        return ("all-reduce", int(n), C)
+    def local(t, spec):
+        if isinstance(t, dict):
+            return {k: local(v, spec[k]) for k, v in t.items()}
+        return SH.local_shard(t, spec, rec) if isinstance(
+            t, torch.Tensor) else t
 
-    tail = []
-    if train and R > 1:
-        tail.append(("all-reduce", 8, R))           # the loss's int64 count
-        tail += [("all-reduce", 4, R)] * 3          # loss, aux, total_loss
-    if C == 1:
-        return out + tail
-    d, V = cfg.d_model, cfg.vocab_size
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    split = S % C == 0                               # the stream's
-    act = rows * S * d * es
-    n_norm = 1 if cfg.norm == "rms" else 2
+    out = {k: local(v, specs[k]) if k in specs else v for k, v in b.items()}
+    if kind == "decode" and "k" in out["cache"] and any(
+            a in SH.batch_axes(rec) for a in _axes(specs["cache"]["k"][2])):
+        # a batch that does not divide: the cache's positions split over
+        # the batch axes, the new one in this rank's block
+        out["cache_index"] = out["cache"]["k"].shape[2] - 1
+    return out
 
-    def norm_sums(sp):
-        """A norm's parameter sums on a split stream, in float32."""
-        return [ar(d * 4)] * n_norm if sp else []
 
-    def enter(sp):
-        """(forward, backward) of ``hints.column_products``: the input
-        all-gathered, its gradient reduce-scattered (or all-reduced)."""
-        return ([ag(act)], [rs(act // C)]) if sp else ([], [ar(act)])
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
 
-    def leave(sp):
-        """(forward, backward) of ``hints.residual``."""
-        return ([rs(act // C)], [ag(act)]) if sp else ([ar(act)], [])
 
-    def attention(sp):
-        ef, eb = enter(sp)
-        lf, lb = leave(sp)
-        fwd, bwd = list(ef), norm_sums(sp) + eb
-        if H % C:
-            fwd.append(ag(rows * S * H * hd * es))
-            bwd.append(rs(rows * S * H * hd // C * es))
-        if KV % C:
-            fwd += [ag(rows * S * KV * hd * es)] * 2
-            bwd += [rs(rows * S * KV * hd // C * es)] * 2
-        if kind == "decode" and KV % C:
-            if H % C == 0:
-                fwd.append(ag(rows * H * hd * es))
-            fwd += [ar(rows * H * 4)] * 2 + [rs(rows * H * hd // C * 4)]
-        return fwd + lf, bwd + lb, 0
-
-    def ffn(moe_layer: bool, sp: bool):
-        """(forward, backward, forward collectives at its end that a
-        remat recompute skips)."""
-        if not moe_layer and cfg.d_ff % C == 0:
-            ef, eb = enter(sp)
-            lf, lb = leave(sp)
-            return ef + lf, norm_sums(sp) + eb + lb, len(lf)
-        fwd = [ag(act)] if sp else []
-        bwd = [ag(act)] if sp else []
-        skipped = 0
-        if moe_layer:
-            if cfg.n_experts % C == 0:
-                capacity = MOE.capacity_of(rows * S, cfg.top_k,
-                                           cfg.n_experts,
-                                           cfg.capacity_factor)
-                g = ag(cfg.n_experts * capacity * d * es)
-                fwd.append(g)
-                bwd.append(g)
-            if cfg.n_shared_experts and (cfg.moe_d_ff
-                                         * cfg.n_shared_experts) % C == 0:
-                fwd.append(ar(act))             # g
-                bwd.append(ar(act))             # f
-                skipped = 1
-        return fwd, bwd, skipped
-
-    def shared_block(sp: bool):
-        """The hybrid's shared block on a whole stream: its attention
-        between ``f`` and ``g``, its MLP's partial sums reduce-scattered
-        onto the split stream (``sp``; ``g`` on a whole one), the stream
-        cut to this rank's positions (backward: all-gather)."""
-        af, ab, _ = attention(False)
-        cut = [ag(act)] if sp else []
-        if cfg.d_ff % C:
-            return af, ab + cut, 0
-        ef, eb = enter(False)
-        lf, lb = leave(sp)
-        return af + ef + lf, ab + eb + lb + cut, len(lf)
-
-    def mamba(sp: bool):
-        """(forward, backward, skipped) of a Mamba2 block on a split
-        (``sp``) or whole stream."""
-        di, gn, Hs = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, \
-            cfg.ssm_heads
-        heads = Hs % C == 0
-        ef, eb = enter(sp)
-        lf, lb = leave(sp)
-        cols = rows * S * (2 * gn + (0 if heads else 2 * di)) * es
-        fwd, bwd = ef + [ag(cols)], norm_sums(sp) + eb + [rs(cols // C)]
-        if heads:                         # the gated norm's sums of squares
-            fwd.append(ar(rows * S * 4))
-            bwd.append(ar(rows * S * 4))
-        # a_log d_skip dt_bias norm_scale conv_b* (and a whole wdt)
-        bwd.append(ar((3 * Hs + 2 * di + 2 * gn
-                       + (0 if heads else d * Hs)) * 4))
-        c_tot = di + 2 * gn
-        if kind == "decode":              # the conv window's exchange
-            fwd.append(ag(rows * cfg.ssm_conv * c_tot * es))
-        elif kind == "prefill":           # the conv state's block
-            fwd.append(ag(rows * (cfg.ssm_conv - 1) * c_tot * es))
-        return fwd + lf, bwd + lb, len(lf)
-
-    def run(part, remat: bool) -> List[Record]:
-        """A layer's forward, and in training its recompute and
-        backward."""
-        fwd, bwd, skipped = part
-        if not train:
-            return fwd
-        again = fwd[:len(fwd) - skipped] if remat else []
-        return fwd + again + bwd
-
-    def block(moe_layer: bool, remat: bool) -> List[Record]:
-        af, ab, _ = attention(split)
-        ff, fb, skipped = ffn(moe_layer, split)
-        return run((af + ff, ab + fb, skipped), remat)
-
-    # the embedding: vocabulary-parallel partial sums, or a whole table
-    if cfg.family != "audio":
-        if V % C == 0:
-            out.append(rs(act // C) if split else ar(act))
-            if train and split:
-                out.append(ag(act))
-        elif train and split:
-            out.append(ag(act))
-    if train and split and cfg.rope == "learned":
-        out.append(ag(act))
-    # the layers
-    last = split                          # the stream's layout at the head
-    if cfg.family in ("dense", "moe", "audio", "vlm"):
-        kd = cfg.first_k_dense if cfg.family == "moe" else 0
-        for _ in range(kd):
-            out += block(False, False)
-        for _ in range(cfg.n_layers - kd):
-            out += block(cfg.family == "moe", cfg.remat)
-    elif cfg.family == "ssm":
-        for _ in range(cfg.n_layers):
-            out += run(mamba(split), cfg.remat)
-    elif cfg.family == "hybrid":
-        n_super, n_tail = divmod(cfg.n_layers, cfg.attn_every)
-        for _ in range(n_super):
-            fwd, bwd = ([ag(act)] if split else []), []
-            for _ in range(cfg.attn_every):
-                f, b, _ = mamba(False)
-                fwd, bwd = fwd + f, bwd + b
-            f, b, skipped = shared_block(split)
-            out += run((fwd + f, bwd + b, skipped), cfg.remat)
-        if n_tail:
-            out += [ag(act)] if split else []
-            for _ in range(n_tail):
-                out += run(mamba(False), False)
-            last = False
-    # the head and the loss
-    vdim = V % C == 0
-    if kind == "prefill" and last:
-        out.append(ag(rows * C * d * es))           # the last position
-    if train:
-        cb = max(cfg.n_codebooks, 1)
-        if vdim:
-            ef, eb = enter(last)
-            out += ef + [ar(rows * S * cb * 4)] * 3 + norm_sums(last) + eb
-        elif last:
-            out.append(ag(act))
-    return out + tail
+def trace_step(cfg: ArchConfig, kind: str, seq: int, batch: int,
+               mesh=None, opt: Optional[OptConfig] = None, *,
+               cut: bool = True) -> TC.TraceCost:
+    """The traced cost (``roofline/trace_cost.py``) of one ``kind`` step
+    (train with ``opt``, ``opt_for``'s by default; prefill; decode) of
+    ``batch`` rows of ``seq`` positions: on rank 0 of a mesh of ``mesh``'s
+    shape (over a :class:`RecordingMesh`), or on one device, unplaced,
+    without ``mesh``.  ``cut=False``: every iteration traced
+    (``trace_cost.analyze``)."""
+    from repro_torch.distributed import hints
+    opt = opt or opt_for(cfg)
+    rec = None if mesh is None else RecordingMesh(
+        tuple(mesh.shape.values()), mesh.axis_names)
+    saved = dict(hints._ACTIVE)
+    if rec is not None:
+        hints.activate(rec)
+    try:
+        if rec is None:
+            model, state = ST.abstract_state(cfg, opt)
+        else:
+            model, sharded = _placed(cfg, rec)
+            state = sharded.init_opt_state(opt) if kind == "train" else None
+        b = step_batch(cfg, rec, kind, seq, batch)
+        if kind == "train":
+            for p in model.parameters():
+                p.requires_grad_(True)
+            fn = lambda: ST.make_train_step(cfg, opt)(model, state, b)
+        elif kind == "prefill":
+            fn = lambda: ST.make_prefill(cfg)(model, b)
+        else:
+            fn = lambda: ST.make_serve_step(cfg)(model, b)
+        return TC.analyze(fn, n_chips=1 if rec is None else rec.size,
+                          mesh=rec, cut=cut)
+    finally:
+        hints._ACTIVE.update(saved)
 
 
 def step_collectives(cfg: ArchConfig, mesh, kind: str, seq: int,
@@ -398,40 +282,39 @@ def step_collectives(cfg: ArchConfig, mesh, kind: str, seq: int,
     prefill or decode) of ``batch`` sequences of ``seq`` positions on the
     port's LM mesh of ``mesh``'s shape: ``(kind, bytes, group size)``, as
     ``HostMesh.collectives`` records them (a train step's optimizer
-    ``opt``: AdamW or Adafactor)."""
-    model, optimizer = _step_parts(cfg, mesh, kind, seq, batch, opt)
-    return model + optimizer
+    ``opt``: AdamW or Adafactor), from a trace of the step
+    (:func:`trace_step`)."""
+    return trace_step(cfg, kind, seq, batch, mesh, opt).records
+
+
+def optimizer_collectives(cfg: ArchConfig, mesh, opt: OptConfig
+                          ) -> List[Record]:
+    """The collectives of the optimizer's step alone (ZeRO-1's AdamW or
+    Adafactor on rank 0 of ``mesh``'s shape), traced."""
+    rec = RecordingMesh(tuple(mesh.shape.values()), mesh.axis_names)
+    model, sharded = _placed(cfg, rec)
+    state = sharded.init_opt_state(opt)
+    grads = {k: [torch.empty_like(m) for m in leaf.members]
+             for k, leaf in model.reference_leaves().items()}
+    return TC.analyze(apply_updates_zero1, opt, sharded, grads, state,
+                      mesh=rec).records
 
 
 def _step_parts(cfg: ArchConfig, mesh, kind: str, seq: int, batch: int,
                 opt: OptConfig) -> Tuple[List[Record], List[Record]]:
     """:func:`step_collectives` in two parts: the model's (forward and
-    backward) and the optimizer's (train; else none)."""
-    rec = RecordingMesh(tuple(mesh.shape.values()), mesh.axis_names)
-    meta = T.Transformer(cfg, "meta")
-    specs = lm_shard.member_specs(cfg, rec, meta)
-    model = T.Transformer(cfg, "meta", place=lambda n, t: SH.local_shard(
-        t, specs[n][1], rec).clone())
-    sharded = lm_shard.ShardedLM(cfg, rec, model, meta)
-    train = kind == "train"
-    if train:
-        state = sharded.init_opt_state(opt)
-    # ShardedLM.call: each parameter gathered into its compute layout (in
-    # training every one passes the gather, whose backward sums its
-    # gradient over the batch axes)
-    for name, p in model.named_parameters():
-        gather = sharded.gathers[name]
-        if train or any(e is not None for e in gather):
-            full = SH.gather_shard(p, gather, rec)
-            if train:
-                rec.all_reduce(full, SH.batch_axes(rec))
-    rec.collectives += _model_collectives(cfg, rec, kind, seq, batch)
-    n_model = len(rec.collectives)
-    if train:
-        grads = {k: [torch.empty_like(m) for m in leaf.members]
-                 for k, leaf in model.reference_leaves().items()}
-        apply_updates_zero1(opt, sharded, grads, state)
-    return rec.collectives[:n_model], rec.collectives[n_model:]
+    backward, the loss and the metrics) and the optimizer's (train; else
+    none)."""
+    model = step_collectives(cfg, mesh, kind, seq, batch, opt)
+    if kind != "train":
+        return model, []
+    optimizer = optimizer_collectives(cfg, mesh, opt)
+    n = len(optimizer)
+    for i in range(len(model) - n, -1, -1):   # the step runs it once
+        if model[i:i + n] == optimizer:
+            return model[:i] + model[i + n:], optimizer
+    raise ValueError("the optimizer's collectives are not a run of the "
+                     "step's")
 
 
 # ----------------------------------------------------------------------------
@@ -494,33 +377,36 @@ def lower_cell(arch: str, shape: str, mesh, *,
     head = {"arch": arch, "shape": shape, "variant": variant,
             "mesh": dict(shape=dict(mesh.shape), n_chips=int(n_chips)),
             "kind": kind}
-    model_records, opt_records = _step_parts(cfg, mesh, kind, seq, batch,
-                                             opt)
-    records = model_records + opt_records
+    cost = trace_step(cfg, kind, seq, batch, mesh, opt)
+    opt_records = (optimizer_collectives(cfg, mesh, opt) if kind == "train"
+                   else [])
     parts, out_bytes = _lm_memory(cfg, mesh, shape, kind, opt)
     args = sum(parts.values())
     n_active = cfg.active_param_count()
     mf = RL.model_flops(cfg, shape, seq, batch, kind)
     recompute = (2.0 * n_active * seq * batch
                  if kind == "train" and cfg.remat else 0.0)
-    coll = RL.collective_bytes(records)
-    r = RL.roofline((mf + recompute) / n_chips, args + out_bytes,
-                    coll["total"], n_chips, mf)
+    coll = RL.collective_bytes(cost.records)
+    r = RL.roofline(cost.flops, cost.bytes_accessed, coll["total"], n_chips,
+                    mf)
     _, rows = _batch_rows(mesh, batch)
     return {
         "status": "ok", **head,
         "optimizer": opt.kind if kind == "train" else None,
         "seconds": round(time.time() - t0, 2),
+        "trace_seconds": round(cost.seconds, 2),
         "memory": {
             "argument_size_in_bytes": float(args),
-            "temp_size_in_bytes": None,
-            "temp_size_reason": TEMP_REASON,
+            "temp_size_in_bytes": cost.peak_temp_bytes,
             "output_size_in_bytes": float(out_bytes),
             "arguments_by_part": {k: float(v) for k, v in parts.items()},
-            "total_bytes_per_device": float(args),
+            "total_bytes_per_device": cost.peak_temp_bytes + float(args),
         },
         "flops": {"model": mf, "remat_recompute": recompute,
-                  "total": mf + recompute},
+                  "total": mf + recompute, "traced": cost.flops},
+        "bytes": {"compulsory": float(args + out_bytes),
+                  "traced": cost.bytes_accessed},
+        "loop_multipliers": cost.loops,
         "collectives": coll,
         "optimizer_collective_bytes": (
             RL.collective_bytes(opt_records)["total"] if kind == "train"

@@ -31,6 +31,7 @@ from repro_torch.distributed import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import (OptConfig, apply_updates,
                                      apply_updates_zero1, init_opt_state)
+from repro_torch.roofline import trace_cost as TC
 
 
 def make_train_step(cfg: ArchConfig, opt: OptConfig) -> Callable:
@@ -46,9 +47,8 @@ def make_train_step(cfg: ArchConfig, opt: OptConfig) -> Callable:
         leaves = params.reference_leaves()
         flat = [p for leaf in leaves.values() for p in leaf.members]
         total, metrics = T.loss_fn(cfg, params, batch)
-        grads = torch.autograd.grad(total, flat, allow_unused=True)
-        grads = iter(torch.zeros_like(p) if g is None else g
-                     for p, g in zip(flat, grads))
+        grads = _filled(leaves, flat, torch.autograd.grad(
+            total, flat, allow_unused=True))
         by_leaf = {k: [next(grads) for _ in leaf.members]
                    for k, leaf in leaves.items()}
         _, opt_state, opt_metrics = apply_updates(opt, leaves, by_leaf,
@@ -72,8 +72,7 @@ def _mesh_train_step(cfg: ArchConfig, opt: OptConfig, sharded, opt_state,
 
     total, metrics, grads = sharded.call(loss_and_grads,
                                          sharded.shard_batch(batch))
-    grads = iter(torch.zeros_like(p) if g is None else g
-                 for p, g in zip(sharded.flat, grads))
+    grads = _filled(params.reference_leaves(), sharded.flat, grads)
     by_leaf = {k: [next(grads) for _ in leaf.members]
                for k, leaf in params.reference_leaves().items()}
     opt_state, opt_metrics = apply_updates_zero1(opt, sharded, by_leaf,
@@ -82,6 +81,15 @@ def _mesh_train_step(cfg: ArchConfig, opt: OptConfig, sharded, opt_state,
     metrics = {k: sharded.mesh.all_reduce(v.detach().clone(), axes)
                for k, v in {**metrics, "total_loss": total}.items()}
     return params, opt_state, {**metrics, **opt_metrics}
+
+
+def _filled(leaves, flat, grads):
+    """The gradients in ``flat``'s order, zeros where autograd gave none
+    (``roofline.trace_cost.missing_grad``: a trace's skipped layers)."""
+    owners = [(k, i) for k, leaf in leaves.items()
+              for i in range(len(leaf.members))]
+    return iter(TC.missing_grad(p, *o) if g is None else g
+                for p, o, g in zip(flat, owners, grads))
 
 
 def make_eval_step(cfg: ArchConfig) -> Callable:

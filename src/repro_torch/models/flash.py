@@ -23,12 +23,21 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch.roofline import trace_cost as TC
+
 #: the masked scores' value, in float32, before the max
 NEG = -1e30
 
 
 def _pairs(nq: int) -> List[Tuple[int, int]]:
     return [(i, j) for i in range(nq) for j in range(i + 1)]
+
+
+def _walk(nq: int):
+    """The pairs in order; under a trace the first two diagonal and
+    off-diagonal pairs, the second of each standing for the rest of its
+    kind (``roofline.trace_cost.classes``)."""
+    return TC.classes("flash.pairs", _pairs(nq), key=lambda ij: ij[0] == ij[1])
 
 
 def _diag_mask(chunk: int, device) -> torch.Tensor:
@@ -63,7 +72,7 @@ def forward_pairs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = [torch.full((B, chunk, KV, G), NEG, **f32) for _ in range(n)]
     l = [torch.zeros((B, chunk, KV, G), **f32) for _ in range(n)]
     mask = _diag_mask(chunk, q.device)
-    for i, j in _pairs(n):
+    for i, j in _walk(n):
         s = _scores(qc[:, i], kc[:, j], scale, i == j, mask)
         m_new = torch.maximum(m[i], s.amax(dim=-1))
         alpha = torch.exp(m[i] - m_new)
@@ -96,7 +105,7 @@ def _bwd(chunk: int, q, k, v, out, lse, dout):
     dq = [torch.zeros((B, chunk, KV, G, hd), **f32) for _ in range(n)]
     dk = [torch.zeros((B, chunk, KV, hd), **f32) for _ in range(n)]
     dv = [torch.zeros((B, chunk, KV, hd), **f32) for _ in range(n)]
-    for i, j in _pairs(n):
+    for i, j in _walk(n):
         qi, kj, vj, di = qc[:, i], kc[:, j], vc[:, j], doc[:, i]
         s = _scores(qi, kj, scale, i == j, mask)
         p = torch.exp(s - lsec[:, i][..., None])            # (B,q,KV,G,s)

@@ -51,6 +51,7 @@ from torch import nn
 
 from repro_torch.distributed import hints
 from repro_torch.models import layers as L
+from repro_torch.roofline import trace_cost as TC
 
 
 class Mamba2(nn.Module):
@@ -164,11 +165,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     h = (torch.zeros((B, G, rep, P, N), dtype=torch.float32, device=x.device)
          if h0 is None else h0.reshape(B, G, rep, P, N).float())
     h_prevs = []
-    for i in range(nch):
+    chunks = TC.trips("mamba2.chunks", nch, tail=2)
+    for i in chunks:
         h_prevs.append(h.to(states.dtype))
         h = (h * chunk_decay[:, i][..., None, None].to(h.dtype)
              + states[:, i].to(h.dtype))
-    h_prevs = torch.stack(h_prevs, dim=1)                 # (B,c,G,r,P,N)
+    h_prevs = torch.stack(chunks.full(h_prevs), dim=1)    # (B,c,G,r,P,N)
 
     # einsum(cg, h_prevs, decay_from_start): the sum over n, then the decay
     decay_from_start = torch.exp(da_cs)                   # (B,c,Q,G,r)

@@ -63,6 +63,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models.leaves import Leaf, Leaves
+from repro_torch.roofline import trace_cost as TC
 
 AUX_LOSS_WEIGHT = 0.01
 #: the families this module builds
@@ -506,6 +507,22 @@ def _super_train(cfg: ArchConfig, p: Transformer, g: int, x: torch.Tensor,
     return _shared_ffn(cfg, p.shared, x, split)
 
 
+def _layers(p: Transformer) -> TC.Trips:
+    """The indices of the stacked layers, as a trace's trip count walks
+    them (``roofline.trace_cost.trips``)."""
+    return TC.trips("transformer.layers", len(p.layers), owner="layers")
+
+
+def _supers(cfg: ArchConfig, p: Transformer) -> TC.Trips:
+    """The hybrid's super-layer indices (``attn_every`` layers each)."""
+    return TC.trips("hybrid.super_layers", p.lead["layers"][0],
+                    owner="layers", per=cfg.attn_every)
+
+
+def _tail(p: Transformer) -> TC.Trips:
+    return TC.trips("hybrid.tail", len(p.tail), owner="tail")
+
+
 def forward_train(cfg: ArchConfig, p: Transformer,
                   batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V), the summed MoE aux loss, 0 outside the
@@ -517,21 +534,21 @@ def forward_train(cfg: ArchConfig, p: Transformer,
     split = hints.split_seq(positions.shape[-1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-        for blk in p.layers:
-            x = _remat(cfg, _mamba_train, cfg, blk, x, split)
+        for i in _layers(p):
+            x = _remat(cfg, _mamba_train, cfg, p.layers[i], x, split)
     elif cfg.family == "hybrid":
-        for g in range(p.lead["layers"][0]):
+        for g in _supers(cfg, p):
             x = _remat(cfg, _super_train, cfg, p, g, x, positions, split)
         if len(p.tail):
             x, split = hints.whole(x, split), False
-        for blk in p.tail:
-            x = _mamba_train(cfg, blk, x)
+        for i in _tail(p):
+            x = _mamba_train(cfg, p.tail[i], x)
     else:
         for blk in p.prefix:
             x, _ = _attn_block_train(cfg, blk, x, positions, split)
-        for blk in p.layers:
-            x, a = _remat(cfg, _attn_block_train, cfg, blk, x, positions,
-                          split)
+        for i in _layers(p):
+            x, a = _remat(cfg, _attn_block_train, cfg, p.layers[i], x,
+                          positions, split)
             aux = aux + a
     return logits_fn(cfg, p, x, split), aux
 
@@ -548,14 +565,15 @@ def loss_fn(cfg: ArchConfig, p: Transformer, batch: Dict
     (``hints.vocab_nll``)."""
     logits, aux = forward_train(cfg, p, batch)
     if cfg.family == "audio":
-        nll = hints.vocab_nll(logits, batch["codes"])
+        nll = hints.vocab_nll(logits, batch["codes"], cfg.vocab_size)
         count = hints.batch_total(torch.tensor(nll.numel(),
                                                device=nll.device))
         loss = torch.sum(nll) / count
     else:
         labels = batch["labels"]
         mask = labels >= 0
-        nll = hints.vocab_nll(logits, torch.clamp(labels, min=0))
+        nll = hints.vocab_nll(logits, torch.clamp(labels, min=0),
+                              cfg.vocab_size)
         count = hints.batch_total(mask.sum())
         loss = torch.sum(nll * mask) / torch.clamp(count, min=1)
     total = loss + AUX_LOSS_WEIGHT * aux
@@ -586,39 +604,49 @@ def prefill(cfg: ArchConfig, p: Transformer, batch: Dict,
     split = hints.split_seq(positions.shape[-1])
     if cfg.family == "ssm":
         states = []
-        for blk in p.layers:
-            x = _mamba_prefill(cfg, blk, x, states, split)
+        layers = _layers(p)
+        for i in layers:
+            x = _mamba_prefill(cfg, p.layers[i], x, states, split)
         return logits_fn(cfg, p, _last_position(x, split)), _ssm_cache(
-            states)
+            layers.full(states))
     if cfg.family == "hybrid":
-        states, ks, vs = [], [], []
+        states, tail_states, ks, vs = [], [], [], []
         per, sp = cfg.attn_every, split
-        for i, blk in enumerate(p.layers):
-            if i % per == 0:
-                x, sp = hints.whole(x, sp), False
-            x = _mamba_prefill(cfg, blk, x, states)
-            if i % per == per - 1:
-                x, (k, v) = _attn_part(
-                    cfg, p.shared, x, positions, False,
-                    lambda q, spec, h, pos: L.attention_prefill(
-                        q, spec, h, pos, s_max))
-                x, sp = _shared_ffn(cfg, p.shared, x, split), split
-                ks.append(k)
-                vs.append(v)
+        supers = _supers(cfg, p)
+        for g in supers:
+            x, sp = hints.whole(x, sp), False
+            for blk in p.layers[g * per:(g + 1) * per]:
+                x = _mamba_prefill(cfg, blk, x, states)
+            x, (k, v) = _attn_part(
+                cfg, p.shared, x, positions, False,
+                lambda q, spec, h, pos: L.attention_prefill(
+                    q, spec, h, pos, s_max))
+            x, sp = _shared_ffn(cfg, p.shared, x, split), split
+            ks.append(k)
+            vs.append(v)
         if len(p.tail):
             x, sp = hints.whole(x, sp), False
-        for blk in p.tail:
-            x = _mamba_prefill(cfg, blk, x, states)
-        cache = _ssm_cache(states)
+        tail = _tail(p)
+        for i in tail:
+            x = _mamba_prefill(cfg, p.tail[i], x, tail_states)
+        cache = _ssm_cache(supers.full(states) + tail.full(tail_states))
         if ks:
-            cache.update(k=torch.stack(ks), v=torch.stack(vs))
+            cache.update(k=torch.stack(supers.full(ks)),
+                         v=torch.stack(supers.full(vs)))
         return logits_fn(cfg, p, _last_position(x, sp)), cache
-    ks, vs = [], []
-    for blk in p.blocks():
+    ks, vs, lks, lvs = [], [], [], []
+    for blk in p.prefix:
         x, (k, v) = _attn_block_prefill(cfg, blk, x, positions, split, s_max)
         ks.append(k)
         vs.append(v)
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    layers = _layers(p)
+    for i in layers:
+        x, (k, v) = _attn_block_prefill(cfg, p.layers[i], x, positions,
+                                        split, s_max)
+        lks.append(k)
+        lvs.append(v)
+    cache = {"k": torch.stack(ks + layers.full(lks)),
+             "v": torch.stack(vs + layers.full(lvs))}
     return logits_fn(cfg, p, _last_position(x, split)), cache
 
 
@@ -654,19 +682,29 @@ def decode_step(cfg: ArchConfig, p: Transformer,
     cache = batch["cache"]
     idx = int(batch["cache_index"])
     x, positions = embed_inputs(cfg, p, batch, offset=idx)
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "ssm":
         ssm, conv = cache["ssm"], cache["conv"]
-        hybrid, per = cfg.family == "hybrid", cfg.attn_every
-        blocks = [*p.layers, *getattr(p, "tail", ())]
-        for i, blk in enumerate(blocks):
-            x = _mamba_decode(cfg, blk, x, ssm[i], conv[i])
-            if hybrid and i < len(p.layers) and i % per == per - 1:
-                g = i // per
-                x, _ = _attn_block_decode(cfg, p.shared, x, positions,
-                                          (cache["k"][g], cache["v"][g]), idx)
+        for i in _layers(p):
+            x = _mamba_decode(cfg, p.layers[i], x, ssm[i], conv[i])
+        return logits_fn(cfg, p, x), {**cache, "index": idx + 1}
+    if cfg.family == "hybrid":
+        ssm, conv = cache["ssm"], cache["conv"]
+        per = cfg.attn_every
+        for g in _supers(cfg, p):
+            for i in range(g * per, (g + 1) * per):
+                x = _mamba_decode(cfg, p.layers[i], x, ssm[i], conv[i])
+            x, _ = _attn_block_decode(cfg, p.shared, x, positions,
+                                      (cache["k"][g], cache["v"][g]), idx)
+        for t in _tail(p):
+            i = len(p.layers) + t
+            x = _mamba_decode(cfg, p.tail[t], x, ssm[i], conv[i])
         return logits_fn(cfg, p, x), {**cache, "index": idx + 1}
     k, v = cache["k"], cache["v"]
-    for i, blk in enumerate(p.blocks()):
+    kd = len(p.prefix)
+    for i, blk in enumerate(p.prefix):
         x, _ = _attn_block_decode(cfg, blk, x, positions, (k[i], v[i]), idx)
+    for j in _layers(p):
+        x, _ = _attn_block_decode(cfg, p.layers[j], x, positions,
+                                  (k[kd + j], v[kd + j]), idx)
     new_cache = {"k": k, "v": v, "index": idx + 1}
     return logits_fn(cfg, p, x), new_cache

@@ -44,6 +44,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from repro_torch.models.leaves import Leaf, Leaves
+from repro_torch.roofline import trace_cost as TC
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +112,8 @@ def global_norm(grads: Dict[str, Sequence[torch.Tensor]]) -> torch.Tensor:
     order (sorted paths)."""
     total = None
     for k in sorted(grads):
-        sq = sum(torch.sum(torch.square(g.float())) for g in grads[k])
+        sq = sum(torch.sum(torch.square(g.float()))
+                 for g in _members(grads[k]))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -124,9 +126,16 @@ def clip_by_global_norm(grads: Dict[str, Sequence[torch.Tensor]],
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for gs in grads.values():
-        for g in gs:
+        for g in _members(gs):
             g.copy_((g.float() * scale).to(g.dtype))
     return norm
+
+
+def _members(items):
+    """A leaf's members (or their gradients, or one unit's zipped
+    operands) in order; under a trace two of them, the second standing for
+    the rest (``roofline.trace_cost.classes``: they cost the same)."""
+    return TC.classes("optimizer.members", items, key=lambda t: None)
 
 
 def _units(leaf: Leaf, grads: Sequence[torch.Tensor], state: Dict):
@@ -261,9 +270,9 @@ def apply_updates(cfg: OptConfig, leaves: Leaves,
             decay = len(leaf.shape) >= 2
             moments = {"mu": state["mu"][path], "nu": state["nu"][path]}
             for unit, gs, st in _units(leaf, grads[path], moments):
-                for p, g, mu, nu in zip(unit.members, gs,
-                                        unit.unstack(st["mu"]),
-                                        unit.unstack(st["nu"])):
+                for p, g, mu, nu in _members(zip(
+                        unit.members, gs, unit.unstack(st["mu"]),
+                        unit.unstack(st["nu"]))):
                     new = _adamw(cfg, p.float(), g.float(), mu, nu, bc1,
                                  bc2, lr, decay)
                     p.copy_(new.to(p.dtype))

@@ -7,8 +7,11 @@
 The tables read either package's records (``repro.launch.dryrun`` or
 ``repro_torch.launch.dryrun``): status, kind, the three roofline terms,
 the dominant one, the useful share of the FLOPs, memory per device and
-the MFU upper bound.  A port record's memory per device is its arguments
-alone (its ``temp_size_in_bytes`` is null), which the summary says.
+the MFU upper bound.  A record's memory per device is its temp size plus
+its arguments: the reference's compiled temp size, the port's traced
+peak (``roofline/trace_cost.py``); a port life-stn96 record's is its
+arguments alone (its ``temp_size_in_bytes`` is null), which the summary
+says.
 """
 from __future__ import annotations
 
@@ -68,9 +71,12 @@ def summary(recs: List[Dict]) -> str:
     lines = [f"- cells: {len(recs)} total, {len(ok)} ok, {len(skip)} "
              f"documented skips, {len(err)} errors ({len(refused)} refused "
              f"by the port)"]
-    if any(r.get("package") == "repro_torch" for r in ok):
-        lines.append("- the port's memory per device is its arguments "
-                     "alone (no compiled temp size)")
+    untraced = [r for r in ok if r.get("package") == "repro_torch"
+                and r["memory"].get("temp_size_in_bytes") is None]
+    if untraced:
+        lines.append(f"- {len(untraced)} port records' memory per device is "
+                     f"their arguments alone (no traced temp size: "
+                     f"{', '.join(sorted({r['arch'] for r in untraced}))})")
     by_dom: Dict[str, int] = {}
     for r in ok:
         d = r["roofline"]["dominant"]

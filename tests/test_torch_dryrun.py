@@ -162,7 +162,10 @@ def test_argument_bytes_are_every_ranks_blocks(arch, shape, mesh):
     cfg = base.get_config(arch)
     rec = D.lower_cell(arch, shape, mesh)
     assert rec["status"] == "ok"
-    assert rec["memory"]["temp_size_in_bytes"] is None
+    mem = rec["memory"]
+    assert mem["temp_size_in_bytes"] > 0
+    assert mem["total_bytes_per_device"] == (
+        mem["temp_size_in_bytes"] + mem["argument_size_in_bytes"])
     params, opt = ST.abstract_state(cfg, D.opt_for(cfg))
     ptree = D.param_tree(params)
     want = {"params": _tree_every_rank(
@@ -366,7 +369,12 @@ def test_every_pod_cell_is_ok_skipped_or_refused(tmp_path):
             assert not base.get_config(r["arch"]).sub_quadratic
             continue
         assert r["status"] == "ok", r
-        assert r["memory"]["argument_size_in_bytes"] > 0
+        mem = r["memory"]
+        assert mem["argument_size_in_bytes"] > 0
+        if r["kind"] != "sbbnnls":
+            assert mem["temp_size_in_bytes"] > 0
+            assert mem["total_bytes_per_device"] == (
+                mem["temp_size_in_bytes"] + mem["argument_size_in_bytes"])
         assert r["roofline"]["dominant"] in ("compute", "memory",
                                              "collective")
         if r["kind"] == "train" and not r["arch"].startswith("life"):
@@ -379,6 +387,7 @@ def test_every_pod_cell_is_ok_skipped_or_refused(tmp_path):
     cfg = base.get_config("kimi-k2-1t-a32b")
     _, opt = ST.abstract_state(cfg, OptConfig(kind="adafactor"))
     assert kimi["optimizer"] == "adafactor" and "fac" in opt
+    assert kimi["memory"]["temp_size_in_bytes"] > 0
     assert kimi["memory"]["arguments_by_part"]["opt"] == D.tree_bytes(
         opt, SH.opt_state_specs(cfg, POD, opt), POD)
     life = [r for r in recs if r["arch"] == "life-stn96"]

@@ -138,8 +138,9 @@ def test_sell_encode_matches_reference(case, op, geom):
     for name in ("atoms", "others", "values", "row_nnz"):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
     for name in ("row_tile", "slot_tile", "width", "n_rows", "n_coeffs",
-                 "nbytes", "padding_overhead"):
+                 "nbytes", "padding_overhead", "n_row_blocks", "n_chunks"):
         assert getattr(got, name) == getattr(want, name), name
+    np.testing.assert_array_equal(got.slice_widths, want.slice_widths)
 
 
 @pytest.mark.parametrize("geom", [dict(), dict(c_tile=32, seg_tile=4)])
@@ -174,6 +175,7 @@ def test_alto_and_coo_encodes_match_reference(case):
     np.testing.assert_array_equal(got.compact(keep).lin,
                                   want.compact(keep).lin)
     assert got.nbytes == want.nbytes and got.padding_overhead == 0.0
+    np.testing.assert_array_equal(got.fibers_of(), want.fibers_of())
     for op in ("dsc", "wc"):
         np.testing.assert_array_equal(CooPhi.encode(t, op=op).order,
                                       jcoo.CooPhi.encode(j, op=op).order)
