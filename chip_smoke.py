@@ -304,8 +304,18 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                peak_temp_bytes; the traced FLOPs and bytes over the
                measured time (achieved TFLOP/s, TB/s) and the trace's own
                seconds, printed.  Prints {"trace": ...}.
+ 20. life-trace — (after 19) the 2-D and 1-D SBBNNLS steps of phase 13d
+               (make_sharded_step on the (1, 1) LocalMesh's
+               sharded_state, make_sharded_step_1d on
+               build_life_shards_1d(phi, 1); each measured by one more odd
+               and one more even iteration, as phase 19's steps are)
+               traced on meta copies of the same operands through the dry
+               run's launch.dryrun.trace_life: each measured growth within
+               10% of the trace's peak_temp_bytes; the traced FLOPs and
+               bytes over the measured time, printed.  Prints
+               {"life_trace": ...}.
 
-Then it prints phases 15-19's JSON lines, one JSON line describing the
+Then it prints phases 15-20's JSON lines, one JSON line describing the
 kernels, the card's name and power limit as nvidia-smi gives them, and,
 last, the result line.
 """
@@ -2976,7 +2986,50 @@ def mesh_spmd(problem, sd, sw, operands) -> dict:
     if not same:
         raise AssertionError("mesh: the NCCL rank differs from the local "
                              "mesh")
+    # for phase 20: one more odd and even iteration of each step, measured
+    measure_life_steps("2d", dict(st, w=w), step, MESH_NCCL_ITERS | 1)
+    del st, w
+    blocks = LS.build_life_shards_1d(phi, 1)
+    cells = LS.coo_cells(mesh, {(0, 0): {k: v[0] for k, v in
+                                         blocks.items()}}, "dsc",
+                         n_atoms=phi.n_atoms, nv_local=phi.n_voxels,
+                         nf_local=phi.n_fibers, dictionary=d)
+    step = LS.make_sharded_step_1d(mesh, {})
+    ops = dict(cells=cells, b=problem.b,
+               w=torch.ones(phi.n_fibers, device="cuda"))
+    for warm in range(2):
+        ops["w"], _ = step(cells, ops["b"], ops["w"], warm)
+    measure_life_steps("1d", ops, step, 3)
+    del cells, ops
+    torch.cuda.empty_cache()
     return {"dsc_sell": int(launches[0]), "wc_sell": int(launches[1])}
+
+
+#: phase 20's measured SBBNNLS iterations: "<variant> <odd|even>" -> the
+#: step's operands as meta copies, its iteration, the growth of allocated
+#: memory over what the operands hold and its CUDA-event time
+LIFE_STEP_MEMORY: dict = {}
+
+
+def measure_life_steps(variant: str, operands: dict, step, it: int) -> None:
+    """Iterations ``it`` (odd) and ``it + 1`` (even) of a warm SBBNNLS
+    ``step`` on the card (2-D: ``sharded_state``'s operands, 1-D:
+    ``cells``, ``b``, ``w``), each measured (:func:`measured`) and kept
+    for phase 20 with meta copies of its operands."""
+    from repro_torch.distributed import life_shard as LS
+    args = ((operands["dsc"], operands["wc"]) if variant == "2d"
+            else (operands["cells"],)) + (operands["b"],)
+    w = operands["w"]
+    for k in (it, it + 1):
+        (w_new, _), growth, ms, before = measured(lambda: step(*args, w, k))
+        label = f"{variant} {'odd' if k % 2 else 'even'}"
+        LIFE_STEP_MEMORY[label] = dict(
+            variant=variant, it=k, growth=growth, ms=ms, before=before,
+            operands=LS.without_data(dict(operands, w=w)))
+        log("mesh", f"13d {label} iteration {k}, one more: allocated "
+            f"{before / 2**30:.3f} GiB before, peak growth {growth} B "
+            f"({growth / 2**30:.3f} GiB), {ms:.3f} ms")
+        w = w_new
 
 
 def mesh_service(problem) -> dict:
@@ -3954,29 +4007,37 @@ def check_train_grads(cfg, errors: dict) -> None:
 STEP_MEMORY: dict = {}
 
 
-def measure_step_memory(label: str, run, one_step) -> None:
-    """One more (warm) training step: the growth of the allocated memory
-    over what the state and batch hold (``max_memory_allocated()`` after
-    ``reset_peak_memory_stats()`` less ``memory_allocated()`` before) and
-    its CUDA-event time, kept for phase 19 with the trainer ``run``'s
-    config, optimizer and batch shape."""
+def measured(fn):
+    """``fn()`` on the card: (its result, the growth of the allocated
+    memory over what was allocated before, ``max_memory_allocated()``
+    after ``reset_peak_memory_stats()`` less ``memory_allocated()``, its
+    CUDA-event ms, the bytes allocated before)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    one_step()
+    out = fn()
     t1.record()
     t1.synchronize()
-    growth = torch.cuda.max_memory_allocated() - before
+    return (out, torch.cuda.max_memory_allocated() - before,
+            t0.elapsed_time(t1), before)
+
+
+def measure_step_memory(label: str, run, one_step) -> None:
+    """One more (warm) training step: the growth of the allocated memory
+    over what the state and batch hold and its CUDA-event time
+    (:func:`measured`), kept for phase 19 with the trainer ``run``'s
+    config, optimizer and batch shape."""
+    _, growth, ms, before = measured(one_step)
     STEP_MEMORY[label] = dict(cfg=run.cfg, opt=run.opt,
                               seq=run.data.seq_len,
                               batch=run.data.global_batch, growth=growth,
-                              ms=t0.elapsed_time(t1), before=before)
+                              ms=ms, before=before)
     log("train", f"{label} one more step: allocated {before / 2**30:.3f} GiB "
         f"before, peak growth {growth} B ({growth / 2**30:.3f} GiB), "
-        f"{t0.elapsed_time(t1):.3f} ms")
+        f"{ms:.3f} ms")
 
 
 def phase_train(errors: dict) -> dict:
@@ -6144,6 +6205,56 @@ def phase_trace() -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# 20. the dry run's traced SBBNNLS step against the card
+# ----------------------------------------------------------------------------
+
+def phase_life_trace() -> dict:
+    """20: phase 13d's 2-D and 1-D SBBNNLS iterations traced on meta copies
+    of their operands (``launch.dryrun.trace_life`` at (1, 1), the dry
+    run's life-stn96 function): the trace's peak_temp_bytes against the
+    growth of allocated memory the iteration showed on the card
+    (``measure_life_steps``), within TRACE_MEM_TOL; the traced FLOPs and
+    bytes over its CUDA-event time, printed."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import ShapeMesh
+    t0 = time.perf_counter()
+    one = ShapeMesh((1, 1), ("data", "model"))
+    out, bad = {}, []
+    for label, m in sorted(LIFE_STEP_MEMORY.items()):
+        cost = D.trace_life(one, m["variant"], m["operands"], m["it"])
+        peak = cost.peak_temp_bytes
+        rel = abs(m["growth"] - peak) / peak
+        s = m["ms"] / 1e3
+        top = sorted(cost.by_op.items(), key=lambda kv: -kv[1]["bytes"])[:5]
+        out[label] = dict(
+            it=m["it"], growth_bytes=m["growth"], traced_peak=peak, rel=rel,
+            step_ms=m["ms"], traced_flops=cost.flops,
+            traced_bytes=cost.bytes_accessed,
+            gflops=cost.flops / s / 1e9,
+            tb_per_s=cost.bytes_accessed / s / 1e12,
+            trace_seconds=cost.seconds)
+        log("life-trace", f"20 {label} (iteration {m['it']}): measured "
+            f"growth {m['growth']} B, traced peak {peak:.0f} B, relative "
+            f"{rel:.4f} (limit {TRACE_MEM_TOL}); traced {cost.flops:.4e} "
+            f"FLOPs and {cost.bytes_accessed:.4e} B in {m['ms']:.3f} ms: "
+            f"{cost.flops / s / 1e9:.3f} GFLOP/s, "
+            f"{cost.bytes_accessed / s / 1e12:.3f} TB/s; trace "
+            f"{cost.seconds:.3f} s; most bytes: "
+            + ", ".join(f"{k} {v['bytes']:.3e}" for k, v in top))
+        if rel > TRACE_MEM_TOL:
+            bad.append(f"{label}: measured {m['growth']} B against the "
+                       f"trace's {peak:.0f} B ({rel:.3f} relative)")
+    want = {f"{v} {p}" for v in ("2d", "1d") for p in ("odd", "even")}
+    if set(out) != want:
+        bad.append(f"phase 20 measured {sorted(out)}, not {sorted(want)}")
+    out["seconds"] = time.perf_counter() - t0
+    log("life-trace", f"phase 20 took {out['seconds']:.1f} s")
+    if bad:
+        raise AssertionError("20: " + "; ".join(bad))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -6210,6 +6321,7 @@ def main() -> int:
     modal = phase_modal()
     examples = phase_examples(stn96)
     trace = phase_trace()
+    life_trace = phase_life_trace()
     for e in entries:
         if e["name"] in examples["serve_life"]["launches"]:
             e["examples_launches"] = examples["serve_life"]["launches"][
@@ -6222,6 +6334,7 @@ def main() -> int:
     print(json.dumps({"modal": modal}))
     print(json.dumps({"examples": examples}))
     print(json.dumps({"trace": trace}))
+    print(json.dumps({"life_trace": life_trace}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -37,8 +37,9 @@ def scatter_add(out: torch.Tensor, index: torch.Tensor,
     atomics, whose order (and so the float result) changes from run to
     run; ``index_put_(accumulate=True)`` sorts the indices and sums each
     output's run in order.  On the CPU ``index_add_`` already adds in
-    index order."""
-    if out.is_cuda:
+    index order.  A tensor without data (a trace of the card's step,
+    ``roofline/trace_cost.py``) takes the card's ops."""
+    if out.is_cuda or out.is_meta:
         return out.index_put_((index.long(),), src, accumulate=True)
     return out.index_add_(0, index, src)
 

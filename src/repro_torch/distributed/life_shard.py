@@ -41,7 +41,11 @@ branch is taken on the host-side ``it``, as in ``core/sbbnnls.py``.
 :func:`life_input_specs` and :func:`life_input_specs_1d` give the dry
 run's operands at paper scale as ``meta`` tensors (no allocation), the
 reference's shapes for a mesh whose rows are its batch axes (``pod`` and
-``data``) and whose columns are ``model``.
+``data``) and whose columns are ``model``; :func:`rank0_operands` cuts
+them to the cell one device holds, the steps' operands without data
+(their ``lengths`` too: ``bincount`` cannot run on ``meta``), and
+:func:`without_data` turns operands that hold data into such copies.  The
+dry run traces the steps over them (``launch/dryrun.py:trace_life``).
 """
 from __future__ import annotations
 
@@ -486,3 +490,50 @@ def life_input_specs(mesh, *, n_voxels: int = 247_356,
         it=_meta((), i32),
         meta=dict(nv_local=nv_l, nf_local=nf_l, n_theta=n_theta),
     )
+
+
+def rank0_operands(specs: Dict[str, object], variant: str = "2d") -> dict:
+    """The operands rank 0 holds, cut from :func:`life_input_specs`'
+    (``variant`` "2d") or :func:`life_input_specs_1d`'s ("1d") ``meta``
+    tensors: cell ``(0, 0)``'s :class:`CooCell` of each op (its
+    ``lengths`` a ``meta`` int64 tensor of one entry per output id), and
+    ``b`` and ``w`` as :func:`make_sharded_step` takes them (row 0's and
+    column 0's blocks, keyed 0) or :func:`make_sharded_step_1d` (whole),
+    under :func:`sharded_state`'s keys (``cells`` for the 1-D step's)."""
+    d, b, w = specs["d"], specs["b"], specs["w"]
+
+    def cell(keys, n_voxels, n_fibers, op):
+        a, v, f, vals = (specs[k].reshape(-1, specs[k].shape[-1])[0]
+                         for k in keys)
+        phi = PhiTensor(atoms=a, voxels=v, fibers=f, values=vals,
+                        n_atoms=d.shape[0], n_voxels=n_voxels,
+                        n_fibers=n_fibers)
+        n = n_voxels if op == "dsc" else n_fibers
+        return {(0, 0): CooCell(phi, _meta((n,), torch.int64), d)}
+
+    if variant == "1d":
+        nv, nf = b.shape[0], w.shape[0]
+        return dict(cells=cell(("a", "v", "fi", "vals"), nv, nf, "dsc"),
+                    b=b, w=w)
+    meta = specs["meta"]
+    nv_l, nf_l = meta["nv_local"], meta["nf_local"]
+    return dict(dsc=cell(("da", "dv", "df", "dw"), nv_l, nf_l, "dsc"),
+                wc=cell(("wa", "wv", "wf", "ww"), nv_l, nf_l, "wc"),
+                b={0: b[:nv_l]}, w={0: w[:nf_l]})
+
+
+def without_data(x):
+    """``x`` (a tensor, a :class:`CooCell`, a PhiTensor, or a dict of
+    them) with every tensor replaced by a ``meta`` tensor of its shape and
+    dtype: the operands of a step a trace runs."""
+    if isinstance(x, torch.Tensor):
+        return torch.empty_like(x, device="meta")
+    if isinstance(x, dict):
+        return {k: without_data(v) for k, v in x.items()}
+    if isinstance(x, PhiTensor):
+        return dataclasses.replace(x, **{
+            k: without_data(getattr(x, k))
+            for k in ("atoms", "voxels", "fibers", "values")})
+    if isinstance(x, CooCell):
+        return CooCell(*map(without_data, x))
+    return x

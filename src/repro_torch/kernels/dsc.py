@@ -7,7 +7,8 @@ their wrappers and plain versions.
 bounds it on the card and what its design does about that.  Both fuse the
 scaling ``w[fiber] * value`` into the kernel.  A wrapper launches its
 kernel on CUDA tensors (counted in :data:`repro_torch.kernels._build.LAUNCHES`),
-runs the plain PyTorch version on CPU tensors, and raises on anything else.
+runs the plain PyTorch version on CPU tensors, records its op on tensors
+without data (a trace, :func:`traced`) and raises on anything else.
 Sums are taken in float32 whatever the storage type (float32 or bfloat16
 dictionary and values).
 
@@ -52,6 +53,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import spmv_bytes as SB
+from repro_torch.roofline import trace_cost as TC
 
 _SIGNATURE = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ENTRY = {torch.float32: "dsc_coo_f32", torch.bfloat16: "dsc_coo_bf16"}
@@ -65,6 +68,27 @@ def _device_of(w: torch.Tensor, name: str) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {dev}")
     return dev
+
+
+def traced(name: str, out_shape: tuple, work: SB.Work, dev,
+           scratch: tuple = ()) -> torch.Tensor:
+    """A LiFE kernel on tensors without data (a trace,
+    ``roofline/trace_cost.py``): its float32 output of ``out_shape`` and
+    one op ``name`` of ``work``'s FLOPs and bytes
+    (``roofline/spmv_bytes.py`` over the layout's slots, each counted as
+    a real coefficient: how many are real is data).  ``scratch``: the
+    ``(shape, dtype)`` of the buffers the wrapper allocates beside the
+    output on the card, made and dropped as there.  Nothing is built or
+    launched."""
+    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    held = [torch.empty(s, dtype=dt, device=dev) for s, dt in scratch]
+    TC.record_kernel(name, work.flops, work.bytes)
+    del held                    # freed as the wrapper returns on the card
+    return out
+
+
+def _d_bytes(dictionary: torch.Tensor) -> int:
+    return dictionary.numel() * dictionary.element_size()
 
 
 # ----------------------------------------------------------------------------
@@ -100,7 +124,8 @@ def dsc_coo_plain(tile_ptr, tile_len, atoms_p, fibers_p, values_p,
 
 def dsc_coo(tile_ptr, tile_len, atoms_p, fibers_p, values_p, local_row_p,
             dictionary, w, *, row_tile: int) -> torch.Tensor:
-    """Run B1 on CUDA tensors; on CPU tensors, the plain version.
+    """Run B1 on CUDA tensors; on CPU tensors, the plain version; on
+    tensors without data, its traced op (:func:`traced`).
 
     Raises:
         ValueError, TypeError: an operand on another device, of another
@@ -109,13 +134,22 @@ def dsc_coo(tile_ptr, tile_len, atoms_p, fibers_p, values_p, local_row_p,
     """
     _check(tile_ptr, tile_len, atoms_p, fibers_p, values_p, local_row_p,
            dictionary, w)
+    n_tiles, c_tile = atoms_p.shape
+    n_row_blocks = tile_ptr.numel() - 1
+    n_atoms, n_theta = dictionary.shape
+    if TC.without_data(w):
+        return traced("dsc_coo", (n_row_blocks * row_tile, n_theta),
+                      SB.dsc_coo(n_tiles * c_tile, n_theta,
+                                 n_fibers=w.numel(),
+                                 n_row_blocks=n_row_blocks, n_tiles=n_tiles,
+                                 row_tile=row_tile,
+                                 d_bytes=_d_bytes(dictionary),
+                                 value_bytes=values_p.element_size()),
+                      w.device)
     dev = _device_of(w, "dsc_coo")
     if dev.type == "cpu":
         return dsc_coo_plain(tile_ptr, tile_len, atoms_p, fibers_p, values_p,
                              local_row_p, dictionary, w, row_tile=row_tile)
-    n_tiles, c_tile = atoms_p.shape
-    n_row_blocks = tile_ptr.numel() - 1
-    n_atoms, n_theta = dictionary.shape
     out = torch.empty((n_row_blocks * row_tile, n_theta),
                       dtype=torch.float32, device=dev)
     lib = _build.load("dsc", {name: _SIGNATURE for name in _ENTRY.values()})
@@ -185,7 +219,8 @@ def dsc_sell_plain(atoms, fibers, values, row_nnz, dictionary, w, *,
 
 def dsc_sell(atoms, fibers, values, row_nnz, dictionary, w, *,
              row_tile: int) -> torch.Tensor:
-    """Run B3 on CUDA tensors; on CPU tensors, the plain version.
+    """Run B3 on CUDA tensors; on CPU tensors, the plain version; on
+    tensors without data, its traced op (:func:`traced`).
 
     Raises:
         ValueError, TypeError: an operand on another device, of another
@@ -194,12 +229,20 @@ def dsc_sell(atoms, fibers, values, row_nnz, dictionary, w, *,
     """
     _check_sell(atoms, fibers, values, row_nnz, dictionary, w,
                 row_tile=row_tile, x_shape=(None,))
+    rows_padded, width = atoms.shape
+    n_atoms, n_theta = dictionary.shape
+    if TC.without_data(w):
+        return traced("dsc_sell", (rows_padded, n_theta),
+                      SB.dsc_sell(rows_padded * width, n_theta,
+                                  n_fibers=w.numel(), n_rows=row_nnz.numel(),
+                                  rows_padded=rows_padded,
+                                  d_bytes=_d_bytes(dictionary),
+                                  value_bytes=values.element_size()),
+                      w.device)
     dev = _device_of(w, "dsc_sell")
     if dev.type == "cpu":
         return dsc_sell_plain(atoms, fibers, values, row_nnz, dictionary, w,
                               row_tile=row_tile)
-    rows_padded, width = atoms.shape
-    n_atoms, n_theta = dictionary.shape
     out = torch.empty((rows_padded, n_theta), dtype=torch.float32, device=dev)
     lib = _build.load("dsc_sell",
                       {name: _SELL_SIGNATURE for name in _SELL_ENTRY.values()})

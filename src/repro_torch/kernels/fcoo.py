@@ -17,7 +17,9 @@ kernels' per-chunk segment partials slot for slot (zeros past a chunk's
 last segment); the tests hold them against the Pallas kernels.  A wrapper
 launches its kernel on CUDA tensors (counted in
 :data:`repro_torch.kernels._build.LAUNCHES`), runs its plain PyTorch
-version on CPU tensors, and raises on anything else.  Sums are taken in
+version on CPU tensors, records its op on tensors without data (a trace,
+``kernels/dsc.py:traced``; the carry buffers made beside the output) and
+raises on anything else.  Sums are taken in
 float32 whatever the storage type.
 
 Operands (one ``formats/fcoo.py:FcooPhi`` on the device, built by
@@ -44,7 +46,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dsc import _device_of
+from repro_torch.kernels.dsc import _d_bytes, _device_of, traced
+from repro_torch.roofline import spmv_bytes as SB
+from repro_torch.roofline import trace_cost as TC
 
 _DSC_SIGNATURE = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                   + [ctypes.c_void_p])
@@ -130,7 +134,8 @@ def dsc_fcoo_fused_plain(atoms, fibers, values, voxels, dictionary, w, *,
 def dsc_fcoo(atoms, fibers, values, voxels, dictionary, w, *,
              n_voxels: int) -> torch.Tensor:
     """Run B5, ``y = M w`` as (n_voxels, Ntheta) float32, on CUDA tensors;
-    on CPU tensors, the plain version.
+    on CPU tensors, the plain version; on tensors without data, its traced
+    op (``kernels/dsc.py:traced``).
 
     Raises:
         ValueError, TypeError: an operand on another device, of another
@@ -149,11 +154,19 @@ def dsc_fcoo(atoms, fibers, values, voxels, dictionary, w, *,
                          shape=(None,))
     if n_voxels < 0:
         raise ValueError(f"n_voxels={n_voxels} must be >= 0")
+    n_atoms, n_theta = dictionary.shape
+    if TC.without_data(w):
+        return traced("dsc_fcoo", (n_voxels, n_theta),
+                      SB.stream(n_chunks * c_tile, n_theta,
+                                n_voxels=n_voxels, n_fibers=w.numel(),
+                                d_bytes=_d_bytes(dictionary),
+                                value_bytes=values.element_size()),
+                      dev, scratch=(((n_chunks, 2, n_theta), torch.float32),
+                                    ((n_chunks, 2), torch.int32)))
     dev = _device_of(w, "dsc_fcoo")
     if dev.type == "cpu":
         return dsc_fcoo_fused_plain(atoms, fibers, values, voxels,
                                     dictionary, w, n_voxels=n_voxels)
-    n_atoms, n_theta = dictionary.shape
     y = torch.empty((n_voxels, n_theta), dtype=torch.float32, device=dev)
     carry = torch.empty((n_chunks, 2, n_theta), dtype=torch.float32,
                         device=dev)
@@ -229,7 +242,8 @@ def wc_fcoo_fused_plain(wc_perm, wc_fibers, atoms, voxels, values,
 def wc_fcoo(wc_perm, wc_fibers, atoms, voxels, values, dictionary, y, *,
             n_fibers: int) -> torch.Tensor:
     """Run B6, ``w = Mᵀ y`` as (n_fibers,) float32, on CUDA tensors; on CPU
-    tensors, the plain version.
+    tensors, the plain version; on tensors without data, its traced op
+    (``kernels/dsc.py:traced``).
 
     Raises:
         ValueError, TypeError: an operand on another device, of another
@@ -252,11 +266,19 @@ def wc_fcoo(wc_perm, wc_fibers, atoms, voxels, values, dictionary, y, *,
                          shape=(None, dictionary.shape[1]))
     if n_fibers < 0:
         raise ValueError(f"n_fibers={n_fibers} must be >= 0")
+    n_atoms, n_theta = dictionary.shape
+    if TC.without_data(y):
+        return traced("wc_fcoo", (n_fibers,),
+                      SB.wc_fcoo(n_padded, n_theta, n_voxels=y.shape[0],
+                                 n_fibers=n_fibers,
+                                 d_bytes=_d_bytes(dictionary),
+                                 value_bytes=values.element_size()),
+                      dev, scratch=(((n_chunks, 2), torch.float32),
+                                    ((n_chunks, 2), torch.int32)))
     dev = _device_of(y, "wc_fcoo")
     if dev.type == "cpu":
         return wc_fcoo_fused_plain(wc_perm, wc_fibers, atoms, voxels, values,
                                    dictionary, y, n_fibers=n_fibers)
-    n_atoms, n_theta = dictionary.shape
     w = torch.empty((n_fibers,), dtype=torch.float32, device=dev)
     carry = torch.empty((n_chunks, 2), dtype=torch.float32, device=dev)
     carry_fib = torch.empty((n_chunks, 2), dtype=torch.int32, device=dev)

@@ -8,7 +8,8 @@ it on the card and what its design does about that.  Both gather the Y rows
 themselves: unlike the reference, no stream of Y rows is materialized
 before the call.  A wrapper launches its kernel on CUDA tensors (counted in
 :data:`repro_torch.kernels._build.LAUNCHES`), runs the plain PyTorch
-version on CPU tensors, and raises on anything else.  Sums are taken in
+version on CPU tensors, records its op on tensors without data (a trace,
+``kernels/dsc.py:traced``) and raises on anything else.  Sums are taken in
 float32 whatever the storage type.
 
 B2 operands (built once from a ``TilePlan`` by
@@ -51,7 +52,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dsc import _check_sell, _device_of, sell_slots
+from repro_torch.kernels.dsc import (_check_sell, _d_bytes, _device_of,
+                                     sell_slots, traced)
+from repro_torch.roofline import spmv_bytes as SB
+from repro_torch.roofline import trace_cost as TC
 
 _SIGNATURE = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ENTRY = {torch.float32: "wc_coo_f32", torch.bfloat16: "wc_coo_bf16"}
@@ -95,7 +99,8 @@ def wc_coo_plain(tile_ptr, tile_len, atoms_p, voxels_p, values_p,
 
 def wc_coo(tile_ptr, tile_len, atoms_p, voxels_p, values_p, local_row_p,
            dictionary, y, *, row_tile: int) -> torch.Tensor:
-    """Run B2 on CUDA tensors; on CPU tensors, the plain version.
+    """Run B2 on CUDA tensors; on CPU tensors, the plain version; on
+    tensors without data, its traced op (``kernels/dsc.py:traced``).
 
     Raises:
         ValueError, TypeError: an operand on another device, of another
@@ -104,13 +109,22 @@ def wc_coo(tile_ptr, tile_len, atoms_p, voxels_p, values_p, local_row_p,
     """
     _check(tile_ptr, tile_len, atoms_p, voxels_p, values_p, local_row_p,
            dictionary, y)
+    n_tiles, c_tile = atoms_p.shape
+    n_row_blocks = tile_ptr.numel() - 1
+    n_atoms, n_theta = dictionary.shape
+    if TC.without_data(y):
+        return traced("wc_coo", (n_row_blocks * row_tile,),
+                      SB.wc_coo(n_tiles * c_tile, n_theta,
+                                n_voxels=y.shape[0],
+                                n_row_blocks=n_row_blocks, n_tiles=n_tiles,
+                                row_tile=row_tile,
+                                d_bytes=_d_bytes(dictionary),
+                                value_bytes=values_p.element_size()),
+                      y.device)
     dev = _device_of(y, "wc_coo")
     if dev.type == "cpu":
         return wc_coo_plain(tile_ptr, tile_len, atoms_p, voxels_p, values_p,
                             local_row_p, dictionary, y, row_tile=row_tile)
-    n_tiles, c_tile = atoms_p.shape
-    n_row_blocks = tile_ptr.numel() - 1
-    n_atoms, n_theta = dictionary.shape
     out = torch.empty((n_row_blocks * row_tile,), dtype=torch.float32,
                       device=dev)
     lib = _build.load("wc", {name: _SIGNATURE for name in _ENTRY.values()})
@@ -137,7 +151,8 @@ def wc_sell_plain(atoms, voxels, values, row_nnz, dictionary,
 
 
 def wc_sell(atoms, voxels, values, row_nnz, dictionary, y) -> torch.Tensor:
-    """Run B4 on CUDA tensors; on CPU tensors, the plain version.
+    """Run B4 on CUDA tensors; on CPU tensors, the plain version; on
+    tensors without data, its traced op (``kernels/dsc.py:traced``).
 
     Raises:
         ValueError, TypeError: an operand on another device, of another
@@ -146,11 +161,19 @@ def wc_sell(atoms, voxels, values, row_nnz, dictionary, y) -> torch.Tensor:
     """
     _check_sell(atoms, voxels, values, row_nnz, dictionary, y, row_tile=1,
                 x_shape=(None, dictionary.shape[1]))
+    rows_padded, width = atoms.shape
+    n_atoms, n_theta = dictionary.shape
+    if TC.without_data(y):
+        return traced("wc_sell", (rows_padded,),
+                      SB.wc_sell(rows_padded * width, n_theta,
+                                 n_voxels=y.shape[0], n_rows=row_nnz.numel(),
+                                 rows_padded=rows_padded,
+                                 d_bytes=_d_bytes(dictionary),
+                                 value_bytes=values.element_size()),
+                      y.device)
     dev = _device_of(y, "wc_sell")
     if dev.type == "cpu":
         return wc_sell_plain(atoms, voxels, values, row_nnz, dictionary, y)
-    rows_padded, width = atoms.shape
-    n_atoms, n_theta = dictionary.shape
     out = torch.empty((rows_padded,), dtype=torch.float32, device=dev)
     lib = _build.load("wc_sell",
                       {name: _SELL_SIGNATURE for name in _SELL_ENTRY.values()})

@@ -50,13 +50,25 @@ chunk pairs and the SSD's chunks counted by their trip counts:
     does: its train cells count the factors' regions as ``memory``'s
     ``opt`` and Adafactor's step as their collectives.
 
-life-stn96 records, analytic (no trace: their temp size is null with its
-reason), the SBBNNLS iteration of the 2-D (voxel x fiber) partition at
-Table-9 scale (``distributed/life_shard.py:life_input_specs``;
-``life-stn96-1d`` the 1-D one), its collectives those of
-``make_sharded_step`` (or ``make_sharded_step_1d``), per iteration the
-mean of an odd and an even one.  Full-attention archs skip ``long_500k``,
-as the reference's do.
+life-stn96 records trace the SBBNNLS iteration of the 2-D (voxel x
+fiber) partition at Table-9 scale (``life-stn96-1d``: the 1-D one),
+:func:`trace_life`: the port's ``make_sharded_step`` (or
+``make_sharded_step_1d``) runs on rank 0's cell of the operands
+``distributed/life_shard.py:life_input_specs`` gives as ``meta`` tensors
+(``rank0_operands``), over a :class:`RecordingCellMesh` of the cell's
+shape, once as an odd iteration (``it`` 1) and once as an even one (2):
+
+  * ``memory.temp_size_in_bytes`` is the larger of the two traces' peaks
+    and ``total_bytes_per_device`` temp plus arguments (rank 0's blocks
+    of the cell arrays, ``d``, ``b`` and ``w``);
+  * ``flops.traced`` and ``bytes.traced`` are the two traces' mean,
+    beside ``flops.model`` (3.5 SpMVs of ``2 nnz Ntheta``) and
+    ``bytes.compulsory`` (2 DSC + 1.5 WC each reading its op's cell
+    arrays, and ``d``, ``b`` and ``w`` read once);
+  * ``collectives`` are the two traces' records, halved (per iteration),
+    and the roofline takes the traced FLOPs, bytes and collectives.
+
+Full-attention archs skip ``long_500k``, as the reference's do.
 """
 from __future__ import annotations
 
@@ -76,6 +88,7 @@ from repro_torch.configs.base import (ARCH_IDS, SHAPES, ArchConfig,
                                       meta_spec)
 from repro_torch.distributed import lm_shard
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.mesh import _Mesh
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import ShapeMesh, make_production_mesh
 from repro_torch.models import transformer as T
@@ -85,8 +98,6 @@ from repro_torch.roofline import trace_cost as TC
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun")
-TEMP_REASON = ("the SBBNNLS iteration is reckoned from its operands, not "
-               "traced: no temp size")
 
 Record = Tuple[str, int, int]
 
@@ -152,6 +163,34 @@ class RecordingMesh(ShapeMesh):
 
     def barrier(self) -> None:
         pass
+
+
+class RecordingCellMesh(_Mesh):
+    """The LiFE steps' cell mesh (``distributed/mesh.py``'s interface) at
+    rank 0 of a mesh of ``mesh``'s shape: R rows, its row axes' sizes
+    multiplied (``pod`` x ``data``, the steps' ``"data"``), C columns
+    (``model``).  It holds cell ``(0, 0)`` alone, on ``meta``; a ``psum``
+    over a group of more than one is recorded as ``("all-reduce", bytes of
+    the part, group size)`` (``trace_cost.record_collective``) and
+    returns the part, as a collective's output."""
+
+    def __init__(self, mesh):
+        from repro_torch.distributed.life_shard import _row_axes
+        super().__init__(math.prod(mesh.shape[a] for a in _row_axes(mesh)),
+                         mesh.shape["model"])
+        self.cells = ((0, 0),)
+        self.device = torch.device("meta")
+
+    def device_of(self, r: int, c: int) -> torch.device:
+        return self.device
+
+    def psum(self, parts: Dict[Tuple[int, int], torch.Tensor], axis) -> Dict:
+        n = self.group_size(axis)
+        x = parts[(0, 0)]
+        if n > 1:
+            TC.record_collective(
+                self, ("all-reduce", x.numel() * x.element_size(), n), x)
+        return {self._key((0, 0), axis): x}
 
 
 # ----------------------------------------------------------------------------
@@ -428,34 +467,31 @@ LIFE_SCALES = {
 }
 
 
-def life_collectives(mesh, variant: str, meta: Dict[str, int],
-                     n_y: int, n_w: int) -> List[Record]:
-    """The ``psum``s of an odd and an even SBBNNLS iteration of the port's
-    ``make_sharded_step`` (2-D: partial Y over ``model``, partial w over
-    the rows, every dot over its operand's axis) or
-    ``make_sharded_step_1d`` (1-D: the whole Y and w over the mesh; its
-    dots are local), as a mesh records them (float32).  ``n_y`` and
-    ``n_w``: the rows of the 1-D step's whole ``b`` and ``w``."""
-    from repro_torch.distributed.life_shard import _row_axes
-    R = math.prod(mesh.shape[a] for a in _row_axes(mesh))
-    C = mesh.shape["model"]
-    n_theta = meta["n_theta"]
+def trace_life(mesh, variant: str, operands: dict, it: int
+               ) -> TC.TraceCost:
+    """The traced cost (``roofline/trace_cost.py``) of SBBNNLS iteration
+    ``it`` (odd: one WC, even: two) of the port's ``make_sharded_step``
+    (``variant`` "2d") or ``make_sharded_step_1d`` ("1d") on rank 0 of a
+    mesh of ``mesh``'s shape (a :class:`RecordingCellMesh`), over
+    ``operands``: rank 0's, as ``life_shard.rank0_operands`` or
+    ``sharded_state`` give them (the 1-D step's cells under ``cells``),
+    each tensor replaced by a ``meta`` one (``life_shard.without_data``)."""
+    from repro_torch.distributed import life_shard as LS
+    rec = RecordingCellMesh(mesh)
+    ops = LS.without_data(operands)
     if variant == "1d":
-        y, w = ("all-reduce", n_y * n_theta * 4, R * C), (
-            "all-reduce", n_w * 4, R * C)
-        return [y, w, y] + [y, w, y, w]
-    y = ("all-reduce", meta["nv_local"] * n_theta * 4, C)
-    w = ("all-reduce", meta["nf_local"] * 4, R)
-    dot_y, dot_w = ("all-reduce", 4, R), ("all-reduce", 4, C)
-    odd = [y, w, y, dot_w, dot_y, dot_y]
-    even = [y, w, y, w, dot_y, dot_w, dot_y]
-    return [r for r in odd + even if r[2] > 1]
+        step = LS.make_sharded_step_1d(rec, {})
+        args = (ops["cells"], ops["b"], ops["w"])
+    else:
+        step = LS.make_sharded_step(rec, {})
+        args = (ops["dsc"], ops["wc"], ops["b"], ops["w"])
+    return TC.analyze(step, *args, it, n_chips=mesh.size, mesh=rec)
 
 
 def _lower_life(mesh, shape: str, variant: str = "2d") -> Dict[str, Any]:
     """The paper's own workload: the distributed SBBNNLS iteration at
     Table-9 scale, 2-D (voxel x fiber) or the 1-D coefficient partition
-    (the MPI-LiFE analogue)."""
+    (the MPI-LiFE analogue), traced (the module docstring)."""
     from repro_torch.distributed import life_shard as LS
     from repro_torch.distributed.sharding import P
     sc = LIFE_SCALES[shape]
@@ -480,34 +516,37 @@ def _lower_life(mesh, shape: str, variant: str = "2d") -> Dict[str, Any]:
                       it=P())
         per_op = {"dsc": ("da", "dv", "df", "dw"),
                   "wc": ("wa", "wv", "wf", "ww")}
+    operands = LS.rank0_operands(specs, variant)
     meta = specs.pop("meta")
     held = {k: block_bytes(t, layout[k], mesh) for k, t in specs.items()}
-    records = life_collectives(mesh, variant, meta, specs["b"].shape[0],
-                               specs["w"].shape[0])
-    coll = RL.collective_bytes(records)
+    odd, even = (trace_life(mesh, variant, operands, it) for it in (1, 2))
+    coll = RL.collective_bytes(odd.records + even.records)
     coll = {k: (v / 2 if k != "counts" else {kk: vv / 2 for kk, vv in
                                              v.items()})
             for k, v in coll.items()}
-    n_theta = meta["n_theta"]
-    mf = 3.5 * 2.0 * sc["nnz"] * n_theta
-    # compulsory bytes of an iteration: 2 DSC + 1.5 WC each reading its
-    # op's cell arrays, and the dictionary, b and w read once
+    mf = 3.5 * 2.0 * sc["nnz"] * meta["n_theta"]
     op_bytes = {op: sum(held[k] for k in ks) for op, ks in per_op.items()}
     moved = (2 * op_bytes["dsc"] + 1.5 * op_bytes["wc"]
              + held["d"] + held["b"] + held["w"])
-    r = RL.roofline(mf / n_chips, moved, coll["total"], n_chips, mf)
+    flops = (odd.flops + even.flops) / 2
+    traced = (odd.bytes_accessed + even.bytes_accessed) / 2
+    temp = max(odd.peak_temp_bytes, even.peak_temp_bytes)
+    args = float(sum(held.values()))
+    r = RL.roofline(flops, traced, coll["total"], n_chips, mf)
     return {
         "status": "ok",
         "arch": "life-stn96" + ("-1d" if variant == "1d" else ""),
         "shape": shape, "variant": variant,
         "mesh": dict(shape=dict(mesh.shape), n_chips=int(n_chips)),
         "kind": "sbbnnls", "seconds": round(time.time() - t0, 2),
+        "trace_seconds": round(odd.seconds + even.seconds, 2),
         "memory": {
-            "argument_size_in_bytes": float(sum(held.values())),
-            "temp_size_in_bytes": None,
-            "temp_size_reason": TEMP_REASON,
-            "total_bytes_per_device": float(sum(held.values())),
+            "argument_size_in_bytes": args,
+            "temp_size_in_bytes": temp,
+            "total_bytes_per_device": temp + args,
         },
+        "flops": {"model": mf, "traced": flops},
+        "bytes": {"compulsory": float(moved), "traced": traced},
         "collectives": coll,
         "roofline": r.as_dict(),
         "scale": sc,

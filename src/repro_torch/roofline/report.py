@@ -9,9 +9,8 @@ The tables read either package's records (``repro.launch.dryrun`` or
 the dominant one, the useful share of the FLOPs, memory per device and
 the MFU upper bound.  A record's memory per device is its temp size plus
 its arguments: the reference's compiled temp size, the port's traced
-peak (``roofline/trace_cost.py``); a port life-stn96 record's is its
-arguments alone (its ``temp_size_in_bytes`` is null), which the summary
-says.
+peak (``roofline/trace_cost.py``).  A record without a temp size counts
+its arguments alone, which the summary says.
 """
 from __future__ import annotations
 
@@ -71,11 +70,11 @@ def summary(recs: List[Dict]) -> str:
     lines = [f"- cells: {len(recs)} total, {len(ok)} ok, {len(skip)} "
              f"documented skips, {len(err)} errors ({len(refused)} refused "
              f"by the port)"]
-    untraced = [r for r in ok if r.get("package") == "repro_torch"
-                and r["memory"].get("temp_size_in_bytes") is None]
+    untraced = [r for r in ok
+                if r["memory"].get("temp_size_in_bytes") is None]
     if untraced:
-        lines.append(f"- {len(untraced)} port records' memory per device is "
-                     f"their arguments alone (no traced temp size: "
+        lines.append(f"- {len(untraced)} records' memory per device is "
+                     f"their arguments alone (no temp size: "
                      f"{', '.join(sorted({r['arch'] for r in untraced}))})")
     by_dom: Dict[str, int] = {}
     for r in ok:

@@ -7,9 +7,11 @@ The reference compiles a step and reads its cost from the HLO text, each
 what the card would do, op by op, in a ``TorchDispatchMode``:
 
   * **FLOPs** of the products, with ``torch.utils.flop_counter``'s
-    formulas (mm, bmm, addmm, baddbmm, convolution, attention), as the
-    reference counts its dots; a kernel wrapper reports its own
-    (:func:`record_kernel`, B7's ``moe_gmm``);
+    formulas (mm, bmm, addmm, baddbmm, convolution, attention) and 2 N
+    for a dot of two N-vectors (``aten.dot``, which the registry lacks:
+    the SBBNNLS step sizes and loss), as the reference counts its dots; a
+    kernel wrapper reports its own (:func:`record_kernel`: B1–B6 in
+    ``kernels/dsc.py:traced``, B7's ``moe_gmm``);
   * **bytes** as each op's inputs plus its outputs.  Views, allocations and
     metadata count nothing.  The port runs its ops unfused, so this is what
     the card reads and writes;
@@ -23,9 +25,10 @@ what the card would do, op by op, in a ``TorchDispatchMode``:
     through ``roofline.analysis.collective_bytes``.
 
 The tensors are ``meta`` tensors: shapes, dtypes and storages, no data.
-The LM path's only device branches are the kernel wrappers, whose path
-for a tensor without data (:func:`without_data`) records the kernel's op
-and launches nothing.  (``FakeTensorMode``'s fake ``cuda`` tensors would
+The LM and LiFE paths' device branches are the kernel wrappers, whose
+path for a tensor without data (:func:`without_data`) records the kernel's
+op and launches nothing, and ``core/spmv.py:scatter_add``, which takes the
+card's ops on one.  (``FakeTensorMode``'s fake ``cuda`` tensors would
 take those branches literally, but on a CPU-only PyTorch autograd aborts
 the process on them, and its fake ``meta`` tensors cost four times the
 trace time of plain ones for the same counts.)
@@ -134,6 +137,14 @@ class TraceCost:
     n_chips: int = 1
 
 
+def _dot_flops(a, b, *args, out_val=None, **kwargs) -> int:
+    return 2 * a.numel()
+
+
+#: FLOPs by op: ``flop_counter``'s formulas and the dot's
+_FLOPS = {**flop_registry, torch.ops.aten.dot: _dot_flops}
+
+
 class _Tracer(TorchDispatchMode):
     def __init__(self, mesh=None, cut: bool = True):
         super().__init__()
@@ -206,7 +217,7 @@ class _Tracer(TorchDispatchMode):
         ctx = self.ctx(ins)
         self.last_ctx = ctx
         name = func._overloadpacket.__name__
-        fl = flop_registry.get(func._overloadpacket)
+        fl = _FLOPS.get(func._overloadpacket)
         flops = fl(*args, **kwargs, out_val=out) if fl is not None else 0
         if name in _NO_TRAFFIC or func.is_view:
             moved = 0

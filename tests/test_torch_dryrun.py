@@ -10,7 +10,11 @@ and decode step on a (2, 2) mesh of four gloo CPU ranks
 train step with AdamW and with Adafactor; the Mamba2 mixer's in mamba2,
 in mamba2 with one head and in zamba2 with and without a tail), and an
 odd and an even SBBNNLS iteration of the 2-D and 1-D steps on a (2, 2)
-``LocalMesh``; the mesh
+``LocalMesh`` against their trace (``dryrun.trace_life``) and the hand
+reckoning of their ``psum``s; the traced life-stn96 records (collectives
+record for record the reckoning's on the pod and multipod meshes, FLOPs
+against the reference's compiled ``hlo_cost``, the peak against a hand
+count of the live temporaries); the mesh
 step's loss against one process's (the audio loss's count over every
 data rank); the sweep over every cell of the pod mesh (each ``ok`` or
 ``skipped``; kimi-k2's train cell trains with Adafactor) through the
@@ -317,10 +321,43 @@ def test_mesh_loss_divides_by_the_whole_batch(recorded, arch, seq, batch):
                                rtol=1e-5)
 
 
+def _reckoned_life_collectives(mesh, variant: str, meta, n_y: int,
+                               n_w: int):
+    """The ``psum``s of an odd and an even SBBNNLS iteration of the port's
+    ``make_sharded_step`` (2-D: partial Y over ``model``, partial w over
+    the rows, every dot over its operand's axis) or
+    ``make_sharded_step_1d`` (1-D: the whole Y and w over the mesh; its
+    dots are local), reckoned by hand (float32): the dry run's schedule
+    before it traced the step.  ``n_y`` and ``n_w``: the rows of the 1-D
+    step's whole ``b`` and ``w``."""
+    R = math.prod(mesh.shape[a] for a in LS._row_axes(mesh))
+    C = mesh.shape["model"]
+    n_theta = meta["n_theta"]
+    if variant == "1d":
+        y, w = ("all-reduce", n_y * n_theta * 4, R * C), (
+            "all-reduce", n_w * 4, R * C)
+        return [y, w, y] + [y, w, y, w]
+    y = ("all-reduce", meta["nv_local"] * n_theta * 4, C)
+    w = ("all-reduce", meta["nf_local"] * 4, R)
+    dot_y, dot_w = ("all-reduce", 4, R), ("all-reduce", 4, C)
+    odd = [y, w, y, dot_w, dot_y, dot_y]
+    even = [y, w, y, w, dot_y, dot_w, dot_y]
+    return [r for r in odd + even if r[2] > 1]
+
+
+def _traced_life(mesh, variant: str, operands) -> list:
+    """The trace's records of an odd and an even iteration (it 1, 2)."""
+    return [r for it in (1, 2)
+            for r in D.trace_life(mesh, variant, operands, it).records]
+
+
 @pytest.mark.parametrize("variant", ["2d", "1d"])
 def test_life_collectives_equal_a_local_mesh(variant):
     """An odd and an even SBBNNLS iteration of the port's 2-D / 1-D steps
-    on a (2, 2) LocalMesh record what ``life_collectives`` reckons."""
+    on a (2, 2) LocalMesh record what the hand reckoning gives, and the
+    dry run's trace of the same iterations on rank 0's operands
+    (``dryrun.trace_life``, a (2, 2) ``RecordingCellMesh``) records the
+    same, record for record."""
     from repro_torch.data.dmri import synth_connectome
     from repro_torch.distributed.mesh import LocalMesh
     problem = synth_connectome(n_fibers=60, n_theta=8, n_atoms=12,
@@ -335,6 +372,9 @@ def test_life_collectives_equal_a_local_mesh(variant):
         step = LS.make_sharded_step(mesh, shards.meta)
         args = (state["dsc"], state["wc"], state["b"], state["w"])
         meta = shards.meta
+        rank0 = dict(dsc={(0, 0): state["dsc"][(0, 0)]},
+                     wc={(0, 0): state["wc"][(0, 0)]},
+                     b={0: state["b"][0]}, w={0: state["w"][0]})
     else:
         blocks = LS.build_life_shards_1d(phi, 4)
         cells = LS.coo_cells(mesh, {(r, c): {k: v[r * 2 + c] for k, v in
@@ -346,11 +386,113 @@ def test_life_collectives_equal_a_local_mesh(variant):
         step = LS.make_sharded_step_1d(mesh, {})
         args = (cells, b, w)
         meta = {"n_theta": 8}
+        rank0 = dict(cells={(0, 0): cells[(0, 0)]}, b=b, w=w)
+    traced = _traced_life(shape, variant, rank0)
     for it in (1, 2):
         args = (*args[:-1], step(*args, it)[0])
     n_y = b.shape[0] if variant == "1d" else 0
-    want = D.life_collectives(shape, variant, meta, n_y, phi.n_fibers)
+    want = _reckoned_life_collectives(shape, variant, meta, n_y,
+                                      phi.n_fibers)
     assert sorted(mesh.collectives) == sorted(want)
+    assert sorted(traced) == sorted(want)
+
+
+@pytest.mark.parametrize("shape", list(D.LIFE_SCALES))
+@pytest.mark.parametrize("variant", ["2d", "1d"])
+@pytest.mark.parametrize("mesh", [POD, MULTIPOD], ids=["pod", "multipod"])
+def test_traced_life_records_equal_the_reckoning(mesh, variant, shape):
+    """Each life-stn96 (2-D) and life-stn96-1d record of the pod and
+    multipod meshes is traced: a temp size > 0 (no reason beside it),
+    total = temp + arguments, the traced FLOPs and bytes beside the model
+    FLOPs and the compulsory bytes; its trace's collectives equal the hand
+    reckoning record for record (the multipod's rows span ``pod`` x
+    ``data``, R = 32; the 1-D step's groups are the whole mesh), and the
+    record's collective bytes are theirs per iteration."""
+    from repro_torch.roofline import analysis as RL
+    arch = "life-stn96" + ("-1d" if variant == "1d" else "")
+    rec = D.lower_cell(arch, shape, mesh)
+    mem = rec["memory"]
+    assert rec["status"] == "ok" and "temp_size_reason" not in mem
+    assert mem["temp_size_in_bytes"] > 0
+    assert mem["total_bytes_per_device"] == (
+        mem["temp_size_in_bytes"] + mem["argument_size_in_bytes"])
+    assert rec["flops"]["traced"] > 0 and rec["flops"]["model"] > 0
+    assert rec["bytes"]["traced"] > rec["bytes"]["compulsory"] > 0
+    fn = LS.life_input_specs_1d if variant == "1d" else LS.life_input_specs
+    specs = fn(mesh, **D.LIFE_SCALES[shape])
+    traced = _traced_life(mesh, variant, LS.rank0_operands(specs, variant))
+    want = _reckoned_life_collectives(mesh, variant, specs["meta"],
+                                      specs["b"].shape[0],
+                                      specs["w"].shape[0])
+    assert sorted(traced) == sorted(want)
+    assert rec["collectives"]["total"] == \
+        RL.collective_bytes(want)["total"] / 2
+
+
+def _reference_life_flops(variant: str, sizes: dict) -> float:
+    """``hlo_cost.analyze`` FLOPs of the reference's ``make_sharded_step``
+    (or ``_1d``) compiled on a one-device (1, 1) mesh."""
+    from jax.sharding import Mesh
+
+    from repro.roofline import hlo_cost
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                ("data", "model"))
+    if variant == "1d":
+        specs = JLS.life_input_specs_1d(mesh, **sizes)
+        step = JLS.make_sharded_step_1d(mesh, specs.pop("meta"))
+        keys = ("a", "v", "fi", "vals", "d", "b", "w", "it")
+    else:
+        specs = JLS.life_input_specs(mesh, **sizes)
+        step = JLS.make_sharded_step(mesh, specs.pop("meta"))
+        keys = ("da", "dv", "df", "dw", "wa", "wv", "wf", "ww", "d", "b",
+                "w", "it")
+    with mesh:
+        c = jax.jit(step).lower(*(specs[k] for k in keys)).compile()
+    return hlo_cost.analyze(c.as_text(), 1).flops
+
+
+#: a small life step: Nv, Nf, Ntheta, Na and nnz
+LIFE_SMALL = dict(n_voxels=100, n_fibers=60, n_theta=8, n_atoms=12,
+                  nnz=1000)
+
+
+def _small_life(variant: str):
+    mesh = HM.ShapeMesh((1, 1), ("data", "model"))
+    fn = LS.life_input_specs_1d if variant == "1d" else LS.life_input_specs
+    ops = LS.rank0_operands(fn(mesh, **LIFE_SMALL), variant)
+    return [D.trace_life(mesh, variant, ops, it) for it in (1, 2)]
+
+
+@pytest.mark.parametrize("variant", ["2d", "1d"])
+def test_traced_life_flops_relate_to_the_reference_hlo_cost(variant):
+    """The reference's compiled step (a one-device (1, 1) mesh, Nv 100,
+    Ntheta 8, nnz 1,000) counts both ``lax.cond`` branches once and each
+    WC's ``einsum("ct,ct->c")``, which XLA keeps as a batched ``dot``, as
+    2 nnz Ntheta: its FLOPs are the odd and the even trace's summed (each
+    counts its branch's two dots and the loss's, 2 N a dot) less one
+    loss dot, plus the two WCs' 2 nnz Ntheta each (the port's WC
+    multiplies and sums, which ``flop_counter`` does not count).  The
+    record keeps the mean of the two traces."""
+    odd, even = _small_life(variant)
+    nnz, nv, nt = (LIFE_SMALL[k] for k in ("nnz", "n_voxels", "n_theta"))
+    loss = 2 * nv * nt
+    want = _reference_life_flops(variant, LIFE_SMALL)
+    assert want == odd.flops + even.flops - loss + 2 * (2 * nnz * nt)
+    assert odd.flops == odd.by_op["dot"]["flops"] == even.flops == 3_320
+
+
+@pytest.mark.parametrize("variant", ["2d", "1d"])
+def test_traced_life_peak_is_its_live_temporaries(variant):
+    """The traced peak of a small step is the WC's three live (nnz,
+    Ntheta) float32 temporaries (``d[atoms]``, ``Y[voxels]`` and their
+    product) beside the residual Y; in the even iteration's second WC
+    also ``v``, ``g`` and the projected gradient."""
+    odd, even = _small_life(variant)
+    nnz, nv, nf, nt = (LIFE_SMALL[k] for k in ("nnz", "n_voxels",
+                                               "n_fibers", "n_theta"))
+    big, y, w = nnz * nt * 4, nv * nt * 4, nf * 4
+    assert odd.peak_temp_bytes == 3 * big + y
+    assert even.peak_temp_bytes == 3 * big + 2 * y + 2 * w
 
 
 def test_every_pod_cell_is_ok_skipped_or_refused(tmp_path):
@@ -371,10 +513,9 @@ def test_every_pod_cell_is_ok_skipped_or_refused(tmp_path):
         assert r["status"] == "ok", r
         mem = r["memory"]
         assert mem["argument_size_in_bytes"] > 0
-        if r["kind"] != "sbbnnls":
-            assert mem["temp_size_in_bytes"] > 0
-            assert mem["total_bytes_per_device"] == (
-                mem["temp_size_in_bytes"] + mem["argument_size_in_bytes"])
+        assert mem["temp_size_in_bytes"] > 0
+        assert mem["total_bytes_per_device"] == (
+            mem["temp_size_in_bytes"] + mem["argument_size_in_bytes"])
         assert r["roofline"]["dominant"] in ("compute", "memory",
                                              "collective")
         if r["kind"] == "train" and not r["arch"].startswith("life"):
@@ -433,6 +574,26 @@ def test_report_renders_both_packages_records(tmp_path):
     s = report.summary(recs)
     assert "4 total, 2 ok, 1 documented skips, 1 errors (1 refused" in s
     report.main(["--dir", str(tmp_path)])
+
+
+def test_report_summary_names_records_without_a_temp_size():
+    """The summary names the ok records of either package that carry no
+    temp size (their memory is their arguments alone), and says nothing
+    when every record has one."""
+    def rec(arch, temp, package=None):
+        r = {"status": "ok", "arch": arch, "shape": "train_4k",
+             "memory": {"temp_size_in_bytes": temp},
+             "roofline": {"dominant": "memory"}}
+        if package:
+            r["package"] = package
+        return r
+
+    traced = [rec("life-stn96", 1.8e9, "repro_torch"),
+              rec("deepseek-7b", 3e9, "repro_torch")]
+    assert "no temp size" not in report.summary(traced)
+    s = report.summary(traced + [rec("stablelm-12b", None)])
+    assert "- 1 records' memory per device is their arguments alone (no " \
+           "temp size: stablelm-12b)" in s
 
 
 def test_report_compare_names_each_dominant_term():

@@ -491,8 +491,11 @@ def test_format_wrappers_dispatch_by_device_and_check_operands():
     with pytest.raises(ValueError, match="shape"):
         wc.wc_sell(o.atoms, o.others, o.values, o.row_nnz, d, y[:, :5])
     meta = [x.to("meta") for x in args]
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        dsc.dsc_sell(*meta, row_tile=o.row_tile)
+    out = dsc.dsc_sell(*meta, row_tile=o.row_tile)    # a trace's op
+    assert out.is_meta and out.shape == (o.atoms.shape[0], d.shape[1])
+    assert dict(_build.LAUNCHES) == before
+    with pytest.raises(ValueError, match="is on"):
+        dsc.dsc_sell(*meta[:-1], w, row_tile=o.row_tile)
 
     _, _, f, d2, w2, y2 = _fcoo_pair("ragged", "fp32")
     d2, w2, y2 = torch.tensor(d2), torch.tensor(w2), torch.tensor(y2)

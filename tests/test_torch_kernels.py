@@ -279,8 +279,9 @@ def test_wrappers_dispatch_by_device_and_check_operands():
                     row_tile=t.row_tile)
     meta = [x.to("meta") for x in (t.tile_ptr, t.tile_len, t.atoms_p,
                                    t.others_p, t.values_p, t.local_row_p, d, w)]
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        dsc.dsc_coo(*meta, row_tile=t.row_tile)
+    out = dsc.dsc_coo(*meta, row_tile=t.row_tile)     # a trace's op
+    assert out.is_meta and out.shape == _run("dsc", t, d, w).shape
+    assert dict(_build.LAUNCHES) == before
     with pytest.raises(ValueError, match="is on"):
         dsc.dsc_coo(*meta[:-1], w, row_tile=t.row_tile)
 

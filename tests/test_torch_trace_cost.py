@@ -5,8 +5,9 @@ against the reference's HLO cost model (``repro/roofline/hlo_cost.py``,
 A loop's trip count multiplies its FLOPs (the reference's scanned loop);
 the checkpointed six-layer gradient counts the reference's dots; a hand
 built chain of ops has the peak and bytes worked out by hand; a recording
-mesh's collectives in a loop are counted per iteration; B7 on tensors
-without data is one op and launches nothing; for each family at reduced
+mesh's collectives in a loop are counted per iteration; B1–B7 on tensors
+without data are one op each (B1–B6 with ``roofline/spmv_bytes.py``'s
+FLOPs and bytes) and launch nothing; a dot counts 2 N; for each family at reduced
 size and a depth of 6 the trip-count cost equals a trace of every
 iteration (FLOPs, bytes, collectives, peak); flash attention's chunk pairs
 too; and the reduced train, prefill and decode steps count the
@@ -28,11 +29,15 @@ from repro.optim.adamw import OptConfig as JOpt
 from repro.roofline import hlo_cost
 from repro_torch.configs import base
 from repro_torch.kernels import _build
+from repro_torch.kernels import dsc as KD
+from repro_torch.kernels import fcoo as KF
+from repro_torch.kernels import wc as KW
 from repro_torch.kernels.moe_gmm import grouped_matmul, moe_gmm
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import ShapeMesh
 from repro_torch.models.flash import flash_attention
 from repro_torch.optim.adamw import OptConfig
+from repro_torch.roofline import spmv_bytes as SB
 from repro_torch.roofline import trace_cost as TC
 
 #: a reduced model of each family
@@ -178,6 +183,83 @@ def test_b7_on_tensors_without_data_is_one_op():
     assert dict(_build.LAUNCHES) == before
 
 
+#: B1–B6 on ``meta`` operands: Ntheta, atoms, voxels and fibers, and
+#: the layouts' sizes (COO: 7 tiles of 32 slots in 4 row blocks of 8;
+#: SELL: 16 rows of 4 slots, 13 of them real; F-COO: 3 chunks of 32)
+NT, NA, NV, NF = 8, 12, 100, 60
+LIFE_KERNELS = ("dsc_coo", "wc_coo", "dsc_sell", "wc_sell", "dsc_fcoo",
+                "wc_fcoo")
+
+
+def _life_kernel_call(name: str, dt: torch.dtype):
+    """(a call of wrapper ``name`` on ``meta`` operands, storage ``dt``;
+    its output's shape; ``spmv_bytes``' work for them)."""
+    i32 = torch.int32
+    d = _meta(NA, NT, dtype=dt)
+    w, y = _meta(NF), _meta(NV, NT)
+    kw = dict(d_bytes=NA * NT * d.element_size(),
+              value_bytes=d.element_size())
+    if name in ("dsc_coo", "wc_coo"):
+        tiles = (_meta(5, dtype=i32), _meta(7, dtype=i32),
+                 _meta(7, 32, dtype=i32), _meta(7, 32, dtype=i32),
+                 _meta(7, 32, dtype=dt), _meta(7, 32, dtype=i32), d)
+        layout = dict(n_row_blocks=4, n_tiles=7, row_tile=8, **kw)
+        if name == "dsc_coo":
+            return (lambda: KD.dsc_coo(*tiles, w, row_tile=8), (32, NT),
+                    SB.dsc_coo(7 * 32, NT, n_fibers=NF, **layout))
+        return (lambda: KW.wc_coo(*tiles, y, row_tile=8), (32,),
+                SB.wc_coo(7 * 32, NT, n_voxels=NV, **layout))
+    if name in ("dsc_sell", "wc_sell"):
+        sell = (_meta(16, 4, dtype=i32), _meta(16, 4, dtype=i32),
+                _meta(16, 4, dtype=dt), _meta(13, dtype=i32), d)
+        layout = dict(n_rows=13, rows_padded=16, **kw)
+        if name == "dsc_sell":
+            return (lambda: KD.dsc_sell(*sell, w, row_tile=8), (16, NT),
+                    SB.dsc_sell(64, NT, n_fibers=NF, **layout))
+        return (lambda: KW.wc_sell(*sell, y), (16,),
+                SB.wc_sell(64, NT, n_voxels=NV, **layout))
+    if name == "dsc_fcoo":
+        return (lambda: KF.dsc_fcoo(
+            _meta(3, 32, dtype=i32), _meta(3, 32, dtype=i32),
+            _meta(3, 32, dtype=dt), _meta(3, 32, dtype=i32), d, w,
+            n_voxels=NV), (NV, NT),
+            SB.stream(96, NT, n_voxels=NV, n_fibers=NF, **kw))
+    return (lambda: KF.wc_fcoo(
+        _meta(3, 32, dtype=i32), _meta(3, 32, dtype=i32),
+        _meta(96, dtype=i32), _meta(96, dtype=i32), _meta(96, dtype=dt), d,
+        y, n_fibers=NF), (NF,),
+        SB.wc_fcoo(96, NT, n_voxels=NV, n_fibers=NF, **kw))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name", LIFE_KERNELS)
+def test_b1_to_b6_on_tensors_without_data_are_one_op(name, dt):
+    """Each LiFE wrapper on ``meta`` operands returns a float32 ``meta``
+    output of its shape and counts exactly one op named after its kernel,
+    whose FLOPs and bytes are ``roofline/spmv_bytes.py``'s for those
+    operands (every slot counted), and nothing else moves a byte or
+    counts a FLOP; nothing is launched."""
+    call, shape, work = _life_kernel_call(name, dt)
+    before = dict(_build.LAUNCHES)
+    out = []
+    cost = TC.analyze(lambda: out.append(call()))
+    assert out[0].is_meta and out[0].shape == shape
+    assert out[0].dtype == torch.float32
+    assert cost.by_op[name] == {"flops": work.flops, "bytes": work.bytes,
+                                "calls": 1}
+    assert (cost.flops, cost.bytes_accessed) == (work.flops, work.bytes)
+    assert set(cost.by_op) == {name, "empty"}
+    assert dict(_build.LAUNCHES) == before
+
+
+def test_a_dot_counts_two_n_flops():
+    """``aten.dot`` (which ``flop_counter`` lacks) counts 2 N FLOPs, as
+    ``hlo_cost`` counts a ``jnp.vdot``."""
+    cost = TC.analyze(torch.dot, _meta(1000), _meta(1000))
+    assert cost.flops == cost.by_op["dot"]["flops"] == 2000
+
+
 def _mesh_step(arch: str, kind: str, seq: int, cut: bool):
     cfg = dataclasses.replace(base.reduced(base.get_config(arch)),
                               n_layers=6, remat=True)
@@ -192,10 +274,13 @@ def test_trip_counts_equal_a_full_trace(family, kind):
     """At reduced size, a depth of 6, remat and a (2, 2) mesh, the cost
     with trip counts equals a trace of every iteration: FLOPs, bytes,
     collectives (record for record) and the peak.  The ssm and hybrid
-    steps run 5 SSD chunks (seq 640)."""
+    steps run 5 SSD chunks (seq 640).  No LM step runs a vector dot, so
+    counting ``aten.dot`` (the SBBNNLS steps') leaves the LM cells' FLOPs
+    as they were."""
     seq = 640 if family in ("ssm", "hybrid") else 64
     cut = _mesh_step(FAMILIES[family], kind, seq, True)
     full = _mesh_step(FAMILIES[family], kind, seq, False)
+    assert "dot" not in cut.by_op
     assert cut.loops and not full.loops
     assert cut.flops == full.flops > 0
     assert cut.bytes_accessed == full.bytes_accessed
