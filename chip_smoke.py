@@ -314,8 +314,43 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                10% of the trace's peak_temp_bytes; the traced FLOPs and
                bytes over the measured time, printed.  Prints
                {"life_trace": ...}.
+ 21. configs — (after 20) the published configurations no earlier phase
+               runs, bf16 at their widths, seeded weights drawn on the
+               card (normal_init first held to the bits of the formula it
+               replaced), each at the deepest stack the dry run's trace
+               (launch.dryrun.trace_step, printed before the model is
+               built) and its largest float32 draw fit on the card, its
+               measured peak printed beside the trace.  21a kimi-k2 (2 of
+               61 layers: the dense first layer and one MoE layer of 384
+               experts, top-8, a shared expert, head_dim 112) served as
+               phase 7 serves phi3.5-moe: 4 x 512 + 16 tokens, 3 B7
+               launches per MoE layer per forward, B7 on the path's own
+               activations, the plain expert path's logits on the steps
+               routed alike, a profile; B7 timed at its prefill gate
+               (t_tile 8) and decode down shapes.  21b granite-34b (88
+               layers, multi-query, learned positions, LayerNorm, GELU),
+               21d stablelm-12b (head_dim 160), 21e deepseek-7b: 4 x 512
+               + 16 tokens and a profiled decode step; a 2,048-token
+               prefill (flash in every layer) and 8 decode steps against
+               forward_train, measured in bf16 at full depth and held
+               within 2e-2 + 2e-2 |x| on a float32 copy of the first 4
+               layers.  21c granite-34b through the trainer at its
+               defaults (8 x 128, 3 steps) but --lr 1e-5, cut to the
+               deepest stack within 70 GB by the trace: losses finite and
+               falling, step 0's batch's loss lower after the steps than
+               before, weights moved; that loss's backward: the learned
+               position table's gradient nonzero on exactly the rows the
+               batch reads, wk's and wv's nonzero.  21f flash at S 4,096
+               at kimi-k2's (KV 8, group 8, hd 112), stablelm-12b's (KV
+               8, group 4, hd 160) and granite-34b's (KV 1, group 48, hd
+               128) geometries: held in fp32 within 1e-4 / 1e-5 of causal
+               attention computed in float64 (dense_attention's fp32
+               distance logged beside it); in bf16 against dense_attention
+               as 15a, measured (there dense_attention's own bf16
+               gradients lie beyond 2e-2 + 2e-2 |x| of float32's) and
+               timed beside SDPA.  Prints {"configs": ...}.
 
-Then it prints phases 15-20's JSON lines, one JSON line describing the
+Then it prints phases 15-21's JSON lines, one JSON line describing the
 kernels, the card's name and power limit as nvidia-smi gives them, and,
 last, the result line.
 """
@@ -3161,7 +3196,8 @@ def gmm_case(m: int, k: int, n: int, t_tile: int, ids, seed: int, *,
     e = n_experts or int(ids.max()) + 1
     x = torch.randn(m, k, generator=g, device="cuda")
     x[:zero_tiles * t_tile] = 0
-    w = torch.randn(e, k, n, generator=g, device="cuda") * (2 / (k + n)) ** 0.5
+    w = torch.randn(e, k, n, generator=g, device="cuda").mul_(
+        (2 / (k + n)) ** 0.5)
     return ids, x, w
 
 
@@ -3243,7 +3279,7 @@ def phase_lm_kernels(cfg, errors: dict) -> None:
         del x, w
 
 
-def profile_lm(label: str, fn) -> None:
+def profile_lm(label: str, fn, phase: str = "lm") -> None:
     """Device time of one call of ``fn`` by kernel (torch.profiler): B7's
     share, the attention sub-layers' and MoE layers' (record_function
     ranges around them) and the rest, against the call's wall time."""
@@ -3293,27 +3329,32 @@ def profile_lm(label: str, fn) -> None:
         elif evt.device_type == on_card and us > 0:
             kernels.append((us / 1e3, evt.count, evt.key[:70]))
     if not kernels:
-        log("lm", f"{label}: profiler saw no device time: breakdown not "
+        log(phase, f"{label}: profiler saw no device time: breakdown not "
             "measured")
         return
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
     b7 = sum(k[0] for k in kernels if "moe_gmm_" in k[2])
-    # B7 launches through ctypes, not a PyTorch op, so the profiler files
-    # it under no range: the MoE range holds the layer's other kernels
+    # B7 launches through ctypes, not a PyTorch op: a profiler that files
+    # its kernels under the enclosing range (torch 2.11 does) counts them
+    # in the MoE range too, and then the ranges sum past the busy time
     att, moe = ranges.get("lm.attention", 0.0), ranges.get("lm.moe", 0.0)
+    b7_in_moe = b7 + att + moe > busy * (1 + 1e-6)
+    if b7_in_moe:
+        moe -= b7
     rest = busy - b7 - att - moe
-    log("lm", f"{label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall "
+    log(phase, f"{label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall "
         f"({busy / wall_ms:.1%}; torch.profiler, one call): B7 {b7:.3f} ms "
         f"({b7 / busy:.1%}); by record_function range, attention sub-layers "
         f"{att:.3f} ms ({att / busy:.1%}), the MoE layers' other kernels "
         f"(router, sort, dispatch, SiLU, combine) {moe:.3f} ms "
-        f"({moe / busy:.1%}), the rest {rest:.3f} ms ({rest / busy:.1%}) "
+        f"({moe / busy:.1%}; B7 filed under the range and taken out of it: "
+        f"{b7_in_moe}), the rest {rest:.3f} ms ({rest / busy:.1%}) "
         f"(0.000 for a range: not measured); the ranges' spans on the card, "
         f"gaps included: attention {spans.get('lm.attention', 0.0):.3f} ms, "
         f"MoE {spans.get('lm.moe', 0.0):.3f} ms")
     for ms, calls, name in kernels[:8]:
-        log("lm", f"  {ms:.4f} ms  {ms / busy:6.1%}  {calls:4d} calls  {name}")
+        log(phase, f"  {ms:.4f} ms  {ms / busy:6.1%}  {calls:4d} calls  {name}")
 
 
 class LmRecording:
@@ -3356,54 +3397,87 @@ class LmRecording:
         return False
 
 
-def phase_lm_serve(cfg) -> int:
-    """Full-width serving on B7, then teacher-forced on the plain expert
-    path.  Returns B7's launches in the B7 run."""
-    from repro_torch.kernels import _build
-    from repro_torch.launch.serve import generate
+def seeded_model(cfg, phase: str = "lm"):
+    """``cfg``'s model with seeded random weights drawn on the card, and
+    the bytes of its weights."""
     from repro_torch.models import transformer as T
-    from repro_torch.models.moe import capacity_of
     t0 = time.perf_counter()
     model = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                           "cuda")
     torch.cuda.synchronize()
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    log("lm", f"{LM_ARCH} at {cfg.n_layers} of 32 layers (d {cfg.d_model}, "
-        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, {cfg.n_experts} "
-        f"experts of ff {cfg.moe_d_ff}, top-{cfg.top_k}, vocab "
-        f"{cfg.vocab_size}, {cfg.dtype}): {n_bytes / 1e9:.2f} GB of weights "
+    log(phase, f"{cfg.name}: {n_bytes / 1e9:.2f} GB of weights ({cfg.dtype}) "
         f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    return model, n_bytes
+
+
+def serve_batch(cfg, model, phase: str = "lm") -> dict:
+    """LM_BATCH prompts of LM_PROMPT seeded tokens and LM_GEN generated
+    ones through launch.serve.generate, after a short warm-up: the tokens
+    (finite, in range, of the expected shape), each step's logits, the
+    kernels' launches, prefill ms, decode ms a step and the peak of
+    allocated memory (``max_memory_allocated``, weights included)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import generate
     prompts = torch.as_tensor(
         np.random.default_rng(0).integers(0, cfg.vocab_size,
                                           (LM_BATCH, LM_PROMPT)),
         dtype=torch.int32, device="cuda")
     generate(cfg, model, prompts[:, :64], 2)           # warm-up, not counted
-
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     tokens, logits, secs = generate(cfg, model, prompts, LM_GEN)
     counts = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    want = {"moe_gmm": cfg.n_layers * 3 * LM_GEN}
     n_dec = LM_GEN - 1
-    log("lm", f"serve batch {LM_BATCH} x prompt {LM_PROMPT}, {LM_GEN} tokens "
-        f"(1 prefill + {n_dec} decode steps): launches {counts} (expected "
-        f"{want}: 3 per MoE layer per forward); prefill "
-        f"{secs['prefill'] * 1e3:.3f} ms ({LM_BATCH * LM_PROMPT / secs['prefill']:.1f} "
-        f"prompt tokens/s); decode {secs['decode'] * 1e3 / n_dec:.3f} ms per "
-        f"step, {LM_BATCH * n_dec / secs['decode']:.1f} tokens/s; peak memory "
-        f"{peak / 2**30:.2f} GiB; capacity per expert: prefill "
+    out = dict(prompts=prompts, tokens=tokens, logits=logits, launches=counts,
+               prefill_ms=secs["prefill"] * 1e3,
+               decode_ms=secs["decode"] * 1e3 / n_dec, peak_bytes=peak)
+    log(phase, f"{cfg.name} serve batch {LM_BATCH} x prompt {LM_PROMPT}, "
+        f"{LM_GEN} tokens (1 prefill + {n_dec} decode steps): launches "
+        f"{counts}; prefill {out['prefill_ms']:.3f} ms "
+        f"({LM_BATCH * LM_PROMPT / secs['prefill']:.1f} prompt tokens/s); "
+        f"decode {out['decode_ms']:.3f} ms per step, "
+        f"{LM_BATCH * n_dec / secs['decode']:.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak} B)")
+    if tuple(tokens.shape) != (LM_BATCH, LM_GEN) or not all(
+            torch.isfinite(lg).all() for lg in logits) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.name}: serve output is not finite tokens "
+                             "of the expected shape")
+    log(phase, f"{cfg.name} generated tokens (first row): "
+        f"{tokens[0].tolist()}")
+    return out
+
+
+def phase_lm_serve(cfg, phase: str = "lm") -> dict:
+    """Full-width serving on B7, then teacher-forced on the plain expert
+    path.  Returns B7's launches in the B7 run, the generated tokens,
+    prefill and decode ms, the peak memory and the routing agreement."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.moe import capacity_of
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    log(phase, f"{cfg.name} at {cfg.n_layers} of "
+        f"{get_config(cfg.name).n_layers} layers ({cfg.first_k_dense} dense "
+        f"first, {n_moe} MoE; d {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} KV heads, head_dim {cfg.resolved_head_dim}, "
+        f"{cfg.n_experts} experts of ff {cfg.moe_d_ff}, top-{cfg.top_k}, "
+        f"{cfg.n_shared_experts} shared, vocab {cfg.vocab_size}, {cfg.dtype})")
+    model, n_bytes = seeded_model(cfg, phase)
+    served = serve_batch(cfg, model, phase)
+    prompts, tokens, logits = (served[k] for k in ("prompts", "tokens",
+                                                   "logits"))
+    counts = served["launches"]
+    want = {"moe_gmm": n_moe * 3 * LM_GEN}
+    log(phase, f"{cfg.name} B7 launches {counts} (expected {want}: 3 per MoE "
+        f"layer per forward, none in a dense layer or a shared expert); "
+        f"capacity per expert: prefill "
         f"{capacity_of(LM_BATCH * LM_PROMPT, cfg.top_k, cfg.n_experts, cfg.capacity_factor)}"
         f", decode {capacity_of(LM_BATCH, cfg.top_k, cfg.n_experts, cfg.capacity_factor)}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
-    if tuple(tokens.shape) != (LM_BATCH, LM_GEN) or not all(
-            torch.isfinite(lg).all() for lg in logits) or not bool(
-            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
-        raise AssertionError("serve output is not finite tokens of the "
-                             "expected shape")
-    log("lm", f"generated tokens (first row): {tokens[0].tolist()}")
-    LM_SERVED["tokens"] = tokens.cpu()
 
     # the same forwards again, teacher-forced with the B7 run's tokens: on
     # B7 with each MoE layer's expert FFN also run by the plain version on
@@ -3415,7 +3489,7 @@ def phase_lm_serve(cfg) -> int:
                                         forced=tokens)
     same_again = all(torch.equal(a, b) for a, b in zip(logits,
                                                        checked_logits))
-    log("lm", f"B7 on the path's own activations: {len(layer_err)} expert "
+    log(phase, f"B7 on the path's own activations: {len(layer_err)} expert "
         f"FFN calls (3 B7 products each) against the plain expert products "
         f"on the same input, max abs err {max(layer_err):.3e} (rtol "
         f"{GMM_TOL['bf16']['rtol']}, atol {GMM_TOL['bf16']['atol']}); the "
@@ -3431,31 +3505,39 @@ def phase_lm_serve(cfg) -> int:
     if dict(_build.LAUNCHES):
         raise AssertionError(f"the plain expert path launched "
                              f"{dict(_build.LAUNCHES)}")
-    per_step = cfg.n_layers
+    n_dec = LM_GEN - 1
     worst, worst_same_route, alike = 0.0, 0.0, 0
+    flipped, token_layers = 0, 0
     for i, (a, b) in enumerate(zip(logits, plain_logits)):
         peak_logit = float(b.float().abs().max())
         rel = float((a.float() - b.float()).abs().max()) / peak_logit
-        routes = slice(i * per_step, (i + 1) * per_step)
-        flips = sum(int((x != y).any(dim=-1).sum()) for x, y in
-                    zip(b7_routes[routes], plain_routes[routes]))
+        routes = slice(i * n_moe, (i + 1) * n_moe)
+        # per batch row, its tokens' token-layers routed otherwise
+        row_flips = sum((x != y).any(dim=-1).reshape(LM_BATCH, -1).sum(1)
+                        for x, y in zip(b7_routes[routes],
+                                        plain_routes[routes]))
+        flips = int(row_flips.sum())
+        n_tl = n_moe * b7_routes[routes.start][..., 0].numel()
+        flipped, token_layers = flipped + flips, token_layers + n_tl
         worst = max(worst, rel)
         if not flips:
             alike += 1
             worst_same_route = max(worst_same_route, rel)
         ulp = 2.0 ** (np.floor(np.log2(peak_logit)) - 7)
-        log("lm", f"step {i}: max |logit diff| / max |logit| = {rel:.3e} "
+        log(phase, f"step {i}: max |logit diff| / max |logit| = {rel:.3e} "
             f"(max |logit| {peak_logit:.4f}, bf16 spacing there {ulp:.4g} = "
             f"{ulp / peak_logit:.2e} of it); tokens routed to another expert "
-            f"than on B7: {flips} of {per_step * b7_routes[routes.start].shape[0]}"
-            f" token-layers; argmax agrees on "
+            f"than on B7: {flips} of {n_tl} token-layers (per row "
+            f"{row_flips.tolist()}); argmax agrees on "
             f"{int((a.argmax(-1) == b.argmax(-1)).sum())} of {LM_BATCH} rows")
-    log("lm", f"teacher-forced plain expert path: prefill "
+    log(phase, f"teacher-forced plain expert path: prefill "
         f"{plain_secs['prefill'] * 1e3:.3f} ms, decode "
         f"{plain_secs['decode'] * 1e3 / n_dec:.3f} ms per step; worst "
         f"relative logit difference {worst:.3e} over all steps, "
         f"{worst_same_route:.3e} over the {alike} of {LM_GEN} steps routed "
-        f"alike in both runs (limit {LM_LOGIT_TOL} on those)")
+        f"alike in both runs (limit {LM_LOGIT_TOL} on those); token-layers "
+        f"routed to another expert {flipped} of {token_layers} "
+        f"({flipped / token_layers:.3e})")
     if not alike or worst_same_route > LM_LOGIT_TOL:
         raise AssertionError(f"B7 and the plain expert path disagree on a "
                              f"step routed alike: {worst_same_route:.3e} > "
@@ -3471,12 +3553,19 @@ def phase_lm_serve(cfg) -> int:
         _, cache = prefill_step(model, {"tokens": prompts})
         state["cache"] = pad_cache(cache, LM_PROMPT + LM_GEN)
 
-    profile_lm("prefill", run_prefill)
-    profile_lm("decode step", lambda: serve_step(model, dict(
-        tokens=tokens[:, :1], cache=state["cache"], cache_index=LM_PROMPT)))
+    profile_lm(f"{cfg.name} prefill", run_prefill, phase)
+    profile_lm(f"{cfg.name} decode step", lambda: serve_step(model, dict(
+        tokens=tokens[:, :1], cache=state["cache"], cache_index=LM_PROMPT)),
+        phase)
     del model, state
     torch.cuda.empty_cache()
-    return counts["moe_gmm"]
+    return dict(launches=counts["moe_gmm"], tokens=tokens.cpu(),
+                weight_bytes=n_bytes, prefill_ms=served["prefill_ms"],
+                decode_ms=served["decode_ms"],
+                peak_bytes=served["peak_bytes"], steps_alike=alike,
+                flipped_token_layers=flipped, token_layers=token_layers,
+                b7_ffn_calls=len(layer_err), b7_ffn_max_err=max(layer_err),
+                worst_same_route=worst_same_route)
 
 
 def gmm_bound(s: dict) -> tuple:
@@ -3491,9 +3580,23 @@ def gmm_bound(s: dict) -> tuple:
 
 
 def phase_lm_timing(cfg, launches: int, errors: dict) -> dict:
-    """B7 at its two serve shapes in bf16 (CUDA events, 20 launches) beside
-    its bound, itself with every tile on one expert, its plain version and
-    torch.bmm over (E, capacity, K)."""
+    """B7's kernels-line entry: its times at ``cfg``'s two serve shapes
+    (:func:`b7_serve_rows`), the prefill gate product's as the entry's."""
+    rows = b7_serve_rows(cfg)
+    main_row = rows["prefill gate"]
+    return dict(name="moe_gmm", route="cuda", **KERNELS["moe_gmm"],
+                launches=launches, max_abs_err=errors["moe_gmm"],
+                ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+                bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+                library_ms=main_row["library_ms"], shape=main_row["shape"],
+                one_expert_ms=main_row["one_expert_ms"],
+                decode=rows["decode down"])
+
+
+def b7_serve_rows(cfg, phase: str = "timing") -> dict:
+    """B7 at ``cfg``'s two serve shapes in bf16 (CUDA events, 20 launches)
+    beside its bound, itself with every tile on one expert, its plain
+    version and torch.bmm over (E, capacity, K)."""
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.ref import moe_gmm_ref
     rows = {}
@@ -3519,7 +3622,7 @@ def phase_lm_timing(cfg, launches: int, errors: dict) -> dict:
                           one_expert_ms=one_expert_ms,
                           shape=f"{s['m']} x {s['k']} -> {s['n']}, t_tile "
                                 f"{s['t_tile']}, {e} experts, bf16")
-        log("timing", f"moe_gmm {name} ({rows[name]['shape']}): {ms:.4f} ms "
+        log(phase, f"moe_gmm {name} ({rows[name]['shape']}): {ms:.4f} ms "
             f"(bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of "
             f"it; {2.0 * s['m'] * s['k'] * s['n'] / ms / 1e9:.1f} TFLOP/s); "
             f"every tile on expert 0 "
@@ -3527,22 +3630,16 @@ def phase_lm_timing(cfg, launches: int, errors: dict) -> dict:
             f"torch.bmm {library_ms:.4f} ms ({ms / library_ms:.2f}x)")
         del x, w, xb
         torch.cuda.empty_cache()
-    main_row = rows["prefill gate"]
-    return dict(name="moe_gmm", route="cuda", **KERNELS["moe_gmm"],
-                launches=launches, max_abs_err=errors["moe_gmm"],
-                ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-                bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-                library_ms=main_row["library_ms"], shape=main_row["shape"],
-                one_expert_ms=main_row["one_expert_ms"],
-                decode=rows["decode down"])
+    return rows
 
 
 def phase_lm(errors: dict) -> dict:
     from repro_torch.configs.base import get_config
     cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
     phase_lm_kernels(cfg, errors)
-    launches = phase_lm_serve(cfg)
-    return phase_lm_timing(cfg, launches, errors)
+    served = phase_lm_serve(cfg)
+    LM_SERVED["tokens"] = served["tokens"]
+    return phase_lm_timing(cfg, served["launches"], errors)
 
 
 # ----------------------------------------------------------------------------
@@ -4106,19 +4203,22 @@ def attention_flops(S: int, H: int, hd: int, backward: bool) -> float:
     return fwd * (1 + 5 / 2) if backward else fwd
 
 
-def flash_check(dtype, g, errors: dict) -> dict:
-    """15a at FLASH_GEOM in one dtype: output and gradients against
-    autograd through dense_attention, a second backward bit-identical,
-    CUDA-event times beside SDPA's on the same tensors."""
+def flash_check(dtype, g, errors: dict, geom: dict = FLASH_GEOM,
+                label: str = "15a", hold: bool = True) -> dict:
+    """Flash at ``geom`` (B, S, H, hd, chunk, and KV heads, H by default;
+    q grouped (B, S, KV, H / KV, hd)) in one dtype: output and gradients
+    against autograd through dense_attention (held within the dtype's
+    tolerance where ``hold``, else measured), a second backward
+    bit-identical, CUDA-event times beside SDPA's on the same tensors."""
     import torch.nn.functional as F
     from repro_torch.models.flash import flash_attention
     from repro_torch.models.layers import dense_attention
-    B, S, H, hd, chunk = (FLASH_GEOM[k] for k in ("B", "S", "H", "hd",
-                                                  "chunk"))
+    B, S, H, hd, chunk = (geom[k] for k in ("B", "S", "H", "hd", "chunk"))
+    KV = geom.get("KV", H)
     name = "fp32" if dtype == torch.float32 else "bf16"
     q, k, v, dout = (torch.randn(shape, generator=g, device="cuda").to(dtype)
-                     for shape in ((B, S, H, 1, hd), (B, S, H, hd),
-                                   (B, S, H, hd), (B, S, H, 1, hd)))
+                     for shape in ((B, S, KV, H // KV, hd), (B, S, KV, hd),
+                                   (B, S, KV, hd), (B, S, KV, H // KV, hd)))
     tol = FLASH_FP32_TOL if dtype == torch.float32 else LONG_TOL
 
     def grads(fn):
@@ -4128,31 +4228,34 @@ def flash_check(dtype, g, errors: dict) -> dict:
 
     def dense(a, b, c):
         return dense_attention(a.reshape(B, S, H, hd), b, c).reshape(
-            B, S, H, 1, hd)
+            B, S, KV, H // KV, hd)
 
     got = grads(lambda a, b, c: flash_attention(a, b, c, chunk))
     want = grads(dense)
-    errs = {}
-    for label, a, b in zip(("out", "dq", "dk", "dv"), got, want):
-        ok, err, _ = within(a, b, tol)
-        errs[label] = err
-        if not ok:
-            raise AssertionError(f"15a flash {name} {label}: max abs err "
+    errs, shares = {}, {}
+    for part, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        ok, err, shares[part] = within(a, b, tol)
+        errs[part] = err
+        if hold and not ok:
+            raise AssertionError(f"{label} flash {name} {part}: max abs err "
                                  f"{err:.3e} against dense beyond {tol}")
     ts = [t.clone().requires_grad_() for t in (q, k, v)]
     out = flash_attention(*ts, chunk)
     first = torch.autograd.grad(out, ts, dout, retain_graph=True)
     second = torch.autograd.grad(out, ts, dout)
     if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError(f"15a flash {name}: a second backward differs")
+        raise AssertionError(f"{label} flash {name}: a second backward "
+                             f"differs")
     del got, want, first, second, out, ts
     torch.cuda.empty_cache()
 
     # times: the forward alone, forward + backward, beside SDPA on the same
     # tensors in its (B, H, S, hd) layout; and the host's time to issue one
     # forward (the pair loop's launches), against its device time
-    qs, ks, vs, ds = (t.reshape(B, S, H, hd).transpose(1, 2)
-                      for t in (q, k, v, dout))
+    qs, ds = (t.reshape(B, S, H, hd).transpose(1, 2) for t in (q, dout))
+    ks, vs = (t.transpose(1, 2) for t in (k, v))
+    # KV heads shared by H / KV query heads: SDPA's own grouped form
+    gqa = {"enable_gqa": True} if KV != H else {}
 
     def fwd_bwd(fn, d, *args):
         args = [a.detach().requires_grad_() for a in args]
@@ -4161,7 +4264,7 @@ def flash_check(dtype, g, errors: dict) -> dict:
     with torch.no_grad():
         row = {"fwd_ms": time_ms(lambda: flash_attention(q, k, v, chunk)),
                "sdpa_fwd_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                   qs, ks, vs, is_causal=True))}
+                   qs, ks, vs, is_causal=True, **gqa))}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         flash_attention(q, k, v, chunk)
@@ -4171,19 +4274,24 @@ def flash_check(dtype, g, errors: dict) -> dict:
         lambda a, b, c: flash_attention(a, b, c, chunk), dout, q, k, v))
     row["sdpa_fwd_bwd_ms"] = time_ms(lambda: fwd_bwd(
         lambda a, b, c: F.scaled_dot_product_attention(a, b, c,
-                                                       is_causal=True),
+                                                       is_causal=True, **gqa),
         ds, qs, ks, vs))
     peak = 989e12 if dtype == torch.bfloat16 else 67e12
-    row["bound_fwd_ms"] = bound(4 * B * S * H * hd * q.element_size(),
+    # q, k, v and out once (backward: q, k, v, out, dout read, dq, dk, dv
+    # written)
+    row["bound_fwd_ms"] = bound(2 * (H + KV) * B * S * hd * q.element_size(),
                                 attention_flops(S, H, hd, False), peak)[0]
-    row["bound_fwd_bwd_ms"] = bound(8 * B * S * H * hd * q.element_size(),
-                                    attention_flops(S, H, hd, True), peak)[0]
-    row["max_abs_err"] = errs
-    errors.setdefault("flash", {})[name] = errs
-    log("long", f"15a flash {name} at B {B}, S {S}, H {H} (KV {H}), hd {hd},"
-        f" chunk {chunk}: max abs err against autograd through dense "
+    row["bound_fwd_bwd_ms"] = bound(
+        4 * (H + KV) * B * S * hd * q.element_size(),
+        attention_flops(S, H, hd, True), peak)[0]
+    row["max_abs_err"], row["share_of_tol"] = errs, shares
+    errors.setdefault("flash", {})[f"{label} {name}"] = errs
+    log("long", f"{label} flash {name} at B {B}, S {S}, H {H} (KV {KV}), hd "
+        f"{hd}, chunk {chunk}: max abs err against autograd through dense "
         f"{', '.join(f'{k} {e:.3e}' for k, e in errs.items())} (rtol "
-        f"{tol['rtol']}, atol {tol['atol']}); a second backward "
+        f"{tol['rtol']}, atol {tol['atol']}; worst share of it "
+        f"{max(shares.values()):.3f}, {'held' if hold else 'measured'}); a "
+        f"second backward "
         f"bit-identical; forward {row['fwd_ms']:.3f} ms (host issue "
         f"{host_ms:.3f} ms), forward + backward {row['fwd_bwd_ms']:.3f} ms;"
         f" SDPA (is_causal) {row['sdpa_fwd_ms']:.3f} / "
@@ -4191,6 +4299,72 @@ def flash_check(dtype, g, errors: dict) -> dict:
         f" {row['bound_fwd_bwd_ms']:.4f} ms (CUDA events over "
         f"{TIMED_LAUNCHES} runs)")
     return row
+
+
+def flash_vs_oracle(g, geom: dict, label: str) -> dict:
+    """Flash in float32 at ``geom`` (flash_check's geometry) against causal
+    attention computed in float64 on the same inputs (its scores, softmax
+    and autograd in float64): the output and dq, dk, dv within
+    FLASH_FP32_TOL; dense_attention's float32 distance from the same
+    oracle logged beside flash's.  dk and dv sum over a group's heads, so
+    at large groups float32's own summation error is a fair share of the
+    tolerance, and the oracle, not dense_attention's float32, is the
+    reference."""
+    from repro_torch.models.flash import flash_attention
+    from repro_torch.models.layers import dense_attention
+    B, S, H, hd, chunk = (geom[k] for k in ("B", "S", "H", "hd", "chunk"))
+    KV = geom.get("KV", H)
+    G = H // KV
+    q, k, v, dout = (torch.randn(shape, generator=g, device="cuda")
+                     for shape in ((B, S, KV, G, hd), (B, S, KV, hd),
+                                   (B, S, KV, hd), (B, S, KV, G, hd)))
+
+    def grads(fn, dtype):
+        ts = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+        out = fn(*ts)
+        return (out.detach(), *torch.autograd.grad(out, ts, dout.to(dtype)))
+
+    def oracle(a, b, c):
+        s = torch.einsum("bqkgh,bskh->bkgqs", a, b) / hd ** 0.5
+        causal = torch.ones(S, S, dtype=torch.bool, device=a.device).tril()
+        p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+        return torch.einsum("bkgqs,bskh->bqkgh", p, c)
+
+    def dense(a, b, c):
+        return dense_attention(a.reshape(B, S, H, hd), b, c).reshape(
+            B, S, KV, G, hd)
+
+    want = grads(oracle, torch.float64)
+    torch.cuda.empty_cache()
+    row = {}
+    for name, fn in (("flash", lambda a, b, c: flash_attention(a, b, c,
+                                                                chunk)),
+                     ("dense", dense)):
+        got = grads(fn, torch.float32)
+        row[name] = {part: within(a.double(), b, FLASH_FP32_TOL)
+                     for part, a, b in zip(("out", "dq", "dk", "dv"), got,
+                                           want)}
+        del got
+        torch.cuda.empty_cache()
+    log("long", f"{label} flash fp32 at B {B}, S {S}, H {H} (KV {KV}), hd "
+        f"{hd}, chunk {chunk} against float64 attention: max abs err "
+        + ", ".join(f"{p} {e:.3e}" for p, (_, e, _) in row["flash"].items())
+        + f" (rtol {FLASH_FP32_TOL['rtol']}, atol {FLASH_FP32_TOL['atol']};"
+        f" worst share of it {max(r for _, _, r in row['flash'].values()):.3f}"
+        f", held); dense_attention in float32: "
+        + ", ".join(f"{p} {e:.3e}" for p, (_, e, _) in row["dense"].items())
+        + f" (worst share {max(r for _, _, r in row['dense'].values()):.3f},"
+        f" measured)")
+    for part, (ok, err, _) in row["flash"].items():
+        if not ok:
+            raise AssertionError(f"{label} flash fp32 {part}: max abs err "
+                                 f"{err:.3e} against float64 attention "
+                                 f"beyond {FLASH_FP32_TOL}")
+    del want
+    torch.cuda.empty_cache()
+    return {name: {part: dict(max_abs_err=err, share_of_tol=share)
+                   for part, (_, err, share) in parts.items()}
+            for name, parts in row.items()}
 
 
 def flash_memory(g) -> dict:
@@ -4252,23 +4426,24 @@ def long_model(arch: str):
 
 
 def check_decode_against_train(label: str, cfg, params, seed: int,
-                               hold: bool) -> dict:
-    """A LONG_CHECK-token prefill and LONG_STEPS decode steps (the tokens
+                               hold: bool, prompt: int = LONG_CHECK,
+                               phase: str = "long") -> dict:
+    """A ``prompt``-token prefill and LONG_STEPS decode steps (the tokens
     that follow in the sequence), each step's logits against
-    forward_train's at its position over LONG_CHECK + 512 tokens: within
+    forward_train's at its position over ``prompt`` + 512 tokens: within
     LONG_TOL where ``hold`` (the float32 model), else measured (bf16: the
     decode step rounds to bf16 where the chunked scan does not, in the
     reference as here, so the two drift apart with depth)."""
     from repro_torch.launch.serve import pad_cache
     from repro_torch.models import transformer as T
     dtype = str(next(params.parameters()).dtype).split(".")[1]
-    tokens = seeded_tokens(cfg.vocab_size, LONG_CHECK + 512, seed)
-    logits, cache = T.prefill(cfg, params, {"tokens": tokens[:, :LONG_CHECK]})
+    tokens = seeded_tokens(cfg.vocab_size, prompt + 512, seed)
+    logits, cache = T.prefill(cfg, params, {"tokens": tokens[:, :prompt]})
     state = {k: v.numel() * v.element_size() for k, v in cache.items()}
     steps = [logits[:, -1]]
-    cache = pad_cache(cache, LONG_CHECK + LONG_STEPS)
+    cache = pad_cache(cache, prompt + LONG_STEPS)
     for i in range(LONG_STEPS):
-        pos = LONG_CHECK + i
+        pos = prompt + i
         logits, cache = T.decode_step(cfg, params, dict(
             tokens=tokens[:, pos:pos + 1], cache=cache, cache_index=pos))
         cache.pop("index")
@@ -4278,20 +4453,20 @@ def check_decode_against_train(label: str, cfg, params, seed: int,
         full, _ = T.forward_train(cfg, params, {"tokens": tokens})
     errs, ratios = [], []
     for i, got in enumerate(steps):
-        ok, err, ratio = within(got, full[:, LONG_CHECK - 1 + i], LONG_TOL)
+        ok, err, ratio = within(got, full[:, prompt - 1 + i], LONG_TOL)
         errs.append(err)
         ratios.append(ratio)
         if hold and not ok:
             raise AssertionError(f"{label} {dtype}: position "
-                                 f"{LONG_CHECK - 1 + i}'s logits differ from "
+                                 f"{prompt - 1 + i}'s logits differ from "
                                  f"forward_train's by {err:.3e} (beyond "
                                  f"{LONG_TOL})")
-    std = float(full[:, LONG_CHECK - 1:].float().std())
+    std = float(full[:, prompt - 1:].float().std())
     del full
     torch.cuda.empty_cache()
-    log("long", f"{label} {dtype}: prefill of {LONG_CHECK} tokens and "
+    log(phase, f"{label} {dtype}: prefill of {prompt} tokens and "
         f"{LONG_STEPS} decode steps against forward_train over "
-        f"{LONG_CHECK + 512}: max abs err per position "
+        f"{prompt + 512}: max abs err per position "
         f"{[f'{e:.2e}' for e in errs]}, worst share of the limit 2e-2 + "
         f"2e-2 |x| {max(ratios):.3f} ({'held' if hold else 'measured'}; "
         f"the logits' std {std:.3f}); cache bytes after the prefill {state}")
@@ -6255,6 +6430,344 @@ def phase_life_trace() -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# 21. the published configurations no earlier phase runs on the card
+# ----------------------------------------------------------------------------
+
+#: kimi-k2-1t-a32b (served at the depth the card holds: its dense first
+#: layer and one MoE layer), then the dense configurations at full depth,
+#: each with the seed of its CONFIG_CHECK-token prefill + decode check
+CONFIG_MOE = "kimi-k2-1t-a32b"
+CONFIG_DENSE = (("granite-34b", 81), ("stablelm-12b", 83),
+                ("deepseek-7b", 85))
+#: the prefill + decode check: a prompt past layers.BLOCK_THRESHOLD, so the
+#: prefill runs flash; held within LONG_TOL on a float32 copy of the first
+#: CONFIG_FP32_LAYERS layers, measured in bf16 at full depth (a bf16 decode
+#: step rounds where the forward does not, and the two drift with depth)
+CONFIG_CHECK, CONFIG_FP32_LAYERS = 2048, 4
+#: device memory kept free beside a model's reckoned footprint
+CONFIG_RESERVE_BYTES = 4 * 2**30
+#: granite-34b trained at the trainer's defaults but the learning rate,
+#: cut to the deepest stack whose weights, optimizer state, batch and
+#: traced peak stay within CONFIG_TRAIN_BUDGET.  Over the 3 steps (a
+#: warmup of 2) its loss rose at every rate from the CLI's 3e-3 down to
+#: 3e-5 and fell at 1e-5 and 3e-6 (tools/granite_lr_sweep.py)
+CONFIG_TRAIN_ARCH, CONFIG_TRAIN_BUDGET, CONFIG_TRAIN_STEPS = (
+    "granite-34b", 70e9, 3)
+CONFIG_TRAIN_LR = 1e-5
+#: flash at the configurations' attention geometries (S 4,096)
+CONFIG_FLASH = {
+    "kimi-k2-1t-a32b": dict(B=1, S=4096, H=64, KV=8, hd=112, chunk=512),
+    "stablelm-12b": dict(B=1, S=4096, H=32, KV=8, hd=160, chunk=512),
+    "granite-34b": dict(B=1, S=4096, H=48, KV=1, hd=128, chunk=512),
+}
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a nest of dicts, lists and tuples."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(t) for t in tree)
+    return 0
+
+
+def config_footprint(cfg, kind: str, seq: int, batch: int, opt=None) -> dict:
+    """One ``kind`` step of ``batch`` x ``seq`` on one device as the dry run
+    reckons it (``launch.dryrun.trace_step`` on tensors without data): the
+    trace's peak temp bytes, the arguments' bytes (the weights, the batch,
+    and for train the optimizer state) and the largest parameter's float32
+    draw, which ``init_params`` holds beside the weights drawn before it."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as ST
+    opt = opt or D.opt_for(cfg)
+    cost = D.trace_step(cfg, kind, seq, batch, None, opt)
+    model, state = ST.abstract_state(cfg, opt)
+    params = list(model.parameters())
+    weights = tensor_bytes(params)
+    args = weights + tensor_bytes(D.step_batch(cfg, None, kind, seq, batch))
+    if kind == "train":
+        args += tensor_bytes(state)
+    draw = 4 * max(p.numel() for p in params)
+    return dict(layers=cfg.n_layers, weights=weights, args=args,
+                temp=cost.peak_temp_bytes, total=args + cost.peak_temp_bytes,
+                draw=draw, need=max(args + cost.peak_temp_bytes,
+                                    weights + draw),
+                trace_seconds=cost.seconds)
+
+
+def card_room() -> int:
+    """Bytes the card can still allocate, less CONFIG_RESERVE_BYTES."""
+    return (torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
+            - torch.cuda.memory_allocated() - CONFIG_RESERVE_BYTES)
+
+
+def config_depth(arch: str) -> tuple:
+    """``arch``'s configuration at the deepest stack whose serving step
+    (LM_BATCH x LM_PROMPT prefill) and weight draws fit the card by the
+    dry run's reckoning (:func:`config_footprint`), and that footprint;
+    an MoE model keeps at least one MoE layer after its dense ones."""
+    from repro_torch.configs.base import get_config
+    full = get_config(arch)
+    room = card_room()
+    es = full.torch_dtype.itemsize
+    least = full.first_k_dense + 1
+    n = full.n_layers
+    # weights alone (the analytic count) first: no trace of a stack that
+    # cannot fit
+    while n > least and dataclasses.replace(
+            full, n_layers=n).param_count() * es > room:
+        n -= 1
+    refused = None
+    while True:
+        cfg = dataclasses.replace(full, n_layers=n)
+        fp = config_footprint(cfg, "prefill", LM_PROMPT, LM_BATCH)
+        if fp["need"] <= room or n == least:
+            break
+        refused, n = fp, n - 1
+    gb = 1e9
+    log("configs", f"{arch}: trace of a {LM_BATCH} x {LM_PROMPT} prefill on "
+        f"one device at {n} of {full.n_layers} layers: temp "
+        f"{fp['temp'] / gb:.3f} GB + arguments {fp['args'] / gb:.3f} GB = "
+        f"{fp['total'] / gb:.3f} GB; the largest weight's float32 draw "
+        f"{fp['draw'] / gb:.3f} GB beside the weights; the card holds "
+        f"{room / gb:.3f} GB ({CONFIG_RESERVE_BYTES / 2**30:.0f} GiB kept "
+        f"free); trace {fp['trace_seconds']:.2f} s"
+        + ("" if refused is None else
+           f"; cut: {refused['layers']} layers would need "
+           f"{refused['need'] / gb:.3f} GB (weights "
+           f"{refused['weights'] / gb:.3f} GB + the float32 draw "
+           f"{refused['draw'] / gb:.3f} GB)"))
+    if fp["need"] > room:
+        raise AssertionError(f"21 {arch}: {n} layers need "
+                             f"{fp['need'] / gb:.3f} GB of {room / gb:.3f}")
+    return cfg, fp
+
+
+def peak_beside_trace(arch: str, fp: dict, peak: int) -> dict:
+    """The measured peak of allocated memory beside the trace's weights +
+    arguments + temp."""
+    rel = (peak - fp["total"]) / fp["total"]
+    log("configs", f"{arch}: measured peak {peak} B ({peak / 1e9:.3f} GB) "
+        f"beside the trace's {fp['total']:.0f} B ({fp['total'] / 1e9:.3f} "
+        f"GB): {rel:+.4f} relative")
+    return dict(traced_bytes=fp["total"], traced_temp_bytes=fp["temp"],
+                measured_peak_bytes=peak, peak_rel=rel)
+
+
+def check_normal_init_bits() -> None:
+    """``normal_init`` on the card gives the bits of the float32-scaled
+    formula it replaced, ``(randn * scale).to(dtype)``."""
+    from repro_torch.models import layers as L
+    shape, scale = (384, 256, 512), (2.0 / (256 + 512)) ** 0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        got = L.normal_init(torch.Generator(device="cuda").manual_seed(5),
+                            shape, scale, dtype, "cuda")
+        want = (torch.randn(shape, generator=torch.Generator(
+            device="cuda").manual_seed(5), device="cuda") * scale).to(dtype)
+        if not torch.equal(got, want):
+            raise AssertionError(f"21 normal_init {dtype}: not the bits of "
+                                 f"the scaled copy")
+    log("configs", f"normal_init on the card equals (randn * scale).to(dtype)"
+        f" bit for bit at {shape} in float32 and bfloat16")
+
+
+def phase_configs_moe() -> dict:
+    """21a: kimi-k2 at the depth the card holds, served on B7 as phase 7
+    serves phi3.5-moe (B7's launches, B7 on the path's own activations,
+    the plain expert path), then B7 timed at its two serve shapes."""
+    cfg, fp = config_depth(CONFIG_MOE)
+    served = phase_lm_serve(cfg, "configs")
+    row = dict(layers=cfg.n_layers, weight_gb=served["weight_bytes"] / 1e9,
+               **peak_beside_trace(CONFIG_MOE, fp, served["peak_bytes"]),
+               **{k: served[k] for k in (
+                   "launches", "prefill_ms", "decode_ms", "steps_alike",
+                   "flipped_token_layers", "token_layers", "b7_ffn_calls",
+                   "b7_ffn_max_err", "worst_same_route")})
+    row["b7"] = b7_serve_rows(cfg, "configs")
+    return row
+
+
+def profile_decode(cfg, model, served: dict, phase: str) -> None:
+    """profile_lm of one decode step after the served prompts' prefill."""
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    _, cache = make_prefill(cfg)(model, {"tokens": served["prompts"]})
+    cache = pad_cache(cache, LM_PROMPT + LM_GEN)
+    serve_step = make_serve_step(cfg)
+    profile_lm(f"{cfg.name} decode step", lambda: serve_step(model, dict(
+        tokens=served["tokens"][:, :1], cache=cache, cache_index=LM_PROMPT)),
+        phase)
+    del cache
+    torch.cuda.empty_cache()
+
+
+def phase_configs_dense(arch: str, seed: int) -> dict:
+    """21b/d/e: a dense configuration at the depth the card holds, bf16:
+    LM_BATCH x LM_PROMPT + LM_GEN through generate, a CONFIG_CHECK-token
+    prefill (flash in every layer) and LONG_STEPS decode steps against
+    forward_train, measured; the same check held within LONG_TOL on a
+    float32 copy of the first CONFIG_FP32_LAYERS layers."""
+    from repro_torch.models import layers as L
+    cfg, fp = config_depth(arch)
+    model, n_bytes = seeded_model(cfg, "configs")
+    served = serve_batch(cfg, model, "configs")
+    profile_decode(cfg, model, served, "configs")
+    calls, flash = [], L.flash_attention
+    L.flash_attention = lambda *a: (calls.append(a[0].shape[-1]), flash(*a))[1]
+    try:
+        bf16 = check_decode_against_train(f"21 {arch}", cfg, model, seed,
+                                          hold=False, prompt=CONFIG_CHECK,
+                                          phase="configs")
+    finally:
+        L.flash_attention = flash
+    # the prefill and forward_train each run flash once a layer
+    want = 2 * cfg.n_layers
+    log("configs", f"21 {arch}: flash calls in the check {len(calls)} "
+        f"(expected {want}), head_dim {sorted(set(calls))}")
+    if len(calls) != want or set(calls) != {cfg.resolved_head_dim}:
+        raise AssertionError(f"21 {arch}: {len(calls)} flash calls at "
+                             f"head_dim {sorted(set(calls))}")
+    del model
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, n_layers=CONFIG_FP32_LAYERS)
+    small, _ = seeded_model(cut, "configs")
+    fp32 = check_decode_against_train(
+        f"21 {arch} first {CONFIG_FP32_LAYERS} layers", cut, small.float(),
+        seed, hold=True, prompt=CONFIG_CHECK, phase="configs")
+    del small
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, weight_gb=n_bytes / 1e9,
+                **peak_beside_trace(arch, fp, served["peak_bytes"]),
+                prefill_ms=served["prefill_ms"],
+                decode_ms=served["decode_ms"], decode_check_bf16=bf16,
+                decode_check_fp32=fp32)
+
+
+def phase_configs_train() -> dict:
+    """21c: granite-34b through the trainer at its defaults but the
+    learning rate (CONFIG_TRAIN_LR), cut to the deepest stack within
+    CONFIG_TRAIN_BUDGET by the trace (:func:`config_footprint`): the losses
+    finite and falling, step 0's batch's loss lower after the run than
+    before it (each step draws another batch), the weights moved, the
+    peak memory beside
+    the trace's; that loss's backward: the learned position table's
+    gradient nonzero on every row the batch reads and zero past the
+    sequence, the multi-query wk's and wv's nonzero."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import synth_batch_for
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    argv = ["--arch", CONFIG_TRAIN_ARCH, "--steps", str(CONFIG_TRAIN_STEPS),
+            "--lr", str(CONFIG_TRAIN_LR)]
+    args = train.parse_args(argv)
+    opt = train.cli_opt(args)
+    full = get_config(CONFIG_TRAIN_ARCH)
+    # 12 B a parameter: bf16 weights and gradients, float32 moments
+    n = full.n_layers
+    while n > 1 and dataclasses.replace(
+            full, n_layers=n).param_count() * 12 > CONFIG_TRAIN_BUDGET:
+        n -= 1
+    while True:
+        fp = config_footprint(dataclasses.replace(full, n_layers=n), "train",
+                              args.seq_len, args.global_batch, opt)
+        if fp["total"] <= CONFIG_TRAIN_BUDGET or n == 1:
+            break
+        n -= 1
+    log("configs", f"21c {CONFIG_TRAIN_ARCH} training at {n} of "
+        f"{full.n_layers} layers ({args.global_batch} x {args.seq_len}, the "
+        f"trainer's defaults, --lr {args.lr}): trace of a step, temp "
+        f"{fp['temp'] / 1e9:.3f} GB + weights, optimizer state and batch "
+        f"{fp['args'] / 1e9:.3f} GB = {fp['total'] / 1e9:.3f} GB (budget "
+        f"{CONFIG_TRAIN_BUDGET / 1e9:.0f} GB"
+        + (f"; {n + 1} layers exceed it)" if n < full.n_layers else ")"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.main(argv + ["--layers", str(n)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = run.losses
+    # LayerNorm's bias starts at 0, where bf16 resolves a step of ~lr
+    # (the scale's 1 + lr rounds back to 1)
+    moved = bool((run.params.final_norm.bias != 0).any())
+    med = float(np.median(run.step_ms[1:]))
+    batch = synth_batch_for(run.cfg, run.data, 0, device="cuda")
+    p = run.params
+    attn = p.layers[0].attn
+    loss, _ = T.loss_fn(run.cfg, p, batch)
+    after = float(loss)
+    log("configs", f"21c {CONFIG_TRAIN_STEPS} steps in {wall:.1f} s (init "
+        f"included): losses {[round(x, 4) for x in losses]}; step 0's batch "
+        f"{losses[0]:.4f} before, {after:.4f} after; step ms (CUDA events) "
+        f"{[round(x, 3) for x in run.step_ms]}; peak memory {peak} B "
+        f"({peak / 1e9:.3f} GB) beside the trace's {fp['total']:.0f} B "
+        f"({(peak - fp['total']) / fp['total']:+.4f}); final_norm's bias "
+        f"moved: {moved}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and after < losses[0] and moved):
+        raise AssertionError(f"21c: losses {losses}, step 0's batch after "
+                             f"{after}, parameters moved {moved}")
+    gp, gk, gv = torch.autograd.grad(loss, [p.pos_embed, attn.wk, attn.wv])
+    S = batch["tokens"].shape[1]
+    read = int((gp[:S] != 0).any(dim=1).sum())
+    past = int(gp[S:].count_nonzero())
+    nz_k, nz_v = int(gk.count_nonzero()), int(gv.count_nonzero())
+    log("configs", f"21c that loss's backward: pos_embed's gradient nonzero "
+        f"on {read} of the {S} rows the batch reads, {past} nonzero "
+        f"elements in the {gp.shape[0] - S} rows past it; layer 0's wk "
+        f"{tuple(gk.shape)} and wv {tuple(gv.shape)} (one KV head) nonzero "
+        f"elements {nz_k} / {nz_v}")
+    if read != S or past or not nz_k or not nz_v:
+        raise AssertionError(f"21c: pos_embed's gradient on {read} of {S} "
+                             f"rows read and {past} elements past them; wk "
+                             f"{nz_k}, wv {nz_v} nonzero")
+    del run, batch, p, attn, loss, gp, gk, gv
+    torch.cuda.empty_cache()
+    return dict(layers=n, seq=args.seq_len, batch=args.global_batch,
+                lr=args.lr, traced_bytes=fp["total"],
+                measured_peak_bytes=peak, losses=losses,
+                step0_batch_after=after, step_ms=med, pos_rows_read=read)
+
+
+def phase_configs(errors: dict) -> dict:
+    """21: the published configurations that no other phase runs on the
+    card, in bf16 at their widths, seeded weights drawn on the card, each
+    freed before the next: kimi-k2 (21a), granite-34b served (21b) and
+    trained (21c), stablelm-12b (21d), deepseek-7b (21e), and flash at
+    their attention geometries (21f)."""
+    t = [time.perf_counter()]
+    check_normal_init_bits()
+    log("configs", f"phase 21 starts with {torch.cuda.memory_allocated()} B "
+        f"allocated, {card_room() / 1e9:.3f} GB to use")
+    out = {"models": {CONFIG_MOE: phase_configs_moe()}}
+    t.append(time.perf_counter())
+    (granite, gseed), *rest = CONFIG_DENSE
+    out["models"][granite] = phase_configs_dense(granite, gseed)
+    t.append(time.perf_counter())
+    out["train"] = phase_configs_train()
+    t.append(time.perf_counter())
+    for arch, seed in rest:
+        out["models"][arch] = phase_configs_dense(arch, seed)
+        t.append(time.perf_counter())
+    # held in float32 against float64 attention; bf16 measured and timed:
+    # at these groups the bf16 gradients of dense_attention itself lie
+    # beyond LONG_TOL of float32's (tools/flash_bf16_groups.py)
+    g = torch.Generator(device="cuda").manual_seed(90)
+    out["flash"] = {arch: {
+        "fp32": flash_vs_oracle(g, geom, f"21 {arch}"),
+        "bf16": flash_check(torch.bfloat16, g, errors, geom, f"21 {arch}",
+                            hold=False)} for arch, geom in CONFIG_FLASH.items()}
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    secs = [b - a for a, b in zip(t, t[1:])]
+    out["seconds"] = dict(zip("abcdef", secs))
+    log("configs", f"phase 21 took {t[-1] - t[0]:.1f} s: "
+        + ", ".join(f"21{k} {v:.1f} s" for k, v in out["seconds"].items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -6322,6 +6835,11 @@ def main() -> int:
     examples = phase_examples(stn96)
     trace = phase_trace()
     life_trace = phase_life_trace()
+    configs = phase_configs(errors)
+    b7.update(configs_launches=configs["models"][CONFIG_MOE]["launches"],
+              launches=b7["launches"]
+              + configs["models"][CONFIG_MOE]["launches"],
+              configs=configs["models"][CONFIG_MOE]["b7"])
     for e in entries:
         if e["name"] in examples["serve_life"]["launches"]:
             e["examples_launches"] = examples["serve_life"]["launches"][
@@ -6335,6 +6853,7 @@ def main() -> int:
     print(json.dumps({"examples": examples}))
     print(json.dumps({"trace": trace}))
     print(json.dumps({"life_trace": life_trace}))
+    print(json.dumps({"configs": configs}))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

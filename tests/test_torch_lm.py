@@ -4,7 +4,9 @@ The reference's parameters (made with ``jax.random``) cross into the port
 through ``repro_torch.bridge.lm_params_from_reference``; inputs are made
 with numpy.  On ``reduced(phi3.5-moe)`` in float32 the layers, the MoE
 layer (with and without capacity drops), prefill and greedy decode match
-the reference within 1e-4 and choose the same tokens.
+the reference within 1e-4 and choose the same tokens; prefill and decode
+also on variants that keep kimi-k2's, granite-34b's, stablelm-12b's and
+deepseek-7b's routing and head shapes (:data:`PREFILL_VARIANTS`).
 """
 import dataclasses
 import io
@@ -141,6 +143,23 @@ def test_init_params_is_seeded_and_shaped():
         assert torch.equal(p, q), name
         assert tuple(p.shape) == np.asarray(_leaf(jparams, name)).shape, name
     assert len(a.layers) == cfg.n_layers and not a.prefix
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_normal_init_equals_the_scaled_float32_draws(dtype):
+    """``normal_init`` scales its float32 draws in place: the same bits as
+    scaling a copy, ``(randn * scale).to(dtype)``, for the same seed."""
+    shape, scale = (3, 257, 96), (2.0 / (257 + 96)) ** 0.5
+    got = L.normal_init(torch.Generator().manual_seed(11), shape, scale,
+                        dtype, "cpu")
+    want = (torch.randn(shape, generator=torch.Generator().manual_seed(11),
+                        dtype=torch.float32) * scale).to(dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(L.dense_init(torch.Generator().manual_seed(4), 96, 40,
+                                    dtype, "cpu"),
+                       (torch.randn((96, 40), generator=torch.Generator()
+                                    .manual_seed(4)) * (2.0 / 136) ** 0.5
+                        ).to(dtype))
 
 
 # ----------------------------------------------------------------------------
@@ -314,15 +333,34 @@ def _pad(cache, s_max):
                           (0, 0), (0, 0))) for k, v in cache.items()}
 
 
-@pytest.mark.parametrize("variant", ["reduced", "first_k_dense",
-                                     "capacity_1.25"])
+#: variants of ``reduced()``: (architecture, fields replaced).  The last four
+#: keep what ``reduced()`` erases from the published configurations: kimi-k2's
+#: top-8 routing over 32 experts with a shared expert and a dense first
+#: layer, its capacity factor and head_dim 28 (for 112) under GQA 32/4;
+#: granite's multi-query attention, learned positions, LayerNorm and GELU;
+#: stablelm's head_dim 40 (for 160) under GQA 8/2; deepseek's full MHA at
+#: head_dim 28
+PREFILL_VARIANTS = {
+    "reduced": (ARCH, {}),
+    "first_k_dense": (ARCH, {"first_k_dense": 1}),
+    "capacity_1.25": (ARCH, {"capacity_factor": 1.25}),
+    "kimi-k2": ("kimi-k2-1t-a32b", dict(
+        d_model=896, n_heads=32, n_kv_heads=4, head_dim=28, d_ff=64,
+        n_experts=32, top_k=8, moe_d_ff=32, capacity_factor=1.25)),
+    "granite-34b": ("granite-34b", dict(d_model=128, head_dim=32)),
+    "stablelm-12b": ("stablelm-12b", dict(d_model=320, n_heads=8,
+                                          n_kv_heads=2, head_dim=40)),
+    "deepseek-7b": ("deepseek-7b", dict(d_model=112, head_dim=28)),
+}
+
+
+@pytest.mark.parametrize("variant", list(PREFILL_VARIANTS))
 def test_prefill_and_decode_match_reference(variant):
     """Prefill logits and cache, then 8 greedy decode steps: the same
     tokens, logits within 1e-4 (float32)."""
-    kw = {"reduced": {}, "first_k_dense": {"first_k_dense": 1},
-          "capacity_1.25": {"capacity_factor": 1.25}}[variant]
-    jcfg = dataclasses.replace(jbase.reduced(jbase.get_config(ARCH)), **kw)
-    cfg = dataclasses.replace(base.reduced(base.get_config(ARCH)), **kw)
+    arch, kw = PREFILL_VARIANTS[variant]
+    jcfg = dataclasses.replace(jbase.reduced(jbase.get_config(arch)), **kw)
+    cfg = dataclasses.replace(base.reduced(base.get_config(arch)), **kw)
     params = JT.init_params(jcfg, jax.random.PRNGKey(0))
     model = lm_params_from_reference(_np_tree(params), cfg, device="cpu")
     B, P, n_steps = 2, 12, 8

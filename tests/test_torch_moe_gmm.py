@@ -64,6 +64,29 @@ def test_bf16_matches_reference_kernel(E, d, f, tiles, t_tile, f_tile):
                                np.asarray(want.astype(jnp.float32)), **BF16)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("tiles_per_expert", [7, 1])
+def test_plain_version_matches_reference_kernel_at_384_experts(
+        tiles_per_expert, dtype):
+    """kimi-k2's expert layouts at small K and N: 384 experts of 8-row
+    tiles, 7 tiles each (capacity 56 at a 4 x 512 prefill: 2,688 tiles) or
+    1 (capacity 8 at decode), expert-sorted."""
+    E, d, f, t_tile = 384, 16, 24, 8
+    x, w, _ = _inputs(E, d, f, E * tiles_per_expert, t_tile, tiles_per_expert)
+    eot = np.repeat(np.arange(E, dtype=np.int32), tiles_per_expert)
+    jx, jw = jnp.asarray(x), jnp.asarray(w)
+    tx, tw = torch.tensor(x), torch.tensor(w)
+    if dtype == "bf16":
+        jx, jw = jx.astype(jnp.bfloat16), jw.astype(jnp.bfloat16)
+        tx, tw = tx.bfloat16(), tw.bfloat16()
+    want = jmoe_gmm(jnp.asarray(eot), jx, jw, t_tile=t_tile, f_tile=f,
+                    interpret=True)
+    got = moe_gmm(torch.tensor(eot), tx, tw, t_tile=t_tile, f_tile=f)
+    np.testing.assert_allclose(to_numpy(got),
+                               np.asarray(want.astype(jnp.float32)),
+                               **(FP32 if dtype == "fp32" else BF16))
+
+
 def test_plain_version_matches_reference_oracle():
     """The run-by-run loop equals the reference's gather oracle, on
     non-monotone ids with runs of equal experts."""
