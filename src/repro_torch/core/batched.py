@@ -48,7 +48,6 @@ the unplaced solve's up to the order of the partial sums.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,7 +62,8 @@ from repro_torch.core.sbbnnls import (SbbnnlsState, batched_init,
                                       batched_steps)
 from repro_torch.core.std import PhiTensor
 from repro_torch.data.dmri import LifeProblem
-from repro_torch.device import DeviceLike, fence, resolve_device
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.ops import tensor_bytes
 
 # executor name -> (dsc sort dim or None, wc sort dim or None, dsc fn, wc fn)
 _BATCH_RECIPES = {
@@ -91,12 +91,16 @@ def _pad_sorted(phi: PhiTensor, nc_max: int, sort_dim: Optional[str],
         fill = dim_last[dim] if (keep_sorted and dim == sort_dim) else 0
         return torch.cat([arr, arr.new_full((pad,), fill)])
 
-    return dataclasses.replace(
-        phi,
-        atoms=pad_idx(phi.atoms, "atom"),
-        voxels=pad_idx(phi.voxels, "voxel"),
-        fibers=pad_idx(phi.fibers, "fiber"),
-        values=torch.cat([phi.values, phi.values.new_zeros((pad,))]))
+    with obs.span("build.upload") as sp:
+        out = dataclasses.replace(
+            phi,
+            atoms=pad_idx(phi.atoms, "atom"),
+            voxels=pad_idx(phi.voxels, "voxel"),
+            fibers=pad_idx(phi.fibers, "fiber"),
+            values=torch.cat([phi.values, phi.values.new_zeros((pad,))]))
+        sp.set_attr("bytes", tensor_bytes(
+            out.atoms, out.voxels, out.fibers, out.values))
+    return out
 
 
 def _stack_phis(phis: Sequence[PhiTensor]) -> PhiTensor:
@@ -105,13 +109,19 @@ def _stack_phis(phis: Sequence[PhiTensor]) -> PhiTensor:
     ``s * Nf + f`` (atoms index the shared dictionary)."""
     p0 = phis[0]
     nv, nf = p0.n_voxels, p0.n_fibers
-    return dataclasses.replace(
-        p0,
-        atoms=torch.cat([p.atoms for p in phis]),
-        voxels=torch.cat([p.voxels + s * nv for s, p in enumerate(phis)]),
-        fibers=torch.cat([p.fibers + s * nf for s, p in enumerate(phis)]),
-        values=torch.cat([p.values for p in phis]),
-        n_voxels=len(phis) * nv, n_fibers=len(phis) * nf)
+    with obs.span("build.upload") as sp:
+        out = dataclasses.replace(
+            p0,
+            atoms=torch.cat([p.atoms for p in phis]),
+            voxels=torch.cat([p.voxels + s * nv
+                              for s, p in enumerate(phis)]),
+            fibers=torch.cat([p.fibers + s * nf
+                              for s, p in enumerate(phis)]),
+            values=torch.cat([p.values for p in phis]),
+            n_voxels=len(phis) * nv, n_fibers=len(phis) * nf)
+        sp.set_attr("bytes", tensor_bytes(
+            out.atoms, out.voxels, out.fibers, out.values))
+    return out
 
 
 def _slots(phi: PhiTensor, a: int, b: int) -> PhiTensor:
@@ -266,7 +276,15 @@ class BatchedLifeEngine:
         return self.tune_plan.compute_dtype
 
     def _build(self) -> None:
-        t0 = time.perf_counter()
+        with obs.timed("engine.build", {
+                "executor": self.config.executor,
+                "format": getattr(self.config, "format", "coo"),
+                "n_coeffs": sum(p.phi.n_coeffs for p in self.problems),
+                "subjects": self.n_subjects}) as sp:
+            self._build_operands()
+        self.inspector_seconds += sp.duration_s
+
+    def _build_operands(self) -> None:
         self._compute_dtype = self._resolve_tuning()
         dsc_dim, wc_dim, dsc_fn, wc_fn = self._resolve_recipe()
         nc_max = max(p.phi.n_coeffs for p in self.problems)
@@ -309,7 +327,6 @@ class BatchedLifeEngine:
             self._matvec, self._rmatvec = _ops(self.phi_dsc, self.phi_wc,
                                                dsc_fn, wc_fn, d,
                                                self.n_subjects)
-        self.inspector_seconds += time.perf_counter() - t0
 
     def _held_subjects(self) -> Sequence[int]:
         """The subjects the mesh rows of this process's cells solve: a row's
@@ -430,20 +447,16 @@ class BatchedLifeEngine:
         restored from a checkpoint keep their own Barzilai-Borwein parity
         and chained calls match one uninterrupted run exactly.  Returns
         (states, ``(S, k)`` loss trace on the device).  While
-        observability is on, the ``engine.step`` span and histogram time
-        the call between two fences of the card."""
+        observability is on, the ``engine.step`` span and histogram take
+        the call's device seconds (:func:`repro_torch.obs.timed_step`)."""
         if not obs.SWITCH.on:
             return self._steps(states, k)
-        with obs.span("engine.step", {"executor": self.config.executor,
-                                      "batched": self.n_subjects, "k": k}):
-            fence(self.device)
-            t0 = time.perf_counter()
-            new, losses = self._steps(states, k)
-            fence(self.device)
-            obs.histogram("engine.step.seconds",
-                          executor=self.config.executor).observe(
-                time.perf_counter() - t0)
-        return new, losses
+        with obs.timed_step(self.device, {"executor": self.config.executor,
+                                          "batched": self.n_subjects,
+                                          "k": k},
+                            obs.histogram("engine.step.seconds",
+                                          executor=self.config.executor)):
+            return self._steps(states, k)
 
     def _steps(self, states: SbbnnlsState, k: int):
         if self.mesh is not None:

@@ -22,15 +22,17 @@ solver state (and so its iteration parity).
 executor (``tune/tuner.py``; ``compute_dtype="auto"`` is its searched
 dtype axis).
 
-Observability (:mod:`repro_torch.obs`), the reference's instruments: the
-``engine.build.seconds`` histogram per build, and per stepped call the
+Observability (:mod:`repro_torch.obs`), the reference's instruments: per
+build the ``engine.build`` span (the set-up's ``build.*`` spans nest in
+it) and the ``engine.build.seconds`` histogram, and per stepped call the
 ``engine.step`` span, the ``engine.step.seconds`` histogram and the
 ``engine.roofline.fraction`` / ``engine.achieved_bandwidth.gbps`` gauges.
 The bytes behind the gauges are the SpMVs' compulsory bytes
 (:mod:`repro_torch.roofline.spmv_bytes`), not a count from compiled code.
-While observability is on, a step fences the card before and after its
-launches, so the timed window ends when the device work does; while it is
-off, a step neither synchronizes nor allocates for the instruments.
+A step's seconds are the device's, from a CUDA event pair that nothing
+waits for (:func:`repro_torch.obs.timed_step`); the histogram and gauges
+take them once the card has passed the step.  While observability is
+off, a step neither records events nor allocates for the instruments.
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ from repro_torch.core.sbbnnls import (SbbnnlsState, nnls_loss, sbbnnls_init,
                                       sbbnnls_steps)
 from repro_torch.core.std import PhiTensor
 from repro_torch.data.dmri import LifeProblem
-from repro_torch.device import DeviceLike, fence, resolve_device
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.tune.tuner import validate_config as validate_tuning
 
 EXECUTORS = REGISTRY.names()          # public alias; registry is the truth
@@ -156,28 +158,30 @@ class LifeEngine:
 
     # -- inspector ----------------------------------------------------------
     def _build(self, phi: PhiTensor) -> None:
-        t0 = time.perf_counter()
-        self.phi = phi
-        if self.config.format == "coo":
-            name = self.config.executor
-            if self.config.shard_rows * self.config.shard_cols > 1:
-                # a multi-cell mesh request wins: route through the
-                # mesh-aware mapping (-> "shard") rather than run the
-                # configured executor on one device
-                from repro_torch.formats import select as fsel
-                name = fsel.executor_for("coo", self.config)
-            self.executor: Executor = REGISTRY.create(
-                name, phi, self.problem, self.config, self.cache)
-        else:
-            # "sell" / "fcoo" / "alto" run that layout's executor; "auto"
-            # selects per dataset (FormatPlan-cached)
-            self.executor = create_for_format(phi, self.problem, self.config,
-                                              self.cache)
+        with obs.timed("engine.build", {"format": self.config.format,
+                                        "n_coeffs": phi.n_coeffs,
+                                        "subjects": 1}) as sp:
+            self.phi = phi
+            if self.config.format == "coo":
+                name = self.config.executor
+                if self.config.shard_rows * self.config.shard_cols > 1:
+                    # a multi-cell mesh request wins: route through the
+                    # mesh-aware mapping (-> "shard") rather than run the
+                    # configured executor on one device
+                    from repro_torch.formats import select as fsel
+                    name = fsel.executor_for("coo", self.config)
+                self.executor: Executor = REGISTRY.create(
+                    name, phi, self.problem, self.config, self.cache)
+            else:
+                # "sell" / "fcoo" / "alto" run that layout's executor;
+                # "auto" selects per dataset (FormatPlan-cached)
+                self.executor = create_for_format(phi, self.problem,
+                                                  self.config, self.cache)
+            sp.set_attr("executor", self.executor.name)
         self.matvec = self.executor.matvec
         self.rmatvec = self.executor.rmatvec
-        dt = time.perf_counter() - t0
-        self.inspector_seconds += dt
-        obs.histogram("engine.build.seconds").observe(dt)
+        self.inspector_seconds += sp.duration_s
+        obs.histogram("engine.build.seconds").observe(sp.duration_s)
         # held instruments for the step loop (no-ops while disabled); the
         # byte count is dropped here because compaction rebinds the SpMVs
         # over a smaller Phi
@@ -246,34 +250,31 @@ class LifeEngine:
         if not obs.SWITCH.on:
             return sbbnnls_steps(self.matvec, self.rmatvec, self.problem.b,
                                  state, k)
-        with obs.span("engine.step", {"executor": self.executor.name,
-                                      "format": self.config.format,
-                                      "k": k}) as sp:
-            fence(self.device)
-            t0 = time.perf_counter()
-            new, ls = sbbnnls_steps(self.matvec, self.rmatvec,
-                                    self.problem.b, state, k)
-            fence(self.device)
-            dt = time.perf_counter() - t0
-            self._h_step.observe(dt)
-            self._annotate_roofline(sp, k, dt)
-        return new, ls
+        # the bytes and gauges of this build: a compaction may rebind them
+        # before the step's device seconds are known
+        step_bytes = self._op_bytes_per_iter() * k
+        g_bw, g_frac = self._g_bw, self._g_frac
 
-    def _annotate_roofline(self, sp, k: int, dt: float) -> None:
-        """Set the achieved-bandwidth gauges and span attributes (obs on
-        only): the weighted compulsory bytes of an iteration times ``k``
-        over the step's seconds, against the card's HBM rate."""
-        if dt <= 0.0:
-            return
-        from repro_torch.roofline.analysis import HW
-        bytes_per_iter = self._op_bytes_per_iter()
-        achieved = bytes_per_iter * k / dt
-        frac = achieved / HW["hbm_bw"]
-        self._g_bw.set(achieved / 1e9)
-        self._g_frac.set(frac)
-        sp.set_attr("bytes_accessed", bytes_per_iter * k)
-        sp.set_attr("achieved_gbps", achieved / 1e9)
-        sp.set_attr("roofline_fraction", frac)
+        def annotate(sp, dt: float) -> None:
+            """The achieved-bandwidth gauges and span attributes: the
+            weighted compulsory bytes of the step over its device
+            seconds, against the card's HBM rate."""
+            if dt <= 0.0:
+                return
+            from repro_torch.roofline.analysis import HW
+            achieved = step_bytes / dt
+            frac = achieved / HW["hbm_bw"]
+            g_bw.set(achieved / 1e9)
+            g_frac.set(frac)
+            sp.set_attr("bytes_accessed", step_bytes)
+            sp.set_attr("achieved_gbps", achieved / 1e9)
+            sp.set_attr("roofline_fraction", frac)
+
+        with obs.timed_step(self.device, {"executor": self.executor.name,
+                                          "format": self.config.format,
+                                          "k": k}, self._h_step, annotate):
+            return sbbnnls_steps(self.matvec, self.rmatvec, self.problem.b,
+                                 state, k)
 
     def _op_bytes_per_iter(self) -> float:
         """Weighted compulsory bytes of one SBBNNLS iteration over the

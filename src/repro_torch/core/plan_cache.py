@@ -24,7 +24,8 @@ package's ``get_shard_plan`` parses the other's entry.
 
 :class:`CacheStats` counts every lookup; while observability is on each
 lookup also counts in ``plan_cache.lookups{kind, outcome}`` (kinds
-``tile``, ``spmv``, ``tune``, ``format``, ``shard``, as in the reference).
+``tile``, ``spmv``, ``tune``, ``format``, ``shard``, as in the reference),
+and each key's digest is a ``plan_cache.key`` span of the same kind.
 """
 from __future__ import annotations
 
@@ -66,27 +67,39 @@ def default_max_bytes() -> Optional[int]:
         return None
 
 
+def _digest(kind: str, header, arrays) -> str:
+    """SHA-256 of the ``header`` byte strings, then of each index array as
+    contiguous int64, inside a ``plan_cache.key`` span (``kind``, bytes
+    hashed)."""
+    with obs.span("plan_cache.key", {"kind": kind}) as sp:
+        h = hashlib.sha256()
+        n = 0
+        for part in header:
+            h.update(part)
+            n += len(part)
+        for arr in arrays:
+            h.update(np.ascontiguousarray(arr, np.int64).tobytes())
+            n += 8 * np.size(arr)
+        sp.set_attr("bytes", n)
+        return h.hexdigest()
+
+
 def tile_plan_key(sorted_ids: np.ndarray, n_rows: int, *, c_tile: int,
                   row_tile: int, backend: str) -> str:
     """Digest of the exact inspector inputs: sorted output-index content,
     row count, tile geometry and the backend (``cpu`` / ``cuda``)."""
-    h = hashlib.sha256()
-    h.update(b"tile-plan-v%d:" % _FORMAT_VERSION + backend.encode())
-    h.update(np.int64([n_rows, c_tile, row_tile]).tobytes())
-    h.update(np.ascontiguousarray(sorted_ids, np.int64).tobytes())
-    return h.hexdigest()
+    return _digest("tile", [
+        b"tile-plan-v%d:" % _FORMAT_VERSION + backend.encode(),
+        np.int64([n_rows, c_tile, row_tile]).tobytes()], [sorted_ids])
 
 
 def spmv_plan_key(op: str, atoms: np.ndarray, voxels: np.ndarray,
                   fibers: np.ndarray, *, backend: str) -> str:
     """Digest for an autotuned SpmvPlan: the op, the backend and the full
     index content (the measured outcome depends on all three vectors)."""
-    h = hashlib.sha256()
-    h.update(b"spmv-plan-v%d:" % _FORMAT_VERSION + op.encode()
-             + b":" + backend.encode())
-    for arr in (atoms, voxels, fibers):
-        h.update(np.ascontiguousarray(arr, np.int64).tobytes())
-    return h.hexdigest()
+    return _digest("spmv", [
+        b"spmv-plan-v%d:" % _FORMAT_VERSION + op.encode() + b":"
+        + backend.encode()], [atoms, voxels, fibers])
 
 
 def format_plan_key(atoms: np.ndarray, voxels: np.ndarray, fibers: np.ndarray,
@@ -99,15 +112,13 @@ def format_plan_key(atoms: np.ndarray, voxels: np.ndarray, fibers: np.ndarray,
     coo candidate on (the reference's key has no executor: its measured
     rung times jnp code for every candidate).  Versioned by
     ``formats.base.FORMAT_VERSION``."""
-    h = hashlib.sha256()
-    h.update(b"format-plan-v%d.%d:" % (_FORMAT_VERSION, _PHI_FORMAT_VERSION)
-             + backend.encode() + b":" + coo_executor.encode() + b":")
-    h.update(",".join(sorted(allowed)).encode())
-    h.update(np.float64([sell_accept, sell_reject]).tobytes())
-    h.update(np.int64(list(sizes) + [row_tile, slot_tile]).tobytes())
-    for arr in (atoms, voxels, fibers):
-        h.update(np.ascontiguousarray(arr, np.int64).tobytes())
-    return h.hexdigest()
+    return _digest("format", [
+        b"format-plan-v%d.%d:" % (_FORMAT_VERSION, _PHI_FORMAT_VERSION)
+        + backend.encode() + b":" + coo_executor.encode() + b":",
+        ",".join(sorted(allowed)).encode(),
+        np.float64([sell_accept, sell_reject]).tobytes(),
+        np.int64(list(sizes) + [row_tile, slot_tile]).tobytes()],
+        [atoms, voxels, fibers])
 
 
 def tune_plan_key(atoms: np.ndarray, voxels: np.ndarray, fibers: np.ndarray,
@@ -124,15 +135,11 @@ def tune_plan_key(atoms: np.ndarray, voxels: np.ndarray, fibers: np.ndarray,
     in the key, not the resolved winner, so ``compute_dtype="auto"`` and
     an explicit "fp32" never share an entry.
     """
-    h = hashlib.sha256()
-    h.update(b"tune-plan-v%d:" % _FORMAT_VERSION)
-    h.update(("%s|%s|%s|%s" % (executor, fmt, backend, compute_dtype))
-             .encode())
-    h.update(np.int64(list(sizes) + [n_theta, n_devices, budget]
-                      + list(mesh)).tobytes())
-    for arr in (atoms, voxels, fibers):
-        h.update(np.ascontiguousarray(arr, np.int64).tobytes())
-    return h.hexdigest()
+    return _digest("tune", [
+        b"tune-plan-v%d:" % _FORMAT_VERSION,
+        ("%s|%s|%s|%s" % (executor, fmt, backend, compute_dtype)).encode(),
+        np.int64(list(sizes) + [n_theta, n_devices, budget]
+                 + list(mesh)).tobytes()], [atoms, voxels, fibers])
 
 
 def shard_plan_key(atoms: np.ndarray, voxels: np.ndarray, fibers: np.ndarray,
@@ -142,14 +149,12 @@ def shard_plan_key(atoms: np.ndarray, voxels: np.ndarray, fibers: np.ndarray,
     geometry (R x C), the per-cell layout the partition is materialized
     in, the backend and the device count the mesh is built over.  A plan
     written for one topology misses cleanly on another."""
-    h = hashlib.sha256()
-    h.update(b"shard-plan-v%d.%d:" % (_FORMAT_VERSION, _PHI_FORMAT_VERSION)
-             + backend.encode() + b":")
-    h.update(cell_format.encode())
-    h.update(np.int64(list(sizes) + [R, C, n_devices]).tobytes())
-    for arr in (atoms, voxels, fibers):
-        h.update(np.ascontiguousarray(arr, np.int64).tobytes())
-    return h.hexdigest()
+    return _digest("shard", [
+        b"shard-plan-v%d.%d:" % (_FORMAT_VERSION, _PHI_FORMAT_VERSION)
+        + backend.encode() + b":",
+        cell_format.encode(),
+        np.int64(list(sizes) + [R, C, n_devices]).tobytes()],
+        [atoms, voxels, fibers])
 
 
 @dataclasses.dataclass

@@ -49,6 +49,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import spmv
 from repro_torch.core.inspector import TilePlan, plan_tiles
 from repro_torch.core.plan_cache import (PlanCache, spmv_plan_key,
@@ -229,17 +230,28 @@ def planned_tiles(sorted_ids: np.ndarray, n_rows: int, *, c_tile: int,
 
 @REGISTRY.register("kernel")
 def _make_kernel(phi, problem, config, cache) -> Executor:
+    """Kernels B1/B2 over COO tiles.  Each op's tile plan is a
+    ``build.plan`` span, and its padding, ``1 - Nc / (n_tiles * c_tile)``,
+    the gauge ``build.coo_tiles.padding_share{op}``."""
     from repro_torch.kernels import ops as kops
     d = problem.dictionary
     backend = phi.device.type
     phi_v, _ = sort_by_host(phi, "voxel")
     phi_w, _ = sort_by_host(phi, "fiber")
-    dsc_plan = planned_tiles(phi_v.voxels.cpu().numpy(), phi.n_voxels,
-                             c_tile=config.c_tile, row_tile=config.row_tile,
-                             cache=cache, backend=backend)
-    wc_plan = planned_tiles(phi_w.fibers.cpu().numpy(), phi.n_fibers,
-                            c_tile=config.c_tile, row_tile=config.row_tile,
-                            cache=cache, backend=backend)
+
+    def plan(op: str, sorted_ids: torch.Tensor, n_rows: int) -> TilePlan:
+        with obs.span("build.plan", {"op": op}) as sp:
+            tiles = planned_tiles(sorted_ids.cpu().numpy(), n_rows,
+                                  c_tile=config.c_tile,
+                                  row_tile=config.row_tile, cache=cache,
+                                  backend=backend)
+            sp.set_attr("n_tiles", tiles.n_tiles)
+        obs.gauge("build.coo_tiles.padding_share", op=op).set(
+            1.0 - tiles.n_coeffs / tiles.n_padded)
+        return tiles
+
+    dsc_plan = plan("dsc", phi_v.voxels, phi.n_voxels)
+    wc_plan = plan("wc", phi_w.fibers, phi.n_fibers)
     cd = config.compute_dtype
     return Executor(
         name="kernel",

@@ -23,6 +23,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.std import PhiTensor
 
 SORT_DIMS = ("atom", "voxel", "fiber")
@@ -43,10 +44,13 @@ def sort_by_host(phi: PhiTensor, dim: str) -> Tuple[PhiTensor, np.ndarray]:
     """Stable host (numpy) sort along one indirection dimension.
 
     Returns (restructured phi, permutation); the permutation is kept so
-    plans can be cached and replayed."""
-    key = {"atom": phi.atoms, "voxel": phi.voxels, "fiber": phi.fibers}[dim]
-    order = np.argsort(key.cpu().numpy(), kind="stable")
-    return phi.take(order), order
+    plans can be cached and replayed.  A ``build.sort`` span covers the
+    sort and the ``take`` that applies it."""
+    with obs.span("build.sort", {"dim": dim, "n_coeffs": phi.n_coeffs}):
+        key = {"atom": phi.atoms, "voxel": phi.voxels,
+               "fiber": phi.fibers}[dim]
+        order = np.argsort(key.cpu().numpy(), kind="stable")
+        return phi.take(order), order
 
 
 def segment_starts(sorted_ids: np.ndarray) -> np.ndarray:

@@ -28,7 +28,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 def fence(device: torch.device) -> None:
     """Wait for the work queued on ``device`` (nothing to wait for on the
-    CPU).  The instrumented step loops fence only while observability is
-    on, so their timed windows end when the device work does."""
+    CPU): a host clock read after it has seen the device work end."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -18,6 +18,7 @@ from typing import ClassVar, Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.bridge import to_numpy
 from repro_torch.core.std import PhiTensor
 from repro_torch.formats.base import register_format
@@ -61,19 +62,25 @@ class AltoPhi:
     # -- encode / decode ------------------------------------------------------
     @classmethod
     def encode(cls, phi: PhiTensor, *, op: str = "dsc", **_params) -> "AltoPhi":
+        """Interleave each coefficient's indices (a ``build.encode``
+        span)."""
         bits = _mode_bits(phi.n_atoms, phi.n_voxels, phi.n_fibers)
         if sum(bits) > 64:
             raise ValueError(
                 f"mode sizes need {sum(bits)} bits, uint64 has 64")
         pos = _interleave_positions(bits)
-        lin = np.zeros(phi.n_coeffs, np.uint64)
-        for mode, idx in zip(MODES, (phi.atoms, phi.voxels, phi.fibers)):
-            idx64 = to_numpy(idx).astype(np.uint64)
-            for k, p in enumerate(pos[mode]):
-                lin |= ((idx64 >> np.uint64(k)) & np.uint64(1)) << np.uint64(p)
-        return cls(lin=lin, values=to_numpy(phi.values).copy(),
-                   n_atoms=phi.n_atoms, n_voxels=phi.n_voxels,
-                   n_fibers=phi.n_fibers, device=str(phi.device))
+        with obs.span("build.encode", {"format": cls.name,
+                                       "n_coeffs": phi.n_coeffs}):
+            lin = np.zeros(phi.n_coeffs, np.uint64)
+            for mode, idx in zip(MODES, (phi.atoms, phi.voxels,
+                                         phi.fibers)):
+                idx64 = to_numpy(idx).astype(np.uint64)
+                for k, p in enumerate(pos[mode]):
+                    lin |= (((idx64 >> np.uint64(k)) & np.uint64(1))
+                            << np.uint64(p))
+            return cls(lin=lin, values=to_numpy(phi.values).copy(),
+                       n_atoms=phi.n_atoms, n_voxels=phi.n_voxels,
+                       n_fibers=phi.n_fibers, device=str(phi.device))
 
     def _extract_mode(self, mode: str) -> np.ndarray:
         """De-interleave one mode's coordinate from the linearized index."""
@@ -96,10 +103,12 @@ class AltoPhi:
     # -- host-side restructuring ---------------------------------------------
     def sort(self) -> Tuple["AltoPhi", np.ndarray]:
         """Order by the linearized index (the ALTO locality order).
-        Returns (sorted AltoPhi, permutation)."""
-        order = np.argsort(self.lin, kind="stable")
-        return dataclasses.replace(
-            self, lin=self.lin[order], values=self.values[order]), order
+        Returns (sorted AltoPhi, permutation); a ``build.sort`` span."""
+        with obs.span("build.sort", {"dim": "alto",
+                                     "n_coeffs": self.n_coeffs}):
+            order = np.argsort(self.lin, kind="stable")
+            return dataclasses.replace(
+                self, lin=self.lin[order], values=self.values[order]), order
 
     def compact(self, keep: np.ndarray) -> "AltoPhi":
         """Drop coefficients where ``keep`` is False (weight compaction)."""

@@ -34,6 +34,7 @@ from typing import ClassVar, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.bridge import to_numpy
 from repro_torch.core.std import PhiTensor
 from repro_torch.formats.base import register_format
@@ -110,43 +111,59 @@ class FcooPhi:
     def encode(cls, phi: PhiTensor, *, op: str = "dsc",
                c_tile: int = DEFAULT_C_TILE,
                seg_tile: int = DEFAULT_SEG_TILE, **_params) -> "FcooPhi":
-        """Linearize once; ``op`` is ignored: one encode serves both ops."""
-        a = to_numpy(phi.atoms).astype(np.int64)
-        v = to_numpy(phi.voxels).astype(np.int64)
-        f = to_numpy(phi.fibers).astype(np.int64)
-        vals = to_numpy(phi.values)
-        nc = a.size
-        # total order up to identical triples: any input permutation of the
-        # coefficients linearizes to the same layout
-        order = np.lexsort((a, f, v))
-        ncp = -(-nc // c_tile) * c_tile
+        """Linearize once; ``op`` is ignored: one encode serves both ops.
 
-        def lay(x, fill):
-            out = np.empty(ncp, np.int32)
-            out[:nc] = x[order]
-            out[nc:] = fill
-            return out
+        A ``build.encode`` span; inside it, the ``lexsort`` and the
+        ``wc_perm`` argsort (each with the take that applies it) are
+        ``build.sort`` spans and the two segment maps ``build.plan``
+        spans."""
+        with obs.span("build.encode", {"format": cls.name,
+                                       "n_coeffs": phi.n_coeffs}):
+            a = to_numpy(phi.atoms).astype(np.int64)
+            v = to_numpy(phi.voxels).astype(np.int64)
+            f = to_numpy(phi.fibers).astype(np.int64)
+            vals = to_numpy(phi.values)
+            nc = a.size
+            ncp = -(-nc // c_tile) * c_tile
+            with obs.span("build.sort", {"dim": "voxel", "n_coeffs": nc}):
+                # total order up to identical triples: any input
+                # permutation of the coefficients linearizes to the same
+                # layout
+                order = np.lexsort((a, f, v))
 
-        atoms = lay(a, a[order[-1]] if nc else 0)
-        voxels = lay(v, v[order[-1]] if nc else 0)
-        fibers = lay(f, f[order[-1]] if nc else 0)
-        values = np.zeros(ncp, vals.dtype)
-        if nc:
-            values[:nc] = vals[order]
-        # fiber-major view over the SAME stream (stable: voxel-major within
-        # a fiber); padding slots repeat the last real fiber id, so they
-        # merge into its final segment and stay inert (value 0)
-        wc_perm = np.argsort(fibers, kind="stable").astype(np.int32)
-        seg_rows_dsc, dsc_ranks, _ = chunk_segment_map(
-            voxels, c_tile, seg_tile, phi.n_voxels)
-        seg_rows_wc, wc_ranks, _ = chunk_segment_map(
-            fibers[wc_perm], c_tile, seg_tile, phi.n_fibers)
-        return cls(atoms=atoms, voxels=voxels, fibers=fibers, values=values,
-                   wc_perm=wc_perm, dsc_ranks=dsc_ranks, wc_ranks=wc_ranks,
-                   seg_rows_dsc=seg_rows_dsc, seg_rows_wc=seg_rows_wc,
-                   c_tile=c_tile, seg_tile=seg_tile, n_coeffs=nc,
-                   n_atoms=phi.n_atoms, n_voxels=phi.n_voxels,
-                   n_fibers=phi.n_fibers, device=str(phi.device))
+                def lay(x, fill):
+                    out = np.empty(ncp, np.int32)
+                    out[:nc] = x[order]
+                    out[nc:] = fill
+                    return out
+
+                atoms = lay(a, a[order[-1]] if nc else 0)
+                voxels = lay(v, v[order[-1]] if nc else 0)
+                fibers = lay(f, f[order[-1]] if nc else 0)
+                values = np.zeros(ncp, vals.dtype)
+                if nc:
+                    values[:nc] = vals[order]
+            with obs.span("build.sort", {"dim": "fiber", "n_coeffs": nc}):
+                # fiber-major view over the SAME stream (stable:
+                # voxel-major within a fiber); padding slots repeat the
+                # last real fiber id, so they merge into its final segment
+                # and stay inert (value 0)
+                wc_perm = np.argsort(fibers, kind="stable").astype(np.int32)
+                wc_fibers = fibers[wc_perm]
+            n_tiles = ncp // c_tile
+            with obs.span("build.plan", {"op": "dsc", "n_tiles": n_tiles}):
+                seg_rows_dsc, dsc_ranks, _ = chunk_segment_map(
+                    voxels, c_tile, seg_tile, phi.n_voxels)
+            with obs.span("build.plan", {"op": "wc", "n_tiles": n_tiles}):
+                seg_rows_wc, wc_ranks, _ = chunk_segment_map(
+                    wc_fibers, c_tile, seg_tile, phi.n_fibers)
+            return cls(atoms=atoms, voxels=voxels, fibers=fibers,
+                       values=values, wc_perm=wc_perm, dsc_ranks=dsc_ranks,
+                       wc_ranks=wc_ranks, seg_rows_dsc=seg_rows_dsc,
+                       seg_rows_wc=seg_rows_wc, c_tile=c_tile,
+                       seg_tile=seg_tile, n_coeffs=nc, n_atoms=phi.n_atoms,
+                       n_voxels=phi.n_voxels, n_fibers=phi.n_fibers,
+                       device=str(phi.device))
 
     def decode(self) -> PhiTensor:
         nc = self.n_coeffs

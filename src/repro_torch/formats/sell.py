@@ -22,6 +22,7 @@ from typing import ClassVar
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.bridge import to_numpy
 from repro_torch.core.inspector import sell_geometry
 from repro_torch.core.std import PhiTensor
@@ -68,37 +69,47 @@ class SellPhi:
     def encode(cls, phi: PhiTensor, *, op: str = "dsc",
                row_tile: int = DEFAULT_ROW_TILE,
                slot_tile: int = DEFAULT_SLOT_TILE, **_params) -> "SellPhi":
-        out_dim, other_dim = _dims_for(op)
-        vec = {"atom": phi.atoms, "voxel": phi.voxels, "fiber": phi.fibers}
-        out_ids = to_numpy(vec[out_dim]).astype(np.int64)
-        n_rows = {"voxel": phi.n_voxels, "fiber": phi.n_fibers}[out_dim]
-        nc = out_ids.size
+        """Lay one op's coefficients out row by row: a ``build.encode``
+        span, whose argsort (with the take that applies it) is a
+        ``build.sort`` span."""
+        with obs.span("build.encode", {"format": cls.name, "op": op,
+                                       "n_coeffs": phi.n_coeffs}):
+            out_dim, other_dim = _dims_for(op)
+            vec = {"atom": phi.atoms, "voxel": phi.voxels,
+                   "fiber": phi.fibers}
+            out_ids = to_numpy(vec[out_dim]).astype(np.int64)
+            n_rows = {"voxel": phi.n_voxels, "fiber": phi.n_fibers}[out_dim]
+            nc = out_ids.size
 
-        order = np.argsort(out_ids, kind="stable")
-        out_sorted = out_ids[order]
-        row_nnz = np.bincount(out_sorted, minlength=n_rows).astype(np.int32)
-        max_nnz = int(row_nnz.max()) if nc else 0
-        width, n_rows_padded = sell_geometry(max_nnz, n_rows,
-                                             row_tile=row_tile,
-                                             slot_tile=slot_tile)
+            with obs.span("build.sort", {"dim": out_dim, "n_coeffs": nc}):
+                order = np.argsort(out_ids, kind="stable")
+                out_sorted = out_ids[order]
+            row_nnz = np.bincount(out_sorted,
+                                  minlength=n_rows).astype(np.int32)
+            max_nnz = int(row_nnz.max()) if nc else 0
+            width, n_rows_padded = sell_geometry(max_nnz, n_rows,
+                                                 row_tile=row_tile,
+                                                 slot_tile=slot_tile)
 
-        atoms = np.zeros((n_rows_padded, width), np.int32)
-        others = np.zeros((n_rows_padded, width), np.int32)
-        np_vals = to_numpy(phi.values)
-        values = np.zeros((n_rows_padded, width), np_vals.dtype)
-        if nc:
-            row_start = np.zeros(n_rows + 1, np.int64)
-            np.cumsum(row_nnz, out=row_start[1:])
-            slot = np.arange(nc) - row_start[out_sorted]      # pos within row
-            flat = out_sorted * width + slot
-            atoms.reshape(-1)[flat] = to_numpy(phi.atoms).astype(np.int32)[order]
-            others.reshape(-1)[flat] = to_numpy(vec[other_dim]).astype(
-                np.int32)[order]
-            values.reshape(-1)[flat] = np_vals[order]
-        return cls(op=op, atoms=atoms, others=others, values=values,
-                   row_nnz=row_nnz, row_tile=row_tile, slot_tile=slot_tile,
-                   n_atoms=phi.n_atoms, n_voxels=phi.n_voxels,
-                   n_fibers=phi.n_fibers, device=str(phi.device))
+            atoms = np.zeros((n_rows_padded, width), np.int32)
+            others = np.zeros((n_rows_padded, width), np.int32)
+            np_vals = to_numpy(phi.values)
+            values = np.zeros((n_rows_padded, width), np_vals.dtype)
+            if nc:
+                row_start = np.zeros(n_rows + 1, np.int64)
+                np.cumsum(row_nnz, out=row_start[1:])
+                slot = np.arange(nc) - row_start[out_sorted]  # pos in row
+                flat = out_sorted * width + slot
+                atoms.reshape(-1)[flat] = to_numpy(phi.atoms).astype(
+                    np.int32)[order]
+                others.reshape(-1)[flat] = to_numpy(vec[other_dim]).astype(
+                    np.int32)[order]
+                values.reshape(-1)[flat] = np_vals[order]
+            return cls(op=op, atoms=atoms, others=others, values=values,
+                       row_nnz=row_nnz, row_tile=row_tile,
+                       slot_tile=slot_tile, n_atoms=phi.n_atoms,
+                       n_voxels=phi.n_voxels, n_fibers=phi.n_fibers,
+                       device=str(phi.device))
 
     def decode(self) -> PhiTensor:
         out_dim, _ = _dims_for(self.op)

@@ -26,6 +26,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from repro_torch import obs
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -116,7 +118,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 
 def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if need be.
+    """The loaded library of kernel ``name``, built first if need be.  A
+    first load in the process is a ``kernels.load`` span (``name``, and
+    ``nvcc``: whether it compiled).
 
     ``signatures`` maps each C entry point to its ``argtypes`` (pointers
     and the stream as ``c_void_p``, sizes as ``c_int``); every entry point
@@ -124,12 +128,14 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     with _LIBS_LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            for fn_name, argtypes in signatures.items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            with obs.span("kernels.load", {"name": name}) as sp:
+                built = build([name])[name] > 0.0
+                sp.set_attr("nvcc", built)
+                lib = ctypes.CDLL(str(library_path(name)))
+                for fn_name, argtypes in signatures.items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _LIBS[name] = lib
     return lib
 

@@ -9,7 +9,8 @@ dynamic input is ``w`` / ``Y``, so the host-side planning is amortized over
 the solver's iterations.  :func:`sell_operands` and :func:`fcoo_operands`
 upload a SELL or F-COO layout once, and ``make_dsc_sell`` /
 ``make_wc_sell`` / ``make_fcoo_ops`` bind kernels B3–B6 to them the same
-way.
+way.  Each of the three uploads is a ``build.upload`` span holding the
+bytes it placed on the device.
 
 Four things of the reference do not carry over: the 128-lane padding of
 Ntheta, the ``_visited_mask`` (the kernels write every output row, zeros
@@ -33,11 +34,17 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.inspector import TilePlan
 from repro_torch.core.std import PhiTensor
 from repro_torch.kernels import dsc as dsc_kernel
 from repro_torch.kernels import fcoo as fcoo_kernel
 from repro_torch.kernels import wc as wc_kernel
+
+
+def tensor_bytes(*tensors: torch.Tensor) -> int:
+    """Bytes the tensors hold (the ``build.upload`` spans' attribute)."""
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def storage_cast(x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
@@ -91,26 +98,34 @@ def coo_tiles(phi_sorted: PhiTensor, plan: TilePlan, others: torch.Tensor,
     dev = phi_sorted.device
     n_tiles, c_tile = plan.n_tiles, plan.c_tile
     n_row_blocks = plan.n_rows_padded // plan.row_tile
-    # plan_tiles fills each tile from its head: the real coefficients are a
-    # prefix, the padding (sel == Nc) a suffix
-    sel_2d = np.asarray(plan.sel).reshape(n_tiles, c_tile)
-    tile_len = (sel_2d < plan.n_coeffs).sum(axis=1)
-    tile_ptr = np.searchsorted(row_block, np.arange(n_row_blocks + 1))
-    sel = torch.as_tensor(plan.sel, device=dev).long()
+    with obs.span("build.upload") as sp:
+        # plan_tiles fills each tile from its head: the real coefficients
+        # are a prefix, the padding (sel == Nc) a suffix
+        sel_2d = np.asarray(plan.sel).reshape(n_tiles, c_tile)
+        tile_len = (sel_2d < plan.n_coeffs).sum(axis=1)
+        tile_ptr = np.searchsorted(row_block, np.arange(n_row_blocks + 1))
+        sel = torch.as_tensor(plan.sel, device=dev).long()
 
-    def padded(a: torch.Tensor) -> torch.Tensor:
-        return torch.cat([a, a.new_zeros(1)])[sel].reshape(n_tiles, c_tile)
+        def padded(a: torch.Tensor) -> torch.Tensor:
+            return torch.cat([a, a.new_zeros(1)])[sel].reshape(n_tiles,
+                                                               c_tile)
 
-    def i32(a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=dev)
+        def i32(a) -> torch.Tensor:
+            return torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                   device=dev)
 
-    return CooTiles(
-        tile_ptr=i32(tile_ptr), tile_len=i32(tile_len),
-        atoms_p=padded(phi_sorted.atoms).int(),
-        others_p=padded(others).int(),
-        values_p=storage_cast(padded(phi_sorted.values), compute_dtype),
-        local_row_p=i32(np.asarray(plan.local_row).reshape(n_tiles, c_tile)),
-        row_tile=plan.row_tile, n_rows=n_rows)
+        tiles = CooTiles(
+            tile_ptr=i32(tile_ptr), tile_len=i32(tile_len),
+            atoms_p=padded(phi_sorted.atoms).int(),
+            others_p=padded(others).int(),
+            values_p=storage_cast(padded(phi_sorted.values), compute_dtype),
+            local_row_p=i32(np.asarray(plan.local_row).reshape(n_tiles,
+                                                               c_tile)),
+            row_tile=plan.row_tile, n_rows=n_rows)
+        sp.set_attr("bytes", tensor_bytes(tiles.tile_ptr, tiles.tile_len,
+                                     tiles.atoms_p, tiles.others_p,
+                                     tiles.values_p, tiles.local_row_p))
+    return tiles
 
 
 def make_dsc(phi_voxel_sorted: PhiTensor, dictionary: torch.Tensor,
@@ -165,15 +180,20 @@ class SellOperands:
 
 def sell_operands(sell, device, *, compute_dtype: str = "fp32"
                   ) -> SellOperands:
-    """Upload ``sell``'s slot arrays to ``device`` once; values in their
-    storage dtype."""
+    """Upload ``sell``'s slot arrays to ``device`` once (a
+    ``build.upload`` span); values in their storage dtype."""
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-    return SellOperands(
-        atoms=t(sell.atoms), others=t(sell.others),
-        values=storage_cast(t(sell.values), compute_dtype),
-        row_nnz=t(sell.row_nnz), row_tile=sell.row_tile, n_rows=sell.n_rows)
+    with obs.span("build.upload") as sp:
+        o = SellOperands(
+            atoms=t(sell.atoms), others=t(sell.others),
+            values=storage_cast(t(sell.values), compute_dtype),
+            row_nnz=t(sell.row_nnz), row_tile=sell.row_tile,
+            n_rows=sell.n_rows)
+        sp.set_attr("bytes", tensor_bytes(o.atoms, o.others, o.values,
+                                     o.row_nnz))
+    return o
 
 
 def make_dsc_sell(sell, dictionary: torch.Tensor, *,
@@ -242,25 +262,28 @@ class FcooOperands:
     def nbytes(self) -> int:
         """Bytes the card holds for the layout (``FcooPhi.nbytes`` counts
         the host encoding's nine arrays, as the reference does)."""
-        return sum(t.numel() * t.element_size()
-                   for t in (self.atoms, self.voxels, self.fibers,
-                             self.values, self.wc_perm, self.wc_fibers))
+        return tensor_bytes(self.atoms, self.voxels, self.fibers,
+                            self.values, self.wc_perm, self.wc_fibers)
 
 
 def fcoo_operands(fc, device, *, compute_dtype: str = "fp32"
                   ) -> FcooOperands:
-    """Upload ``fc`` to ``device`` once; values in their storage dtype."""
+    """Upload ``fc`` to ``device`` once (a ``build.upload`` span); values
+    in their storage dtype."""
     shape = (fc.n_chunks, fc.c_tile)
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a),
                                device=device).reshape(shape)
 
-    return FcooOperands(
-        atoms=t(fc.atoms), voxels=t(fc.voxels), fibers=t(fc.fibers),
-        values=storage_cast(t(fc.values), compute_dtype),
-        wc_perm=t(fc.wc_perm), wc_fibers=t(fc.fibers[fc.wc_perm]),
-        n_voxels=fc.n_voxels, n_fibers=fc.n_fibers)
+    with obs.span("build.upload") as sp:
+        o = FcooOperands(
+            atoms=t(fc.atoms), voxels=t(fc.voxels), fibers=t(fc.fibers),
+            values=storage_cast(t(fc.values), compute_dtype),
+            wc_perm=t(fc.wc_perm), wc_fibers=t(fc.fibers[fc.wc_perm]),
+            n_voxels=fc.n_voxels, n_fibers=fc.n_fibers)
+        sp.set_attr("bytes", o.nbytes)
+    return o
 
 
 def fcoo_dsc(o: FcooOperands, d: torch.Tensor,

@@ -8,7 +8,7 @@ allocation-free no-ops, so the scheduler, the plan cache, the tuner and
 the engines' step loops are instrumented unconditionally.
 
 Hot-path idiom: fetch instruments once, hold them, and guard any *extra*
-work (clock reads, device fences, byte counts) behind ``SWITCH.on``::
+work (clock reads, device events, byte counts) behind ``SWITCH.on``::
 
     from repro_torch import obs
 
@@ -20,7 +20,8 @@ work (clock reads, device fences, byte counts) behind ``SWITCH.on``::
             self._m_admitted.inc()          # no-op when disabled
 
 ``snapshot()`` serializes every instrument into the reference's
-``obs-1`` JSON structure.
+``obs-1`` JSON structure, once the device timings the tracer holds are
+resolved (:mod:`repro_torch.obs.step`).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from repro_torch.obs.metrics import (MetricsRegistry, quantile,  # noqa: F401
                                      snapshot_value)
 from repro_torch.obs.runtime import (SWITCH, disable, enable,  # noqa: F401
                                      enabled)
+from repro_torch.obs.step import timed_step  # noqa: F401
 from repro_torch.obs.trace import Tracer  # noqa: F401
 
 #: process-global instances: the ones the port instruments
@@ -41,6 +43,7 @@ histogram = METRICS.histogram
 value = METRICS.value
 total = METRICS.total
 span = TRACER.span
+timed = TRACER.timed
 
 
 def record_cache_stats(stats, prefix: str = "plan_cache") -> None:
@@ -58,7 +61,9 @@ def record_cache_stats(stats, prefix: str = "plan_cache") -> None:
 
 def snapshot() -> dict:
     """Serialize every metric (and the trace's accounting) to a JSON-ready
-    dict."""
+    dict, after resolving the held device timings (this may wait for the
+    card)."""
+    TRACER.flush()
     snap = METRICS.snapshot()
     snap["spans"] = dict(recorded=sum(1 for _ in _iter_spans()),
                          roots=len(TRACER.roots), dropped=TRACER.dropped)

@@ -6,12 +6,24 @@ Nesting follows ``with`` structure: the tracer keeps an open stack, a span
 entered while another is open becomes its child, and the roots form the
 trace.  The taxonomy is the reference's (``scheduler.tick`` >
 ``scheduler.slice`` > ``engine.step``; ``service.checkpoint``;
-``tune.search``; ``scheduler.quarantine``).
+``tune.search``; ``scheduler.quarantine``) plus the port's set-up:
+``engine.build`` > ``build.sort`` / ``build.plan`` (> ``plan_cache.key``)
+/ ``build.encode`` / ``build.upload``, and ``kernels.load`` where a
+kernel library is first loaded.
 
-A span reads the host clock.  Kernels launch asynchronously, so an
-instrumented caller that wants the span to cover device work fences it
-itself before the span closes (``engine.step`` synchronizes the card
-while observability is on).
+A span reads the host clock and never waits for the card: kernels
+launch asynchronously, so a span around launches covers launching them.
+Device time rides as an attribute resolved later: ``engine.step``
+(:mod:`repro_torch.obs.step`) records a CUDA event pair and hands it to
+:meth:`Tracer.defer`; a pair is resolved at the next step once the card
+has passed it (:meth:`Tracer.poll`), or at :meth:`Tracer.export` /
+``obs.snapshot()``, which wait for it (:meth:`Tracer.flush`).
+
+While a ``torch.profiler`` session is recording, every span also opens
+``torch.profiler.record_function`` under its own name, so the program's
+spans sit as ``user_annotation`` events on the profiler's clock beside
+the device operations.  The check for a session runs only while
+observability is on.
 
 Disabled-path contract: ``Tracer.span()`` returns a shared no-op context
 manager while the switch is off, so no span object is allocated.
@@ -26,9 +38,14 @@ events): timestamps and durations in microseconds, attributes in
 """
 from __future__ import annotations
 
+import collections
 import json
+import threading
 import time
 from typing import Dict, List, Optional
+
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
 
 from repro_torch.obs.runtime import SWITCH
 
@@ -37,7 +54,7 @@ class Span:
     """One timed interval; a context manager bound to its tracer."""
 
     __slots__ = ("name", "attrs", "start_ns", "end_ns", "children",
-                 "_tracer")
+                 "_tracer", "_range")
 
     def __init__(self, tracer: "Tracer", name: str,
                  attrs: Optional[Dict[str, object]] = None):
@@ -47,6 +64,7 @@ class Span:
         self.end_ns = 0
         self.children: List[Span] = []
         self._tracer = tracer
+        self._range = None
 
     def set_attr(self, key: str, value: object) -> None:
         """Attach a result computed inside the span (e.g. achieved GB/s)."""
@@ -58,11 +76,17 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._tracer._push(self)
+        if _profiler_enabled():
+            self._range = record_function(self.name)
+            self._range.__enter__()
         self.start_ns = time.monotonic_ns()
         return self
 
     def __exit__(self, *exc) -> None:
         self.end_ns = time.monotonic_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
         self._tracer._pop(self)
 
     def as_dict(self) -> dict:
@@ -90,6 +114,27 @@ class _NoopSpan:
 _NOOP_SPAN = _NoopSpan()
 
 
+class _Timer:
+    """Disabled-path span of :meth:`Tracer.timed`: reads the clock, records
+    nothing."""
+
+    __slots__ = ("start_ns", "end_ns")
+
+    @property
+    def duration_s(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+    def __enter__(self) -> "_Timer":
+        self.start_ns = time.monotonic_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end_ns = time.monotonic_ns()
+
+    def set_attr(self, key, value):
+        return None
+
+
 class Tracer:
     """Span factory + the open-span stack + the finished-span forest."""
 
@@ -99,6 +144,9 @@ class Tracer:
         self.max_spans = max_spans
         self._stack: List[Span] = []
         self._recorded = 0
+        # device timings awaiting their card (see defer / poll / flush)
+        self._pending: collections.deque = collections.deque()
+        self._pending_lock = threading.Lock()
 
     def span(self, name: str,
              attrs: Optional[Dict[str, object]] = None):
@@ -109,6 +157,42 @@ class Tracer:
         if not SWITCH.on:
             return _NOOP_SPAN
         return Span(self, name, attrs)
+
+    def timed(self, name: str,
+              attrs: Optional[Dict[str, object]] = None):
+        """:meth:`span` for a caller that needs the interval either way
+        (``duration_s`` after the ``with``): while disabled, a clock that
+        records nothing."""
+        if not SWITCH.on:
+            return _Timer()
+        return Span(self, name, attrs)
+
+    # -- device timings -----------------------------------------------------
+    def defer(self, pending) -> None:
+        """Hold a device timing until its card has passed it: ``pending``
+        has ``ready()`` (true once the card is done, without waiting) and
+        ``resolve()`` (reads it, waiting if need be)."""
+        with self._pending_lock:
+            self._pending.append(pending)
+
+    def poll(self) -> None:
+        """Resolve the held timings the card has passed, oldest first; wait
+        for none."""
+        while True:
+            with self._pending_lock:
+                if not self._pending or not self._pending[0].ready():
+                    return
+                pending = self._pending.popleft()
+            pending.resolve()
+
+    def flush(self) -> None:
+        """Resolve every held timing, waiting for the card where it has not
+        passed one yet (off the hot path: export and snapshot)."""
+        with self._pending_lock:
+            held = list(self._pending)
+            self._pending.clear()
+        for pending in held:
+            pending.resolve()
 
     # -- stack maintenance (called by Span.__enter__/__exit__) -------------
     def _push(self, span: Span) -> None:
@@ -132,11 +216,15 @@ class Tracer:
 
     # -- export ------------------------------------------------------------
     def export(self) -> List[dict]:
-        """Structured (nested) dump of every finished root span."""
+        """Structured (nested) dump of every finished root span, device
+        timings resolved first."""
+        self.flush()
         return [s.as_dict() for s in self.roots]
 
     def export_chrome(self) -> List[dict]:
-        """Flat Chrome-trace complete events (``ph: "X"``, microseconds)."""
+        """Flat Chrome-trace complete events (``ph: "X"``, microseconds),
+        device timings resolved first."""
+        self.flush()
         events: List[dict] = []
 
         def walk(span: Span) -> None:
@@ -158,5 +246,7 @@ class Tracer:
     def reset(self) -> None:
         self.roots.clear()
         self._stack.clear()
+        with self._pending_lock:
+            self._pending.clear()
         self.dropped = 0
         self._recorded = 0

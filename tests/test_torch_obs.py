@@ -11,9 +11,13 @@
   phase 6 wrote inline before this module existed, on small layouts;
 * the engine's and the cohort engine's spans, histograms and roofline
   gauges, and a disabled stack that records nothing;
+* the set-up's span trees and padding gauge, a step timed on CUDA events
+  (faked here) that never waits for the card, and spans on the
+  profiler's clock;
 * the plan cache's lookups by kind, equal to the reference's for the same
   sequence of engine builds.
 """
+import collections
 import gc
 import json
 import os
@@ -436,9 +440,11 @@ def test_cohort_step_span_and_histogram(tiny_cohort):
                             device="cpu")
     states, losses = eng.step(eng.init_states(), 4)
     assert losses.shape == (3, 4)
-    assert obs.histogram("engine.step.seconds", executor="opt").count == 1
+    hist = obs.histogram("engine.step.seconds", executor="opt")
+    assert hist.count == 1
     (root,) = [s for s in obs.TRACER.export() if s["name"] == "engine.step"]
-    assert root["attrs"] == {"executor": "opt", "batched": 3, "k": 4}
+    assert root["attrs"] == {"executor": "opt", "batched": 3, "k": 4,
+                             "device_s": hist.sum}
     obs.disable()
     same, _ = eng.step(eng.init_states(), 4)
     assert torch.equal(same.w, states.w)
@@ -446,19 +452,24 @@ def test_cohort_step_span_and_histogram(tiny_cohort):
 
 
 def test_disabled_stack_records_nothing(problem, tiny_cohort, monkeypatch):
-    """While obs is off the engines record nothing and never fence the
-    device (the production path)."""
-    import repro_torch.core.batched as batched_mod
-    import repro_torch.core.life as life_mod
+    """While obs is off the engines build and step recording nothing: no
+    span, no CUDA event, no profiler range, no fence (the production
+    path)."""
+    import repro_torch.device as device_mod
+    import repro_torch.obs.trace as trace_mod
 
-    def no_fence(device):
-        raise AssertionError("a disabled step fenced the device")
+    def refuse(*args, **kwargs):
+        raise AssertionError("the disabled path made an instrument")
 
-    monkeypatch.setattr(life_mod, "fence", no_fence)
-    monkeypatch.setattr(batched_mod, "fence", no_fence)
+    monkeypatch.setattr(device_mod, "fence", refuse)
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(trace_mod, "record_function", refuse)
+    monkeypatch.setattr(trace_mod, "_profiler_enabled", lambda: True)
     assert not obs.enabled()
-    for fmt in ("coo", "sell"):
-        eng = LifeEngine(problem, LifeConfig(executor="opt", format=fmt,
+    for ex, fmt in (("opt", "coo"), ("opt", "sell"), ("kernel", "coo"),
+                    ("kernel-fcoo", "fcoo")):
+        eng = LifeEngine(problem, LifeConfig(executor=ex, format=fmt,
                                              n_iters=4, plan_cache_dir=""),
                          device="cpu")
         eng.step(eng.init_state(), 4)
@@ -473,6 +484,225 @@ def test_disabled_stack_records_nothing(problem, tiny_cohort, monkeypatch):
     assert snap["spans"]["recorded"] == 0
 
 
+def _tree(spans):
+    """(name, attrs without the measured ones, children) of a forest."""
+    return [(s["name"], {k: v for k, v in s["attrs"].items()
+                         if k not in ("bytes", "n_tiles")},
+             _tree(s["children"])) for s in spans]
+
+
+def _cohort_engine(tiny_cohort):
+    return BatchedLifeEngine([_port(p) for p in tiny_cohort],
+                             LifeConfig(executor="opt", plan_cache_dir=""),
+                             device="cpu")
+
+
+def _life_engine(executor, fmt):
+    return lambda problem: LifeEngine(
+        problem, LifeConfig(executor=executor, format=fmt,
+                            plan_cache_dir=""), device="cpu")
+
+
+@pytest.mark.parametrize("case", ["kernel", "kernel-fcoo", "cohort-opt"])
+def test_engine_build_span_tree(case, problem, tiny_cohort):
+    """Each build is one ``engine.build`` span whose children are its sorts,
+    plans (with their cache keys), encoders and uploads; the build's
+    histogram and ``inspector_seconds`` read the span's own clock."""
+    obs.enable()
+    if case == "cohort-opt":
+        eng = _cohort_engine(tiny_cohort)
+        nc = [p.phi.n_coeffs for p in eng.problems]
+    else:
+        eng = _life_engine(case, "coo" if case == "kernel" else "fcoo")(
+            problem)
+        nc = [problem.phi.n_coeffs]
+    (root,) = obs.TRACER.export()
+    assert root["name"] == "engine.build"
+    fmt = "fcoo" if case == "kernel-fcoo" else "coo"
+    assert root["attrs"] == {"executor": "opt" if case == "cohort-opt"
+                             else case, "format": fmt,
+                             "n_coeffs": sum(nc), "subjects": len(nc)}
+    assert eng.inspector_seconds == pytest.approx(root["dur_us"] / 1e6,
+                                                  rel=1e-9)
+
+    def sort(dim, n=nc[0]):
+        return ("build.sort", {"dim": dim, "n_coeffs": n}, [])
+
+    upload = ("build.upload", {}, [])
+    if case == "kernel":
+        key = [("plan_cache.key", {"kind": "tile"}, [])]
+        assert _tree(root["children"]) == [
+            sort("voxel"), sort("fiber"), ("build.plan", {"op": "dsc"}, key),
+            ("build.plan", {"op": "wc"}, key), upload, upload]
+        assert obs.histogram("engine.build.seconds").sum == \
+            eng.inspector_seconds
+        plans = (eng.executor.plans["dsc_tiles"],
+                 eng.executor.plans["wc_tiles"])
+        assert [c["attrs"]["n_tiles"] for c in root["children"][2:4]] == \
+            [p.n_tiles for p in plans]
+        assert all(c["attrs"]["bytes"] > 0 for c in root["children"][4:])
+    elif case == "kernel-fcoo":
+        encode = ("build.encode", {"format": "fcoo", "n_coeffs": nc[0]},
+                  [sort("voxel"), sort("fiber"),
+                   ("build.plan", {"op": "dsc"}, []),
+                   ("build.plan", {"op": "wc"}, [])])
+        assert _tree(root["children"]) == [encode, upload]
+        o = eng.executor.plans["fcoo_operands"]
+        assert root["children"][1]["attrs"]["bytes"] == o.nbytes
+    else:
+        # per subject a sort, then the shorter subject padded, for each
+        # op; then the two stacked streams
+        want = []
+        for dim in ("voxel", "fiber"):
+            for n in nc:
+                want.append(sort(dim, n))
+                if n < max(nc):
+                    want.append(upload)
+        assert _tree(root["children"]) == want + [upload, upload]
+        stacked = root["children"][-1]["attrs"]["bytes"]
+        assert stacked == sum(t.numel() * t.element_size() for t in (
+            eng.phi_wc.atoms, eng.phi_wc.voxels, eng.phi_wc.fibers,
+            eng.phi_wc.values))
+
+
+def test_padding_gauge_is_the_plans_padding(problem):
+    obs.enable()
+    eng = _life_engine("kernel", "coo")(problem)
+    for op in ("dsc", "wc"):
+        plan = eng.executor.plans[f"{op}_tiles"]
+        assert obs.value("build.coo_tiles.padding_share", op=op) == \
+            pytest.approx(1.0 - plan.n_coeffs / plan.n_padded)
+        assert obs.value("build.coo_tiles.padding_share", op=op) == \
+            pytest.approx(1.0 - plan.occupancy())
+
+
+def test_kernel_load_is_a_span(monkeypatch):
+    """A library's first load in the process is a ``kernels.load`` span
+    saying whether nvcc ran; a loaded one records nothing."""
+    from repro_torch.kernels import _build
+
+    class Lib:
+        def __getattr__(self, name):
+            return type("Fn", (), {})()
+
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "build", lambda names: {names[0]: 2.5})
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: Lib())
+    obs.enable()
+    _build.load("dsc", {"dsc_entry": []})
+    _build.load("dsc", {"dsc_entry": []})
+    (span,) = obs.TRACER.export()
+    assert (span["name"], span["attrs"]) == ("kernels.load",
+                                            {"name": "dsc", "nvcc": True})
+
+
+class _FakeEvent:
+    """A CUDA event on the CPU: ``done`` says whether the card passed it,
+    and every event made and every wait is counted."""
+
+    made = waits = 0
+
+    def __init__(self, enable_timing=False):
+        _FakeEvent.made += 1
+        self.done = False
+        self.t = None
+
+    def record(self, stream=None):
+        import time
+        self.t = time.perf_counter()
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        _FakeEvent.waits += 1
+
+    def elapsed_time(self, end):
+        return 1e3 * (end.t - self.t)
+
+
+@pytest.mark.parametrize("engine", ["life", "cohort"])
+def test_engine_step_is_timed_on_events_without_a_fence(engine, problem,
+                                                        tiny_cohort,
+                                                        monkeypatch):
+    """On a card a step records an event pair and waits for nothing; the
+    pair resolves at a later step once the card passed it, else at
+    export; the histogram, gauges and ``device_s`` come from it; a later
+    step records a resolved pair again instead of making one."""
+    import types
+
+    import repro_torch.device as device_mod
+    from repro_torch.obs import step as step_mod
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an engine step waited for the card")
+
+    monkeypatch.setattr(device_mod, "fence", refuse)
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    stream = types.SimpleNamespace(device_index=0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: stream)
+    monkeypatch.setattr(_FakeEvent, "made", 0)
+    monkeypatch.setattr(_FakeEvent, "waits", 0)
+    monkeypatch.setattr(step_mod, "_IDLE", collections.defaultdict(list))
+    obs.enable()
+    if engine == "life":
+        eng = _life_engine("opt", "coo")(problem)
+        state, name = eng.init_state(), "opt"
+    else:
+        eng = _cohort_engine(tiny_cohort)
+        state, name = eng.init_states(), "opt"
+    eng.device = torch.device("cuda")           # the step's timing path
+    hist = obs.histogram("engine.step.seconds", executor=name)
+    state, _ = eng.step(state, 2)
+    (first,) = obs.TRACER._pending
+    assert hist.count == 0                      # the card has not passed it
+    first.end.done = True
+    state, _ = eng.step(state, 2)               # resolves the first
+    assert hist.count == 1 and _FakeEvent.waits == 1
+    steps = [s for s in obs.TRACER.roots if s.name == "engine.step"]
+    assert steps[0].attrs["device_s"] == hist.sum
+    assert "device_s" not in steps[1].attrs
+    if engine == "life":
+        frac = obs.value("engine.roofline.fraction", executor=name,
+                         format="coo")
+        assert steps[0].attrs["roofline_fraction"] == frac > 0.0
+    exported = obs.TRACER.export()              # waits for the second
+    assert hist.count == 2 and _FakeEvent.waits == 2
+    assert not obs.TRACER._pending
+    assert [s["attrs"]["device_s"] for s in exported
+            if s["name"] == "engine.step"] == [
+                pytest.approx(v) for v in hist._samples]
+    assert _FakeEvent.made == 4
+    eng.step(state, 2)                          # both pairs are idle
+    assert _FakeEvent.made == 4 and len(step_mod._IDLE[0]) == 1
+
+
+@pytest.mark.parametrize("on", [True, False], ids=["obs-on", "obs-off"])
+def test_spans_sit_on_the_profilers_clock(on, tmp_path):
+    """Under a recording ``torch.profiler`` session an obs span is a
+    ``user_annotation`` of the exported Chrome trace, around the work it
+    holds; with obs off it is not there."""
+    from torch.profiler import ProfilerActivity
+    if on:
+        obs.enable()
+    path = tmp_path / "trace.json"
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU]) as prof:
+        with obs.span("engine.step"):
+            with torch.profiler.record_function("dsc"):
+                torch.ones(64).sum()
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    marks = {e["name"]: e for e in events
+             if e.get("cat") == "user_annotation"}
+    assert "dsc" in marks
+    assert ("engine.step" in marks) == on
+    if on:
+        step, dsc = marks["engine.step"], marks["dsc"]
+        assert step["ts"] <= dsc["ts"]
+        assert dsc["ts"] + dsc["dur"] <= step["ts"] + step["dur"]
+
+
 def test_tune_search_records_its_span_and_counters(problem, tmp_path):
     """A cold tune="full" search records one tune.search span and its
     counters; a warm rebuild measures nothing and records nothing new."""
@@ -485,7 +715,9 @@ def test_tune_search_records_its_span_and_counters(problem, tmp_path):
     assert obs.value("tune.searches", executor="kernel") == 1.0
     assert obs.value("tune.measurements") == float(n)
     assert obs.histogram("tune.measurements.per_search").count == 1
-    (span,) = [s for s in obs.TRACER.export() if s["name"] == "tune.search"]
+    # the search runs inside the engine's build
+    (build,) = obs.TRACER.export()
+    (span,) = [s for s in build["children"] if s["name"] == "tune.search"]
     assert span["attrs"] == {"executor": "kernel", "candidates": n}
     LifeEngine(problem, cfg, device="cpu")
     assert obs.value("tune.searches", executor="kernel") == 1.0
