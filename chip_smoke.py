@@ -28,7 +28,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
                on (Ntheta 16, 64, 128 and 160, D in shared memory and
                from global memory), B1/B2 at row_tile 4, 8 and 16 with
                row blocks of several tiles, tiles longer than 32 slots
-               and row blocks no tile visits; an empty
+               and row blocks no tile visits; B1/B2 at the coo-solve
+               cell's widths (Na 1,024, Ntheta 96: B1's two column
+               slices of fp32 D); an empty
                F-COO Phi, which launches nothing; plus the kernel,
                kernel-sell and kernel-fcoo executors against the dense
                oracle on a small problem.
@@ -881,6 +883,30 @@ def check_format_kernels(case: str, phi, d32, *, c_tile: int, row_tile: int,
     return facts
 
 
+def check_coo_solve_shape(errors: dict) -> None:
+    """B1 and B2 at the widths of life_bench's ``ifod1-500k.coo-solve``
+    (Na 1,024, Ntheta 96, c_tile 256, row_tile 8) on a ragged Phi: B1 holds
+    fp32 D as two column slices of shared memory (``dsc.col_slices``) and
+    bf16 D whole."""
+    from repro_torch.kernels import _build, dsc
+    optin = _build.smem_optin_bytes(torch.device("cuda"))
+    slices = [dsc.col_slices(1024, 96, size, optin) for size in (4, 2)]
+    if slices != [2, 1]:
+        raise AssertionError(f"coo-solve widths: B1 takes {slices} column "
+                             "slices in fp32 / bf16, expected [2, 1]")
+    d = torch.as_tensor(np.random.default_rng(6).normal(size=(1024, 96)),
+                        dtype=torch.float32, device="cuda")
+    # 25 coefficients a voxel and 20 a fiber, as in the cases above: at 100
+    # a fiber, B2's fp32 sums (|terms| ~770 a row) round past FP32_TOL on
+    # their smallest rows in any order (the plain version's own error from
+    # float64 reaches a third of it)
+    phi = random_phi(400_000, 1024, 16_000, 20_000, seed=6, hot=700,
+                     skip_blocks=(10, 11, 20))
+    check_ragged_edges("coo-solve-widths", check_kernels(
+        "coo-solve-widths", phi, d, c_tile=256, row_tile=8, errors=errors,
+        seed=19))
+
+
 def check_empty_fcoo() -> None:
     """An empty Phi: the F-COO ops launch nothing and give zeros."""
     from repro_torch.formats.fcoo import FcooPhi
@@ -956,16 +982,22 @@ def phase_kernels(problem, errors: dict) -> None:
     big = random_phi(20000, 2048, 3001, 999, seed=3, hot=300)
     facts = check_kernels("large-dictionary", big, big_d, c_tile=128,
                           row_tile=4, errors=errors, seed=13)
+    # D does not fit whole in shared memory: B2-B6 read it from global
+    # memory, B1 holds it as column slices (4 in fp32, 2 in bf16)
     if min(facts["dict_bytes"].values()) <= SMEM_OPTIN_BYTES:
-        raise AssertionError("large-dictionary case fits in shared memory")
+        raise AssertionError("large-dictionary case fits whole in shared "
+                             "memory")
     check_format_kernels("large-dictionary", big, big_d, c_tile=128,
                          row_tile=4, errors=errors, seed=16)
     # every width that the B1-B6 kernels dispatch on, with D staged in
-    # shared memory (96 atoms) and read from global memory (8192 atoms):
+    # shared memory (96 atoms) and read from global memory (8192 atoms;
+    # B1 holds it as column slices at Ntheta 16, 4 in fp32 and 2 in bf16,
+    # and at 64 in bf16, 8 of them: dsc.col_slices):
     # Ntheta 16, 64 and 128 take B2's and B6's float4 paths of 1, 2 and 4
-    # vectors per lane and B1's and B3's 1, 2 and 4 columns per lane, 160
-    # B2's and B6's scalar path and B1's and B3's two passes over the
-    # columns (96 and 37 ran above); row_tile 8 and 4 there, 16 below
+    # vectors per lane and B1's read-only-cache path and B3's 1, 2 and 4
+    # columns per lane, 160 B2's and B6's scalar path and B1's and B3's
+    # two passes over the columns (96 and 37 ran above); row_tile 8 and 4
+    # there, 16 below
     huge = random_phi(20000, 8192, 3001, 999, seed=5, hot=300)
     for n_theta in (16, 64, 128, 160):
         for label, p, na, c_tile, row_tile in (
@@ -988,6 +1020,7 @@ def phase_kernels(problem, errors: dict) -> None:
     check_ragged_edges("row-tile-16", check_kernels(
         "row-tile-16", ragged, d_96, c_tile=64, row_tile=16, errors=errors,
         seed=18))
+    check_coo_solve_shape(errors)
     check_empty_fcoo()
     check_small_engine()
 

@@ -140,6 +140,15 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     return lib
 
 
+def smem_optin_bytes(device) -> int:
+    """Shared memory one block may opt in to on CUDA ``device``, in bytes
+    (227 KB on an H100): what the kernels' ``smem_optin_bytes`` reads on
+    the card (csrc/common.cuh)."""
+    import torch
+    props = torch.cuda.get_device_properties(device)
+    return props.shared_memory_per_block_optin
+
+
 def check_operand(t, name: str, *, device, dtypes: tuple,
                   shape: Optional[tuple] = None) -> None:
     """Raise unless ``t`` lies on ``device`` with one of ``dtypes``, the

@@ -29,7 +29,10 @@ visits.  B1 runs a warp per contiguous range of row blocks, walking their
 tiles in batches of 32 real slots; it relies on each tile's real slots
 being a prefix (``tile_len``) and on ``local_row`` never decreasing within
 a row block, across its tiles too, which :func:`ops.coo_tiles` gives for a
-plan over sorted ids.
+plan over sorted ids.  Each block holds one of :func:`col_slices`'s column
+slices of the dictionary in shared memory and writes those columns of y;
+the gauge ``kernels.dsc_coo.col_slices`` holds the count of the last
+launch (0: the dictionary read through the read-only cache).
 
 B3 operands (a voxel-row ``formats/sell.py:SellPhi`` on the device, built
 by :func:`repro_torch.kernels.ops.sell_operands`):
@@ -52,11 +55,12 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.roofline import spmv_bytes as SB
 from repro_torch.roofline import trace_cost as TC
 
-_SIGNATURE = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SIGNATURE = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _ENTRY = {torch.float32: "dsc_coo_f32", torch.bfloat16: "dsc_coo_bf16"}
 _SELL_SIGNATURE = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
@@ -94,6 +98,52 @@ def _d_bytes(dictionary: torch.Tensor) -> int:
 # ----------------------------------------------------------------------------
 # B1: COO DSC
 # ----------------------------------------------------------------------------
+
+#: csrc/dsc.cu's sizes, which tests/test_torch_kernels.py reads from the
+#: source: bytes of one shared load of D (kVecBytes), the most column
+#: slices (kMaxSlices), the most columns a slice may hold (a warp's 32
+#: lanes, kMaxSums each) and the bytes a block stages its batches' slots
+#: in (kStageBytes)
+VEC_BYTES, MAX_SLICES, MAX_SLICE_COLS, STAGE_BYTES = 16, 8, 256, 8192
+#: the gauge holding the column slices of B1's last launch
+COL_SLICES = "kernels.dsc_coo.col_slices"
+
+
+def col_slices(n_atoms: int, n_theta: int, itemsize: int,
+               optin_bytes: int) -> int:
+    """Column slices B1 cuts the dictionary into: the least ``s`` for which
+    one slice (each row a whole number of 16-byte vectors, ``ceil(vectors /
+    s)`` of them, at most :data:`MAX_SLICE_COLS` columns) and the block's
+    slot staging fit ``optin_bytes`` of shared memory; 0 (D read through
+    the read-only cache) past :data:`MAX_SLICES`.  ``itemsize``: bytes of
+    one stored value of D (4 fp32, 2 bf16)."""
+    per_vec = VEC_BYTES // itemsize
+    n_vec = -(-n_theta // per_vec)
+    for s in range(1, MAX_SLICES + 1):
+        per = -(-n_vec // s)
+        if (per * per_vec <= MAX_SLICE_COLS
+                and n_atoms * per * VEC_BYTES + STAGE_BYTES <= optin_bytes):
+            return s
+    return 0
+
+
+def _launch_coo(dev: torch.device, tensors: list, ints: list) -> None:
+    """Launch B1 on ``dev``.  ``tensors``: its nine operands in the entry
+    point's order (tile_ptr, tile_len, atoms_p, fibers_p, values_p,
+    local_row_p, dictionary, w, out); ``ints``: row blocks, c_tile,
+    row_tile, Na, Ntheta.  The kernel takes :func:`col_slices`'s slices,
+    whose count goes to :data:`COL_SLICES`."""
+    dictionary = tensors[6]
+    n_atoms, n_theta = dictionary.shape
+    lib = _build.load("dsc",
+                      {name: _SIGNATURE for name in _ENTRY.values()})
+    s = col_slices(n_atoms, n_theta, dictionary.element_size(),
+                   _build.smem_optin_bytes(dev))
+    _build.launch(lib, _ENTRY[dictionary.dtype], "dsc_coo", dev, tensors,
+                  [*ints, s])
+    if obs.SWITCH.on:
+        obs.gauge(COL_SLICES).set(s)
+
 
 def _check(tile_ptr, tile_len, atoms_p, fibers_p, values_p, local_row_p,
            dictionary, w) -> None:
@@ -152,11 +202,9 @@ def dsc_coo(tile_ptr, tile_len, atoms_p, fibers_p, values_p, local_row_p,
                              local_row_p, dictionary, w, row_tile=row_tile)
     out = torch.empty((n_row_blocks * row_tile, n_theta),
                       dtype=torch.float32, device=dev)
-    lib = _build.load("dsc", {name: _SIGNATURE for name in _ENTRY.values()})
-    _build.launch(lib, _ENTRY[dictionary.dtype], "dsc_coo", dev,
-                  [tile_ptr, tile_len, atoms_p, fibers_p, values_p,
-                   local_row_p, dictionary, w, out],
-                  [n_row_blocks, c_tile, row_tile, n_atoms, n_theta])
+    _launch_coo(dev, [tile_ptr, tile_len, atoms_p, fibers_p, values_p,
+                      local_row_p, dictionary, w, out],
+                [n_row_blocks, c_tile, row_tile, n_atoms, n_theta])
     return out
 
 

@@ -7,6 +7,8 @@ tests/test_kernels.py runs it) and against the per-tile oracles of
 ``kernels/ref.py``.  The CUDA kernels themselves are held against the plain
 versions by ``chip_smoke.py`` and by the ``gpu``-marked test below on a card.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -342,17 +344,82 @@ def test_load_builds_a_library_once_across_threads(monkeypatch):
     assert got[0].entry.restype is ctypes.c_int
 
 
+#: an H100's cudaDevAttrMaxSharedMemoryPerBlockOptin (227 KB)
+H100_SMEM_OPTIN = 232_448
+
+
+@pytest.mark.parametrize("n_atoms,n_theta,itemsize,want", [
+    (40, 96, 4, 1),        # the toy sizes: D fits whole
+    (1024, 96, 4, 2),      # coo-solve: 2 x 48 columns, 196,608 B a slice
+    (1024, 96, 2, 1),      # bf16 storage: 196,608 B whole
+    (1024, 128, 4, 3),
+    (1024, 160, 4, 4),     # 3 slices of 56 columns leave no room to stage
+    (40, 160, 4, 1),
+    (40, 320, 4, 2),       # a slice holds at most 256 columns
+    (8192, 16, 4, 4),
+    (4096, 96, 4, 8),
+    (8192, 64, 2, 8),
+    (6144, 96, 4, 0),      # 12 slices of 32 columns: past the cut
+    (8192, 96, 4, 0),      # 32 KB a column: the read-only-cache path
+    (8192, 96, 2, 0),
+])
+def test_col_slices_is_the_least_count_that_fits(n_atoms, n_theta, itemsize,
+                                                 want):
+    """B1's column slices at an H100's opt-in shared memory: the least s
+    whose slice (whole 16-byte vectors a row) and slot staging fit, 0 past
+    eight; one slice fewer does not fit."""
+    got = dsc.col_slices(n_atoms, n_theta, itemsize, H100_SMEM_OPTIN)
+    assert got == want
+    n_vec = -(-n_theta * itemsize // dsc.VEC_BYTES)
+
+    def fits(s):
+        per = -(-n_vec // s)
+        return (per * dsc.VEC_BYTES // itemsize <= dsc.MAX_SLICE_COLS
+                and n_atoms * per * dsc.VEC_BYTES + dsc.STAGE_BYTES
+                <= H100_SMEM_OPTIN)
+    if want:
+        assert fits(want) and not any(fits(s) for s in range(1, want))
+    else:
+        assert not any(fits(s) for s in range(1, dsc.MAX_SLICES + 1))
+
+
+def test_col_slices_reads_the_kernels_own_sizes():
+    """The sizes :func:`dsc.col_slices` decides by are csrc/dsc.cu's: a
+    16-byte vector, the most slices, kMaxSums columns for each of a warp's
+    lanes, and a stage of one SlotEntry a thread."""
+    src = (_build.CSRC / "dsc.cu").read_text()
+    const = {m[1]: int(m[2]) for m in
+             re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    entry = re.search(r"struct SlotEntry \{(.*?)\};", src, re.S)[1]
+    words = re.findall(r"^\s*(?:int|float) \w+;", entry, re.M)
+    assert "kStageBytes = kWarps * 32 * sizeof(SlotEntry)" in src
+    assert (dsc.VEC_BYTES, dsc.MAX_SLICES, dsc.MAX_SLICE_COLS,
+            dsc.STAGE_BYTES) == (const["kVecBytes"], const["kMaxSlices"],
+                                 32 * const["kMaxSums"],
+                                 const["kThreads"] * 4 * len(words))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_atoms,row_tile", [(40, 8), (40, 16), (8192, 4)])
+@pytest.mark.parametrize("n_atoms,row_tile",
+                         [(40, 8), (40, 16), (1024, 8), (8192, 4),
+                          (16384, 4)])
 @pytest.mark.parametrize("n_theta", [16, 64, 96, 128, 160])
 @pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
 def test_cuda_kernels_match_plain_versions_on_card(compute_dtype, n_theta,
                                                    n_atoms, row_tile):
-    """B1 and B2 at every width they dispatch on: Ntheta 16, 64 and 128 take
-    B1's 1, 2 and 4 columns per lane and B2's float4 paths of 1, 2 and 4
-    vectors, 160 B1's two column passes and B2's scalar path; 40 atoms
-    stage D in shared memory, 8192 atoms do not fit there.  A second launch
-    is bit-identical and the rows no coefficient reaches are exactly 0."""
+    """B1 and B2 at every width they dispatch on.  B1 holds D in
+    ``dsc.col_slices`` column slices (s) of shared memory: 40 atoms take
+    s = 1; 1024 atoms in fp32 take s = 1, 2, 2, 3 and 4 at Ntheta 16, 64,
+    96, 128 and 160, in bf16 s = 1 up to Ntheta 96 and 2 at 128 and 160;
+    8192 atoms take s = 4 in fp32 and 2 in bf16 at Ntheta 16, s = 8 in
+    bf16 at 64 and B1's read-only-cache path (s = 0) at the other widths;
+    16384 atoms take that path at every width, its 1, 2, 3 and 4 columns
+    per lane at 16, 64, 96 and 128 and two column passes at 160.  The
+    slices' widths give B1 8, 16 and 32 lanes a slot, 1 and 2 vectors a
+    lane.  B2 takes its float4 paths of 1, 2 and 4 vectors at Ntheta 16,
+    64 and 128 and its scalar path at 160, staging D in shared memory
+    where it fits whole.  A second launch is bit-identical and the rows no
+    coefficient reaches are exactly 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     skip = np.r_[8:24]

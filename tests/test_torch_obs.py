@@ -596,6 +596,42 @@ def test_kernel_load_is_a_span(monkeypatch):
                                             {"name": "dsc", "nvcc": True})
 
 
+@pytest.mark.parametrize("n_atoms,dtype,want", [
+    (1024, torch.float32, 2), (1024, torch.bfloat16, 1),
+    (40, torch.float32, 1), (8192, torch.float32, 0)])
+def test_dsc_coo_launch_sets_its_column_slices_gauge(monkeypatch, n_atoms,
+                                                     dtype, want):
+    """B1's launch passes ``col_slices``'s count (from the device's opt-in
+    shared memory) to the kernel and, with obs on, sets the gauge
+    ``kernels.dsc_coo.col_slices`` to it; with obs off the launch is the
+    same and the gauge stays 0."""
+    from repro_torch.kernels import _build, dsc
+
+    asked, launched = [], []
+
+    def optin(dev):
+        asked.append(dev)
+        return 232_448
+
+    monkeypatch.setattr(_build, "smem_optin_bytes", optin)
+    monkeypatch.setattr(_build, "load", lambda name, signatures: None)
+    monkeypatch.setattr(_build, "launch",
+                        lambda lib, fn, kernel, dev, tensors, ints:
+                        launched.append((fn, kernel, ints)))
+    d = torch.zeros((n_atoms, 96), dtype=dtype)
+    tensors = [None] * 6 + [d, None, None]
+    ints = [5, 256, 8, n_atoms, 96]
+    dev = torch.device("cpu")
+    dsc._launch_coo(dev, tensors, ints)
+    assert obs.value(dsc.COL_SLICES) == 0.0
+    obs.enable()
+    dsc._launch_coo(dev, tensors, ints)
+    assert obs.value(dsc.COL_SLICES) == want
+    assert launched == [(dsc._ENTRY[dtype], "dsc_coo",
+                         ints + [want])] * 2
+    assert asked == [dev, dev]
+
+
 class _FakeEvent:
     """A CUDA event on the CPU: ``done`` says whether the card passed it,
     and every event made and every wait is counted."""
